@@ -38,8 +38,15 @@ setup(
         "TPU-native computer vision framework (JAX/XLA/Pallas) with the "
         "capabilities of torchvision"
     ),
-    packages=find_packages(include=["vision_tpu", "vision_tpu.*"]),
-    package_data={"vision_tpu": ["csrc/*.cpp", "csrc/*.so"]},
+    packages=find_packages(
+        include=["vision_tpu", "vision_tpu.*", "vision_tpu_torch",
+                 "vision_tpu_torch.*"]
+    ),
+    package_data={
+        "vision_tpu": ["csrc/*.cpp", "csrc/*.so"],
+        # CUDA sources: built with nvcc on first use on a GPU host
+        "vision_tpu_torch": ["csrc/*.cu"],
+    },
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "numpy"],
     extras_require={

@@ -1,0 +1,120 @@
+"""Each CUDA kernel of ``vision_tpu_torch`` against its plain PyTorch
+version, on the card, at small shapes. Marked ``cuda``; every test skips
+where no CUDA device is present (the decision is made inside the fixture,
+never at import). Run on a GPU host with:
+
+    python -m pytest tests/test_torch_kernels_cuda.py -m cuda
+
+Tolerances: NMS keep masks exactly equal; RoIAlign 1e-5 and the window
+pool 1e-4 absolute on inputs of order 1 (sums in another order).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from vision_tpu_torch.ops.nms import (
+    nms_keep_sorted_cuda,
+    nms_keep_sorted_plain,
+    nms_mask,
+)
+from vision_tpu_torch.ops.poolers import (
+    MultiScaleRoIAlign,
+    window_pool_cuda,
+    window_pool_plain,
+)
+from vision_tpu_torch.ops.roi_align import roi_align_cuda, roi_align_plain
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("requires a CUDA device")
+    return torch.device("cuda")
+
+
+def _sorted_boxes(rng, b, n):
+    xy = rng.uniform(0, 200, (b, n, 2))
+    wh = rng.uniform(2, 60, (b, n, 2))
+    boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    boxes[:, :2, 2:] = boxes[:, :2, :2]  # degenerate rows
+    valid = rng.rand(b, n) > 0.2
+    boxes[~valid] = 0.0
+    return torch.from_numpy(boxes), torch.from_numpy(valid)
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 300, 1000])
+@pytest.mark.parametrize("thr", [0.5, 0.7])
+def test_nms_kernel_equals_plain(dev, n, thr):
+    boxes, valid = _sorted_boxes(np.random.RandomState(n), 3, n)
+    want = nms_keep_sorted_plain(boxes, valid, thr)
+    before = nms_keep_sorted_cuda.launches
+    got = nms_keep_sorted_cuda(boxes.to(dev), valid.to(dev), thr)
+    torch.cuda.synchronize()
+    assert nms_keep_sorted_cuda.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+def test_nms_mask_on_card_equals_cpu(dev):
+    rng = np.random.RandomState(1)
+    boxes, _ = _sorted_boxes(rng, 1, 500)
+    scores = torch.from_numpy(rng.rand(500).astype(np.float32))
+    valid = torch.from_numpy(rng.rand(500) > 0.1)
+    want = nms_mask(boxes[0], scores, 0.5, valid=valid)
+    got = nms_mask(boxes[0].to(dev), scores.to(dev), 0.5, valid=valid.to(dev))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("aligned", [False, True])
+@pytest.mark.parametrize("sr", [2, 0])
+def test_roi_align_kernel_matches_plain(dev, aligned, sr):
+    rng = np.random.RandomState(2)
+    feat = torch.from_numpy(rng.rand(2, 16, 40, 50).astype(np.float32))
+    xy = rng.uniform(-10, 180, (64, 2))
+    wh = rng.uniform(1, 120, (64, 2))
+    b = rng.randint(0, 2, (64, 1))
+    rois = torch.from_numpy(np.concatenate([b, xy, xy + wh], 1).astype(np.float32))
+    want = roi_align_plain(feat, rois, 7, 0.25, sr, aligned)
+    got = roi_align_cuda(feat.to(dev), rois.to(dev), 7, 0.25, sr, aligned)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("c,ph", [(256, 7), (40, 14)])
+def test_window_pool_kernel_matches_plain(dev, c, ph):
+    rng = np.random.RandomState(3)
+    k, winy, winx, r_rows, wmax = 50, 32, 32, 200, 64
+    stacked = torch.from_numpy(rng.randn(r_rows, wmax, c).astype(np.float32))
+    row0 = torch.from_numpy(rng.randint(0, r_rows - winy + 1, k).astype(np.int32))
+    x0 = torch.from_numpy(rng.randint(0, wmax - winx + 1, k).astype(np.int32))
+    w_y = rng.rand(k, ph, winy).astype(np.float32)
+    w_y[:, :, 20:] = 0.0  # rows the kernel skips
+    w_y = torch.from_numpy(w_y)
+    w_x = torch.from_numpy(rng.rand(k, ph, winx).astype(np.float32))
+    want = window_pool_plain(stacked, row0, x0, w_y, w_x, 4.0)
+    got = window_pool_cuda(*(t.to(dev) for t in (stacked, row0, x0, w_y, w_x)),
+                           4.0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-5)
+    with pytest.raises(ValueError, match="leaves the pyramid"):
+        window_pool_cuda(stacked.to(dev), (row0 + r_rows).to(dev), x0.to(dev),
+                         w_y.to(dev), w_x.to(dev))
+
+
+def test_multiscale_pooler_on_card_matches_cpu(dev):
+    rng = np.random.RandomState(4)
+    names = ["0", "1", "2", "3"]
+    feats = {n: torch.from_numpy(rng.rand(1, 32, 64 >> i, 64 >> i)
+                                 .astype(np.float32))
+             for i, n in enumerate(names)}
+    xy = rng.uniform(0, 200, (100, 2))
+    wh = rng.uniform(4, 150, (100, 2))
+    rois = torch.from_numpy(np.concatenate(
+        [np.zeros((100, 1)), xy, xy + wh], 1).astype(np.float32))
+    pooler = MultiScaleRoIAlign(names, 7, 2, window=8)
+    want = pooler(feats, rois, (256, 256))
+    got = pooler({k: v.to(dev) for k, v in feats.items()}, rois.to(dev),
+                 (256, 256))
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)

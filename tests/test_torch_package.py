@@ -1,0 +1,83 @@
+"""The port's package boundary: importing ``vision_tpu_torch`` pulls in
+neither JAX nor ``vision_tpu``; entry points refuse to run without a card
+unless asked for the CPU; CPU tensors take the plain PyTorch versions and
+never count a kernel launch; the CUDA wrappers refuse CPU tensors."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import vision_tpu_torch
+from vision_tpu_torch.models import get_model
+from vision_tpu_torch.models.detection import fasterrcnn_resnet50_fpn
+from vision_tpu_torch.ops.nms import nms_keep_sorted, nms_keep_sorted_cuda
+from vision_tpu_torch.ops.poolers import window_pool, window_pool_cuda
+from vision_tpu_torch.ops.roi_align import roi_align, roi_align_cuda
+
+PKG = Path(vision_tpu_torch.__file__).parent
+
+
+def test_import_pulls_in_no_jax():
+    code = (
+        "import sys, vision_tpu_torch, vision_tpu_torch.models.detection, "
+        "vision_tpu_torch._jax_convert\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'vision_tpu')]\n"
+        "print(bad)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True, cwd=PKG.parent)
+    assert out.stdout.strip() == "[]"
+
+
+def test_no_source_imports_jax_or_vision_tpu():
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax|jaxlib|flax|vision_tpu)\b(?!_)", re.M
+    )
+    sources = list(PKG.rglob("*.py"))
+    assert len(sources) > 10
+    for src in sources:
+        assert not pattern.search(src.read_text()), src
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fasterrcnn_resnet50_fpn()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        get_model("fasterrcnn_resnet50_fpn", device="cuda")
+
+
+def test_cpu_tensors_take_the_plain_path():
+    counts = (nms_keep_sorted_cuda.launches, roi_align_cuda.launches,
+              window_pool_cuda.launches)
+    rng = np.random.RandomState(0)
+    xy = rng.uniform(0, 50, (1, 20, 2))
+    boxes = torch.from_numpy(np.concatenate([xy, xy + 10], -1).astype(np.float32))
+    keep = nms_keep_sorted(boxes, torch.ones(1, 20, dtype=torch.bool), 0.5)
+    assert keep.dtype == torch.bool and keep[0, 0]
+    feat = torch.rand(1, 3, 8, 8)
+    rois = torch.tensor([[0.0, 1.0, 1.0, 6.0, 6.0]])
+    assert roi_align(feat, rois, 2, 1.0, 2).shape == (1, 3, 2, 2)
+    out = window_pool(torch.rand(8, 8, 3), torch.tensor([0]), torch.tensor([0]),
+                      torch.rand(1, 2, 4), torch.rand(1, 2, 4))
+    assert out.shape == (1, 3, 2, 2)
+    assert counts == (nms_keep_sorted_cuda.launches, roi_align_cuda.launches,
+                      window_pool_cuda.launches)
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        nms_keep_sorted_cuda(torch.zeros(1, 2, 4), torch.ones(1, 2, dtype=torch.bool),
+                             0.5)
+    with pytest.raises(ValueError, match="CUDA"):
+        roi_align_cuda(torch.zeros(1, 1, 4, 4), torch.zeros(1, 5), 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        window_pool_cuda(torch.zeros(4, 4, 1), torch.zeros(1, dtype=torch.int32),
+                         torch.zeros(1, dtype=torch.int32), torch.zeros(1, 1, 2),
+                         torch.zeros(1, 1, 2))

@@ -1,0 +1,122 @@
+"""ResNet trunk with frozen batch norm + FPN, NCHW (counterpart of
+``vision_tpu/models/detection/backbone_utils.py``, the frozen-BN v1 path).
+Module names are torchvision's, so ``backbone.body.layer1.0.conv1.weight``
+and the like load from a torchvision checkpoint."""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from vision_tpu_torch.ops.feature_pyramid_network import FeaturePyramidNetwork
+from vision_tpu_torch.ops.misc import FrozenBatchNorm2d
+
+__all__ = ["BackboneWithFPN", "FrozenBasicBlock", "FrozenBottleneck",
+           "ResNetTrunk"]
+
+
+def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, k, stride, padding=(k - 1) // 2, bias=False)
+
+
+def _downsample(cin: int, cout: int, stride: int) -> nn.Sequential:
+    return nn.Sequential(_conv(cin, cout, 1, stride), FrozenBatchNorm2d(cout))
+
+
+class FrozenBasicBlock(nn.Module):
+    expansion = 1
+
+    def __init__(self, cin: int, planes: int, stride: int = 1,
+                 downsample: bool = False):
+        super().__init__()
+        self.conv1 = _conv(cin, planes, 3, stride)
+        self.bn1 = FrozenBatchNorm2d(planes)
+        self.conv2 = _conv(planes, planes, 3)
+        self.bn2 = FrozenBatchNorm2d(planes)
+        self.downsample = _downsample(cin, planes, stride) if downsample else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        identity = x if self.downsample is None else self.downsample(x)
+        return F.relu(out + identity)
+
+
+class FrozenBottleneck(nn.Module):
+    """Bottleneck with the stride on the 3x3 conv (ResNet v1.5)."""
+
+    expansion = 4
+
+    def __init__(self, cin: int, planes: int, stride: int = 1,
+                 downsample: bool = False):
+        super().__init__()
+        self.conv1 = _conv(cin, planes, 1)
+        self.bn1 = FrozenBatchNorm2d(planes)
+        self.conv2 = _conv(planes, planes, 3, stride)
+        self.bn2 = FrozenBatchNorm2d(planes)
+        self.conv3 = _conv(planes, planes * 4, 1)
+        self.bn3 = FrozenBatchNorm2d(planes * 4)
+        self.downsample = (
+            _downsample(cin, planes * 4, stride) if downsample else None
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = F.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        identity = x if self.downsample is None else self.downsample(x)
+        return F.relu(out + identity)
+
+
+_DEPTHS = {18: (FrozenBasicBlock, (2, 2, 2, 2)),
+           50: (FrozenBottleneck, (3, 4, 6, 3))}
+
+
+class ResNetTrunk(nn.Module):
+    """ResNet body without the classifier, returning the four stage outputs
+    under the keys "0".."3"."""
+
+    def __init__(self, depth: int = 50):
+        super().__init__()
+        block, layers = _DEPTHS[depth]
+        self.conv1 = nn.Conv2d(3, 64, 7, 2, padding=3, bias=False)
+        self.bn1 = FrozenBatchNorm2d(64)
+        cin = 64
+        for i, (planes, blocks) in enumerate(zip((64, 128, 256, 512), layers)):
+            stride = 1 if i == 0 else 2
+            stage = []
+            for j in range(blocks):
+                s = stride if j == 0 else 1
+                needs_ds = j == 0 and (s != 1 or cin != planes * block.expansion)
+                stage.append(block(cin, planes, s, needs_ds))
+                cin = planes * block.expansion
+            self.add_module(f"layer{i + 1}", nn.Sequential(*stage))
+        self.out_channels = [c * block.expansion for c in (64, 128, 256, 512)]
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.max_pool2d(x, 3, 2, 1)
+        out = OrderedDict()
+        for i in range(4):
+            x = getattr(self, f"layer{i + 1}")(x)
+            out[str(i)] = x
+        return out
+
+
+class BackboneWithFPN(nn.Module):
+    """Trunk -> FPN over all four stages; children ``body`` and ``fpn`` as
+    in torchvision. Returns {"0", "1", "2", "3", "pool"} NCHW maps of
+    ``out_channels``."""
+
+    def __init__(self, depth: int = 50, out_channels: int = 256):
+        super().__init__()
+        self.body = ResNetTrunk(depth)
+        self.fpn = FeaturePyramidNetwork(self.body.out_channels, out_channels)
+        self.out_channels = out_channels
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return self.fpn(self.body(x))

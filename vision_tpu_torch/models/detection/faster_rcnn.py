@@ -1,0 +1,199 @@
+"""Faster R-CNN ResNet-FPN inference (counterpart of
+``vision_tpu/models/detection/faster_rcnn.py``, the v1 ResNet variant).
+
+Backbone -> FPN -> RPN head -> fixed-size ``filter_proposals`` (top-k +
+per-level NMS) -> windowed ``MultiScaleRoIAlign`` -> box head ->
+fixed-size ``postprocess_detections`` (top-k + class-aware NMS). On the
+card the NMS, window-pool and RoIAlign steps run the package's CUDA
+kernels. Input: normalised, padded NCHW images; output: ``Detections``
+with ``detections_per_img`` rows per image.
+"""
+
+from __future__ import annotations
+
+import math
+import re
+from typing import Dict, Optional, Union
+
+import torch
+from torch import nn
+
+from vision_tpu_torch.models._api import Weights, WeightsEnum, register_model
+from vision_tpu_torch.models.detection.anchor_utils import AnchorGenerator
+from vision_tpu_torch.models.detection.backbone_utils import BackboneWithFPN
+from vision_tpu_torch.models.detection.roi_heads import (
+    Detections,
+    FastRCNNPredictor,
+    RoIHeads,
+    TwoMLPHead,
+)
+from vision_tpu_torch.models.detection.rpn import RegionProposalNetwork, RPNHead
+from vision_tpu_torch.ops.poolers import MultiScaleRoIAlign
+
+__all__ = [
+    "FasterRCNN",
+    "FasterRCNN_ResNet50_FPN_Weights",
+    "fasterrcnn_resnet50_fpn",
+    "init_weights",
+    "resolve_device",
+]
+
+_FEATMAPS = ["0", "1", "2", "3"]
+
+
+def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
+    """``None`` means the card. Asking for CUDA without one raises: the
+    port never falls back to the CPU unless the caller asks for it."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run on the CPU"
+        )
+    return device
+
+
+class FasterRCNN(nn.Module):
+    """Faster R-CNN with a frozen-BN ResNet-FPN backbone. Module and
+    state-dict names are torchvision's."""
+
+    def __init__(
+        self,
+        backbone_depth: int = 50,
+        num_classes: int = 91,
+        rpn_pre_nms_top_n: int = 1000,
+        rpn_post_nms_top_n: int = 1000,
+        rpn_nms_thresh: float = 0.7,
+        rpn_score_thresh: float = 0.0,
+        box_score_thresh: float = 0.05,
+        box_nms_thresh: float = 0.5,
+        box_detections_per_img: int = 100,
+    ):
+        super().__init__()
+        self.backbone = BackboneWithFPN(backbone_depth, out_channels=256)
+        sizes = ((32,), (64,), (128,), (256,), (512,))
+        anchor_generator = AnchorGenerator(sizes, ((0.5, 1.0, 2.0),) * 5)
+        self.rpn = RegionProposalNetwork(
+            anchor_generator,
+            RPNHead(256, anchor_generator.num_anchors_per_location()[0]),
+            pre_nms_top_n=rpn_pre_nms_top_n,
+            post_nms_top_n=rpn_post_nms_top_n,
+            nms_thresh=rpn_nms_thresh,
+            score_thresh=rpn_score_thresh,
+        )
+        pool = MultiScaleRoIAlign(_FEATMAPS, 7, 2)
+        self.roi_heads = RoIHeads(
+            pool,
+            TwoMLPHead(256 * 7 * 7, 1024),
+            FastRCNNPredictor(1024, num_classes),
+            score_thresh=box_score_thresh,
+            nms_thresh=box_nms_thresh,
+            detections_per_img=box_detections_per_img,
+        )
+
+    def features_and_rpn(self, images: torch.Tensor):
+        """Backbone features, RPN head outputs and anchors."""
+        feats = self.backbone(images)
+        rpn_feats = [feats[k] for k in _FEATMAPS + ["pool"]]
+        objectness, deltas = self.rpn.head(rpn_feats)
+        anchors = self.rpn.anchor_generator(
+            tuple(images.shape[-2:]), [tuple(f.shape[-2:]) for f in rpn_feats],
+            images.device,
+        )
+        return feats, objectness, deltas, anchors
+
+    @staticmethod
+    def make_rois(boxes: torch.Tensor) -> torch.Tensor:
+        """[N, P, 4] -> [N*P, 5] rows of (batch index as f32, x1, y1, x2, y2)."""
+        n, p = boxes.shape[:2]
+        batch_idx = torch.arange(n, dtype=torch.float32, device=boxes.device)
+        return torch.cat(
+            [batch_idx.repeat_interleave(p)[:, None], boxes.reshape(-1, 4)], 1
+        )
+
+    def forward(self, images: torch.Tensor) -> Detections:
+        image_size = tuple(images.shape[-2:])
+        feats, objectness, deltas, anchors = self.features_and_rpn(images)
+        proposals = self.rpn.filter_proposals(objectness, deltas, anchors,
+                                              image_size)
+        n, p = proposals.boxes.shape[:2]
+        rois = self.make_rois(proposals.boxes)
+        pooled = self.roi_heads.box_roi_pool(
+            {k: feats[k] for k in _FEATMAPS}, rois, image_size
+        )
+        class_logits, box_regression = self.roi_heads.box_predictor(
+            self.roi_heads.box_head(pooled)
+        )
+        return self.roi_heads.postprocess_detections(
+            class_logits.reshape(n, p, -1), box_regression.reshape(n, p, -1),
+            proposals.boxes, proposals.valid, image_size,
+        )
+
+
+@torch.no_grad()
+def init_weights(model: FasterRCNN, generator: torch.Generator) -> None:
+    """torchvision's initialisation, drawn from ``generator``: the trunk's
+    convs He-normal (fan out), the FPN's He-uniform (a=1) with zero bias,
+    the RPN head's N(0, 0.01) with zero bias, the linear layers PyTorch's
+    default uniform. Frozen-BN buffers keep their identity values."""
+    for name, m in model.named_modules():
+        if isinstance(m, nn.Conv2d):
+            fan_in = m.weight[0].numel()
+            fan_out = m.weight.shape[0] * m.weight[0, 0].numel()
+            if name.startswith("backbone.body"):
+                m.weight.normal_(0.0, math.sqrt(2.0 / fan_out),
+                                 generator=generator)
+            elif name.startswith("backbone.fpn"):
+                bound = math.sqrt(3.0 / fan_in)
+                m.weight.uniform_(-bound, bound, generator=generator)
+            else:
+                m.weight.normal_(0.0, 0.01, generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.Linear):
+            bound = 1.0 / math.sqrt(m.in_features)
+            m.weight.uniform_(-bound, bound, generator=generator)
+            m.bias.uniform_(-bound, bound, generator=generator)
+
+
+class FasterRCNN_ResNet50_FPN_Weights(WeightsEnum):
+    COCO_V1 = Weights(
+        url="https://download.pytorch.org/models/"
+        "fasterrcnn_resnet50_fpn_coco-258fb6c6.pth",
+        meta={"num_params": 41755286,
+              "_metrics": {"COCO-val2017": {"box_map": 37.0}}},
+    )
+    DEFAULT = COCO_V1
+
+
+def _upgrade_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Checkpoints written before torchvision wrapped the RPN and FPN convs
+    in ``Conv2dNormActivation`` name them without the inner ``.0``."""
+    out = {}
+    for k, v in sd.items():
+        k = re.sub(r"^rpn\.head\.conv\.(weight|bias)$", r"rpn.head.conv.0.0.\1", k)
+        k = re.sub(r"^(backbone\.fpn\.(?:inner|layer)_blocks\.\d+)\.(weight|bias)$",
+                   r"\1.0.\2", k)
+        out[k] = v
+    return out
+
+
+@register_model()
+def fasterrcnn_resnet50_fpn(
+    *,
+    weights: Optional[Union[FasterRCNN_ResNet50_FPN_Weights, Weights, str]] = None,
+    device: Union[str, torch.device, None] = None,
+    seed: int = 0,
+    **kwargs,
+) -> FasterRCNN:
+    """Faster R-CNN ResNet-50-FPN in eval mode, on ``device`` (the card
+    when None). Without ``weights`` the parameters are torchvision's
+    initialisation drawn from a CPU ``torch.Generator`` seeded with
+    ``seed``, so every device gets the same numbers."""
+    device = resolve_device(device)
+    weights = FasterRCNN_ResNet50_FPN_Weights.verify(weights)
+    model = FasterRCNN(backbone_depth=50, **kwargs)
+    if weights is not None:
+        model.load_state_dict(_upgrade_state_dict(weights.get_state_dict()))
+    else:
+        init_weights(model, torch.Generator().manual_seed(seed))
+    return model.eval().to(device)
