@@ -3,12 +3,24 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels of ``vision_tpu_torch`` from ``csrc/``, runs
-Faster R-CNN ResNet-50-FPN inference (91 classes, seeded random weights,
-one 832x832 f32 image, TF32 off) through ``fasterrcnn_resnet50_fpn``,
-holds every kernel against its plain PyTorch version on the card at the
-inputs the model gave it, and holds the model's detections against a
-run of the same model through the plain versions.
+Builds the five CUDA kernels of ``vision_tpu_torch`` from ``csrc/`` and
+drives the port's two main paths at full width, TF32 off, seeded random
+weights:
+
+* Faster R-CNN ResNet-50-FPN inference (91 classes, one 832x832 f32 image)
+  through ``fasterrcnn_resnet50_fpn``: the bitmask NMS, window-pool and
+  RoIAlign kernels; once more with ``VISION_TPU_NMS_KERNEL=rowscan``, which
+  must give the same detections through the row-serial NMS kernel;
+* ResNet-50 classification (1000 classes, a batch of 32 224x224 images):
+  one eval batch, then SGD steps of ``get_model("resnet50", fused_bn=True)``
+  under ``make_train_step`` in f32 and in bf16, through the ``matmul_stats``
+  kernel (36 launches a forward).
+
+Every kernel is held against its plain PyTorch version on the card at the
+inputs the model gave it, and each path's result against a run of the same
+model through the plain versions. The counts of launches are set to 0 just
+before each path is driven and read just after; a kernel that its path did
+not launch fails the run.
 
 Each phase prints one JSON line as it ends. Then come the card's name and
 power limit as ``nvidia-smi`` reports them, the per-kernel JSON line, and
@@ -22,6 +34,8 @@ from __future__ import annotations
 import contextlib
 import importlib
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
@@ -37,6 +51,17 @@ TIMED_FORWARDS = 5
 CLS_SCALE = 30.0
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12  # H100 SXM, FP32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores
+BATCH = 32  # ResNet-50 phases: [BATCH, 3, 224, 224]
+LR = 0.1  # SGD, momentum 0.9, weight decay 1e-4
+# The first step's loss, logits and statistics are held to 1e-3 and 1e-4.
+# The later losses follow an SGD update, and the f32 gradient of this model
+# at its random initialisation is itself 2-3% away from a float64 gradient
+# on every path, the standard cuDNN one included
+# (vision_tpu_torch/tools/grad_noise_resnet.py), so two correct f32 paths
+# part by up to ~1% in loss after one update at this learning rate.
+LATER_LOSS_TOL = 5e-2
+MM_CALLS_PER_FORWARD = 36  # 2 per Bottleneck + 4 downsamples
 NMS_OPS_PER_PAIR = 14  # 2x(min, max, sub, max0), mul, add, sub, >0, div, >thr
 
 
@@ -44,9 +69,9 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def bound_ms(nbytes: float, ops: float):
+def bound_ms(nbytes: float, ops: float, peak_flops: float = PEAK_F32_FLOPS):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    t_ops = ops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -70,7 +95,7 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 
 class Kernels:
-    """The three kernel wrappers of the main path, their plain versions,
+    """The five kernel wrappers of the main paths, their plain versions,
     and a way to record their inputs or swap the plain versions in."""
 
     def __init__(self):
@@ -79,6 +104,7 @@ class Kernels:
         nms = importlib.import_module("vision_tpu_torch.ops.nms")
         poolers = importlib.import_module("vision_tpu_torch.ops.poolers")
         roi_align = importlib.import_module("vision_tpu_torch.ops.roi_align")
+        conv1x1 = importlib.import_module("vision_tpu_torch.ops._conv1x1_bn")
 
         # name -> (module, wrapper attribute, plain version)
         self.table = {
@@ -87,6 +113,10 @@ class Kernels:
                             poolers.window_pool_plain),
             "roi_align": (roi_align, "roi_align_cuda",
                           roi_align.roi_align_plain),
+            "matmul_stats": (conv1x1, "matmul_stats_cuda",
+                             conv1x1.matmul_stats_plain),
+            "nms_rowscan": (nms, "nms_keep_sorted_rowscan_cuda",
+                            nms.nms_keep_sorted_plain),
         }
         self.cuda = {n: getattr(m, a) for n, (m, a, _) in self.table.items()}
         self.plain = {n: p for n, (_, _, p) in self.table.items()}
@@ -110,10 +140,17 @@ class Kernels:
             for n, (mod, attr, _) in self.table.items():
                 setattr(mod, attr, self.cuda[n])
 
-    def recording(self, calls: dict):
-        """Record (a copy of) the positional arguments of every call."""
+    def recording(self, calls: dict, counts: dict = None):
+        """Record (a copy of) the positional arguments of every call. Of
+        ``matmul_stats`` only the first call of each distinct (shapes,
+        prologue, type) is kept, and ``counts`` says how often each came."""
         def make(name, fn):
             def rec(*args):
+                if name == "matmul_stats":
+                    key = matmul_key(args)
+                    counts[key] = counts.get(key, 0) + 1
+                    if counts[key] > 1:
+                        return fn(*args)
                 calls.setdefault(name, []).append(
                     [a.clone() if hasattr(a, "clone") else a for a in args])
                 return fn(*args)
@@ -122,6 +159,12 @@ class Kernels:
 
     def plain_versions(self):
         return self.swapped(lambda name, fn: self.plain[name])
+
+
+def matmul_key(args):
+    x, w = args[:2]
+    prologue = len(args) > 2 and args[2] is not None
+    return (tuple(x.shape), tuple(w.shape), prologue, str(x.dtype))
 
 
 def nvidia_smi() -> str:
@@ -139,6 +182,21 @@ def nms_work(args):
     pairs = b * n * (n - 1) / 2
     return boxes.numel() * 4 + valid.numel() + valid.numel(), (
         pairs * NMS_OPS_PER_PAIR + 3 * b * n)
+
+
+def matmul_work(args):
+    """Bytes: x, w (and scale, shift) read once, y, s1, s2 written once.
+    Operations: 2*M*K*N, against the peak of the operands' type."""
+    import torch
+
+    x, w = args[:2]
+    m, k = x.shape
+    n = w.shape[1]
+    nbytes = (m * k + k * n + m * n) * x.element_size() + 2 * n * 4
+    if matmul_key(args)[2]:
+        nbytes += 2 * k * 4
+    peak = PEAK_BF16_FLOPS if x.dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    return nbytes, 2.0 * m * k * n, peak
 
 
 def window_work(args):
@@ -257,7 +315,6 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
 
     from vision_tpu_torch import _kernels
-    from vision_tpu_torch.models import get_model
 
     smi = nvidia_smi()
     emit("env", nvidia_smi=smi, torch=torch.__version__,
@@ -272,19 +329,46 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.benchmark = False
     torch.backends.cudnn.deterministic = True
-    dev = torch.device("cuda")
+    # the plain bf16 products keep their f32 sums whole, as the kernel does
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    os.environ.pop("VISION_TPU_NMS_KERNEL", None)
+
+    kernels = Kernels()
+    rows = faster_rcnn_phases(kernels)
+    rows += resnet50_phases(kernels)
+
+    print(smi, flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def require_launched(launches: dict, names, path: str) -> None:
+    missing = [n for n in names if launches[n] == 0]
+    if missing:
+        raise RuntimeError(f"kernels not launched on the {path} path: {missing}")
+
+
+def faster_rcnn_phases(kernels):
+    """Faster R-CNN inference through the bitmask NMS, window-pool and
+    RoIAlign kernels, then once more through the row-serial NMS kernel."""
+    import torch
+
+    from vision_tpu_torch.models import get_model
+
     model = get_model("fasterrcnn_resnet50_fpn", seed=0)
     with torch.no_grad():
         model.roi_heads.box_predictor.cls_score.weight.mul_(CLS_SCALE)
     gen = torch.Generator().manual_seed(1)
-    images = torch.randn(1, 3, SIZE, SIZE, generator=gen).to(dev)
+    images = torch.randn(1, 3, SIZE, SIZE, generator=gen).cuda()
     emit("model", name="fasterrcnn_resnet50_fpn", classes=91,
          params=sum(p.numel() for p in model.parameters()), input=[1, 3, SIZE, SIZE],
          dtype="float32", seed=0, cls_scale=CLS_SCALE,
          matmul_tf32=torch.backends.cuda.matmul.allow_tf32,
          cudnn_tf32=torch.backends.cudnn.allow_tf32)
 
-    kernels = Kernels()
     calls: dict = {}
     with torch.inference_mode():
         with kernels.recording(calls):
@@ -301,9 +385,8 @@ def main() -> int:
         emit("faster_rcnn", ms_per_img_median=statistics.median(times),
              ms_per_img_all=times, forwards=TIMED_FORWARDS,
              launches=launches)
-        missing = [n for n, c in launches.items() if c == 0]
-        if missing:
-            raise RuntimeError(f"kernels not launched on the main path: {missing}")
+        require_launched(launches, ("nms", "window_pool", "roi_align"),
+                         "Faster R-CNN")
 
         with kernels.plain_versions():
             ref = model(images)
@@ -311,13 +394,275 @@ def main() -> int:
         check_detections(dets, ref)
 
         rows = kernel_phases(kernels, calls, launches)
+        rows.append(rowscan_phase(kernels, model, images, dets))
+    return rows
 
-    print(smi, flush=True)
-    print(json.dumps({"kernels": rows}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+
+def rowscan_phase(kernels, model, images, dets):
+    """The same forward with ``VISION_TPU_NMS_KERNEL=rowscan``: the same
+    detections to the last bit, through ``nms_rowscan``."""
+    import torch
+
+    calls: dict = {}
+    os.environ["VISION_TPU_NMS_KERNEL"] = "rowscan"
+    try:
+        kernels.reset()
+        with kernels.recording(calls):
+            t = time.perf_counter()
+            got = model(images)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+        launches = kernels.launches()
+    finally:
+        del os.environ["VISION_TPU_NMS_KERNEL"]
+    valid = dets.valid
+    same = {
+        "valid": bool(torch.equal(got.valid, valid)),
+        "labels": bool(torch.equal(got.labels[valid], dets.labels[valid])),
+        "scores": bool(torch.equal(got.scores[valid], dets.scores[valid])),
+        "boxes": bool(torch.equal(got.boxes[valid], dets.boxes[valid])),
+    }
+    emit("faster_rcnn_rowscan", ms_per_img=ms, launches=launches,
+         valid=int(valid.sum()), equal_to_bitmask_run=same, tol=0.0)
+    require_launched(launches, ("nms_rowscan", "window_pool", "roi_align"),
+                     "Faster R-CNN (rowscan)")
+    if launches["nms_rowscan"] != 2 or launches["nms"] != 0:
+        raise RuntimeError(f"rowscan forward launched {launches}: expected 2 "
+                           "nms_rowscan and no bitmask nms")
+    if not all(same.values()):
+        raise RuntimeError(f"rowscan detections differ from the bitmask run's: {same}")
+
+    fn, plain = kernels.cuda["nms_rowscan"], kernels.plain["nms_rowscan"]
+    cases = []
+    for args in calls["nms_rowscan"]:
+        err, rel, k_ms, plain_ms = compare_kernel(fn, plain, args, exact=True)
+        b_ms, b_by = bound_ms(*nms_work(args))
+        case = dict(kernel="nms_rowscan", shape=list(args[1].shape),
+                    max_abs_err=err, max_rel_err=rel, rel_tol=0.0, ms=k_ms,
+                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        emit("kernel_case", **case)
+        cases.append(case)
+        if err > 0:
+            raise RuntimeError("nms_rowscan disagrees with its plain version")
+    return {
+        "name": "nms_rowscan", "route": "cuda",
+        "source": "vision_tpu_torch/csrc/nms_rowscan.cu",
+        "replaces": "vision_tpu/ops/_pallas/nms.py:252",
+        "launches": launches["nms_rowscan"],
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "ms": sum(c["ms"] for c in cases),
+        "plain_ms": sum(c["plain_ms"] for c in cases),
+        "bound_ms": sum(c["bound_ms"] for c in cases),
+        "bound_by": cases[0]["bound_by"],
+        "library_ms": None,
+        "calls_per_forward": len(cases),
+    }
+
+
+def train_steps(batch, *, fused, dtype, steps, first_step=None, lr=LR):
+    """A fresh seeded ResNet-50 and ``steps`` SGD steps on ``batch``. Returns
+    the losses, the first step's logits, the running statistics after the
+    first step, and each step's wall ms (the loss is read back, so a step
+    ends when the device has finished it)."""
+    import torch
+
+    from vision_tpu_torch.models import get_model
+    from vision_tpu_torch.parallel import make_train_step
+
+    model = get_model("resnet50", fused_bn=fused, seed=0)
+    optimizer = torch.optim.SGD(model.parameters(), lr=lr, momentum=0.9,
+                                weight_decay=1e-4)
+    step = make_train_step(model, optimizer, compute_dtype=dtype)
+    logits = []
+    hook = model.register_forward_hook(
+        lambda mod, args, out: logits.append(out.detach().float().clone()))
+    out = {"losses": [], "ms": [], "fused": fused,
+           "dtype": "float32" if dtype is None else str(dtype)[6:]}
+    for i in range(steps):
+        ctx = first_step() if i == 0 and first_step else contextlib.nullcontext()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with ctx:
+            loss = float(step(batch)["loss"])
+        out["ms"].append((time.perf_counter() - t) * 1e3)
+        out["losses"].append(loss)
+        if i == 0:
+            out["stats"] = {n: b.clone() for n, b in model.named_buffers()
+                            if "running" in n}
+    hook.remove()
+    out["logits"] = logits[0]
+    out["ms_per_step"] = statistics.median(out["ms"][1:]) if steps > 1 else None
+    return out
+
+
+def speed(run) -> dict:
+    ms = run["ms_per_step"]
+    return {"fused_bn": run["fused"], "dtype": run["dtype"], "ms_per_step": ms,
+            "images_per_s": BATCH / ms * 1e3, "ms_all": run["ms"]}
+
+
+def resnet50_phases(kernels):
+    """ResNet-50: one eval batch; three f32 SGD steps with ``fused_bn=True``
+    through the ``matmul_stats`` kernel against the same steps through its
+    plain version (first step: loss and logits within 1e-3, running
+    statistics within 1e-4 of each tensor's largest value; later losses
+    within ``LATER_LOSS_TOL``); the bf16 step timed, its first loss within
+    2e-2 of the plain path's; the kernel's cases."""
+    import torch
+
+    from vision_tpu_torch.models import get_model
+
+    gen = torch.Generator().manual_seed(2)
+    batch = {
+        "image": torch.randn(BATCH, 3, 224, 224, generator=gen).cuda(),
+        "label": torch.randint(0, 1000, (BATCH,), generator=gen).cuda(),
+    }
+
+    model = get_model("resnet50", seed=0)
+    params = sum(p.numel() for p in model.parameters())
+    times = []
+    with torch.inference_mode():
+        for _ in range(1 + TIMED_FORWARDS):
+            t = time.perf_counter()
+            logits = model(batch["image"])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+    finite = bool(torch.isfinite(logits).all())
+    emit("resnet50_eval", params=params, input=[BATCH, 3, 224, 224],
+         dtype="float32", shape=list(logits.shape), finite=finite,
+         ms_per_batch_median=statistics.median(times[1:]), ms_all=times)
+    if params != 25_557_032 or tuple(logits.shape) != (BATCH, 1000) or not finite:
+        raise RuntimeError("resnet50 eval: wrong parameter count, shape or "
+                           "non-finite logits")
+    del model, logits
+
+    # f32: the kernel path against the plain path, step by step
+    calls, counts = {}, {}
+    kernels.reset()
+    run = train_steps(batch, fused=True, dtype=None, steps=3,
+                      first_step=lambda: kernels.recording(calls, counts))
+    launches = kernels.launches()
+    with kernels.plain_versions():
+        ref = train_steps(batch, fused=True, dtype=None, steps=3)
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(run["losses"], ref["losses"])]
+    logit_rel = float((run["logits"] - ref["logits"]).abs().max()
+                      / ref["logits"].abs().max())
+    stats_rel = max(
+        float((run["stats"][n] - r).abs().max() / r.abs().max().clamp(min=1e-30))
+        for n, r in ref["stats"].items())
+    emit("resnet50_train_f32", steps=3, batch=BATCH, lr=LR,
+         losses=run["losses"], plain_losses=ref["losses"],
+         loss_rel_err=loss_rel, first_loss_tol=1e-3,
+         later_loss_tol=LATER_LOSS_TOL,
+         first_logits_rel_err=logit_rel, logits_tol=1e-3,
+         running_stats_rel_err=stats_rel, stats_tol=1e-4,
+         launches=launches, matmul_stats_calls_per_forward=sum(counts.values()))
+    require_launched(launches, ("matmul_stats",), "ResNet-50 train (f32)")
+    if launches["matmul_stats"] != 3 * MM_CALLS_PER_FORWARD:
+        raise RuntimeError(f"matmul_stats launched {launches['matmul_stats']} "
+                           f"times in 3 steps, expected {3 * MM_CALLS_PER_FORWARD}")
+    if not all(math.isfinite(v) for v in run["losses"]):
+        raise RuntimeError(f"non-finite loss: {run['losses']}")
+    if run["losses"][2] == run["losses"][0]:
+        raise RuntimeError("the third loss equals the first: no update happened")
+    if (loss_rel[0] > 1e-3 or max(loss_rel[1:]) > LATER_LOSS_TOL
+            or logit_rel > 1e-3 or stats_rel > 1e-4):
+        raise RuntimeError("the kernel train path disagrees with the plain path")
+    del run, ref
+    torch.cuda.empty_cache()
+
+    # bf16: the timed step, and its first loss against the plain path's
+    calls16, counts16 = {}, {}
+    kernels.reset()
+    run16 = train_steps(batch, fused=True, dtype=torch.bfloat16,
+                        steps=1 + TIMED_FORWARDS,
+                        first_step=lambda: kernels.recording(calls16, counts16))
+    launches16 = kernels.launches()
+    with kernels.plain_versions():
+        ref16 = train_steps(batch, fused=True, dtype=torch.bfloat16, steps=1)
+    rel16 = abs(run16["losses"][0] - ref16["losses"][0]) / abs(ref16["losses"][0])
+    emit("resnet50_train_bf16", batch=BATCH, lr=LR, **speed(run16),
+         losses=run16["losses"], plain_first_loss=ref16["losses"][0],
+         first_loss_rel_err=rel16, loss_tol=2e-2, launches=launches16)
+    require_launched(launches16, ("matmul_stats",), "ResNet-50 train (bf16)")
+    if launches16["matmul_stats"] != (1 + TIMED_FORWARDS) * MM_CALLS_PER_FORWARD:
+        raise RuntimeError(f"matmul_stats launched {launches16['matmul_stats']} "
+                           f"times in {1 + TIMED_FORWARDS} bf16 steps")
+    if not all(math.isfinite(v) for v in run16["losses"]) or rel16 > 2e-2:
+        raise RuntimeError("bf16 train path: non-finite loss or first loss "
+                           "away from the plain path's")
+    del run16, ref16
+    torch.cuda.empty_cache()
+
+    # the step's speed in the other three settings, for the record
+    for fused, dtype in ((False, torch.bfloat16), (True, None), (False, None)):
+        emit("resnet50_train_speed", batch=BATCH, **speed(train_steps(
+            batch, fused=fused, dtype=dtype, steps=1 + TIMED_FORWARDS)))
+        torch.cuda.empty_cache()
+
+    return [matmul_stats_row(kernels, calls, counts, calls16, counts16,
+                             launches["matmul_stats"],
+                             launches16["matmul_stats"])]
+
+
+def matmul_stats_row(kernels, calls, counts, calls16, counts16, launches,
+                     launches16):
+    """``matmul_stats`` against its plain version at every distinct (shapes,
+    prologue, type) the two train runs gave it. ``y`` within 1e-4 of its
+    largest value in f32 and within one bf16 step in bf16 (a step is 2**-8
+    to 2**-7 of the value it rounds, so 2**-7 of the largest); the sums
+    within 1e-4 of their largest. Times per forward: each case's time multiplied by
+    its calls in one forward."""
+    import torch
+
+    fn, plain = kernels.cuda["matmul_stats"], kernels.plain["matmul_stats"]
+    totals = {}
+    worst = 0.0
+    for tag, recorded, count in (("f32", calls, counts), ("bf16", calls16, counts16)):
+        y_tol = 1e-4 if tag == "f32" else 2.0 ** -7
+        sums = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes=0.0, operations=0.0)
+        for args in recorded["matmul_stats"]:
+            key = matmul_key(args)
+            got, want = fn(*args), plain(*args)
+            torch.cuda.synchronize()
+            rel = [float((g.float() - w.float()).abs().max()
+                         / w.float().abs().max().clamp(min=1e-30))
+                   for g, w in zip(got, want)]
+            err = float((got[0].float() - want[0].float()).abs().max())
+            ms = cuda_ms(lambda: fn(*args))
+            plain_ms = cuda_ms(lambda: plain(*args), reps=5, warmup=1)
+            b_ms, b_by = bound_ms(*matmul_work(args))
+            emit("kernel_case", kernel="matmul_stats", x=list(key[0]),
+                 w=list(key[1]), prologue=key[2], dtype=tag,
+                 calls_per_forward=count[key], max_abs_err=err, y_rel_err=rel[0],
+                 y_tol=y_tol, s1_rel_err=rel[1], s2_rel_err=rel[2], s_tol=1e-4,
+                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+            if rel[0] > y_tol or max(rel[1:]) > 1e-4:
+                raise RuntimeError(f"matmul_stats {key} disagrees with its "
+                                   f"plain version: {rel}")
+            worst = max(worst, err)
+            sums["ms"] += count[key] * ms
+            sums["plain_ms"] += count[key] * plain_ms
+            sums["bound_ms"] += count[key] * b_ms
+            sums[b_by] += count[key] * b_ms
+        totals[tag] = sums
+    f32, bf16 = totals["f32"], totals["bf16"]
+    return {
+        "name": "matmul_stats", "route": "cuda",
+        "source": "vision_tpu_torch/csrc/matmul_stats.cu",
+        "replaces": "vision_tpu/ops/_pallas/conv1x1_bn.py:134",
+        "launches": launches, "max_abs_err": worst,
+        "ms": f32["ms"], "plain_ms": f32["plain_ms"],
+        "bound_ms": f32["bound_ms"],
+        "bound_by": "bytes" if f32["bytes"] >= f32["operations"] else "operations",
+        "library_ms": None,
+        "calls_per_forward": sum(counts.values()),
+        "distinct_cases": len(calls["matmul_stats"]),
+        "launches_bf16": launches16, "ms_bf16": bf16["ms"],
+        "plain_ms_bf16": bf16["plain_ms"], "bound_ms_bf16": bf16["bound_ms"],
+        "bound_by_bf16": ("bytes" if bf16["bytes"] >= bf16["operations"]
+                          else "operations"),
+    }
 
 
 def check_detections(dets, ref) -> None:

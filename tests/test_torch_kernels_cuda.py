@@ -5,17 +5,27 @@ never at import). Run on a GPU host with:
 
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda
 
-Tolerances: NMS keep masks exactly equal; RoIAlign 1e-5 and the window
-pool 1e-4 absolute on inputs of order 1 (sums in another order).
+Tolerances: NMS keep masks exactly equal (both kernels); RoIAlign 1e-5 and
+the window pool 1e-4 absolute on inputs of order 1 (sums in another order);
+``matmul_stats`` in f32 within 1e-4 of the largest value of ``y`` and of
+each sum, in bf16 ``y`` within one bf16 step of the largest (a step is
+2**-8 to 2**-7 of the value it rounds) and the sums within 2e-3 (a flipped
+rounding of one ``y`` moves a sum by a bf16 step of that value).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from vision_tpu_torch.ops._conv1x1_bn import (
+    matmul_stats,
+    matmul_stats_cuda,
+    matmul_stats_plain,
+)
 from vision_tpu_torch.ops.nms import (
     nms_keep_sorted_cuda,
     nms_keep_sorted_plain,
+    nms_keep_sorted_rowscan_cuda,
     nms_mask,
 )
 from vision_tpu_torch.ops.poolers import (
@@ -118,3 +128,102 @@ def test_multiscale_pooler_on_card_matches_cpu(dev):
     got = pooler({k: v.to(dev) for k, v in feats.items()}, rois.to(dev),
                  (256, 256))
     torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("b", [1, 5])
+@pytest.mark.parametrize("n", [1, 63, 1000, 20000])
+def test_nms_rowscan_kernel_equals_plain(dev, b, n):
+    """N = 20000 does not fit in shared memory: the global-memory form.
+    The plain version builds an N x N matrix, so it runs row by row there."""
+    boxes, valid = _sorted_boxes(np.random.RandomState(n + b), b, n)
+    boxes, valid = boxes.to(dev), valid.to(dev)
+    before = nms_keep_sorted_rowscan_cuda.launches
+    got = nms_keep_sorted_rowscan_cuda(boxes, valid, 0.5)
+    torch.cuda.synchronize()
+    assert nms_keep_sorted_rowscan_cuda.launches == before + 1
+    assert got.dtype == torch.bool and not got[~valid].any()
+    want = torch.cat([nms_keep_sorted_plain(boxes[i:i + 1], valid[i:i + 1], 0.5)
+                      for i in range(b)])
+    assert torch.equal(got, want)
+    assert torch.equal(got, nms_keep_sorted_cuda(boxes, valid, 0.5))
+
+
+def test_nms_rowscan_switch_on_card(dev, monkeypatch):
+    rng = np.random.RandomState(1)
+    boxes, _ = _sorted_boxes(rng, 1, 500)
+    scores = torch.from_numpy(rng.rand(500).astype(np.float32))
+    want = nms_mask(boxes[0], scores, 0.5)
+    monkeypatch.setenv("VISION_TPU_NMS_KERNEL", "rowscan")
+    counts = (nms_keep_sorted_cuda.launches,
+              nms_keep_sorted_rowscan_cuda.launches)
+    got = nms_mask(boxes[0].to(dev), scores.to(dev), 0.5)
+    assert (nms_keep_sorted_cuda.launches,
+            nms_keep_sorted_rowscan_cuda.launches) == (counts[0], counts[1] + 1)
+    assert torch.equal(got.cpu(), want)
+
+
+def _mm_inputs(seed, m, k, n, dtype, dev):
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(dev, dtype)
+    w = torch.from_numpy((rng.randn(k, n) * 0.05).astype(np.float32)).to(dev, dtype)
+    sc = torch.from_numpy((rng.rand(k) + 0.5).astype(np.float32)).to(dev)
+    sh = torch.from_numpy((rng.randn(k) * 0.1).astype(np.float32)).to(dev)
+    return x, w, sc, sh
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("prologue", [False, True])
+@pytest.mark.parametrize("m,k,n", [
+    (224, 256, 128), (128, 16, 64), (1, 1, 1), (203, 77, 45), (130, 0, 5),
+    (1000, 130, 260), (64, 300, 2048),
+])
+def test_matmul_stats_kernel_matches_plain(dev, m, k, n, prologue, dtype):
+    x, w, sc, sh = _mm_inputs(m + k + n, m, k, n, dtype, dev)
+    args = (x, w, sc, sh) if prologue else (x, w)
+    before = matmul_stats_cuda.launches
+    y, s1, s2 = matmul_stats_cuda(*args)
+    torch.cuda.synchronize()
+    assert matmul_stats_cuda.launches == before + 1
+    yr, s1r, s2r = matmul_stats_plain(*args)
+    assert y.dtype == dtype and s1.dtype == s2.dtype == torch.float32
+    y_tol, s_tol = (1e-4, 1e-4) if dtype == torch.float32 else (2.0 ** -7, 2e-3)
+    for got, want, tol in ((y, yr, y_tol), (s1, s1r, s_tol), (s2, s2r, s_tol)):
+        scale = max(float(want.float().abs().max()), 1e-6)
+        assert float((got.float() - want.float()).abs().max()) <= tol * scale
+    again = matmul_stats_cuda(*args)
+    assert all(torch.equal(a, b) for a, b in zip((y, s1, s2), again))
+
+
+def test_matmul_stats_kernel_refuses_what_it_does_not_take(dev):
+    x, w, sc, sh = _mm_inputs(0, 8, 4, 3, torch.float32, dev)
+    with pytest.raises(TypeError, match="both f32 or both bf16"):
+        matmul_stats_cuda(x.bfloat16(), w)
+    with pytest.raises(TypeError, match="both f32 or both bf16"):
+        matmul_stats_cuda(x.half(), w.half())
+    with pytest.raises(ValueError, match="come together"):
+        matmul_stats_cuda(x, w, sc)
+    with pytest.raises(ValueError, match=r"\[M, K\]"):
+        matmul_stats_cuda(x, w.t())
+
+
+@pytest.mark.parametrize("prologue", [False, True])
+def test_matmul_stats_backward_on_card_matches_autograd_of_plain(dev, prologue):
+    """The Function's hand-written backward (forward through the kernel)
+    against autograd through the plain version: rtol 1e-4, atol 1e-4 of
+    gradients of order 1 (f32; TF32 off)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    arrays = _mm_inputs(7, 203, 77, 45, torch.float32, dev)
+    arrays = arrays if prologue else arrays[:2]
+
+    def loss(y, s1, s2):
+        k = torch.arange(s1.shape[0], dtype=torch.float32, device=dev)
+        return ((y ** 2).sum() * 1e-2 + (s1 * k).sum()
+                + torch.sqrt(s2 + 1.0).sum())
+
+    grads = []
+    for fn in (matmul_stats, matmul_stats_plain):
+        leaves = [a.clone().requires_grad_() for a in arrays]
+        loss(*fn(*leaves)).backward()
+        grads.append([leaf.grad for leaf in leaves])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)

@@ -11,7 +11,10 @@ import numpy as np
 import pytest
 import torch
 
-from vision_tpu.ops._pallas.nms import nms_pallas_bitmask_sorted
+from vision_tpu.ops._pallas.nms import (
+    nms_pallas_bitmask_sorted,
+    nms_pallas_sorted,
+)
 
 # the packages re-export a function named ``nms`` over the module name
 jnms = importlib.import_module("vision_tpu.ops.nms")
@@ -132,3 +135,46 @@ def test_index_apis_match_jax():
     want = np.asarray(jnms.batched_nms(jnp.asarray(boxes), jnp.asarray(scores),
                                        jnp.asarray(idxs), 0.5))
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("thr", [0.5, 0.7])
+@pytest.mark.parametrize("n", [1, 130, 300])
+def test_rowscan_switch_matches_pallas_rowscan_interpret(n, thr, monkeypatch):
+    """``VISION_TPU_NMS_KERNEL=rowscan`` selects another kernel on the card,
+    never another answer: on the CPU the plain version still runs, and its
+    mask equals the JAX row-scan kernel's (interpret mode) exactly."""
+    monkeypatch.setenv("VISION_TPU_NMS_KERNEL", "rowscan")
+    boxes, scores, valid = _case(300 + n, n)
+    order = np.argsort(-scores, kind="stable")
+    boxes, scores, valid = boxes[order], scores[order], valid[order]
+    before = (tnms.nms_keep_sorted_cuda.launches,
+              tnms.nms_keep_sorted_rowscan_cuda.launches)
+    got = tnms.nms_mask(torch.from_numpy(boxes), torch.from_numpy(scores), thr,
+                        valid=torch.from_numpy(valid), presorted=True).numpy()
+    assert before == (tnms.nms_keep_sorted_cuda.launches,
+                      tnms.nms_keep_sorted_rowscan_cuda.launches)
+    sboxes = np.where(valid[:, None], boxes, 0.0).astype(np.float32)
+    kernel = np.asarray(nms_pallas_sorted(
+        jnp.asarray(sboxes), jnp.asarray(valid), thr, interpret=True)) & valid
+    np.testing.assert_array_equal(got, kernel)
+    monkeypatch.delenv("VISION_TPU_NMS_KERNEL")
+    same = tnms.nms_mask(torch.from_numpy(boxes), torch.from_numpy(scores), thr,
+                         valid=torch.from_numpy(valid), presorted=True).numpy()
+    np.testing.assert_array_equal(got, same)
+
+
+def test_rowscan_switch_is_read_at_every_call(monkeypatch):
+    """The dispatcher picks the wrapper by the environment at call time."""
+    picked = []
+    monkeypatch.setattr(tnms, "nms_keep_sorted_cuda",
+                        lambda *a: picked.append("bitmask"))
+    monkeypatch.setattr(tnms, "nms_keep_sorted_rowscan_cuda",
+                        lambda *a: picked.append("rowscan"))
+    boxes = torch.zeros(1, 2, 4, device="meta")
+    valid = torch.ones(1, 2, dtype=torch.bool, device="meta")
+    tnms.nms_keep_sorted(boxes, valid, 0.5)
+    monkeypatch.setenv("VISION_TPU_NMS_KERNEL", "rowscan")
+    tnms.nms_keep_sorted(boxes, valid, 0.5)
+    monkeypatch.setenv("VISION_TPU_NMS_KERNEL", "bitmask")
+    tnms.nms_keep_sorted(boxes, valid, 0.5)
+    assert picked == ["bitmask", "rowscan", "bitmask"]

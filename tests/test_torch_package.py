@@ -15,7 +15,12 @@ import torch
 import vision_tpu_torch
 from vision_tpu_torch.models import get_model
 from vision_tpu_torch.models.detection import fasterrcnn_resnet50_fpn
-from vision_tpu_torch.ops.nms import nms_keep_sorted, nms_keep_sorted_cuda
+from vision_tpu_torch.ops._conv1x1_bn import matmul_stats, matmul_stats_cuda
+from vision_tpu_torch.ops.nms import (
+    nms_keep_sorted,
+    nms_keep_sorted_cuda,
+    nms_keep_sorted_rowscan_cuda,
+)
 from vision_tpu_torch.ops.poolers import window_pool, window_pool_cuda
 from vision_tpu_torch.ops.roi_align import roi_align, roi_align_cuda
 
@@ -25,7 +30,8 @@ PKG = Path(vision_tpu_torch.__file__).parent
 def test_import_pulls_in_no_jax():
     code = (
         "import sys, vision_tpu_torch, vision_tpu_torch.models.detection, "
-        "vision_tpu_torch._jax_convert\n"
+        "vision_tpu_torch._jax_convert, vision_tpu_torch.parallel, "
+        "vision_tpu_torch.tools.profile_resnet_train\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'vision_tpu')]\n"
         "print(bad)\n"
@@ -51,11 +57,14 @@ def test_default_device_raises_without_cuda(monkeypatch):
         fasterrcnn_resnet50_fpn()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         get_model("fasterrcnn_resnet50_fpn", device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        get_model("resnet50", fused_bn=True)
 
 
 def test_cpu_tensors_take_the_plain_path():
-    counts = (nms_keep_sorted_cuda.launches, roi_align_cuda.launches,
-              window_pool_cuda.launches)
+    wrappers = (nms_keep_sorted_cuda, roi_align_cuda, window_pool_cuda,
+                nms_keep_sorted_rowscan_cuda, matmul_stats_cuda)
+    counts = [w.launches for w in wrappers]
     rng = np.random.RandomState(0)
     xy = rng.uniform(0, 50, (1, 20, 2))
     boxes = torch.from_numpy(np.concatenate([xy, xy + 10], -1).astype(np.float32))
@@ -67,14 +76,20 @@ def test_cpu_tensors_take_the_plain_path():
     out = window_pool(torch.rand(8, 8, 3), torch.tensor([0]), torch.tensor([0]),
                       torch.rand(1, 2, 4), torch.rand(1, 2, 4))
     assert out.shape == (1, 3, 2, 2)
-    assert counts == (nms_keep_sorted_cuda.launches, roi_align_cuda.launches,
-                      window_pool_cuda.launches)
+    y, s1, s2 = matmul_stats(torch.rand(6, 4), torch.rand(4, 3))
+    assert y.shape == (6, 3) and s1.shape == s2.shape == (3,)
+    assert counts == [w.launches for w in wrappers]
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         nms_keep_sorted_cuda(torch.zeros(1, 2, 4), torch.ones(1, 2, dtype=torch.bool),
                              0.5)
+    with pytest.raises(ValueError, match="CUDA"):
+        nms_keep_sorted_rowscan_cuda(torch.zeros(1, 2, 4),
+                                     torch.ones(1, 2, dtype=torch.bool), 0.5)
+    with pytest.raises(ValueError, match="CUDA"):
+        matmul_stats_cuda(torch.zeros(4, 2), torch.zeros(2, 3))
     with pytest.raises(ValueError, match="CUDA"):
         roi_align_cuda(torch.zeros(1, 1, 4, 4), torch.zeros(1, 5), 2)
     with pytest.raises(ValueError, match="CUDA"):

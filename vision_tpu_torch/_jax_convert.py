@@ -2,8 +2,10 @@
 
 The inverse of ``vision_tpu/_torch_convert.py`` for the modules of the
 port, working on nested dicts of numpy arrays (so this module needs no
-JAX): conv kernels HWIO -> OIHW, dense kernels IO -> OI, the ``frozen``
-collection -> the frozen-BN buffers, and the Faster R-CNN renames (FPN
+JAX): conv kernels HWIO -> OIHW, dense kernels IO -> OI, batch norm
+``scale`` -> ``weight``, the ``batch_stats`` collection (``mean``, ``var``)
+-> ``running_mean``, ``running_var``, the ``frozen`` collection -> the
+frozen-BN buffers, and the Faster R-CNN renames (FPN
 ``inner_blocks_{i}`` -> ``inner_blocks.{i}.0``, and ``fc6`` from the JAX
 HWC flatten of the pooled features to torch's CHW flatten).
 """
@@ -35,6 +37,8 @@ def _torch_name(collection: str, path: Tuple[str, ...]) -> str:
     base = re.sub(r"\b(inner_blocks|layer_blocks)_(\d+)", r"\1.\2.0", base)
     if collection == "params":
         leaf = {"kernel": "weight", "scale": "weight"}.get(leaf, leaf)
+    elif collection == "batch_stats":
+        leaf = {"mean": "running_mean", "var": "running_var"}[leaf]
     elif collection != "frozen":
         raise KeyError(f"cannot map collection {collection!r}")
     return f"{base}.{leaf}"
@@ -59,10 +63,11 @@ def _to_torch_layout(name: str, arr: np.ndarray, target: torch.Tensor,
 
 @torch.no_grad()
 def load_jax_variables(module: nn.Module, variables: Mapping[str, Any]) -> None:
-    """Copy every leaf of ``variables`` (``{"params": ..., "frozen": ...}``
-    as nested dicts of arrays) into ``module``'s parameters and buffers.
-    Raises unless every leaf has a target and every tensor of the module
-    a source."""
+    """Copy every leaf of ``variables`` (``{"params": ..., "batch_stats":
+    ..., "frozen": ...}`` as nested dicts of arrays) into ``module``'s
+    parameters and buffers. Raises unless every leaf has a target and every
+    tensor of the module a source (``num_batches_tracked`` counters have
+    none in JAX and are left alone)."""
     targets = dict(module.named_parameters())
     targets.update(module.named_buffers())
     loaded = set()
@@ -75,6 +80,7 @@ def load_jax_variables(module: nn.Module, variables: Mapping[str, Any]) -> None:
             arr = _to_torch_layout(name, np.asarray(value), targets[name], module)
             targets[name].copy_(torch.as_tensor(np.array(arr)))
             loaded.add(name)
-    missing = sorted(set(targets) - loaded)
+    missing = sorted(n for n in set(targets) - loaded
+                     if not n.endswith("num_batches_tracked"))
     if missing:
         raise KeyError(f"not in the JAX variables ({len(missing)}): {missing[:10]}")

@@ -44,9 +44,19 @@ _F = ctypes.c_float
 # PyTorch versions round them, so NMS keep masks agree bit for bit and the
 # RoIAlign sample positions agree to the last place.
 _KERNELS: Dict[str, Tuple[str, List[str], Dict[str, list]]] = {
+    "matmul_stats": (
+        "matmul_stats.cu", [],
+        {"vt_matmul_stats": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _P],
+         "vt_matmul_stats_tile_m": []},
+    ),
     "nms": (
         "nms.cu", ["-fmad=false"],
         {"vt_nms_keep": [_P, _P, _P, _P, _I, _I, _F, _P]},
+    ),
+    "nms_rowscan": (
+        "nms_rowscan.cu", ["-fmad=false"],
+        {"vt_nms_rowscan": [_P, _P, _P, _I, _I, _F, _P]},
     ),
     "roi_align": (
         "roi_align.cu", ["-fmad=false"],

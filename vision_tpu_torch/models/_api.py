@@ -7,7 +7,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import os
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Union
 
 import torch
 
@@ -17,9 +17,21 @@ __all__ = [
     "get_model",
     "list_models",
     "register_model",
+    "resolve_device",
 ]
 
 _MODELS: Dict[str, Callable[..., Any]] = {}
+
+
+def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
+    """``None`` means the card. Asking for CUDA without one raises: the
+    port never falls back to the CPU unless the caller asks for it."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run on the CPU"
+        )
+    return device
 
 
 @dataclasses.dataclass(frozen=True)

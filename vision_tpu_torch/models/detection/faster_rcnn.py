@@ -18,7 +18,12 @@ from typing import Dict, Optional, Union
 import torch
 from torch import nn
 
-from vision_tpu_torch.models._api import Weights, WeightsEnum, register_model
+from vision_tpu_torch.models._api import (
+    Weights,
+    WeightsEnum,
+    register_model,
+    resolve_device,
+)
 from vision_tpu_torch.models.detection.anchor_utils import AnchorGenerator
 from vision_tpu_torch.models.detection.backbone_utils import BackboneWithFPN
 from vision_tpu_torch.models.detection.roi_heads import (
@@ -35,21 +40,9 @@ __all__ = [
     "FasterRCNN_ResNet50_FPN_Weights",
     "fasterrcnn_resnet50_fpn",
     "init_weights",
-    "resolve_device",
 ]
 
 _FEATMAPS = ["0", "1", "2", "3"]
-
-
-def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
-    """``None`` means the card. Asking for CUDA without one raises: the
-    port never falls back to the CPU unless the caller asks for it."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available; pass device='cpu' to run on the CPU"
-        )
-    return device
 
 
 class FasterRCNN(nn.Module):

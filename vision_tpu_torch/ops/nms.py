@@ -10,13 +10,17 @@
 * :func:`nms` / :func:`batched_nms` — ``-1``-padded kept indices in
   descending score order.
 
-The greedy pass over sorted boxes is :func:`nms_keep_sorted`: the CUDA
-kernel ``csrc/nms.cu`` for tensors on the card, the plain PyTorch version
-:func:`nms_keep_sorted_plain` for tensors on the CPU.
+The greedy pass over sorted boxes is :func:`nms_keep_sorted`: for tensors on
+the card the bitmask kernel ``csrc/nms.cu``, or the row-serial kernel
+``csrc/nms_rowscan.cu`` when the environment says
+``VISION_TPU_NMS_KERNEL=rowscan`` (read at every call); for tensors on the
+CPU the plain PyTorch version :func:`nms_keep_sorted_plain`. All three give
+the same mask bit for bit.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -30,6 +34,7 @@ __all__ = [
     "nms_keep_sorted",
     "nms_keep_sorted_cuda",
     "nms_keep_sorted_plain",
+    "nms_keep_sorted_rowscan_cuda",
     "nms_mask",
 ]
 
@@ -62,6 +67,18 @@ def nms_keep_sorted_plain(
     return ~removed
 
 
+def _sorted_args(boxes: torch.Tensor, valid: torch.Tensor, who: str):
+    """Check the kernels' shared contract; contiguous ``(boxes, valid)``."""
+    if boxes.device.type != "cuda" or valid.device != boxes.device:
+        raise ValueError(f"{who} takes CUDA tensors")
+    if boxes.dtype != torch.float32 or boxes.dim() != 3 or boxes.shape[2] != 4:
+        raise ValueError(f"boxes must be f32 [B, N, 4], got {boxes.dtype} "
+                         f"{tuple(boxes.shape)}")
+    if valid.dtype != torch.bool or valid.shape != boxes.shape[:2]:
+        raise ValueError("valid must be bool [B, N]")
+    return boxes.contiguous(), valid.contiguous()
+
+
 @_kernels.counted
 def nms_keep_sorted_cuda(
     boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float
@@ -69,16 +86,8 @@ def nms_keep_sorted_cuda(
     """The bitmask kernel of ``csrc/nms.cu`` (same contract as
     :func:`nms_keep_sorted_plain`). Two launches per call: the pairwise
     suppression mask, then the greedy scan."""
-    if boxes.device.type != "cuda" or valid.device != boxes.device:
-        raise ValueError("nms_keep_sorted_cuda takes CUDA tensors")
-    if boxes.dtype != torch.float32 or boxes.dim() != 3 or boxes.shape[2] != 4:
-        raise ValueError(f"boxes must be f32 [B, N, 4], got {boxes.dtype} "
-                         f"{tuple(boxes.shape)}")
-    if valid.dtype != torch.bool or valid.shape != boxes.shape[:2]:
-        raise ValueError("valid must be bool [B, N]")
+    boxes, valid = _sorted_args(boxes, valid, "nms_keep_sorted_cuda")
     b, n = valid.shape
-    boxes = boxes.contiguous()
-    valid = valid.contiguous()
     words = -(-n // 64)
     mask = torch.empty(b, n, words, dtype=torch.int64, device=boxes.device)
     keep = torch.empty(b, n, dtype=torch.bool, device=boxes.device)
@@ -94,13 +103,37 @@ def nms_keep_sorted_cuda(
     return keep
 
 
+@_kernels.counted
+def nms_keep_sorted_rowscan_cuda(
+    boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float
+) -> torch.Tensor:
+    """The row-serial kernel of ``csrc/nms_rowscan.cu`` (same contract and
+    the same mask as :func:`nms_keep_sorted_plain`). One launch per call,
+    one block per batch row, no scratch."""
+    boxes, valid = _sorted_args(boxes, valid, "nms_keep_sorted_rowscan_cuda")
+    b, n = valid.shape
+    keep = torch.empty(b, n, dtype=torch.bool, device=boxes.device)
+    lib = _kernels.load("nms_rowscan")
+    _kernels.check(
+        lib.vt_nms_rowscan(
+            boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), b, n,
+            float(iou_threshold), _kernels.stream_handle(boxes),
+        ),
+        "nms_rowscan kernel",
+    )
+    return keep
+
+
 def nms_keep_sorted(
     boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float
 ) -> torch.Tensor:
-    """Greedy NMS over score-sorted rows: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    """Greedy NMS over score-sorted rows: a CUDA kernel for CUDA tensors
+    (the bitmask one, or the row-serial one under
+    ``VISION_TPU_NMS_KERNEL=rowscan``), the plain version for CPU tensors."""
     if boxes.device.type == "cpu":
         return nms_keep_sorted_plain(boxes, valid, iou_threshold)
+    if os.environ.get("VISION_TPU_NMS_KERNEL", "bitmask") == "rowscan":
+        return nms_keep_sorted_rowscan_cuda(boxes, valid, iou_threshold)
     return nms_keep_sorted_cuda(boxes, valid, iou_threshold)
 
 
