@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the five CUDA kernels of ``vision_tpu_torch`` from ``csrc/`` and
+Builds the seven CUDA kernels of ``vision_tpu_torch`` from ``csrc/`` and
 drives the port's two main paths at full width, TF32 off, seeded random
 weights:
 
@@ -14,7 +14,9 @@ weights:
 * ResNet-50 classification (1000 classes, a batch of 32 224x224 images):
   one eval batch, then SGD steps of ``get_model("resnet50", fused_bn=True)``
   under ``make_train_step`` in f32 and in bf16, through the ``matmul_stats``
-  kernel (36 launches a forward).
+  kernels (36 launches a forward): the pipelined FP32 kernel in f32, the
+  ``wgmma`` kernel in bf16, and never the guarded general kernel, which one
+  more f32 step drives with its wrapper swapped in.
 
 Every kernel is held against its plain PyTorch version on the card at the
 inputs the model gave it, and each path's result against a run of the same
@@ -62,6 +64,7 @@ LR = 0.1  # SGD, momentum 0.9, weight decay 1e-4
 # part by up to ~1% in loss after one update at this learning rate.
 LATER_LOSS_TOL = 5e-2
 MM_CALLS_PER_FORWARD = 36  # 2 per Bottleneck + 4 downsamples
+SPIN_CYCLES = 30_000_000  # ~17 ms of a spin kernel, see device_ms
 NMS_OPS_PER_PAIR = 14  # 2x(min, max, sub, max0), mul, add, sub, >0, div, >thr
 
 
@@ -73,6 +76,28 @@ def bound_ms(nbytes: float, ops: float, peak_flops: float = PEAK_F32_FLOPS):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def device_ms(fn, launches: int = 20, warmup: int = 2) -> float:
+    """Device time of one call: CUDA events around ``launches`` calls that
+    run back to back, over their number. The calls are queued while the
+    card is held busy by a spin kernel of some 17 ms, so the host's
+    share of a call (Python, allocation, launch latency) stays outside the
+    events even where it is longer than the kernel."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -95,8 +120,10 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 
 class Kernels:
-    """The five kernel wrappers of the main paths, their plain versions,
-    and a way to record their inputs or swap the plain versions in."""
+    """The kernel wrappers of the main paths, their plain versions, and a
+    way to record their inputs or swap the plain versions in.
+    ``matmul_stats`` is the wrapper that chooses among three kernels; each
+    of the three is counted under its own name as well."""
 
     def __init__(self):
         # import_module: ``vision_tpu_torch.ops`` re-exports functions
@@ -120,13 +147,18 @@ class Kernels:
         }
         self.cuda = {n: getattr(m, a) for n, (m, a, _) in self.table.items()}
         self.plain = {n: p for n, (_, _, p) in self.table.items()}
+        self.counted = dict(
+            self.cuda,
+            matmul_stats_fma=conv1x1.matmul_stats_fma_cuda,
+            matmul_stats_wgmma=conv1x1.matmul_stats_wgmma_cuda,
+            matmul_stats_general=conv1x1.matmul_stats_general_cuda)
 
     def reset(self) -> None:
-        for fn in self.cuda.values():
+        for fn in self.counted.values():
             fn.launches = 0
 
     def launches(self) -> dict:
-        return {n: fn.launches for n, fn in self.cuda.items()}
+        return {n: fn.launches for n, fn in self.counted.items()}
 
     @contextlib.contextmanager
     def swapped(self, make):
@@ -503,11 +535,12 @@ def speed(run) -> dict:
 
 def resnet50_phases(kernels):
     """ResNet-50: one eval batch; three f32 SGD steps with ``fused_bn=True``
-    through the ``matmul_stats`` kernel against the same steps through its
-    plain version (first step: loss and logits within 1e-3, running
+    through the FP32 ``matmul_stats`` kernel against the same steps through
+    the plain version (first step: loss and logits within 1e-3, running
     statistics within 1e-4 of each tensor's largest value; later losses
-    within ``LATER_LOSS_TOL``); the bf16 step timed, its first loss within
-    2e-2 of the plain path's; the kernel's cases."""
+    within ``LATER_LOSS_TOL``); one f32 step through the general kernel; the
+    bf16 step timed, through the ``wgmma`` kernel, its first loss within
+    2e-2 of the plain path's; the kernels' cases."""
     import torch
 
     from vision_tpu_torch.models import get_model
@@ -557,10 +590,10 @@ def resnet50_phases(kernels):
          first_logits_rel_err=logit_rel, logits_tol=1e-3,
          running_stats_rel_err=stats_rel, stats_tol=1e-4,
          launches=launches, matmul_stats_calls_per_forward=sum(counts.values()))
-    require_launched(launches, ("matmul_stats",), "ResNet-50 train (f32)")
-    if launches["matmul_stats"] != 3 * MM_CALLS_PER_FORWARD:
-        raise RuntimeError(f"matmul_stats launched {launches['matmul_stats']} "
-                           f"times in 3 steps, expected {3 * MM_CALLS_PER_FORWARD}")
+    require_launched(launches, ("matmul_stats", "matmul_stats_fma"),
+                     "ResNet-50 train (f32)")
+    require_only(launches, "matmul_stats_fma", 3 * MM_CALLS_PER_FORWARD,
+                 "3 f32 steps")
     if not all(math.isfinite(v) for v in run["losses"]):
         raise RuntimeError(f"non-finite loss: {run['losses']}")
     if run["losses"][2] == run["losses"][0]:
@@ -568,8 +601,10 @@ def resnet50_phases(kernels):
     if (loss_rel[0] > 1e-3 or max(loss_rel[1:]) > LATER_LOSS_TOL
             or logit_rel > 1e-3 or stats_rel > 1e-4):
         raise RuntimeError("the kernel train path disagrees with the plain path")
+    first_loss = run["losses"][0]
     del run, ref
     torch.cuda.empty_cache()
+    launches_general = general_kernel_phase(kernels, batch, first_loss)
 
     # bf16: the timed step, and its first loss against the plain path's
     calls16, counts16 = {}, {}
@@ -584,10 +619,11 @@ def resnet50_phases(kernels):
     emit("resnet50_train_bf16", batch=BATCH, lr=LR, **speed(run16),
          losses=run16["losses"], plain_first_loss=ref16["losses"][0],
          first_loss_rel_err=rel16, loss_tol=2e-2, launches=launches16)
-    require_launched(launches16, ("matmul_stats",), "ResNet-50 train (bf16)")
-    if launches16["matmul_stats"] != (1 + TIMED_FORWARDS) * MM_CALLS_PER_FORWARD:
-        raise RuntimeError(f"matmul_stats launched {launches16['matmul_stats']} "
-                           f"times in {1 + TIMED_FORWARDS} bf16 steps")
+    require_launched(launches16, ("matmul_stats", "matmul_stats_wgmma"),
+                     "ResNet-50 train (bf16)")
+    require_only(launches16, "matmul_stats_wgmma",
+                 (1 + TIMED_FORWARDS) * MM_CALLS_PER_FORWARD,
+                 f"{1 + TIMED_FORWARDS} bf16 steps")
     if not all(math.isfinite(v) for v in run16["losses"]) or rel16 > 2e-2:
         raise RuntimeError("bf16 train path: non-finite loss or first loss "
                            "away from the plain path's")
@@ -600,69 +636,178 @@ def resnet50_phases(kernels):
             batch, fused=fused, dtype=dtype, steps=1 + TIMED_FORWARDS)))
         torch.cuda.empty_cache()
 
-    return [matmul_stats_row(kernels, calls, counts, calls16, counts16,
-                             launches["matmul_stats"],
-                             launches16["matmul_stats"])]
+    return matmul_stats_rows(kernels, calls, counts, calls16, counts16,
+                             {"fma": launches["matmul_stats_fma"],
+                              "wgmma": launches16["matmul_stats_wgmma"],
+                              "general": launches_general})
 
 
-def matmul_stats_row(kernels, calls, counts, calls16, counts16, launches,
-                     launches16):
-    """``matmul_stats`` against its plain version at every distinct (shapes,
-    prologue, type) the two train runs gave it. ``y`` within 1e-4 of its
-    largest value in f32 and within one bf16 step in bf16 (a step is 2**-8
-    to 2**-7 of the value it rounds, so 2**-7 of the largest); the sums
-    within 1e-4 of their largest. Times per forward: each case's time multiplied by
-    its calls in one forward."""
+def require_only(launches: dict, name: str, want: int, what: str) -> None:
+    """Every ``matmul_stats`` call of the run went to kernel ``name``."""
+    got = {n: launches[n] for n in ("matmul_stats", "matmul_stats_fma",
+                                    "matmul_stats_wgmma", "matmul_stats_general")}
+    if got["matmul_stats"] != want or got[name] != want:
+        raise RuntimeError(f"{what}: expected {want} matmul_stats launches, "
+                           f"all through {name}, got {got}")
+    if got["matmul_stats_general"] != 0:
+        raise RuntimeError(f"{what}: the ResNet-50 path launched the general "
+                           f"kernel: {got}")
+
+
+def general_kernel_phase(kernels, batch, first_loss) -> int:
+    """One f32 SGD step with the general kernel's wrapper in the place of
+    the choosing one: all 36 products through the guarded kernel of
+    ``matmul_stats.cu``, the loss within 1e-3 of the default path's first."""
+    general = kernels.counted["matmul_stats_general"]
+    kernels.reset()
+    with kernels.swapped(lambda name, fn: general if name == "matmul_stats" else fn):
+        run = train_steps(batch, fused=True, dtype=None, steps=1)
+    launches = kernels.launches()
+    rel = abs(run["losses"][0] - first_loss) / abs(first_loss)
+    emit("resnet50_train_general_kernel", steps=1, batch=BATCH,
+         loss=run["losses"][0], default_path_loss=first_loss, loss_rel_err=rel,
+         loss_tol=1e-3, launches=launches)
+    require_launched(launches, ("matmul_stats_general",),
+                     "ResNet-50 train (general kernel)")
+    if (launches["matmul_stats_general"] != MM_CALLS_PER_FORWARD
+            or launches["matmul_stats_fma"] or launches["matmul_stats_wgmma"]):
+        raise RuntimeError(f"the forced general step launched {launches}")
+    if not rel <= 1e-3:
+        raise RuntimeError("the general kernel's step disagrees with the "
+                           "default path's")
+    return launches["matmul_stats_general"]
+
+
+def rel_errs(got, want):
+    return [float((g.float() - w.float()).abs().max()
+                  / w.float().abs().max().clamp(min=1e-30))
+            for g, w in zip(got, want)]
+
+
+def matmul_stats_rows(kernels, calls, counts, calls16, counts16, launches):
+    """The three ``matmul_stats`` kernels against the plain version at every
+    distinct (shapes, prologue, type) the two train runs gave the wrapper:
+    the f32 cases through the FP32 kernel, the bf16 cases through the
+    ``wgmma`` kernel, and the general kernel at all of them. ``y`` within
+    1e-4 of its largest value in f32 and within one bf16 step in bf16 (a
+    step is 2**-8 to 2**-7 of the value it rounds, so 2**-7 of the largest);
+    the sums within 1e-4 of their largest; a second call on the same inputs
+    equal to the first bit for bit.
+
+    Times per forward: each case's time multiplied by its calls in one
+    forward. ``ms`` is the median of single wrapper calls (Python, the
+    allocations and the launch latency included), ``device_ms`` a run of 20
+    calls back to back over 20, taken in turns with the general kernel's
+    (new, general, general, new). ``product_ms`` is one ``torch.matmul`` of
+    the same operands: a reference that computes less (no prologue, no
+    sums), so it is no ``library_ms``."""
     import torch
 
-    fn, plain = kernels.cuda["matmul_stats"], kernels.plain["matmul_stats"]
+    from vision_tpu_torch.ops._conv1x1_bn import choose_kernel
+
+    plain = kernels.plain["matmul_stats"]
+    general = kernels.counted["matmul_stats_general"]
+    keys = ("ms", "device_ms", "general_ms", "general_device_ms", "plain_ms",
+            "product_ms", "bound_ms", "bytes", "operations")
     totals = {}
-    worst = 0.0
-    for tag, recorded, count in (("f32", calls, counts), ("bf16", calls16, counts16)):
+    worst = {"fma": 0.0, "wgmma": 0.0, "general_f32": 0.0, "general_bf16": 0.0}
+    slower = []
+    for tag, name, recorded, count in (("f32", "fma", calls, counts),
+                                       ("bf16", "wgmma", calls16, counts16)):
+        fn = kernels.counted[f"matmul_stats_{name}"]
         y_tol = 1e-4 if tag == "f32" else 2.0 ** -7
-        sums = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes=0.0, operations=0.0)
+        sums = dict.fromkeys(keys, 0.0)
         for args in recorded["matmul_stats"]:
             key = matmul_key(args)
-            got, want = fn(*args), plain(*args)
+            x, w = args[:2]
+            chosen = choose_kernel(x.shape[0], x.shape[1], w.shape[1], x.dtype,
+                                   w.stride())
+            if chosen != name:
+                raise RuntimeError(f"matmul_stats {key} goes to {chosen}")
+            got, again, want = fn(*args), fn(*args), plain(*args)
+            got_g = general(*args)
             torch.cuda.synchronize()
-            rel = [float((g.float() - w.float()).abs().max()
-                         / w.float().abs().max().clamp(min=1e-30))
-                   for g, w in zip(got, want)]
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            rel, rel_g = rel_errs(got, want), rel_errs(got_g, want)
             err = float((got[0].float() - want[0].float()).abs().max())
-            ms = cuda_ms(lambda: fn(*args))
-            plain_ms = cuda_ms(lambda: plain(*args), reps=5, warmup=1)
+            err_g = float((got_g[0].float() - want[0].float()).abs().max())
+            t = dict(
+                ms=cuda_ms(lambda: fn(*args)),
+                general_ms=cuda_ms(lambda: general(*args)),
+                plain_ms=cuda_ms(lambda: plain(*args), reps=5, warmup=1),
+                product_ms=device_ms(lambda: torch.matmul(x, w)))
+            turns = [device_ms(f) for f in (
+                lambda: fn(*args), lambda: general(*args),
+                lambda: general(*args), lambda: fn(*args))]
+            t["device_ms"] = (turns[0] + turns[3]) / 2
+            t["general_device_ms"] = (turns[1] + turns[2]) / 2
             b_ms, b_by = bound_ms(*matmul_work(args))
-            emit("kernel_case", kernel="matmul_stats", x=list(key[0]),
-                 w=list(key[1]), prologue=key[2], dtype=tag,
-                 calls_per_forward=count[key], max_abs_err=err, y_rel_err=rel[0],
-                 y_tol=y_tol, s1_rel_err=rel[1], s2_rel_err=rel[2], s_tol=1e-4,
-                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+            emit("kernel_case", kernel=f"matmul_stats_{name}", x=list(key[0]),
+                 w=list(key[1]), w_strides=list(w.stride()), prologue=key[2],
+                 dtype=tag, calls_per_forward=count[key], max_abs_err=err,
+                 y_rel_err=rel[0], y_tol=y_tol, s1_rel_err=rel[1],
+                 s2_rel_err=rel[2], s_tol=1e-4, same_bits_twice=same,
+                 general_y_rel_err=rel_g[0], general_s1_rel_err=rel_g[1],
+                 general_s2_rel_err=rel_g[2], **t, bound_ms=b_ms,
+                 bound_by=b_by)
             if rel[0] > y_tol or max(rel[1:]) > 1e-4:
-                raise RuntimeError(f"matmul_stats {key} disagrees with its "
-                                   f"plain version: {rel}")
-            worst = max(worst, err)
-            sums["ms"] += count[key] * ms
-            sums["plain_ms"] += count[key] * plain_ms
+                raise RuntimeError(f"matmul_stats_{name} {key} disagrees with "
+                                   f"its plain version: {rel}")
+            if rel_g[0] > y_tol or max(rel_g[1:]) > 1e-4:
+                raise RuntimeError(f"the general matmul_stats kernel {key} "
+                                   f"disagrees with its plain version: {rel_g}")
+            if not same:
+                raise RuntimeError(f"matmul_stats_{name} {key}: two calls on "
+                                   "the same inputs differ")
+            if t["device_ms"] > 1.1 * t["general_device_ms"]:
+                slower.append([tag, list(key[0]), list(key[1])])
+            worst[name] = max(worst[name], err)
+            worst[f"general_{tag}"] = max(worst[f"general_{tag}"], err_g)
+            for k, v in t.items():
+                sums[k] += count[key] * v
             sums["bound_ms"] += count[key] * b_ms
             sums[b_by] += count[key] * b_ms
         totals[tag] = sums
     f32, bf16 = totals["f32"], totals["bf16"]
-    return {
-        "name": "matmul_stats", "route": "cuda",
-        "source": "vision_tpu_torch/csrc/matmul_stats.cu",
-        "replaces": "vision_tpu/ops/_pallas/conv1x1_bn.py:134",
-        "launches": launches, "max_abs_err": worst,
-        "ms": f32["ms"], "plain_ms": f32["plain_ms"],
-        "bound_ms": f32["bound_ms"],
-        "bound_by": "bytes" if f32["bytes"] >= f32["operations"] else "operations",
-        "library_ms": None,
-        "calls_per_forward": sum(counts.values()),
-        "distinct_cases": len(calls["matmul_stats"]),
-        "launches_bf16": launches16, "ms_bf16": bf16["ms"],
-        "plain_ms_bf16": bf16["plain_ms"], "bound_ms_bf16": bf16["bound_ms"],
-        "bound_by_bf16": ("bytes" if bf16["bytes"] >= bf16["operations"]
-                          else "operations"),
-    }
+    emit("matmul_stats_totals", per_forward_ms=totals,
+         cases_over_10pct_slower_than_general=slower)
+    if bf16["device_ms"] >= bf16["general_device_ms"]:
+        raise RuntimeError("the wgmma kernel is no faster than the general one")
+    if f32["device_ms"] >= f32["general_device_ms"]:
+        raise RuntimeError("the FP32 kernel is no faster than the general one")
+
+    def row(name, source, sums, n_launches, err, **extra):
+        by = "bytes" if sums["bytes"] >= sums["operations"] else "operations"
+        return {
+            "name": name, "route": "cuda",
+            "source": f"vision_tpu_torch/csrc/{source}",
+            "replaces": "vision_tpu/ops/_pallas/conv1x1_bn.py:134",
+            "launches": n_launches, "max_abs_err": err,
+            "ms": sums["ms"], "plain_ms": sums["plain_ms"],
+            "bound_ms": sums["bound_ms"], "bound_by": by, "library_ms": None,
+            "device_ms": sums["device_ms"], "product_ms": sums["product_ms"],
+            "calls_per_forward": sum(counts.values()), **extra,
+        }
+
+    general_f32 = dict(f32, ms=f32["general_ms"],
+                       device_ms=f32["general_device_ms"])
+    return [
+        row("matmul_stats_fma", "matmul_stats_fma.cu", f32, launches["fma"],
+            worst["fma"], dtype="float32", general_ms=f32["general_ms"],
+            general_device_ms=f32["general_device_ms"],
+            distinct_cases=len(calls["matmul_stats"])),
+        row("matmul_stats_wgmma", "matmul_stats_wgmma.cu", bf16,
+            launches["wgmma"], worst["wgmma"], dtype="bfloat16",
+            general_ms=bf16["general_ms"],
+            general_device_ms=bf16["general_device_ms"],
+            distinct_cases=len(calls16["matmul_stats"])),
+        # the guarded kernel, at the f32 cases (its bf16 times beside them)
+        row("matmul_stats", "matmul_stats.cu", general_f32,
+            launches["general"], worst["general_f32"], dtype="float32",
+            max_abs_err_bf16=worst["general_bf16"],
+            ms_bf16=bf16["general_ms"], device_ms_bf16=bf16["general_device_ms"],
+            plain_ms_bf16=bf16["plain_ms"], bound_ms_bf16=bf16["bound_ms"]),
+    ]
 
 
 def check_detections(dets, ref) -> None:

@@ -45,7 +45,7 @@ setup(
     package_data={
         "vision_tpu": ["csrc/*.cpp", "csrc/*.so"],
         # CUDA sources: built with nvcc on first use on a GPU host
-        "vision_tpu_torch": ["csrc/*.cu"],
+        "vision_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
     },
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "numpy"],

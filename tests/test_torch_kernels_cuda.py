@@ -10,7 +10,9 @@ the window pool 1e-4 absolute on inputs of order 1 (sums in another order);
 ``matmul_stats`` in f32 within 1e-4 of the largest value of ``y`` and of
 each sum, in bf16 ``y`` within one bf16 step of the largest (a step is
 2**-8 to 2**-7 of the value it rounds) and the sums within 2e-3 (a flipped
-rounding of one ``y`` moves a sum by a bf16 step of that value).
+rounding of one ``y`` moves a sum by a bf16 step of that value); at the
+ResNet-50 cases, where thousands of rows average such flips out, the sums
+within 1e-4 in both types.
 """
 
 import numpy as np
@@ -18,9 +20,13 @@ import pytest
 import torch
 
 from vision_tpu_torch.ops._conv1x1_bn import (
+    choose_kernel,
     matmul_stats,
     matmul_stats_cuda,
+    matmul_stats_fma_cuda,
+    matmul_stats_general_cuda,
     matmul_stats_plain,
+    matmul_stats_wgmma_cuda,
 )
 from vision_tpu_torch.ops.nms import (
     nms_keep_sorted_cuda,
@@ -192,6 +198,99 @@ def test_matmul_stats_kernel_matches_plain(dev, m, k, n, prologue, dtype):
         assert float((got.float() - want.float()).abs().max()) <= tol * scale
     again = matmul_stats_cuda(*args)
     assert all(torch.equal(a, b) for a, b in zip((y, s1, s2), again))
+
+
+# (M at a batch of 2, K, N, prologue) of a ResNet-50 forward's products
+_RESNET50_CASES = [
+    (6272, 64, 64, False), (6272, 64, 256, True), (6272, 64, 256, False),
+    (6272, 256, 64, False), (6272, 256, 128, False),
+    (1568, 128, 512, True), (1568, 256, 512, False), (1568, 512, 128, False),
+    (1568, 512, 256, False),
+    (392, 256, 1024, True), (392, 512, 1024, False), (392, 1024, 256, False),
+    (392, 1024, 512, False),
+    (98, 512, 2048, True), (98, 1024, 2048, False), (98, 2048, 512, False),
+]
+# M that no tile divides, with 16-byte rows; tiles of every shape
+_RAGGED_CASES = [
+    (203, 72, 40, False), (203, 72, 40, True), (1568, 512, 2048, True),
+    (300, 8, 8, True), (65, 200, 136, True), (20000, 96, 72, True),
+]
+_KERNELS = {"fma": matmul_stats_fma_cuda, "wgmma": matmul_stats_wgmma_cuda,
+            "general": matmul_stats_general_cuda}
+
+
+@pytest.mark.parametrize("kernel", ["fast", "general"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w_major", ["K", "N"])
+@pytest.mark.parametrize("m,k,n,prologue", _RESNET50_CASES + _RAGGED_CASES)
+def test_each_matmul_stats_kernel_matches_plain(dev, m, k, n, prologue,
+                                                w_major, dtype, kernel):
+    """Each of the three kernels called directly: the fast kernel of the
+    type (``wgmma`` for bf16, ``fma`` for f32) and the general kernel, with
+    ``w`` as the transposed view of an ``[N, K]`` weight (K-major) and as a
+    contiguous ``[K, N]`` matrix (N-major). The statistics are those of the
+    cast ``y``: the kernel's own ``y`` summed in f64 gives its sums."""
+    x, w, sc, sh = _mm_inputs(m + k + n, m, k, n, dtype, dev)
+    if w_major == "K":
+        w = w.t().contiguous().t()
+        assert w.stride() == (1, k)
+    args = (x, w, sc, sh) if prologue else (x, w)
+    fast = "wgmma" if dtype == torch.bfloat16 else "fma"
+    assert choose_kernel(m, k, n, dtype, w.stride()) == fast
+    fn = _KERNELS[fast if kernel == "fast" else "general"]
+    before = fn.launches
+    y, s1, s2 = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    yr, s1r, s2r = matmul_stats_plain(*args)
+    assert y.dtype == dtype and s1.dtype == s2.dtype == torch.float32
+    y_tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    # the general kernel adds its products in another order than cuBLAS, so
+    # in bf16 some of its y round the other way: 2e-3 there, as above
+    s_tol = 2e-3 if (dtype, kernel) == (torch.bfloat16, "general") else 1e-4
+    for got, want, tol in ((y, yr, y_tol), (s1, s1r, s_tol), (s2, s2r, s_tol)):
+        scale = max(float(want.float().abs().max()), 1e-6)
+        assert float((got.float() - want.float()).abs().max()) <= tol * scale
+    yd = y.double()
+    for got, own in ((s1, yd.sum(0)), (s2, (yd * yd).sum(0))):
+        scale = max(float(own.abs().max()), 1e-6)
+        assert float((got.double() - own).abs().max()) <= 1e-5 * scale
+    again = fn(*args)
+    assert all(torch.equal(a, b) for a, b in zip((y, s1, s2), again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_stats_wrapper_follows_choose_kernel(dev, dtype):
+    """The wrapper launches the kernel ``choose_kernel`` names, and only
+    that one; a view of ``w`` with an offset off the 16-byte grid goes to
+    the general kernel."""
+    fast = "wgmma" if dtype == torch.bfloat16 else "fma"
+    for (m, k, n), want in (((203, 72, 40), fast), ((203, 77, 45), "general")):
+        x, w, _, _ = _mm_inputs(1, m, k, n, dtype, dev)
+        before = {name: fn.launches for name, fn in _KERNELS.items()}
+        matmul_stats_cuda(x, w)
+        after = {name: fn.launches for name, fn in _KERNELS.items()}
+        assert {name: after[name] - before[name] for name in after} == {
+            name: int(name == want) for name in after}
+    x, w, _, _ = _mm_inputs(2, 64, 72, 41, dtype, dev)
+    w_off = w[:, 1:]  # [72, 40], strides (41, 1), data pointer off the grid
+    before = matmul_stats_general_cuda.launches
+    got = matmul_stats_cuda(x, w_off)
+    assert matmul_stats_general_cuda.launches == before + 1
+    want = matmul_stats_plain(x, w_off)
+    assert float((got[0].float() - want[0].float()).abs().max()) <= 2.0 ** -7 * \
+        float(want[0].float().abs().max())
+
+
+def test_fast_matmul_stats_kernels_refuse_other_shapes(dev):
+    x, w, _, _ = _mm_inputs(0, 16, 77, 45, torch.float32, dev)
+    with pytest.raises(ValueError, match="does not take"):
+        matmul_stats_fma_cuda(x, w)
+    with pytest.raises(ValueError, match="does not take"):
+        matmul_stats_wgmma_cuda(x.bfloat16(), w.bfloat16())
+    x, w, _, _ = _mm_inputs(0, 16, 72, 40, torch.float32, dev)
+    with pytest.raises(ValueError, match="does not take"):
+        matmul_stats_wgmma_cuda(x, w)  # f32 goes to the fma kernel
 
 
 def test_matmul_stats_kernel_refuses_what_it_does_not_take(dev):

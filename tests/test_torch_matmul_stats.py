@@ -22,6 +22,7 @@ import torch
 from vision_tpu.ops._pallas.conv1x1_bn import _reference_impl
 from vision_tpu.ops._pallas.conv1x1_bn import matmul_stats as jax_matmul_stats
 from vision_tpu_torch.ops._conv1x1_bn import (
+    choose_kernel,
     matmul_stats,
     matmul_stats_cuda,
     matmul_stats_plain,
@@ -148,3 +149,91 @@ def test_cpu_tensors_never_reach_the_kernel():
     assert matmul_stats_cuda.launches == before
     with pytest.raises(ValueError, match="CUDA"):
         matmul_stats_cuda(x, w)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("prologue", [False, True])
+def test_a_transposed_view_of_w_gives_what_its_copy_gives(dtype, prologue):
+    """``w`` as the ``.t()`` view of a ``[N, K]`` weight against its
+    contiguous copy: the same values reach the same products, so ``y``, the
+    sums and every gradient are equal bit for bit, in both types."""
+    x, w, sc, sh = _inputs(7, 96, 40, 24)
+    grads, outs = [], []
+    for as_view in (True, False):
+        xt = torch.from_numpy(x).to(_TDT[dtype]).requires_grad_()
+        wt = torch.from_numpy(np.ascontiguousarray(w.T)).to(_TDT[dtype])
+        wt.requires_grad_()  # the [N, K] weight, as a conv holds it
+        wm = wt.t() if as_view else wt.t().contiguous()
+        assert wm.is_contiguous() != as_view
+        leaves = [xt, wt]
+        args = [xt, wm]
+        if prologue:
+            leaves += [torch.from_numpy(a).requires_grad_() for a in (sc, sh)]
+            args += leaves[2:]
+        out = matmul_stats(*args)
+        _loss_torch(*out).backward()
+        outs.append([o.detach() for o in out])
+        grads.append([leaf.grad for leaf in leaves])
+    for a, b in zip(outs[0] + grads[0], outs[1] + grads[1]):
+        assert torch.equal(a, b)
+
+
+# (M, K, N, prologue) of the 36 products of a ResNet-50 forward at batch 32
+_RESNET50_CASES = [
+    (100352, 64, 64, False), (100352, 64, 256, True), (100352, 64, 256, False),
+    (100352, 256, 64, False), (100352, 256, 128, False),
+    (25088, 128, 512, True), (25088, 256, 512, False), (25088, 512, 128, False),
+    (25088, 512, 256, False),
+    (6272, 256, 1024, True), (6272, 512, 1024, False), (6272, 1024, 256, False),
+    (6272, 1024, 512, False),
+    (1568, 512, 2048, True), (1568, 1024, 2048, False), (1568, 2048, 512, False),
+]
+
+
+@pytest.mark.parametrize("dtype,want", [(torch.float32, "fma"),
+                                        (torch.bfloat16, "wgmma")])
+@pytest.mark.parametrize("m,k,n,prologue", _RESNET50_CASES)
+def test_resnet50_products_never_take_the_general_kernel(m, k, n, prologue,
+                                                         dtype, want):
+    """Both as the transposed view of the conv weight (strides ``(1, K)``)
+    and as a contiguous ``[K, N]`` matrix (strides ``(N, 1)``)."""
+    assert choose_kernel(m, k, n, dtype, (1, k)) == want
+    assert choose_kernel(m, k, n, dtype, (n, 1)) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n,w_strides,aligned", [
+    (203, 77, 45, (45, 1), True),     # nothing divides
+    (203, 77, 48, (48, 1), True),     # K is not a whole number of 16 bytes
+    (203, 72, 45, (1, 72), True),     # N is not
+    (130, 0, 8, (8, 1), True),        # K = 0
+    (1, 1, 1, (1, 1), True),
+    (64, 64, 64, (128, 2), True),     # no unit stride
+    (64, 64, 64, (1, 65), True),      # rows of w off the 16-byte grid
+    (64, 64, 64, (64, 1), False),     # a pointer off the 16-byte grid
+    (1000, 130, 260, (260, 1), True),
+])
+def test_unaligned_products_always_take_the_general_kernel(m, k, n, w_strides,
+                                                           aligned, dtype):
+    assert choose_kernel(m, k, n, dtype, w_strides, aligned) == "general"
+
+
+@pytest.mark.parametrize("m,k,n,w_strides,want32,want16", [
+    (203, 72, 40, (40, 1), "fma", "wgmma"),   # ragged M, 16-byte rows
+    (203, 72, 40, (1, 72), "fma", "wgmma"),
+    (50, 36, 44, (44, 1), "fma", "general"),  # 16-byte rows in f32 only
+    (50, 4, 4, (1, 4), "fma", "general"),
+])
+def test_the_choice_follows_the_16_byte_unit_of_the_type(m, k, n, w_strides,
+                                                         want32, want16):
+    assert choose_kernel(m, k, n, torch.float32, w_strides) == want32
+    assert choose_kernel(m, k, n, torch.bfloat16, w_strides) == want16
+
+
+def test_the_resnet_weight_matrix_is_a_view():
+    from vision_tpu_torch.models.resnet import _matrix
+
+    conv = torch.nn.Conv2d(24, 40, 1, bias=False)
+    wm = _matrix(conv)
+    assert wm.shape == (24, 40) and wm.stride() == (1, 24)
+    assert wm.data_ptr() == conv.weight.data_ptr()

@@ -5,8 +5,8 @@ library with a plain C interface and loaded with ``ctypes``. Nothing
 happens at import time: the first call to :func:`load` builds every
 source that is not yet built (one ``nvcc`` process per source, all
 started together) into ``build/kernels/`` at the root of the checkout,
-keyed by a hash of the source and the flags, so an edited source
-rebuilds and an unchanged one is reused.
+keyed by a hash of the source, the shared ``*.cuh`` headers and the flags,
+so an edited source rebuilds and an unchanged one is reused.
 
 Every C entry point launches on the stream it is given, allocates
 nothing, and returns ``cudaGetLastError()``; :func:`check` raises on a
@@ -37,6 +37,7 @@ _NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 
 # name -> (source, extra nvcc flags, {C function: argtypes}).
@@ -49,6 +50,18 @@ _KERNELS: Dict[str, Tuple[str, List[str], Dict[str, list]]] = {
         {"vt_matmul_stats": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _P],
          "vt_matmul_stats_tile_m": []},
+    ),
+    "matmul_stats_fma": (
+        "matmul_stats_fma.cu", [],
+        {"vt_matmul_stats_fma": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                 _L, _L, _L, _P],
+         "vt_matmul_stats_fma_tile_m": [_I, _I]},
+    ),
+    "matmul_stats_wgmma": (
+        "matmul_stats_wgmma.cu", [],
+        {"vt_matmul_stats_wgmma": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   _L, _L, _L, _P],
+         "vt_matmul_stats_wgmma_tile_m": [_I, _I]},
     ),
     "nms": (
         "nms.cu", ["-fmad=false"],
@@ -98,8 +111,9 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     source, extra, _ = _KERNELS[name]
+    headers = b"".join(p.read_bytes() for p in sorted(_CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        (_CSRC / source).read_bytes()
+        (_CSRC / source).read_bytes() + headers
         + " ".join(_NVCC_FLAGS + extra).encode()
     ).hexdigest()[:16]
     return build_dir() / f"lib{name}-{digest}.so"

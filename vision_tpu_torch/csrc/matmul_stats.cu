@@ -31,14 +31,18 @@
 // What bounds it: 2*M*K*N operations against M*K + K*N + M*N elements moved.
 // At ResNet-50's shapes (K, N from 64 to 2048) f32 is bound by operations
 // at the card's FP32 rate except where K or N is 64, and bf16 would be bound
-// by bytes at the tensor cores' rate. This first version multiplies with
-// FP32 FMAs in both types (bf16 values are widened on the way into shared
-// memory); the tensor cores (wgmma) and TMA loads are left to a later
-// change.
+// by bytes at the tensor cores' rate. This kernel multiplies with FP32 FMAs
+// in both types (bf16 values are widened on the way into shared memory) and
+// reaches a quarter of the FP32 rate. It is the guarded general kernel: the
+// shapes whose rows are whole 16-byte units go to matmul_stats_wgmma.cu
+// (bf16, tensor cores, TMA) and matmul_stats_fma.cu (f32, cp.async ring);
+// this one takes the rest, K = 0 included.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "matmul_stats_common.cuh"
 
 namespace {
 
@@ -208,29 +212,6 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int r = 0; r < 16; ++r) s += red[which][r][lc];  // fixed order
     (which ? ws2 : ws1)[(size_t)blockIdx.x * N + n0 + lc] = s;
-  }
-}
-
-// s[n] = sum over the M tiles of ws[tile, n], in a fixed order.
-// grid (ceil(N/32), 2), block (32, 8).
-__global__ void column_sums_kernel(const float* __restrict__ ws1,
-                                   const float* __restrict__ ws2, int tiles_m,
-                                   int N, float* __restrict__ s1,
-                                   float* __restrict__ s2) {
-  __shared__ float part[8][33];
-  const float* ws = blockIdx.y ? ws2 : ws1;
-  float* out = blockIdx.y ? s2 : s1;
-  const int n = blockIdx.x * 32 + threadIdx.x;
-  float acc = 0.0f;
-  if (n < N)
-    for (int r = threadIdx.y; r < tiles_m; r += 8) acc += ws[(size_t)r * N + n];
-  part[threadIdx.y][threadIdx.x] = acc;
-  __syncthreads();
-  if (threadIdx.y == 0 && n < N) {
-    float s = 0.0f;
-#pragma unroll
-    for (int r = 0; r < 8; ++r) s += part[r][threadIdx.x];
-    out[n] = s;
   }
 }
 

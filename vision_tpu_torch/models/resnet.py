@@ -106,8 +106,9 @@ def _rows(x: torch.Tensor) -> torch.Tensor:
 
 def _matrix(conv: nn.Conv2d) -> torch.Tensor:
     """The 1x1 conv's ``[out, in, 1, 1]`` weight as the ``[K, N]`` matrix
-    of the product (a transposed copy)."""
-    return conv.weight.flatten(1).t().contiguous()
+    of the product: a transposed view, which ``matmul_stats`` reads where
+    it lies."""
+    return conv.weight.flatten(1).t()
 
 
 def _mean_var(s1: torch.Tensor, s2: torch.Tensor, count: int):

@@ -125,6 +125,13 @@ def main() -> None:
         "kernel_launches_per_step": sum(e.count for e in kernels) / args.steps,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "row_matrices_per_forward": rows,
+        "direct_copy": {
+            "launches_per_step": sum(
+                e.count for e in kernels if "direct_copy" in e.key) / args.steps,
+            "ms_per_step": sum(
+                _device_us(e) for e in kernels
+                if "direct_copy" in e.key) / 1e3 / args.steps,
+        },
     }))
     print(json.dumps({"device_ms_by_group": dict(
         sorted(groups.items(), key=lambda kv: -kv[1]))}))
