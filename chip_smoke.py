@@ -24,7 +24,9 @@ model through the plain versions. The counts of launches are set to 0 just
 before each path is driven and read just after; a kernel that its path did
 not launch fails the run.
 
-Each phase prints one JSON line as it ends. Then come the card's name and
+Each phase prints one JSON line as it ends; every kernel case carries its
+wrapper-clock ``ms`` (median of single calls) and its ``device_ms`` (20
+calls queued behind a spin kernel, over 20). Then come the card's name and
 power limit as ``nvidia-smi`` reports them, the per-kernel JSON line, and
 last ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 without that last line; so does a machine without CUDA, or a directory
@@ -317,7 +319,8 @@ def roi_work(args):
 
 def compare_kernel(fn, plain, args, exact=False):
     """Kernel against plain version on the same inputs: (max abs error,
-    that error relative to the largest plain value, kernel ms, plain ms)."""
+    that error relative to the largest plain value, kernel ms by the
+    wrapper clock, kernel ``device_ms``, plain ms)."""
     import torch
 
     got = fn(*args)
@@ -330,8 +333,9 @@ def compare_kernel(fn, plain, args, exact=False):
         err = float((got - want).abs().max()) if got.numel() else 0.0
         rel = err / max(float(want.abs().max()), 1e-30) if got.numel() else 0.0
     ms = cuda_ms(lambda: fn(*args))
+    dev_ms = device_ms(lambda: fn(*args))
     plain_ms = cuda_ms(lambda: plain(*args), reps=5, warmup=1)
-    return err, rel, ms, plain_ms
+    return err, rel, ms, dev_ms, plain_ms
 
 
 def main() -> int:
@@ -467,11 +471,13 @@ def rowscan_phase(kernels, model, images, dets):
     fn, plain = kernels.cuda["nms_rowscan"], kernels.plain["nms_rowscan"]
     cases = []
     for args in calls["nms_rowscan"]:
-        err, rel, k_ms, plain_ms = compare_kernel(fn, plain, args, exact=True)
+        err, rel, k_ms, dev_ms, plain_ms = compare_kernel(fn, plain, args,
+                                                          exact=True)
         b_ms, b_by = bound_ms(*nms_work(args))
         case = dict(kernel="nms_rowscan", shape=list(args[1].shape),
                     max_abs_err=err, max_rel_err=rel, rel_tol=0.0, ms=k_ms,
-                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+                    device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                    bound_by=b_by)
         emit("kernel_case", **case)
         cases.append(case)
         if err > 0:
@@ -483,6 +489,7 @@ def rowscan_phase(kernels, model, images, dets):
         "launches": launches["nms_rowscan"],
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": sum(c["ms"] for c in cases),
+        "device_ms": sum(c["device_ms"] for c in cases),
         "plain_ms": sum(c["plain_ms"] for c in cases),
         "bound_ms": sum(c["bound_ms"] for c in cases),
         "bound_by": cases[0]["bound_by"],
@@ -860,12 +867,13 @@ def kernel_phases(kernels, calls, launches):
             else:
                 work = roi_work(args)
                 shape = [list(args[0].shape), list(args[1].shape)]
-            err, rel, ms, plain_ms = compare_kernel(fn, plain, args,
-                                                    exact=name == "nms")
+            err, rel, ms, dev_ms, plain_ms = compare_kernel(
+                fn, plain, args, exact=name == "nms")
             b_ms, b_by = bound_ms(*work)
             case = dict(kernel=name, shape=shape, max_abs_err=err,
                         max_rel_err=rel, rel_tol=tolerance[name], ms=ms,
-                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+                        device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=b_by)
             emit("kernel_case", **case)
             cases.append(case)
             if rel > tolerance[name]:
@@ -873,13 +881,15 @@ def kernel_phases(kernels, calls, launches):
                                    f"{rel} > {tolerance[name]} (relative)")
         if name == "roi_align":
             cases += roi_align_extra_cases(fn, plain, calls, tolerance[name])
+        main = cases[: len(calls[name])]
         rows.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1], "launches": launches[name],
             "max_abs_err": max(c["max_abs_err"] for c in cases),
-            "ms": sum(c["ms"] for c in cases[: len(calls[name])]),
-            "plain_ms": sum(c["plain_ms"] for c in cases[: len(calls[name])]),
-            "bound_ms": sum(c["bound_ms"] for c in cases[: len(calls[name])]),
+            "ms": sum(c["ms"] for c in main),
+            "device_ms": sum(c["device_ms"] for c in main),
+            "plain_ms": sum(c["plain_ms"] for c in main),
+            "bound_ms": sum(c["bound_ms"] for c in main),
             "bound_by": cases[0]["bound_by"],
             "library_ms": None,
             "calls_per_forward": len(calls[name]),
@@ -895,12 +905,12 @@ def roi_align_extra_cases(fn, plain, calls, tol):
     inp, rois, size, scale = args[:4]
     for sr, aligned in ((2, True), (0, False)):
         a = (inp, rois, size, scale, sr, aligned)
-        err, rel, ms, plain_ms = compare_kernel(fn, plain, a)
+        err, rel, ms, dev_ms, plain_ms = compare_kernel(fn, plain, a)
         b_ms, b_by = bound_ms(*roi_work(a))
         case = dict(kernel="roi_align", shape=[list(inp.shape), list(rois.shape)],
                     sampling_ratio=sr, aligned=aligned, max_abs_err=err,
-                    max_rel_err=rel, rel_tol=tol, ms=ms, plain_ms=plain_ms,
-                    bound_ms=b_ms, bound_by=b_by)
+                    max_rel_err=rel, rel_tol=tol, ms=ms, device_ms=dev_ms,
+                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
         emit("kernel_case", **case)
         out.append(case)
         if rel > tol:

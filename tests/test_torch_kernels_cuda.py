@@ -6,7 +6,7 @@ never at import). Run on a GPU host with:
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda
 
 Tolerances: NMS keep masks exactly equal (both kernels); RoIAlign 1e-5 and
-the window pool 1e-4 absolute on inputs of order 1 (sums in another order);
+the window pool 1e-4 absolute (and 1e-5 relative) on inputs of order 1 (sums in another order);
 ``matmul_stats`` in f32 within 1e-4 of the largest value of ``y`` and of
 each sum, in bf16 ``y`` within one bf16 step of the largest (a step is
 2**-8 to 2**-7 of the value it rounds) and the sums within 2e-3 (a flipped
@@ -14,6 +14,11 @@ rounding of one ``y`` moves a sum by a bf16 step of that value); at the
 ResNet-50 cases, where thousands of rows average such flips out, the sums
 within 1e-4 in both types.
 """
+
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -98,25 +103,82 @@ def test_roi_align_kernel_matches_plain(dev, aligned, sr):
     torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("c,ph", [(256, 7), (40, 14)])
-def test_window_pool_kernel_matches_plain(dev, c, ph):
-    rng = np.random.RandomState(3)
-    k, winy, winx, r_rows, wmax = 50, 32, 32, 200, 64
+def _window_case(rng, k, c, ph, winy, winx, r_rows=200, wmax=64):
+    """Windows at random origins, the first four touching the last row
+    and the last column of ``stacked``; weights that are zero outside a
+    range with a gap inside it, all zero for one RoI, and non-zero over
+    every column for some (more than one group of 16 columns)."""
     stacked = torch.from_numpy(rng.randn(r_rows, wmax, c).astype(np.float32))
-    row0 = torch.from_numpy(rng.randint(0, r_rows - winy + 1, k).astype(np.int32))
-    x0 = torch.from_numpy(rng.randint(0, wmax - winx + 1, k).astype(np.int32))
+    row0 = rng.randint(0, r_rows - winy + 1, k)
+    x0 = rng.randint(0, wmax - winx + 1, k)
+    row0[:2], x0[1:4] = r_rows - winy, wmax - winx
     w_y = rng.rand(k, ph, winy).astype(np.float32)
-    w_y[:, :, 20:] = 0.0  # rows the kernel skips
-    w_y = torch.from_numpy(w_y)
-    w_x = torch.from_numpy(rng.rand(k, ph, winx).astype(np.float32))
-    want = window_pool_plain(stacked, row0, x0, w_y, w_x, 4.0)
-    got = window_pool_cuda(*(t.to(dev) for t in (stacked, row0, x0, w_y, w_x)),
-                           4.0)
+    w_x = rng.rand(k, ph, winx).astype(np.float32)
+    w_y[:, :, : winy // 8] = 0.0  # rows before the range
+    w_y[:, :, winy // 2: winy // 2 + 3] = 0.0  # a gap inside it
+    w_y[4:, :, winy - winy // 4:] = 0.0  # rows after it, but not where
+    w_x[k // 2:, :, winx // 2 + 1:] = 0.0  # windows touch the last row
+    w_x[5, :, :] = 0.0  # nothing to read
+    return (stacked, torch.from_numpy(row0.astype(np.int32)),
+            torch.from_numpy(x0.astype(np.int32)), torch.from_numpy(w_y),
+            torch.from_numpy(w_x))
+
+
+@pytest.mark.parametrize("winy,winx", [(32, 32), (20, 40)])
+@pytest.mark.parametrize("ph", [7, 14])
+@pytest.mark.parametrize("c", [1, 33, 64, 256])
+def test_window_pool_kernel_matches_plain(dev, c, ph, winy, winx):
+    rng = np.random.RandomState(3 + c + ph + winx)
+    args = _window_case(rng, 50, c, ph, winy, winx)
+    want = window_pool_plain(*args, 4.0)
+    before = window_pool_cuda.launches
+    got = window_pool_cuda(*(t.to(dev) for t in args), 4.0)
     torch.cuda.synchronize()
+    assert window_pool_cuda.launches == before + 1
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-5)
-    with pytest.raises(ValueError, match="leaves the pyramid"):
-        window_pool_cuda(stacked.to(dev), (row0 + r_rows).to(dev), x0.to(dev),
-                         w_y.to(dev), w_x.to(dev))
+    assert not got[5].any()
+
+
+def test_window_pool_kernel_fails_on_a_window_outside_the_pyramid(dev):
+    """The bounds check runs on the card: the call returns, and the launch
+    fails at the next synchronisation. The CUDA context does not survive
+    that, so it runs in a process of its own."""
+    script = """if True:
+        import numpy as np, torch
+        from vision_tpu_torch.ops.poolers import window_pool_cuda
+        st = torch.zeros(20, 10, 4, device="cuda")
+        w = torch.ones(1, 2, 8, device="cuda")
+        row0 = torch.tensor([13], device="cuda")
+        window_pool_cuda(st, row0, torch.tensor([0], device="cuda"), w, w)
+        print("returned", flush=True)
+        torch.cuda.synchronize()
+        print("synchronised", flush=True)
+    """
+    root = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=str(root))
+    proc = subprocess.run([sys.executable, "-c", script], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert "returned" in proc.stdout and "synchronised" not in proc.stdout
+    assert "CUDA error" in proc.stderr, proc.stderr[-2000:]
+
+
+def test_kernels_make_no_host_synchronisation(dev):
+    """Under the sync debug mode "error", any PyTorch operation that waits
+    for the card raises; neither wrapper does."""
+    rng = np.random.RandomState(5)
+    args = [t.to(dev) for t in _window_case(rng, 20, 64, 7, 32, 32)]
+    boxes, valid = (t.to(dev) for t in _sorted_boxes(rng, 2, 300))
+    window_pool_cuda(*args)  # builds the kernels outside the checked region
+    nms_keep_sorted_rowscan_cuda(boxes, valid, 0.5)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        window_pool_cuda(*args)
+        nms_keep_sorted_rowscan_cuda(boxes, valid, 0.5)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
 
 
 def test_multiscale_pooler_on_card_matches_cpu(dev):
@@ -136,22 +198,66 @@ def test_multiscale_pooler_on_card_matches_cpu(dev):
     torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("thr", [0.0, 0.5, 0.9])
 @pytest.mark.parametrize("b", [1, 5])
-@pytest.mark.parametrize("n", [1, 63, 1000, 20000])
-def test_nms_rowscan_kernel_equals_plain(dev, b, n):
-    """N = 20000 does not fit in shared memory: the global-memory form.
-    The plain version builds an N x N matrix, so it runs row by row there."""
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 63, 1000, 1024, 1025, 11068,
+                               11069, 14256, 14257, 20000])
+def test_nms_rowscan_kernel_equals_plain(dev, b, n, thr):
+    """Rows above 14,256 boxes keep their coordinates in global memory. The
+    plain version builds an N x N matrix, so it runs row by row."""
     boxes, valid = _sorted_boxes(np.random.RandomState(n + b), b, n)
     boxes, valid = boxes.to(dev), valid.to(dev)
     before = nms_keep_sorted_rowscan_cuda.launches
-    got = nms_keep_sorted_rowscan_cuda(boxes, valid, 0.5)
+    got = nms_keep_sorted_rowscan_cuda(boxes, valid, thr)
     torch.cuda.synchronize()
     assert nms_keep_sorted_rowscan_cuda.launches == before + 1
     assert got.dtype == torch.bool and not got[~valid].any()
-    want = torch.cat([nms_keep_sorted_plain(boxes[i:i + 1], valid[i:i + 1], 0.5)
+    want = torch.cat([nms_keep_sorted_plain(boxes[i:i + 1], valid[i:i + 1], thr)
                       for i in range(b)])
     assert torch.equal(got, want)
-    assert torch.equal(got, nms_keep_sorted_cuda(boxes, valid, 0.5))
+    assert torch.equal(got, nms_keep_sorted_cuda(boxes, valid, thr))
+
+
+@pytest.mark.parametrize("thr", [
+    -0.25, 1 / 3, 1.0, float(np.array(71363, np.uint32).view(np.float32)),
+])
+def test_nms_rowscan_kernel_threshold_edges(dev, thr):
+    """Thresholds where the rowscan kernel's division-free comparison takes
+    its other branches: below 0, not a short binary fraction, 1, and an odd
+    subnormal (where a quotient can tie the rounding boundary)."""
+    boxes, valid = _sorted_boxes(np.random.RandomState(7), 2, 1000)
+    boxes, valid = boxes.to(dev), valid.to(dev)
+    got = nms_keep_sorted_rowscan_cuda(boxes, valid, thr)
+    assert torch.equal(got, nms_keep_sorted_plain(boxes, valid, thr))
+    assert torch.equal(got, nms_keep_sorted_cuda(boxes, valid, thr))
+
+
+def test_nms_rowscan_kernel_takes_unaligned_boxes(dev):
+    """A view whose data does not start on 16 bytes (the kernel reads each
+    box as one float4): the wrapper copies it."""
+    boxes, valid = _sorted_boxes(np.random.RandomState(8), 2, 300)
+    flat = torch.zeros(2 * 300 * 4 + 1, device=dev)
+    flat[1:] = boxes.flatten().to(dev)
+    view = flat[1:].view(2, 300, 4)
+    assert view.data_ptr() % 16 != 0
+    got = nms_keep_sorted_rowscan_cuda(view, valid.to(dev), 0.5)
+    assert torch.equal(got.cpu(), nms_keep_sorted_plain(boxes, valid, 0.5))
+
+
+@pytest.mark.parametrize("n", [33, 1000, 14257])
+def test_nms_rowscan_kernel_all_or_nothing(dev, n):
+    """A row of disjoint boxes keeps every valid box; a row of copies of
+    one box keeps box 0 alone."""
+    ij = np.stack(np.divmod(np.arange(n), 128), 1).astype(np.float32) * 10
+    disjoint = np.concatenate([ij, ij + 5], 1)
+    copies = np.tile(np.array([[10, 10, 60, 60]], np.float32), (n, 1))
+    boxes = torch.from_numpy(np.stack([disjoint, copies])).to(dev)
+    valid = torch.ones(2, n, dtype=torch.bool, device=dev)
+    valid[0, 1::7] = False
+    boxes[0][~valid[0]] = 0.0
+    got = nms_keep_sorted_rowscan_cuda(boxes, valid, 0.5)
+    assert torch.equal(got[0], valid[0])
+    assert torch.equal(got[1], torch.arange(n, device=dev) == 0)
 
 
 def test_nms_rowscan_switch_on_card(dev, monkeypatch):

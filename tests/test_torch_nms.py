@@ -178,3 +178,126 @@ def test_rowscan_switch_is_read_at_every_call(monkeypatch):
     monkeypatch.setenv("VISION_TPU_NMS_KERNEL", "bitmask")
     tnms.nms_keep_sorted(boxes, valid, 0.5)
     assert picked == ["bitmask", "rowscan", "bitmask"]
+
+
+def _chunked_rowscan(above, valid):
+    """A model of the chunked schedule of ``csrc/nms_rowscan.cu`` over a
+    boolean ``above[i, j]`` (IoU of i and j above the threshold): removed
+    bits in words of 32 boxes; per word, each live box's bits of the later
+    live boxes it would suppress, resolved in greedy order (the next live
+    box by lowest set bit); then every later live box tested against the
+    word's kept boxes only."""
+    n = valid.shape[0]
+    words = -(-n // 32)
+    removed = np.ones(words * 32, bool)
+    removed[:n] = ~valid
+    for c in range(words):
+        lo = 32 * c
+        live = ~removed[lo:lo + 32]
+        sup = np.zeros((32, 32), bool)  # lane i: the later bits it clears
+        for i in np.flatnonzero(live):
+            for l in np.flatnonzero(live[i + 1:]) + i + 1:
+                sup[i, l] = above[lo + i, lo + l]
+        alive, kept = live.copy(), np.zeros(32, bool)
+        while alive.any():
+            l = int(np.argmax(alive))
+            kept[l], alive[l] = True, False
+            alive &= ~sup[l]
+        removed[lo:lo + 32] = ~kept
+        if kept.any() and lo + 32 < n:
+            rest = np.arange(lo + 32, n)
+            hit = above[np.ix_(lo + np.flatnonzero(kept), rest)].any(0)
+            removed[rest] |= hit & ~removed[rest]
+    return ~removed[:n]
+
+
+def _schedule_case(kind, n, seed):
+    rng = np.random.RandomState(seed)
+    if kind == "random":
+        boxes = _boxes(rng, n, degenerate=min(3, n // 4))
+        valid = rng.rand(n) > 0.2
+    elif kind == "all_survive":  # a grid of disjoint boxes
+        ij = np.stack(np.divmod(np.arange(n), 16), 1).astype(np.float32) * 10
+        boxes = np.concatenate([ij, ij + 5], 1)
+        valid = np.ones(n, bool)
+    else:  # "first_suppresses_all": copies of one box, slightly shifted
+        base = np.array([10, 10, 60, 60], np.float32)
+        boxes = base + rng.uniform(0, 1e-3, (n, 1)).astype(np.float32)
+        valid = np.ones(n, bool)
+    return np.where(valid[:, None], boxes, 0.0).astype(np.float32), valid
+
+
+@pytest.mark.parametrize("kind", ["random", "all_survive", "first_suppresses_all"])
+@pytest.mark.parametrize("thr", [0.0, 0.3, 0.5, 0.9])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 64, 200])
+def test_chunked_rowscan_schedule_matches_plain_and_pallas(n, thr, kind):
+    """The schedule of the card's row-serial kernel gives the greedy mask
+    bit for bit: against the port's plain version and, on random rows, the
+    JAX row-serial kernel in interpret mode."""
+    boxes, valid = _schedule_case(kind, n, 400 + n)
+    tboxes = torch.from_numpy(boxes)
+    above = (tnms._iou_matrix(tboxes) > thr).numpy()
+    got = _chunked_rowscan(above, valid)
+    want = tnms.nms_keep_sorted_plain(
+        tboxes[None], torch.from_numpy(valid)[None], thr)[0].numpy()
+    np.testing.assert_array_equal(got, want)
+    if kind == "all_survive":
+        np.testing.assert_array_equal(got, valid)
+    elif kind == "first_suppresses_all":
+        np.testing.assert_array_equal(got, np.arange(n) == 0)
+    if kind == "random":
+        kernel = np.asarray(nms_pallas_sorted(
+            jnp.asarray(boxes), jnp.asarray(valid), thr, interpret=True)) & valid
+        np.testing.assert_array_equal(got, kernel)
+
+
+def _above_without_division(inter, uni, thr):
+    """The rule ``csrc/nms_rowscan.cu`` uses for ``fl(inter / uni) > thr``:
+    compare ``inter`` with ``mid * uni`` in float64, ``mid`` the midpoint
+    between ``thr`` and the next float32 above it; a tie rounds to the even
+    neighbour."""
+    thr = np.float32(thr)
+    zero_above = np.float32(0) > thr
+    if np.isnan(thr) or thr == np.inf:
+        mid, odd = np.nan if np.isnan(thr) else np.inf, False
+    elif thr < 0:
+        mid, odd = -np.inf, False
+    else:
+        _, e = np.frexp(np.float64(thr))
+        tiny = np.finfo(np.float32).tiny
+        ulp = 2.0 ** (int(e) - 24) if thr >= tiny else 2.0 ** -149
+        mid, odd = np.float64(thr) + ulp / 2, bool(thr.view(np.uint32) & 1)
+    x = inter.astype(np.float64)
+    with np.errstate(invalid="ignore"):
+        p = mid * uni.astype(np.float64)
+    return np.where(uni > 0, (x > p) | (odd & (x == p)), zero_above)
+
+
+@pytest.mark.parametrize("thr", [
+    0.0, 0.3, 0.5, 0.7, 0.9, 1.0, 1 / 3, 0.7000000476837158, -0.25, np.inf,
+    np.nan, 1e-40,
+    float(np.array(71363, np.uint32).view(np.float32)),  # odd, subnormal
+])
+def test_threshold_rule_equals_rounded_division(thr):
+    """Quotients on both sides of the threshold: ``inter`` is the float32
+    product ``thr * uni`` and its neighbours, so ``fl(inter / uni)`` lands
+    on ``thr`` or next to it; and random pairs. An exact tie needs a
+    threshold of fewer than 24 significant bits, a subnormal one: the last
+    two cases."""
+    rng = np.random.RandomState(11)
+    uni = np.concatenate([
+        rng.uniform(1e-3, 1e4, 4000), rng.uniform(0.5, 2, 4000),
+        2.0 ** rng.randint(-20, 20, 200), [0.0, -1.0, 1e-45, 3.0],
+    ]).astype(np.float32)
+    t = np.float32(thr) if np.isfinite(thr) and thr >= 0 else np.float32(0.5)
+    with np.errstate(over="ignore", invalid="ignore"):
+        base = (uni * t).astype(np.float32)
+        inter = np.concatenate([base + np.float32(0)] + [
+            np.nextafter(base, np.float32(s * np.inf)) for s in (-1, 1)
+        ] + [rng.uniform(0, 1e4, uni.size).astype(np.float32)]).astype(np.float32)
+    uni = np.tile(uni, 4)
+    inter = np.abs(inter)
+    with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+        iou = np.where(uni > 0, inter / uni, np.float32(0)).astype(np.float32)
+    want = iou > np.float32(thr)
+    np.testing.assert_array_equal(_above_without_division(inter, uni, thr), want)

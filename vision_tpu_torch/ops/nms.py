@@ -111,6 +111,8 @@ def nms_keep_sorted_rowscan_cuda(
     the same mask as :func:`nms_keep_sorted_plain`). One launch per call,
     one block per batch row, no scratch."""
     boxes, valid = _sorted_args(boxes, valid, "nms_keep_sorted_rowscan_cuda")
+    if boxes.data_ptr() % 16:  # the kernel reads a box as one float4
+        boxes = boxes.clone()
     b, n = valid.shape
     keep = torch.empty(b, n, dtype=torch.bool, device=boxes.device)
     lib = _kernels.load("nms_rowscan")

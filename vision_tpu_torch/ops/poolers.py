@@ -11,7 +11,8 @@ Two formulations with the same result:
   levels are stacked along H into one channels-last pyramid
   ``[R, WMAX, C]``, and each RoI contracts its ``win x win`` window with
   local separable bilinear weights (:func:`window_pool`, the CUDA kernel
-  ``csrc/window_pool.cu`` on the card). RoIs whose samples leave the
+  ``csrc/window_pool.cu`` on the card, which checks each window's bounds
+  itself). RoIs whose samples leave the
   window are found exactly and recomputed by the dense path at a fixed
   capacity of ``min(overflow_capacity, K)`` rows, which runs on every
   call.
@@ -90,8 +91,12 @@ def window_pool_cuda(
     div: float = 1.0,
 ) -> torch.Tensor:
     """The kernel of ``csrc/window_pool.cu`` (same contract as
-    :func:`window_pool_plain`; f32, any C, ``PH <= 16``). Raises when a
-    window does not lie inside ``stacked``."""
+    :func:`window_pool_plain`; f32, any C, ``PH, PW <= 16``).
+
+    It makes no host synchronisation. The kernel checks on the card that
+    each window lies inside ``stacked``; a window that does not stops the
+    launch, so the error surfaces at the next synchronisation (as a CUDA
+    error, after which the CUDA context is unusable), not at this call."""
     tensors = (stacked, row0, x0, w_y, w_x)
     if any(t.device != stacked.device for t in tensors) or (
         stacked.device.type != "cuda"
@@ -103,12 +108,11 @@ def window_pool_cuda(
         raise ValueError("window_pool_cuda takes f32 pyramid and weights")
     k, ph, winy = w_y.shape
     _, pw, winx = w_x.shape
-    if ph > 16:
-        raise ValueError(f"window_pool_cuda takes PH <= 16, got {ph}")
+    if ph > 16 or pw > 16:
+        raise ValueError(f"window_pool_cuda takes PH, PW <= 16, got {ph}, {pw}")
     r_rows, wmax, c = stacked.shape
     row0 = row0.to(torch.int32).contiguous()
     x0 = x0.to(torch.int32).contiguous()
-    _check_windows(stacked, row0, x0, winy, winx)
     stacked = stacked.contiguous()
     w_y = w_y.contiguous()
     w_x = w_x.contiguous()

@@ -1,0 +1,198 @@
+"""Time another version of the row-serial NMS and window-pool kernels
+against the package's own, in one process on one card, on the inputs that
+the Faster R-CNN forward of ``chip_smoke.py`` gives them.
+
+    python -m vision_tpu_torch.tools.compare_kernel_versions OTHER_DIR
+
+``OTHER_DIR`` holds ``nms_rowscan.cu`` and ``window_pool.cu`` with the same
+C entry points as ``csrc/`` (for example the files of an earlier commit,
+unpacked with ``git archive``). They are built with the package's own
+``nvcc`` flags into ``OTHER_DIR/build``. The model (seeded random weights,
+``cls_score`` x30, one seeded 832x832 image, TF32 off) runs once under
+``VISION_TPU_NMS_KERNEL=rowscan`` with both wrappers recording their
+inputs. Then, for each recorded call, the two versions' outputs are
+compared (NMS masks bit for bit, the window pool within 1e-5 of the largest
+value) and each version's device time is taken in turns (package, other,
+other, package): 20 calls queued behind a spin kernel, over 20. The
+package's row-serial NMS is also timed on the same boxes at thresholds -1
+(every box after a row's first is suppressed: what the chain costs with no
+tests left) and 2 (every valid box is kept: the most tests). One JSON line
+per call, then the card's name and power limit. Needs a CUDA device and
+``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import importlib
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+from vision_tpu_torch import _kernels
+from vision_tpu_torch.models import get_model
+
+SPIN_CYCLES = 30_000_000  # ~17 ms: the timed calls queue behind it
+CLS_SCALE = 30.0
+SIZE = 832
+
+
+def device_ms(fn, launches: int = 20, warmup: int = 2) -> float:
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches
+
+
+def build_other(name: str, other: Path) -> ctypes.CDLL:
+    source, extra, functions = _kernels._KERNELS[name]
+    out = other / "build" / f"lib{name}.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_kernels._nvcc(), *_kernels._NVCC_FLAGS, *extra, "-o",
+                    str(out), str(other / source)], check=True)
+    lib = ctypes.CDLL(str(out))
+    for fn, argtypes in functions.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def rowscan(lib, boxes, valid, thr):
+    keep = torch.empty(valid.shape, dtype=torch.bool, device=boxes.device)
+    _kernels.check(lib.vt_nms_rowscan(
+        boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), valid.shape[0],
+        valid.shape[1], float(thr), _kernels.stream_handle(boxes)), "rowscan")
+    return keep
+
+
+def window_pool(lib, stacked, row0, x0, w_y, w_x, div):
+    k, ph, winy = w_y.shape
+    _, pw, winx = w_x.shape
+    r_rows, wmax, c = stacked.shape
+    out = torch.empty(k, c, ph, pw, device=stacked.device)
+    _kernels.check(lib.vt_window_pool(
+        stacked.data_ptr(), row0.data_ptr(), x0.data_ptr(), w_y.data_ptr(),
+        w_x.data_ptr(), out.data_ptr(), r_rows, wmax, c, k, ph, pw, winy,
+        winx, float(div), _kernels.stream_handle(stacked)), "window_pool")
+    return out
+
+
+def window_stats(stacked, row0, x0, w_y, w_x, div) -> dict:
+    """What the windows ask of a kernel: the cells of every RoI's bounding
+    range of non-zero rows and columns (what the package's kernel stages),
+    the cells of its non-zero rows and columns, and those ranges' bytes."""
+    ynz, xnz = (w_y != 0).any(1), (w_x != 0).any(1)  # [K, win]
+
+    def extent(nz):
+        idx = torch.arange(nz.shape[1], device=nz.device)
+        lo = torch.where(nz, idx, nz.shape[1]).amin(1)
+        hi = torch.where(nz, idx + 1, 0).amax(1)
+        return (hi - lo).clamp(min=0)
+
+    ny, nx = extent(ynz), extent(xnz)
+    cells = int((ny * nx).sum())
+    c = stacked.shape[2]
+    return {"rois": int(ny.numel()), "channels": c,
+            "range_cells": cells, "range_bytes": cells * c * 4,
+            "nonzero_cells": int((ynz.sum(1) * xnz.sum(1)).sum()),
+            "mean_rows": float(ny.float().mean()),
+            "mean_cols": float(nx.float().mean()),
+            "rois_over_16_cols": int((nx > 16).sum())}
+
+
+def record_inputs() -> dict:
+    """The arguments of every rowscan and window-pool call of one forward,
+    as the kernels receive them (contiguous, int32 origins)."""
+    nms = importlib.import_module("vision_tpu_torch.ops.nms")
+    poolers = importlib.import_module("vision_tpu_torch.ops.poolers")
+    calls = {"nms_rowscan": [], "window_pool": []}
+    wrappers = (nms.nms_keep_sorted_rowscan_cuda, poolers.window_pool_cuda)
+
+    def rec_nms(boxes, valid, thr):
+        calls["nms_rowscan"].append(
+            (boxes.contiguous().clone(), valid.contiguous().clone(), thr))
+        return wrappers[0](boxes, valid, thr)
+
+    def rec_pool(stacked, row0, x0, w_y, w_x, div=1.0):
+        calls["window_pool"].append((
+            stacked.contiguous().clone(), row0.to(torch.int32).contiguous(),
+            x0.to(torch.int32).contiguous(), w_y.contiguous().clone(),
+            w_x.contiguous().clone(), div))
+        return wrappers[1](stacked, row0, x0, w_y, w_x, div)
+
+    model = get_model("fasterrcnn_resnet50_fpn", seed=0)
+    with torch.no_grad():
+        model.roi_heads.box_predictor.cls_score.weight.mul_(CLS_SCALE)
+    gen = torch.Generator().manual_seed(1)
+    images = torch.randn(1, 3, SIZE, SIZE, generator=gen).cuda()
+    os.environ["VISION_TPU_NMS_KERNEL"] = "rowscan"
+    nms.nms_keep_sorted_rowscan_cuda = rec_nms
+    poolers.window_pool_cuda = rec_pool
+    try:
+        with torch.inference_mode():
+            model(images)
+        torch.cuda.synchronize()
+    finally:
+        nms.nms_keep_sorted_rowscan_cuda, poolers.window_pool_cuda = wrappers
+        del os.environ["VISION_TPU_NMS_KERNEL"]
+    return calls
+
+
+def main() -> int:
+    if len(sys.argv) != 2 or not torch.cuda.is_available():
+        print(__doc__, file=sys.stderr)
+        return 2
+    other = Path(sys.argv[1]).resolve()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    runners = {"nms_rowscan": rowscan, "window_pool": window_pool}
+    libs = {n: (_kernels.load(n), build_other(n, other)) for n in runners}
+    calls = record_inputs()
+    failed = False
+    for name, run in runners.items():
+        ours, theirs = libs[name]
+        for args in calls[name]:
+            got, want = run(ours, *args), run(theirs, *args)
+            torch.cuda.synchronize()
+            if name == "nms_rowscan":
+                err = float((got.int() - want.int()).abs().max())
+                ok = err == 0
+            else:
+                err = float((got - want).abs().max()
+                            / want.abs().max().clamp(min=1e-30))
+                ok = err <= 1e-5
+            turns = [device_ms(lambda lib=lib: run(lib, *args))
+                     for lib in (ours, theirs, theirs, ours)]
+            if name == "window_pool":
+                extra = window_stats(*args)
+            else:
+                extra = {f"device_ms_thr_{t:g}": device_ms(
+                    lambda t=t: run(ours, args[0], args[1], t))
+                    for t in (-1.0, 2.0)}
+            print(json.dumps({
+                "kernel": name, "shape": [list(a.shape) for a in args[:2]],
+                "device_ms": (turns[0] + turns[3]) / 2,
+                "other_device_ms": (turns[1] + turns[2]) / 2,
+                "turns_ms": turns, "max_err": err, "agree": ok, **extra}),
+                flush=True)
+            failed |= not ok
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
