@@ -893,6 +893,7 @@ def kernel_phases(kernels, calls, launches):
             "bound_by": cases[0]["bound_by"],
             "library_ms": None,
             "calls_per_forward": len(calls[name]),
+            **({"redesigned": "PR 5"} if name in ("nms", "roi_align") else {}),
         })
     return rows
 

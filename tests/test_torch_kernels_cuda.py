@@ -5,8 +5,9 @@ never at import). Run on a GPU host with:
 
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda
 
-Tolerances: NMS keep masks exactly equal (both kernels); RoIAlign 1e-5 and
-the window pool 1e-4 absolute (and 1e-5 relative) on inputs of order 1 (sums in another order);
+Tolerances: NMS keep masks exactly equal (both kernels); RoIAlign 1e-5
+absolute (at the pyramid shapes 1e-5 of the largest plain value) and the
+window pool 1e-4 absolute (and 1e-5 relative) on inputs of order 1 (sums in another order);
 ``matmul_stats`` in f32 within 1e-4 of the largest value of ``y`` and of
 each sum, in bf16 ``y`` within one bf16 step of the largest (a step is
 2**-8 to 2**-7 of the value it rounds) and the sums within 2e-3 (a flipped
@@ -78,6 +79,34 @@ def test_nms_kernel_equals_plain(dev, n, thr):
     assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize("thr", [-0.25, 0.0, 0.5, 0.9, 1.0])
+@pytest.mark.parametrize("b", [1, 5])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 1000, 1025, 11068, 20000])
+def test_nms_kernel_equals_plain_up_to_20000(dev, b, n, thr):
+    """The bitmask kernel's scan over rows of up to 313 words, where its
+    helpers OR kept rows into words far ahead of the chain. The plain
+    version builds an N x N matrix, so it runs row by row."""
+    boxes, valid = _sorted_boxes(np.random.RandomState(2 * n + b), b, n)
+    boxes, valid = boxes.to(dev), valid.to(dev)
+    before = nms_keep_sorted_cuda.launches
+    got = nms_keep_sorted_cuda(boxes, valid, thr)
+    torch.cuda.synchronize()
+    assert nms_keep_sorted_cuda.launches == before + 1
+    assert got.dtype == torch.bool and not got[~valid].any()
+    want = torch.cat([nms_keep_sorted_plain(boxes[i:i + 1], valid[i:i + 1], thr)
+                      for i in range(b)])
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [33, 1000, 14257])
+def test_nms_kernel_all_or_nothing(dev, n):
+    _check_all_or_nothing(nms_keep_sorted_cuda, dev, n)
+
+
+def test_nms_kernel_takes_unaligned_boxes(dev):
+    _check_unaligned_boxes(nms_keep_sorted_cuda, dev)
+
+
 def test_nms_mask_on_card_equals_cpu(dev):
     rng = np.random.RandomState(1)
     boxes, _ = _sorted_boxes(rng, 1, 500)
@@ -101,6 +130,39 @@ def test_roi_align_kernel_matches_plain(dev, aligned, sr):
     got = roi_align_cuda(feat.to(dev), rois.to(dev), 7, 0.25, sr, aligned)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=0)
+
+
+def _pyramid_case(rng, size, k, c=256):
+    """One level of the 832x832 forward's pyramid (``size`` = 208, 104,
+    52 or 26) and ``k`` RoIs of 8 to 400 px in image coordinates, some
+    reaching past the image's edges."""
+    feat = torch.from_numpy(rng.randn(1, c, size, size).astype(np.float32))
+    xy = rng.uniform(-20, 832, (k, 2))
+    wh = rng.uniform(8, 400, (k, 2))
+    rois = np.concatenate([np.zeros((k, 1)), xy, xy + wh], 1)
+    return feat, torch.from_numpy(rois.astype(np.float32))
+
+
+@pytest.mark.parametrize("aligned", [False, True])
+@pytest.mark.parametrize("sr", [2, 0])
+@pytest.mark.parametrize("k", [64, 1000])
+@pytest.mark.parametrize("size", [208, 104, 52, 26])
+def test_roi_align_kernel_at_pyramid_shapes(dev, size, k, sr, aligned):
+    """The four levels of the Faster R-CNN forward (C = 256, scale
+    size / 832), within 1e-5 of the largest plain value. The plain version
+    runs on the CPU: on the card, its own result strays further than that
+    on these signed inputs (4.3e-5 at a largest value of 2.1 at P2, where
+    the kernel is within 3e-7 of the CPU's). It runs 100 RoIs at a time:
+    at the adaptive grid it holds every RoI's largest grid at once."""
+    feat, rois = _pyramid_case(np.random.RandomState(size + k + sr), size, k)
+    scale = size / 832
+    before = roi_align_cuda.launches
+    got = roi_align_cuda(feat.to(dev), rois.to(dev), 7, scale, sr, aligned).cpu()
+    assert roi_align_cuda.launches == before + 1
+    want = torch.cat([roi_align_plain(feat, rois[i:i + 100], 7, scale, sr, aligned)
+                      for i in range(0, k, 100)])
+    tol = 1e-5 * float(want.abs().max())
+    assert float((got - want).abs().max()) <= tol
 
 
 def _window_case(rng, k, c, ph, winy, winx, r_rows=200, wmax=64):
@@ -165,17 +227,22 @@ def test_window_pool_kernel_fails_on_a_window_outside_the_pyramid(dev):
 
 def test_kernels_make_no_host_synchronisation(dev):
     """Under the sync debug mode "error", any PyTorch operation that waits
-    for the card raises; neither wrapper does."""
+    for the card raises; no wrapper does."""
     rng = np.random.RandomState(5)
     args = [t.to(dev) for t in _window_case(rng, 20, 64, 7, 32, 32)]
     boxes, valid = (t.to(dev) for t in _sorted_boxes(rng, 2, 300))
+    feat, rois = (t.to(dev) for t in _pyramid_case(rng, 52, 64, 16))
     window_pool_cuda(*args)  # builds the kernels outside the checked region
     nms_keep_sorted_rowscan_cuda(boxes, valid, 0.5)
+    nms_keep_sorted_cuda(boxes, valid, 0.5)
+    roi_align_cuda(feat, rois, 7, 1 / 16, 2, False)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         window_pool_cuda(*args)
         nms_keep_sorted_rowscan_cuda(boxes, valid, 0.5)
+        nms_keep_sorted_cuda(boxes, valid, 0.5)
+        roi_align_cuda(feat, rois, 7, 1 / 16, 2, False)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
@@ -232,20 +299,19 @@ def test_nms_rowscan_kernel_threshold_edges(dev, thr):
     assert torch.equal(got, nms_keep_sorted_cuda(boxes, valid, thr))
 
 
-def test_nms_rowscan_kernel_takes_unaligned_boxes(dev):
-    """A view whose data does not start on 16 bytes (the kernel reads each
+def _check_unaligned_boxes(kernel, dev):
+    """A view whose data does not start on 16 bytes (the kernels read each
     box as one float4): the wrapper copies it."""
     boxes, valid = _sorted_boxes(np.random.RandomState(8), 2, 300)
     flat = torch.zeros(2 * 300 * 4 + 1, device=dev)
     flat[1:] = boxes.flatten().to(dev)
     view = flat[1:].view(2, 300, 4)
     assert view.data_ptr() % 16 != 0
-    got = nms_keep_sorted_rowscan_cuda(view, valid.to(dev), 0.5)
+    got = kernel(view, valid.to(dev), 0.5)
     assert torch.equal(got.cpu(), nms_keep_sorted_plain(boxes, valid, 0.5))
 
 
-@pytest.mark.parametrize("n", [33, 1000, 14257])
-def test_nms_rowscan_kernel_all_or_nothing(dev, n):
+def _check_all_or_nothing(kernel, dev, n):
     """A row of disjoint boxes keeps every valid box; a row of copies of
     one box keeps box 0 alone."""
     ij = np.stack(np.divmod(np.arange(n), 128), 1).astype(np.float32) * 10
@@ -255,9 +321,18 @@ def test_nms_rowscan_kernel_all_or_nothing(dev, n):
     valid = torch.ones(2, n, dtype=torch.bool, device=dev)
     valid[0, 1::7] = False
     boxes[0][~valid[0]] = 0.0
-    got = nms_keep_sorted_rowscan_cuda(boxes, valid, 0.5)
+    got = kernel(boxes, valid, 0.5)
     assert torch.equal(got[0], valid[0])
     assert torch.equal(got[1], torch.arange(n, device=dev) == 0)
+
+
+def test_nms_rowscan_kernel_takes_unaligned_boxes(dev):
+    _check_unaligned_boxes(nms_keep_sorted_rowscan_cuda, dev)
+
+
+@pytest.mark.parametrize("n", [33, 1000, 14257])
+def test_nms_rowscan_kernel_all_or_nothing(dev, n):
+    _check_all_or_nothing(nms_keep_sorted_rowscan_cuda, dev, n)
 
 
 def test_nms_rowscan_switch_on_card(dev, monkeypatch):

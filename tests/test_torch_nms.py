@@ -252,7 +252,8 @@ def test_chunked_rowscan_schedule_matches_plain_and_pallas(n, thr, kind):
 
 
 def _above_without_division(inter, uni, thr):
-    """The rule ``csrc/nms_rowscan.cu`` uses for ``fl(inter / uni) > thr``:
+    """The rule of ``csrc/nms_iou.cuh`` (both NMS kernels) for
+    ``fl(inter / uni) > thr``:
     compare ``inter`` with ``mid * uni`` in float64, ``mid`` the midpoint
     between ``thr`` and the next float32 above it; a tie rounds to the even
     neighbour."""
@@ -301,3 +302,103 @@ def test_threshold_rule_equals_rounded_division(thr):
         iou = np.where(uni > 0, inter / uni, np.float32(0)).astype(np.float32)
     want = iou > np.float32(thr)
     np.testing.assert_array_equal(_above_without_division(inter, uni, thr), want)
+
+
+def _band_scan(above, valid, band, helpers=7, seed=0):
+    """A model of the scan of ``csrc/nms.cu`` over the mask words of a
+    boolean ``above[i, j]`` (IoU of i and j above the threshold): chunks of
+    64 rows, Python ints as 64-bit words.
+
+    The chain resolves chunk c from its removed word and the band of its
+    rows' words c .. c+band-1 only: the greedy kept set as the fixpoint of
+    "live and not suppressed by a kept row" (one OR over the kept rows'
+    diagonal words a round, from kept = live), then the kept rows' words
+    c+1 .. c+band-1, ORed, ride on to the next chunks. Helper ``c %
+    helpers`` ORs the kept rows' words c+band .. into the removed words at
+    a moment drawn at random before the chain reaches chunk c+band, which
+    waits for it; word w is read only when every chunk up to w-band has
+    been applied. Returns the keep mask and the largest number of fixpoint
+    rounds a chunk took."""
+    rng = np.random.RandomState(seed)
+    n = valid.shape[0]
+    words = -(-n // 64)
+    mask = [[0] * words for _ in range(n)]  # row i, word w: bits of later rows
+    for i in range(n):
+        for j in (np.flatnonzero(above[i, i + 1:]) + i + 1).tolist():
+            mask[i][j // 64] |= 1 << (j % 64)
+    removed = [0] * words
+    for r in range(words * 64):
+        if r >= n or not valid[r]:
+            removed[r // 64] |= 1 << (r % 64)
+    full = (1 << 64) - 1
+    pend = [0] * (band - 1)  # the chain's ORs into words c .. c+band-2
+    queued = {}  # chain step at which a helper applies its chunk -> chunks
+    applied = set()
+    kept_words, rounds = [], 0
+
+    def rows_of(c, kept):
+        return [c * 64 + i for i in range(64) if kept >> i & 1]
+
+    def helper(c):
+        for w in rng.permutation(np.arange(c + band, words)).tolist():
+            for row in rows_of(c, kept_words[c]):
+                removed[w] |= mask[row][w]
+        applied.add(c)
+
+    for c in range(words):
+        for h in queued.pop(c, []):
+            helper(h)
+        assert all(h in applied for h in range(c - band + 1)), "word not complete"
+        band_words = [[mask[r][w] if r < n and w < words else 0
+                       for w in range(c, c + band)] for r in range(c * 64, c * 64 + 64)]
+        live = ~(removed[c] | (pend[0] if pend else 0)) & full
+        kept, k = live, 0
+        while True:
+            k += 1
+            s = 0
+            for i in range(64):
+                if kept >> i & 1:
+                    s |= band_words[i][0]
+            nxt = live & ~s
+            if nxt == kept:
+                break
+            kept = nxt
+        rounds = max(rounds, k)
+        kept_words.append(kept)
+        removed[c] = ~kept & full
+        ors = [0] * band
+        for i in range(64):
+            if kept >> i & 1:
+                for k in range(1, band):
+                    ors[k] |= band_words[i][k]
+        pend = [(pend[k] if k < band - 1 else 0) | ors[k] for k in range(1, band)]
+        if c + band < words:  # due before the chain reaches chunk c+band
+            queued.setdefault(int(rng.randint(c + 1, c + band + 1)), []).append(c)
+    return np.array([not (removed[r // 64] >> (r % 64) & 1) for r in range(n)],
+                    bool), rounds
+
+
+@pytest.mark.parametrize("kind", ["random", "all_survive", "first_suppresses_all"])
+@pytest.mark.parametrize("thr", [0.0, 0.5, 0.9])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 128, 130, 300])
+def test_band_scan_schedule_matches_plain_and_pallas(n, thr, kind):
+    """The scan of the card's bitmask kernel gives the greedy mask bit for
+    bit, whatever the moment each helper's ORs land: the band of the
+    kernel (4 words) and narrower ones, against the port's plain version
+    and the JAX bitmask kernel in interpret mode."""
+    boxes, valid = _schedule_case(kind, n, 500 + n)
+    tboxes = torch.from_numpy(boxes)
+    above = (tnms._iou_matrix(tboxes) > thr).numpy()
+    want = tnms.nms_keep_sorted_plain(
+        tboxes[None], torch.from_numpy(valid)[None], thr)[0].numpy()
+    kernel = np.asarray(nms_pallas_bitmask_sorted(
+        jnp.asarray(boxes), jnp.asarray(valid), thr, interpret=True)) & valid
+    np.testing.assert_array_equal(want, kernel)
+    for band in (4, 2, 1):
+        got, rounds = _band_scan(above, valid, band, seed=n + band)
+        np.testing.assert_array_equal(got, want)
+        assert rounds <= 65
+    if kind == "all_survive":
+        np.testing.assert_array_equal(got, valid)
+    elif kind == "first_suppresses_all":
+        np.testing.assert_array_equal(got, np.arange(n) == 0)

@@ -87,6 +87,8 @@ def nms_keep_sorted_cuda(
     :func:`nms_keep_sorted_plain`). Two launches per call: the pairwise
     suppression mask, then the greedy scan."""
     boxes, valid = _sorted_args(boxes, valid, "nms_keep_sorted_cuda")
+    if boxes.data_ptr() % 16:  # the kernel reads a box as one float4
+        boxes = boxes.clone()
     b, n = valid.shape
     words = -(-n // 64)
     mask = torch.empty(b, n, words, dtype=torch.int64, device=boxes.device)
