@@ -11,12 +11,21 @@ weights:
   through ``fasterrcnn_resnet50_fpn``: the bitmask NMS, window-pool and
   RoIAlign kernels; once more with ``VISION_TPU_NMS_KERNEL=rowscan``, which
   must give the same detections through the row-serial NMS kernel;
+* the same model served from raw images: two seeded uint8 images of
+  480x640 and 427x640 through the weights' ``ObjectDetection`` preset,
+  ``GeneralizedRCNNTransform`` (800 / 1333, a 1344x1344 canvas, batch 2),
+  the model and ``postprocess_boxes``, all on the card; in f32, then with
+  ``model.to(torch.bfloat16)`` and a bf16 canvas (amp), through the bf16
+  variants of the window-pool and RoIAlign kernels, its FPN maps and RPN
+  head outputs held against the f32 request's;
 * ResNet-50 classification (1000 classes, a batch of 32 224x224 images):
-  one eval batch, then SGD steps of ``get_model("resnet50", fused_bn=True)``
-  under ``make_train_step`` in f32 and in bf16, through the ``matmul_stats``
-  kernels (36 launches a forward): the pipelined FP32 kernel in f32, the
-  ``wgmma`` kernel in bf16, and never the guarded general kernel, which one
-  more f32 step drives with its wrapper swapped in.
+  one eval batch, one batch of 8 uint8 375x500 images through the weights'
+  ``ImageClassification`` preset against the CPU, then SGD steps of
+  ``get_model("resnet50", fused_bn=True)`` under ``make_train_step`` in f32
+  and in bf16, through the ``matmul_stats`` kernels (36 launches a
+  forward): the pipelined FP32 kernel in f32, the ``wgmma`` kernel in bf16,
+  and never the guarded general kernel, which one more f32 step drives
+  with its wrapper swapped in.
 
 Every kernel is held against its plain PyTorch version on the card at the
 inputs the model gave it, and each path's result against a run of the same
@@ -68,15 +77,30 @@ LATER_LOSS_TOL = 5e-2
 MM_CALLS_PER_FORWARD = 36  # 2 per Bottleneck + 4 downsamples
 SPIN_CYCLES = 30_000_000  # ~17 ms of a spin kernel, see device_ms
 NMS_OPS_PER_PAIR = 14  # 2x(min, max, sub, max0), mul, add, sub, >0, div, >thr
+# The request path's phases: the two seeded uint8 images of
+# ``tools/detection_request.py`` (480x640, 427x640), which the transform
+# (800 / 1333, round) takes to these sizes on its 1344x1344 canvas.
+RESIZED = [(800, 1067), (800, 1199)]
+# bf16 kernel path against bf16 plain path, end to end: a pooled value
+# that rounds to the neighbouring bf16 value moves a score by ~1e-3 and a
+# box by a fraction of a pixel
+AMP_SCORE_TOL = 1e-2
+AMP_BOX_TOL = 1.0
+# bf16 request against f32 request: each FPN map and RPN head output
+# within this share of its largest f32 value. Each layer rounds its output
+# to bf16 (2**-9 relative) over some sixty layers; the same full-width
+# model on a 2x192x192 canvas on the CPU read 1.1e-2 to 2.5e-2. A layer
+# that computes the wrong thing in bf16 is off by the order of the map.
+AMP_VS_F32_TOL = 5e-2
 
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def bound_ms(nbytes: float, ops: float, peak_flops: float = PEAK_F32_FLOPS):
+def bound_ms(nbytes: float, ops: float, peak: float):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / peak_flops * 1e3
+    t_ops = ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -158,9 +182,17 @@ class Kernels:
     def reset(self) -> None:
         for fn in self.counted.values():
             fn.launches = 0
+            fn.launches_by_dtype = {}
 
     def launches(self) -> dict:
-        return {n: fn.launches for n, fn in self.counted.items()}
+        """Each wrapper's count, and the window pool's and RoIAlign's split
+        by variant: ``<name>_f32`` and ``<name>_bf16``."""
+        out = {n: fn.launches for n, fn in self.counted.items()}
+        for n in ("window_pool", "roi_align"):
+            by = self.counted[n].launches_by_dtype
+            out[f"{n}_f32"] = by.get("float32", 0)
+            out[f"{n}_bf16"] = by.get("bfloat16", 0)
+        return out
 
     @contextlib.contextmanager
     def swapped(self, make):
@@ -210,12 +242,21 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def peak_flops(t) -> float:
+    """The card's peak rate of operations on ``t``'s element type."""
+    import torch
+
+    return PEAK_BF16_FLOPS if t.dtype == torch.bfloat16 else PEAK_F32_FLOPS
+
+
 def nms_work(args):
+    """Bytes: boxes and valid read, keep written. Operations: the IoU test
+    of every pair of the upper triangle, in f32."""
     boxes, valid, _ = args
     b, n = valid.shape
     pairs = b * n * (n - 1) / 2
     return boxes.numel() * 4 + valid.numel() + valid.numel(), (
-        pairs * NMS_OPS_PER_PAIR + 3 * b * n)
+        pairs * NMS_OPS_PER_PAIR + 3 * b * n), PEAK_F32_FLOPS
 
 
 def matmul_work(args):
@@ -229,15 +270,14 @@ def matmul_work(args):
     nbytes = (m * k + k * n + m * n) * x.element_size() + 2 * n * 4
     if matmul_key(args)[2]:
         nbytes += 2 * k * 4
-    peak = PEAK_BF16_FLOPS if x.dtype == torch.bfloat16 else PEAK_F32_FLOPS
-    return nbytes, 2.0 * m * k * n, peak
+    return nbytes, 2.0 * m * k * n, peak_flops(x)
 
 
 def window_work(args):
     """Bytes: the pyramid cells some window reads (rows and columns with a
     non-zero weight), the weights and origins, the output. Operations:
-    the multiply-adds over those rows and columns, then over the window
-    width."""
+    the multiply-adds over those rows and columns, then over those columns
+    again, against the peak of the pyramid's type."""
     import torch
 
     stacked, row0, x0, w_y, w_x = args[:5]
@@ -251,12 +291,13 @@ def window_work(args):
     rows.scatter_(1, row0.long()[:, None] + torch.arange(winy, device=rows.device), ynz)
     cols.scatter_(1, x0.long()[:, None] + torch.arange(winx, device=cols.device), xnz)
     cells = int((rows[:, :, None] & cols[:, None, :]).any(0).sum())
-    nbytes = (cells * c * 4 + row0.numel() * 4 + x0.numel() * 4
-              + w_y.numel() * 4 + w_x.numel() * 4 + k * c * ph * pw * 4)
+    elem = stacked.element_size()  # the pyramid's and the output's type
+    nbytes = (cells * c * elem + row0.numel() * 4 + x0.numel() * 4
+              + w_y.numel() * 4 + w_x.numel() * 4 + k * c * ph * pw * elem)
     nzy = ynz.sum(1).double()
     nzx = xnz.sum(1).double()
-    ops = 2 * c * float(torch.sum(ph * nzy * nzx + ph * pw * winx))
-    return nbytes, ops
+    ops = 2 * c * float(torch.sum(ph * nzy * nzx + ph * pw * nzx))
+    return nbytes, ops, peak_flops(stacked)
 
 
 def _sample_lines(start, length, pooled, grid, gmax, size):
@@ -283,7 +324,8 @@ def _sample_lines(start, length, pooled, grid, gmax, size):
 def roi_work(args):
     """Bytes: the input pixels some sample reads (all channels), the RoIs,
     the output. Operations: per sample and channel 4 corner weights, 4
-    products, 4 adds; one divide per output."""
+    products, 4 adds; one divide per output; against the peak of the
+    input's type."""
     import torch
 
     inp, rois, size, scale, sr, aligned = args
@@ -312,15 +354,20 @@ def roi_work(args):
         sel = b == img
         if sel.any():
             touched[img] = (ys[sel][:, :, None] & xs[sel][:, None, :]).any(0)
-    nbytes = int(touched.sum()) * c * 4 + rois.numel() * 4 + k * c * ph * pw * 4
+    elem = inp.element_size()  # the input's and the output's type
+    nbytes = (int(touched.sum()) * c * elem + rois.numel() * 4
+              + k * c * ph * pw * elem)
     samples = float((gh * gw).sum()) * ph * pw
-    return nbytes, c * samples * 12 + k * c * ph * pw
+    return nbytes, c * samples * 12 + k * c * ph * pw, peak_flops(inp)
 
 
 def compare_kernel(fn, plain, args, exact=False):
     """Kernel against plain version on the same inputs: (max abs error,
     that error relative to the largest plain value, kernel ms by the
-    wrapper clock, kernel ``device_ms``, plain ms)."""
+    wrapper clock, kernel ``device_ms``, plain ms). For a bf16 output the
+    second is the largest error in bf16 steps: |got - want| over
+    2**-7 |want| + 1e-5 max |want| (one step of the element's magnitude,
+    plus the f32 round-off of sums taken in another order)."""
     import torch
 
     got = fn(*args)
@@ -329,6 +376,11 @@ def compare_kernel(fn, plain, args, exact=False):
     if exact:
         err = float((got.int() - want.int()).abs().max())
         rel = err
+    elif got.dtype == torch.bfloat16:
+        diff = (got.float() - want.float()).abs()
+        scale = 2.0 ** -7 * want.float().abs() + 1e-5 * want.float().abs().max()
+        err = float(diff.max()) if got.numel() else 0.0
+        rel = float((diff / scale.clamp(min=1e-30)).max()) if got.numel() else 0.0
     else:
         err = float((got - want).abs().max()) if got.numel() else 0.0
         rel = err / max(float(want.abs().max()), 1e-30) if got.numel() else 0.0
@@ -370,8 +422,14 @@ def main() -> int:
     os.environ.pop("VISION_TPU_NMS_KERNEL", None)
 
     kernels = Kernels()
-    rows = faster_rcnn_phases(kernels)
+    t_phases = time.perf_counter()
+    rows, model = faster_rcnn_phases(kernels)
+    rows += faster_rcnn_image_phases(kernels, model)
+    del model
+    torch.cuda.empty_cache()
     rows += resnet50_phases(kernels)
+    emit("done", build_s=build_s, phases_s=time.perf_counter() - t_phases,
+         total_s=time.perf_counter() - t0)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
@@ -431,7 +489,7 @@ def faster_rcnn_phases(kernels):
 
         rows = kernel_phases(kernels, calls, launches)
         rows.append(rowscan_phase(kernels, model, images, dets))
-    return rows
+    return rows, model
 
 
 def rowscan_phase(kernels, model, images, dets):
@@ -468,34 +526,203 @@ def rowscan_phase(kernels, model, images, dets):
     if not all(same.values()):
         raise RuntimeError(f"rowscan detections differ from the bitmask run's: {same}")
 
-    fn, plain = kernels.cuda["nms_rowscan"], kernels.plain["nms_rowscan"]
-    cases = []
-    for args in calls["nms_rowscan"]:
-        err, rel, k_ms, dev_ms, plain_ms = compare_kernel(fn, plain, args,
-                                                          exact=True)
-        b_ms, b_by = bound_ms(*nms_work(args))
-        case = dict(kernel="nms_rowscan", shape=list(args[1].shape),
-                    max_abs_err=err, max_rel_err=rel, rel_tol=0.0, ms=k_ms,
-                    device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
-                    bound_by=b_by)
-        emit("kernel_case", **case)
-        cases.append(case)
-        if err > 0:
-            raise RuntimeError("nms_rowscan disagrees with its plain version")
-    return {
-        "name": "nms_rowscan", "route": "cuda",
-        "source": "vision_tpu_torch/csrc/nms_rowscan.cu",
-        "replaces": "vision_tpu/ops/_pallas/nms.py:252",
-        "launches": launches["nms_rowscan"],
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "ms": sum(c["ms"] for c in cases),
-        "device_ms": sum(c["device_ms"] for c in cases),
-        "plain_ms": sum(c["plain_ms"] for c in cases),
-        "bound_ms": sum(c["bound_ms"] for c in cases),
-        "bound_by": cases[0]["bound_by"],
-        "library_ms": None,
-        "calls_per_forward": len(cases),
-    }
+    cases = [kernel_case(kernels, "nms_rowscan", args, "faster_rcnn_rowscan")
+             for args in calls["nms_rowscan"]]
+    return kernel_row("nms_rowscan", cases, launches["nms_rowscan"])
+
+
+def serve_phase(kernels, model, preset, transform, raw, dtype, calls):
+    """A warm-up request that records the kernels' inputs, ``TIMED_FORWARDS``
+    timed requests (ms per image: host clock around a request that ends in
+    ``torch.cuda.synchronize()``, over the images), the launch counts of
+    those, one request through the plain versions, and the FPN maps and
+    RPN head outputs of the request's canvas."""
+    import torch
+
+    from vision_tpu_torch.tools.detection_request import serve
+
+    with torch.inference_mode():
+        with kernels.recording(calls):
+            serve(model, preset, transform, raw, dtype)
+        torch.cuda.synchronize()
+        kernels.reset()
+        times = []
+        for _ in range(TIMED_FORWARDS):
+            t = time.perf_counter()
+            out = serve(model, preset, transform, raw, dtype)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3 / len(raw))
+        launches = kernels.launches()
+        with kernels.plain_versions():
+            ref = serve(model, preset, transform, raw, dtype)
+        feats, objectness, deltas, _ = model.features_and_rpn(
+            out[0].tensors.to(dtype))
+        torch.cuda.synchronize()
+    return out, ref, times, launches, (list(feats.values()), objectness, deltas)
+
+
+def faster_rcnn_image_phases(kernels, model):
+    """Faster R-CNN served from raw images, in f32 (``faster_rcnn_images``)
+    and in bf16 (``faster_rcnn_amp``: ``model.to(torch.bfloat16)`` and a bf16
+    canvas), each against the same request through the plain versions, and
+    the bf16 request's FPN maps and RPN head outputs against the f32 ones;
+    then the bf16 window-pool and RoIAlign variants against their plain
+    bf16 versions at the amp request's inputs, with the f32 kernels timed
+    at the f32 request's inputs beside them."""
+    import torch
+
+    from vision_tpu_torch.models.detection import (
+        FasterRCNN_ResNet50_FPN_Weights,
+        GeneralizedRCNNTransform,
+    )
+    from vision_tpu_torch.tools.detection_request import SEED, raw_images
+
+    raw = raw_images()
+    preset = FasterRCNN_ResNet50_FPN_Weights.COCO_V1.transforms()
+    transform = GeneralizedRCNNTransform()
+
+    calls32: dict = {}
+    (batch, dets, boxes), (_, ref, _), times, launches, rpn32 = serve_phase(
+        kernels, model, preset, transform, raw, torch.float32, calls32)
+    emit("faster_rcnn_images", dtype="float32", images=[list(r.shape) for r in raw],
+         seed=SEED, canvas=list(transform.fixed_size), batch=len(raw),
+         image_sizes=batch.image_sizes, expected_image_sizes=RESIZED,
+         ms_per_img_median=statistics.median(times), ms_per_img_all=times,
+         requests=TIMED_FORWARDS, launches=launches)
+    if batch.image_sizes != RESIZED:
+        raise RuntimeError(f"image sizes {batch.image_sizes}, expected {RESIZED}")
+    require_launched(launches, ("nms", "window_pool_f32", "roi_align_f32"),
+                     "Faster R-CNN from images (f32)")
+    check_detections(dets, ref, batch=len(raw), phase="faster_rcnn_images")
+    check_mapped_boxes(boxes, raw)
+
+    model.to(torch.bfloat16)
+    calls16: dict = {}
+    (batch16, dets16, boxes16), (_, ref16, _), times16, launches16, rpn16 = (
+        serve_phase(kernels, model, preset, transform, raw, torch.bfloat16,
+                    calls16))
+    b = dets16.boxes
+    s32 = dets.scores.flatten().sort().values[-5:]
+    s16 = dets16.scores.float().flatten().sort().values[-5:]
+    top5_err = float((s16 - s32).abs().max())
+    inside = bool(((b >= -1e-3) & (b <= max(transform.fixed_size) + 1e-3)).all())
+    vs_f32 = {k: rel_errs(g, w) for k, g, w in zip(
+        ("fpn", "objectness", "deltas"), rpn16, rpn32)}
+    vs_f32_max = max(max(v) for v in vs_f32.values())
+    emit("faster_rcnn_amp", dtype="bfloat16", boxes_dtype=str(b.dtype)[6:],
+         scores_dtype=str(dets16.scores.dtype)[6:],
+         image_sizes=batch16.image_sizes, ms_per_img_median=statistics.median(times16),
+         ms_per_img_all=times16, requests=TIMED_FORWARDS, launches=launches16,
+         top5_scores_f32=s32.tolist(), top5_scores_bf16=s16.tolist(),
+         top5_max_err=top5_err, top5_tol=0.05, boxes_inside_canvas=inside,
+         rel_err_vs_f32=vs_f32, rel_err_vs_f32_tol=AMP_VS_F32_TOL,
+         f32_ms_per_img_median=statistics.median(times))
+    if b.dtype != torch.float32 or not bool(torch.isfinite(b).all()) or not inside:
+        raise RuntimeError("amp: boxes not f32, not finite or outside the canvas")
+    if top5_err > 0.05:
+        raise RuntimeError("amp: the top 5 scores are not within 0.05 of the "
+                           "f32 run's")
+    if not vs_f32_max <= AMP_VS_F32_TOL:
+        raise RuntimeError(f"amp: FPN maps or RPN head outputs {vs_f32_max} of "
+                           f"their largest value away from f32's")
+    require_launched(launches16, ("nms", "window_pool_bf16", "roi_align_bf16"),
+                     "Faster R-CNN from images (bf16)")
+    if launches16["window_pool_f32"] or launches16["roi_align_f32"]:
+        raise RuntimeError(f"the amp path launched an f32 pooler kernel: {launches16}")
+    check_detections(dets16, ref16, batch=len(raw), score_tol=AMP_SCORE_TOL,
+                     box_tol=AMP_BOX_TOL, phase="faster_rcnn_amp")
+    check_mapped_boxes(boxes16, raw)
+
+    rows = []
+    for name in ("window_pool", "roi_align"):
+        f32 = summed([kernel_case(kernels, name, args, "faster_rcnn_images")
+                      for args in calls32[name]])
+        bf16 = [kernel_case(kernels, name, args, "faster_rcnn_amp")
+                for args in calls16[name]]
+        rows.append(kernel_row(
+            name, bf16, launches16[f"{name}_bf16"], row_name=f"{name}_bf16",
+            dtype="bfloat16", path="faster_rcnn_amp (1344x1344, batch 2)",
+            f32_same_path={k: f32[k] for k in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "bytes_bound_ms", "operations_bound_ms", "max_abs_err")}))
+    return rows
+
+
+def check_mapped_boxes(boxes, raw) -> None:
+    """``postprocess_boxes`` gave each image [100, 4] finite f32 boxes."""
+    import torch
+
+    for bx, r in zip(boxes, raw):
+        if tuple(bx.shape) != (100, 4) or bx.dtype != torch.float32 or not bool(
+                torch.isfinite(bx).all()):
+            raise RuntimeError(f"boxes mapped to a {tuple(r.shape)} image: "
+                               f"{tuple(bx.shape)} {bx.dtype}")
+
+
+# name -> (source, the TPU kernel it replaces)
+SOURCES = {
+    "nms": ("vision_tpu_torch/csrc/nms.cu", "vision_tpu/ops/_pallas/nms.py:186"),
+    "nms_rowscan": ("vision_tpu_torch/csrc/nms_rowscan.cu",
+                    "vision_tpu/ops/_pallas/nms.py:252"),
+    "window_pool": ("vision_tpu_torch/csrc/window_pool.cu",
+                    "vision_tpu/ops/_pallas/window_pool.py:122"),
+    "roi_align": ("vision_tpu_torch/csrc/roi_align.cu",
+                  "vision_tpu/ops/_pallas/roi_align.py:116"),
+}
+WORK = {"nms": nms_work, "nms_rowscan": nms_work, "window_pool": window_work,
+        "roi_align": roi_work}
+
+
+def kernel_case(kernels, name, args, path, **meta):
+    """One recorded call of kernel ``name`` against its plain version on
+    the card: NMS keep masks bit for bit; f32 pools within 1e-5 of the
+    largest plain value (f32 sums in another order); bf16 pools within one
+    bf16 step of each element (plus 1e-5 of the largest value). Prints
+    the case, with its times and bound, and returns it."""
+    import torch
+
+    exact = name.startswith("nms")
+    bf16 = args[0].dtype == torch.bfloat16
+    err, rel, ms, dev_ms, plain_ms = compare_kernel(
+        kernels.cuda[name], kernels.plain[name], args, exact=exact)
+    nbytes, ops, peak = WORK[name](args)
+    b_ms, b_by = bound_ms(nbytes, ops, peak)
+    tol = 0.0 if exact else 1.0 if bf16 else 1e-5
+    if name == "window_pool":
+        shape = [list(args[3].shape), list(args[0].shape)]
+    else:
+        shape = [list(args[0].shape), list(args[1].shape)]
+    case = dict(kernel=name, path=path, dtype=str(args[0].dtype)[6:],
+                shape=shape, **meta, max_abs_err=err,
+                **{"max_err_in_bf16_steps" if bf16 else "max_rel_err": rel},
+                tol=tol, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by,
+                bytes_bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
+                operations_bound_ms=ops / peak * 1e3)
+    emit("kernel_case", **case)
+    if rel > tol:
+        raise RuntimeError(f"{name} ({path}, {meta}) disagrees with its plain "
+                           f"version: {rel} > {tol}")
+    return case
+
+
+def summed(cases) -> dict:
+    """The cases' times and bounds summed: one forward or request."""
+    out = {k: sum(c[k] for c in cases) for k in (
+        "ms", "device_ms", "plain_ms", "bound_ms", "bytes_bound_ms",
+        "operations_bound_ms")}
+    by_bytes = out["bytes_bound_ms"] >= out["operations_bound_ms"]
+    return dict(out, max_abs_err=max(c["max_abs_err"] for c in cases),
+                bound_by="bytes" if by_bytes else "operations",
+                calls=len(cases))
+
+
+def kernel_row(name, cases, launches, row_name=None, **extra) -> dict:
+    """The ``kernels`` line's row of ``name`` at ``cases``."""
+    source, replaces = SOURCES[name]
+    return {"name": row_name or name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, **summed(cases),
+            "library_ms": None, **extra}
 
 
 def train_steps(batch, *, fused, dtype, steps, first_step=None, lr=LR):
@@ -574,6 +801,7 @@ def resnet50_phases(kernels):
     if params != 25_557_032 or tuple(logits.shape) != (BATCH, 1000) or not finite:
         raise RuntimeError("resnet50 eval: wrong parameter count, shape or "
                            "non-finite logits")
+    resnet50_preset_check(model)
     del model, logits
 
     # f32: the kernel path against the plain path, step by step
@@ -647,6 +875,35 @@ def resnet50_phases(kernels):
                              {"fma": launches["matmul_stats_fma"],
                               "wgmma": launches16["matmul_stats_wgmma"],
                               "general": launches_general})
+
+
+def resnet50_preset_check(model) -> None:
+    """A seeded batch of 8 uint8 375x500 images through the weights'
+    ``ImageClassification`` preset (resize 232, crop 224) and the eval
+    model on the card, against the same on the CPU: logits within 1e-3 of
+    the largest. (The uint8 resize of each side may round a near-tie the
+    other way: one level of one pixel.)"""
+    import torch
+
+    from vision_tpu_torch.models import ResNet50_Weights, get_model
+
+    gen = torch.Generator().manual_seed(3)
+    raw = torch.randint(0, 256, (8, 3, 375, 500), dtype=torch.uint8, generator=gen)
+    weights = ResNet50_Weights.DEFAULT
+    with torch.inference_mode():
+        x = torch.stack([weights.transforms()(r) for r in raw])
+        logits = model(x).cpu()
+        cpu_preset = weights.transforms(device="cpu")
+        x_cpu = torch.stack([cpu_preset(r) for r in raw])
+        want = get_model("resnet50", seed=0, device="cpu")(x_cpu)
+    rel = float((logits - want).abs().max() / want.abs().max())
+    input_err = float((x.cpu() - x_cpu).abs().max())
+    emit("resnet50_preset", images=list(raw.shape), preset=repr(weights.transforms(
+        device="cpu")), input=list(x.shape), input_device=str(x.device),
+        max_input_err=input_err, logits_rel_err=rel, tol=1e-3)
+    if tuple(x.shape) != (8, 3, 224, 224) or not rel <= 1e-3:
+        raise RuntimeError("ResNet-50 through its preset on the card disagrees "
+                           "with the CPU")
 
 
 def require_only(launches: dict, name: str, want: int, what: str) -> None:
@@ -817,13 +1074,15 @@ def matmul_stats_rows(kernels, calls, counts, calls16, counts16, launches):
     ]
 
 
-def check_detections(dets, ref) -> None:
+def check_detections(dets, ref, batch=1, score_tol=1e-4, box_tol=1e-2,
+                     phase="faster_rcnn") -> None:
     import torch
 
     for t in dets:
         if not torch.isfinite(t.float()).all():
             raise RuntimeError("non-finite detections")
-    if tuple(dets.boxes.shape) != (1, 100, 4) or tuple(dets.valid.shape) != (1, 100):
+    if (tuple(dets.boxes.shape) != (batch, 100, 4)
+            or tuple(dets.valid.shape) != (batch, 100)):
         raise RuntimeError(f"bad Detections shapes {tuple(dets.boxes.shape)}")
     valid = dets.valid
     n_valid = int(valid.sum())
@@ -831,93 +1090,38 @@ def check_detections(dets, ref) -> None:
     label_ok = bool(torch.equal(dets.labels[valid], ref.labels[valid]))
     score_err = float((dets.scores[valid] - ref.scores[valid]).abs().max()) if n_valid else 0.0
     box_err = float((dets.boxes[valid] - ref.boxes[valid]).abs().max()) if n_valid else 0.0
-    emit("detections_vs_plain", valid=n_valid, same_valid=same_valid,
-         labels_equal=label_ok, max_score_err=score_err, score_tol=1e-4,
-         max_box_err=box_err, box_tol=1e-2)
-    if n_valid == 0:
-        raise RuntimeError("no valid detections: the comparison is vacuous")
-    if not (same_valid and label_ok and score_err <= 1e-4 and box_err <= 1e-2):
-        raise RuntimeError("kernel path disagrees with the plain path")
+    emit("detections_vs_plain", path=phase, valid=n_valid,
+         valid_per_image=valid.sum(1).tolist(), same_valid=same_valid,
+         labels_equal=label_ok, max_score_err=score_err, score_tol=score_tol,
+         max_box_err=box_err, box_tol=box_tol)
+    if int(valid.sum(1).min()) == 0:
+        raise RuntimeError("an image without valid detections: the comparison "
+                           "is vacuous")
+    if not (same_valid and label_ok and score_err <= score_tol
+            and box_err <= box_tol):
+        raise RuntimeError(f"{phase}: kernel path disagrees with the plain path")
 
 
 def kernel_phases(kernels, calls, launches):
     """Each kernel against its plain version on the main path's recorded
-    inputs, plus the extra RoIAlign cases (aligned, adaptive grid)."""
+    inputs, plus the extra RoIAlign cases (aligned, adaptive grid) on its
+    P2 map and RoIs, which count in the row's error and not in its times."""
     rows = []
-    meta = {
-        "nms": ("vision_tpu_torch/csrc/nms.cu",
-                "vision_tpu/ops/_pallas/nms.py:186"),
-        "window_pool": ("vision_tpu_torch/csrc/window_pool.cu",
-                        "vision_tpu/ops/_pallas/window_pool.py:122"),
-        "roi_align": ("vision_tpu_torch/csrc/roi_align.cu",
-                      "vision_tpu/ops/_pallas/roi_align.py:116"),
-    }
-    # relative to the largest plain value: f32 sums in another order
-    tolerance = {"nms": 0.0, "window_pool": 1e-5, "roi_align": 1e-5}
     for name in ("nms", "window_pool", "roi_align"):
-        fn, plain = kernels.cuda[name], kernels.plain[name]
-        cases = []
-        for args in calls[name]:
-            if name == "nms":
-                work = nms_work(args)
-                shape = list(args[1].shape)
-            elif name == "window_pool":
-                work = window_work(args)
-                shape = [list(args[3].shape), list(args[0].shape)]
-            else:
-                work = roi_work(args)
-                shape = [list(args[0].shape), list(args[1].shape)]
-            err, rel, ms, dev_ms, plain_ms = compare_kernel(
-                fn, plain, args, exact=name == "nms")
-            b_ms, b_by = bound_ms(*work)
-            case = dict(kernel=name, shape=shape, max_abs_err=err,
-                        max_rel_err=rel, rel_tol=tolerance[name], ms=ms,
-                        device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
-                        bound_by=b_by)
-            emit("kernel_case", **case)
-            cases.append(case)
-            if rel > tolerance[name]:
-                raise RuntimeError(f"{name} disagrees with its plain version: "
-                                   f"{rel} > {tolerance[name]} (relative)")
+        cases = [kernel_case(kernels, name, args, "faster_rcnn")
+                 for args in calls[name]]
+        extra = {}
         if name == "roi_align":
-            cases += roi_align_extra_cases(fn, plain, calls, tolerance[name])
-        main = cases[: len(calls[name])]
-        rows.append({
-            "name": name, "route": "cuda", "source": meta[name][0],
-            "replaces": meta[name][1], "launches": launches[name],
-            "max_abs_err": max(c["max_abs_err"] for c in cases),
-            "ms": sum(c["ms"] for c in main),
-            "device_ms": sum(c["device_ms"] for c in main),
-            "plain_ms": sum(c["plain_ms"] for c in main),
-            "bound_ms": sum(c["bound_ms"] for c in main),
-            "bound_by": cases[0]["bound_by"],
-            "library_ms": None,
-            "calls_per_forward": len(calls[name]),
-            **({"redesigned": "PR 5"} if name in ("nms", "roi_align") else {}),
-        })
+            inp, rois, size, scale = calls[name][0][:4]
+            worst = max(kernel_case(kernels, name, (inp, rois, size, scale, sr,
+                                                    aligned), "faster_rcnn",
+                                    sampling_ratio=sr, aligned=aligned)["max_abs_err"]
+                        for sr, aligned in ((2, True), (0, False)))
+            extra["max_abs_err"] = max(worst, summed(cases)["max_abs_err"])
+        if name in ("nms", "roi_align"):
+            extra["redesigned"] = "PR 5"
+        rows.append(kernel_row(name, cases, launches[name], **extra))
     return rows
-
-
-def roi_align_extra_cases(fn, plain, calls, tol):
-    """aligned=True, and the adaptive grid, on the main path's P2 map and
-    RoIs."""
-    out = []
-    args = calls["roi_align"][0]
-    inp, rois, size, scale = args[:4]
-    for sr, aligned in ((2, True), (0, False)):
-        a = (inp, rois, size, scale, sr, aligned)
-        err, rel, ms, dev_ms, plain_ms = compare_kernel(fn, plain, a)
-        b_ms, b_by = bound_ms(*roi_work(a))
-        case = dict(kernel="roi_align", shape=[list(inp.shape), list(rois.shape)],
-                    sampling_ratio=sr, aligned=aligned, max_abs_err=err,
-                    max_rel_err=rel, rel_tol=tol, ms=ms, device_ms=dev_ms,
-                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-        emit("kernel_case", **case)
-        out.append(case)
-        if rel > tol:
-            raise RuntimeError(f"roi_align (sr={sr}, aligned={aligned}) "
-                               f"disagrees with its plain version: {err}")
-    return out
 
 
 if __name__ == "__main__":

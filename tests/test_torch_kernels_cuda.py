@@ -13,7 +13,14 @@ each sum, in bf16 ``y`` within one bf16 step of the largest (a step is
 2**-8 to 2**-7 of the value it rounds) and the sums within 2e-3 (a flipped
 rounding of one ``y`` moves a sum by a bf16 step of that value); at the
 ResNet-50 cases, where thousands of rows average such flips out, the sums
-within 1e-4 in both types.
+within 1e-4 in both types. The bf16 variants of the window pool and of
+RoIAlign against their plain bf16 versions: within one bf16 step of each
+element (2**-7 of its magnitude: the f32 sums, taken in another order, can
+round to the neighbouring bf16 value) plus the f32 tolerance of the same
+kernel, absolute. Where the divisor (the sample count) is not a power of
+two, within two steps (2**-6): both round the sum to bf16 before they
+divide, so a sum rounded the other way moves the quotient by a step before
+its own rounding.
 """
 
 import os
@@ -45,7 +52,9 @@ from vision_tpu_torch.ops.poolers import (
     window_pool_cuda,
     window_pool_plain,
 )
+from vision_tpu_torch.models.detection import GeneralizedRCNNTransform
 from vision_tpu_torch.ops.roi_align import roi_align_cuda, roi_align_plain
+from vision_tpu_torch.transforms import ImageClassification
 
 pytestmark = pytest.mark.cuda
 
@@ -201,21 +210,9 @@ def test_window_pool_kernel_matches_plain(dev, c, ph, winy, winx):
     assert not got[5].any()
 
 
-def test_window_pool_kernel_fails_on_a_window_outside_the_pyramid(dev):
-    """The bounds check runs on the card: the call returns, and the launch
-    fails at the next synchronisation. The CUDA context does not survive
-    that, so it runs in a process of its own."""
-    script = """if True:
-        import numpy as np, torch
-        from vision_tpu_torch.ops.poolers import window_pool_cuda
-        st = torch.zeros(20, 10, 4, device="cuda")
-        w = torch.ones(1, 2, 8, device="cuda")
-        row0 = torch.tensor([13], device="cuda")
-        window_pool_cuda(st, row0, torch.tensor([0], device="cuda"), w, w)
-        print("returned", flush=True)
-        torch.cuda.synchronize()
-        print("synchronised", flush=True)
-    """
+def _run_trapping(script):
+    """Run ``script`` in a process of its own: it must return from the call,
+    then fail at the synchronisation with a CUDA error."""
     root = Path(__file__).resolve().parent.parent
     env = dict(os.environ, PYTHONPATH=str(root))
     proc = subprocess.run([sys.executable, "-c", script], cwd=root, env=env,
@@ -225,24 +222,136 @@ def test_window_pool_kernel_fails_on_a_window_outside_the_pyramid(dev):
     assert "CUDA error" in proc.stderr, proc.stderr[-2000:]
 
 
+def test_window_pool_kernel_fails_on_a_window_outside_the_pyramid(dev):
+    """The bounds check runs on the card: the call returns, and the launch
+    fails at the next synchronisation. The CUDA context does not survive
+    that, so it runs in a process of its own."""
+    _run_trapping("""if True:
+        import numpy as np, torch
+        from vision_tpu_torch.ops.poolers import window_pool_cuda
+        st = torch.zeros(20, 10, 4, device="cuda")
+        w = torch.ones(1, 2, 8, device="cuda")
+        row0 = torch.tensor([13], device="cuda")
+        window_pool_cuda(st, row0, torch.tensor([0], device="cuda"), w, w)
+        print("returned", flush=True)
+        torch.cuda.synchronize()
+        print("synchronised", flush=True)
+    """)
+
+
+def _bf16_step_close(got, want, atol, steps=1):
+    """Each element within ``steps`` bf16 steps of its magnitude (a step is
+    at most 2**-7 of it) plus ``atol``."""
+    assert got.dtype == want.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float().cpu(), want.float(),
+                               rtol=steps * 2.0 ** -7, atol=atol)
+
+
+@pytest.mark.parametrize("winy,winx", [(32, 32), (20, 40)])
+@pytest.mark.parametrize("ph", [7, 14])
+@pytest.mark.parametrize("c", [1, 33, 64, 256])
+def test_window_pool_bf16_kernel_matches_plain(dev, c, ph, winy, winx):
+    """The bf16 pyramid: one 8-byte copy a thread where C % 4 == 0, loads
+    and stores element by element for C = 1 and 33; the edge windows of
+    ``_window_case``; sr 2 (div 4) and sr 3 (div 9, where the bf16 sum's
+    rounding shows)."""
+    rng = np.random.RandomState(30 + c + ph + winx)
+    args = list(_window_case(rng, 50, c, ph, winy, winx))
+    args[0] = args[0].bfloat16()
+    before = window_pool_cuda.launches
+    for div in (4.0, 9.0):
+        want = window_pool_plain(*args, div)
+        got = window_pool_cuda(*(t.to(dev) for t in args), div)
+        torch.cuda.synchronize()
+        _bf16_step_close(got, want, 1e-4, steps=1 if div == 4.0 else 2)
+        assert not got[5].any()
+    assert window_pool_cuda.launches == before + 2
+
+
+def test_window_pool_bf16_kernel_fails_on_a_window_outside_the_pyramid(dev):
+    _run_trapping("""if True:
+        import torch
+        from vision_tpu_torch.ops.poolers import window_pool_cuda
+        st = torch.zeros(20, 10, 4, device="cuda", dtype=torch.bfloat16)
+        w = torch.ones(1, 2, 8, device="cuda")
+        row0 = torch.tensor([13], device="cuda")
+        window_pool_cuda(st, row0, torch.tensor([0], device="cuda"), w, w)
+        print("returned", flush=True)
+        torch.cuda.synchronize()
+        print("synchronised", flush=True)
+    """)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch_index", ["2.0", "-1.0", "float('nan')"])
+def test_roi_align_kernel_fails_on_a_batch_index_outside_the_input(
+        dev, batch_index, dtype):
+    """An input of N = 2 images and one RoI whose batch index is N, -1 or
+    NaN: the kernel checks it on the card and stops the launch, which fails
+    at the next synchronisation (in a process of its own: the CUDA context
+    does not survive it). Indices in (-1, N) truncate into range and pass."""
+    _run_trapping(f"""if True:
+        import torch
+        from vision_tpu_torch.ops.roi_align import roi_align_cuda
+        feat = torch.ones(2, 3, 8, 8, device="cuda", dtype=torch.{dtype})
+        ok = torch.tensor([[-0.5, 0, 0, 4, 4], [1.9, 0, 0, 4, 4]],
+                          device="cuda")
+        out = roi_align_cuda(feat, ok, 2, 1.0, 2)
+        torch.cuda.synchronize()
+        assert bool((out == 1).all()), out
+        rois = torch.tensor([[{batch_index}, 0, 0, 4, 4]], device="cuda")
+        roi_align_cuda(feat, rois, 2, 1.0, 2)
+        print("returned", flush=True)
+        torch.cuda.synchronize()
+        print("synchronised", flush=True)
+    """)
+
+
+@pytest.mark.parametrize("sr", [2, 0])
+@pytest.mark.parametrize("k", [64, 1000])
+@pytest.mark.parametrize("size", [208, 104, 52, 26])
+def test_roi_align_bf16_kernel_at_pyramid_shapes(dev, size, k, sr):
+    """The bf16 input at the four levels of the Faster R-CNN forward (C =
+    256), at sampling_ratio 2 and at the adaptive grid (sample counts that
+    are not powers of two: two steps), against the plain bf16 version on the
+    CPU, 100 RoIs at a time."""
+    feat, rois = _pyramid_case(np.random.RandomState(size + k + sr + 1), size, k)
+    feat = feat.bfloat16()
+    scale = size / 832
+    before = roi_align_cuda.launches
+    got = roi_align_cuda(feat.to(dev), rois.to(dev), 7, scale, sr, False)
+    assert roi_align_cuda.launches == before + 1
+    assert got.dtype == torch.bfloat16
+    want = torch.cat([roi_align_plain(feat, rois[i:i + 100], 7, scale, sr)
+                      for i in range(0, k, 100)])
+    _bf16_step_close(got, want, 1e-5 * float(want.float().abs().max()),
+                     steps=1 if sr == 2 else 2)
+
+
 def test_kernels_make_no_host_synchronisation(dev):
     """Under the sync debug mode "error", any PyTorch operation that waits
-    for the card raises; no wrapper does."""
+    for the card raises; no wrapper does, in f32 or in bf16."""
     rng = np.random.RandomState(5)
     args = [t.to(dev) for t in _window_case(rng, 20, 64, 7, 32, 32)]
+    args16 = [args[0].bfloat16(), *args[1:]]
     boxes, valid = (t.to(dev) for t in _sorted_boxes(rng, 2, 300))
     feat, rois = (t.to(dev) for t in _pyramid_case(rng, 52, 64, 16))
+    feat16 = feat.bfloat16()
     window_pool_cuda(*args)  # builds the kernels outside the checked region
+    window_pool_cuda(*args16)
     nms_keep_sorted_rowscan_cuda(boxes, valid, 0.5)
     nms_keep_sorted_cuda(boxes, valid, 0.5)
     roi_align_cuda(feat, rois, 7, 1 / 16, 2, False)
+    roi_align_cuda(feat16, rois, 7, 1 / 16, 2, False)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         window_pool_cuda(*args)
+        window_pool_cuda(*args16)
         nms_keep_sorted_rowscan_cuda(boxes, valid, 0.5)
         nms_keep_sorted_cuda(boxes, valid, 0.5)
         roi_align_cuda(feat, rois, 7, 1 / 16, 2, False)
+        roi_align_cuda(feat16, rois, 7, 1 / 16, 2, False)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
@@ -263,6 +372,29 @@ def test_multiscale_pooler_on_card_matches_cpu(dev):
     got = pooler({k: v.to(dev) for k, v in feats.items()}, rois.to(dev),
                  (256, 256))
     torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("sr", [2, 3])
+def test_multiscale_pooler_bf16_on_card_matches_cpu(dev, sr):
+    """The amp path's pooler: bf16 features through the bf16 window-pool
+    and RoIAlign kernels (the dense recompute), against the CPU."""
+    rng = np.random.RandomState(40 + sr)
+    names = ["0", "1", "2", "3"]
+    feats = {n: torch.from_numpy(rng.rand(1, 32, 64 >> i, 64 >> i)
+                                 .astype(np.float32)).bfloat16()
+             for i, n in enumerate(names)}
+    xy = rng.uniform(0, 200, (100, 2))
+    wh = rng.uniform(4, 150, (100, 2))
+    rois = torch.from_numpy(np.concatenate(
+        [np.zeros((100, 1)), xy, xy + wh], 1).astype(np.float32))
+    pooler = MultiScaleRoIAlign(names, 7, sr, window=8)
+    want = pooler(feats, rois, (256, 256))
+    counts = (window_pool_cuda.launches, roi_align_cuda.launches)
+    got = pooler({k: v.to(dev) for k, v in feats.items()}, rois.to(dev),
+                 (256, 256))
+    assert window_pool_cuda.launches == counts[0] + 1
+    assert roi_align_cuda.launches == counts[1] + 4
+    _bf16_step_close(got, want, 1e-5, steps=1 if sr == 2 else 2)
 
 
 @pytest.mark.parametrize("thr", [0.0, 0.5, 0.9])
@@ -507,3 +639,37 @@ def test_matmul_stats_backward_on_card_matches_autograd_of_plain(dev, prologue):
         grads.append([leaf.grad for leaf in leaves])
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_detection_transform_on_card_matches_cpu(dev):
+    """The request path's transform at its defaults (800 / 1333, a 1344
+    canvas) on two COCO-sized images: the same sizes, and the canvas within
+    1e-5 of its largest value (the resize products in f32, TF32 off)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(50)
+    imgs = [torch.from_numpy(rng.rand(3, h, w).astype(np.float32))
+            for h, w in ((480, 640), (427, 640))]
+    want = GeneralizedRCNNTransform(device="cpu")(imgs)
+    got = GeneralizedRCNNTransform()(imgs)
+    assert got.tensors.device.type == "cuda"
+    assert got.image_sizes == want.image_sizes == [(800, 1067), (800, 1199)]
+    tol = 1e-5 * float(want.tensors.abs().max())
+    assert float((got.tensors.cpu() - want.tensors).abs().max()) <= tol
+
+
+def test_image_classification_on_card_matches_cpu(dev):
+    """The ResNet preset (resize 232, crop 224) on uint8 375x500 images.
+    Each side rounds its f32 resize half to even; where the exact value is
+    a near-tie the two may round apart, one uint8 level (1 / (255 std))."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    raw = torch.from_numpy(np.random.RandomState(51).randint(
+        0, 256, (4, 3, 375, 500)).astype(np.uint8))
+    preset = ImageClassification(crop_size=224, resize_size=232)
+    want = ImageClassification(crop_size=224, resize_size=232,
+                               device="cpu")(raw)
+    got = preset(raw)
+    assert got.device.type == "cuda" and got.shape == (4, 3, 224, 224)
+    diff = (got.cpu() - want).abs()
+    level = 1.0 / (255.0 * torch.tensor(preset.std))[:, None, None]
+    assert bool((diff <= level * (1 + 1e-4) + 1e-5).all())
+    assert float((diff > 1e-5).float().mean()) < 1e-3

@@ -31,7 +31,10 @@ def test_import_pulls_in_no_jax():
     code = (
         "import sys, vision_tpu_torch, vision_tpu_torch.models.detection, "
         "vision_tpu_torch._jax_convert, vision_tpu_torch.parallel, "
-        "vision_tpu_torch.tools.profile_resnet_train\n"
+        "vision_tpu_torch.tools.profile_resnet_train, "
+        "vision_tpu_torch.transforms.v2.functional, "
+        "vision_tpu_torch.models.detection.transform, "
+        "vision_tpu_torch.ops.boxes\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'vision_tpu')]\n"
         "print(bad)\n"
@@ -47,6 +50,7 @@ def test_no_source_imports_jax_or_vision_tpu():
     )
     sources = list(PKG.rglob("*.py"))
     assert len(sources) > 10
+    assert PKG / "transforms" / "v2" / "functional" / "_resample.py" in sources
     for src in sources:
         assert not pattern.search(src.read_text()), src
 
@@ -96,3 +100,40 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         window_pool_cuda(torch.zeros(4, 4, 1), torch.zeros(1, dtype=torch.int32),
                          torch.zeros(1, dtype=torch.int32), torch.zeros(1, 1, 2),
                          torch.zeros(1, 1, 2))
+
+
+def test_bf16_cpu_tensors_take_the_plain_path():
+    """The amp path's pooler calls on the CPU: the plain versions, in bf16,
+    and no kernel launch."""
+    counts = (roi_align_cuda.launches, window_pool_cuda.launches)
+    feat = torch.rand(1, 3, 8, 8).bfloat16()
+    rois = torch.tensor([[0.0, 1.0, 1.0, 6.0, 6.0]])
+    out = roi_align(feat, rois, 2, 1.0, 2)
+    assert out.dtype == torch.bfloat16 and out.shape == (1, 3, 2, 2)
+    out = window_pool(torch.rand(8, 8, 3).bfloat16(), torch.tensor([0]),
+                      torch.tensor([0]), torch.rand(1, 2, 4), torch.rand(1, 2, 4))
+    assert out.dtype == torch.bfloat16 and out.shape == (1, 3, 2, 2)
+    assert counts == (roi_align_cuda.launches, window_pool_cuda.launches)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_pooler_kernel_wrappers_refuse_other_types(dtype):
+    """f32 and bf16 only: f16 and f64 are refused before the device is
+    looked at, so no CUDA tensor is needed to see it."""
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        roi_align_cuda(torch.zeros(1, 1, 4, 4, dtype=dtype), torch.zeros(1, 5), 2)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        window_pool_cuda(torch.zeros(4, 4, 1, dtype=dtype),
+                         torch.zeros(1, dtype=torch.int32),
+                         torch.zeros(1, dtype=torch.int32),
+                         torch.zeros(1, 1, 2), torch.zeros(1, 1, 2))
+
+
+def test_pooler_kernel_wrappers_refuse_non_f32_weights_and_boxes():
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        roi_align_cuda(torch.zeros(1, 1, 4, 4), torch.zeros(1, 5).bfloat16(), 2)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        window_pool_cuda(torch.zeros(4, 4, 1).bfloat16(),
+                         torch.zeros(1, dtype=torch.int32),
+                         torch.zeros(1, dtype=torch.int32),
+                         torch.zeros(1, 1, 2).bfloat16(), torch.zeros(1, 1, 2))

@@ -7,6 +7,6 @@ in Pallas for the TPU are CUDA C++ kernels here (``csrc/``), built with
 beside it, which runs for tensors on the CPU.
 """
 
-from vision_tpu_torch import models, ops
+from vision_tpu_torch import models, ops, transforms
 
-__all__ = ["models", "ops"]
+__all__ = ["models", "ops", "transforms"]

@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import inspect
 import os
 import shutil
 import subprocess
@@ -74,12 +75,12 @@ _KERNELS: Dict[str, Tuple[str, List[str], Dict[str, list]]] = {
     "roi_align": (
         "roi_align.cu", ["-fmad=false"],
         {"vt_roi_align_forward": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                  _F, _I, _I, _P]},
+                                  _F, _I, _I, _I, _P]},
     ),
     "window_pool": (
         "window_pool.cu", [],
         {"vt_window_pool": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _I, _I, _F, _P]},
+                            _I, _I, _F, _I, _P]},
     ),
 }
 
@@ -180,14 +181,23 @@ def stream_handle(tensor) -> int:
 def counted(wrapper):
     """Give a kernel wrapper a launch count: ``wrapper.launches``, a plain
     integer that grows by one each time the wrapper's kernel has been
-    launched without error. The count lives on the returned function, so
-    it survives callers rebinding the module-level name."""
+    launched without error, and ``wrapper.launches_by_dtype``, the same
+    count split by the type of the wrapper's first argument (``"float32"``,
+    ``"bfloat16"``), which picks the kernel's variant. The counts live on
+    the returned function, so they survive callers rebinding the
+    module-level name."""
+
+    first_name = next(iter(inspect.signature(wrapper).parameters))
 
     @functools.wraps(wrapper)
     def launch(*args, **kwargs):
         out = wrapper(*args, **kwargs)
         launch.launches += 1
+        first = args[0] if args else kwargs[first_name]
+        dtype = str(first.dtype).replace("torch.", "")
+        launch.launches_by_dtype[dtype] = launch.launches_by_dtype.get(dtype, 0) + 1
         return out
 
     launch.launches = 0
+    launch.launches_by_dtype = {}
     return launch

@@ -35,9 +35,22 @@
 // rules of the reference): a sample outside [-1, size] contributes 0; the
 // low/high corners clamp to size-1. The sums are taken in another order
 // than the plain version's: agreement within 1e-5 of the largest value.
+//
+// Element types: f32, and bf16 for the amp path. A bf16 input is read as
+// it lies and widened at the multiply-add; weights and sums stay f32. A
+// bf16 output is rounded as the TPU kernel rounds it: the f32 sum to bf16,
+// then divided by the sample count in f32 and rounded again
+// (vision_tpu/ops/_pallas/roi_align.py:104,230).
+//
+// A RoI's batch index (its first column, truncated as the plain version
+// truncates it) is checked on the card: outside [0, N) the launch stops
+// with a trap, which the host sees as an error at its next
+// synchronisation; the input is never read there.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdio.h>
 
 namespace {
 
@@ -78,16 +91,34 @@ __device__ __forceinline__ Sample sample(int s, int grid, float start,
   return out;
 }
 
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+__device__ __forceinline__ void finish(float* o, float sum, float count) {
+  *o = sum / count;
+}
+__device__ __forceinline__ void finish(__nv_bfloat16* o, float sum,
+                                       float count) {
+  *o = __float2bfloat16_rn(__bfloat162float(__float2bfloat16_rn(sum)) / count);
+}
+
+__device__ __noinline__ void bad_batch_index(int r, float b, int n) {
+  printf("roi_align: RoI %d has batch index %g, outside [0, %d)\n", r, b, n);
+  __trap();
+}
+
 // kGrid > 0: a fixed grid of kGrid x kGrid samples a bin, whose loops the
 // compiler unrolls (every load of a thread's outputs in flight at once);
 // the launch takes it when one chunk holds every sample of both axes.
 // kGrid == 0: any grid, the adaptive one included.
-template <int kGrid>
+template <typename T, int kGrid>
 __global__ void __launch_bounds__(kThreads)
-    roi_align_forward_kernel(const float* __restrict__ input,
-                             const float* __restrict__ rois, int c, int h,
-                             int w, int ph, int pw, float scale, int sr,
-                             int aligned, float* __restrict__ out) {
+    roi_align_forward_kernel(const T* __restrict__ input,
+                             const float* __restrict__ rois, int n, int c,
+                             int h, int w, int ph, int pw, float scale,
+                             int sr, int aligned, T* __restrict__ out) {
   __shared__ Sample ys[kChunk], xs[kChunk];
   const int slabs = (c + kSlab - 1) / kSlab;
   const int r = blockIdx.x / slabs, c0 = (blockIdx.x - r * slabs) * kSlab;
@@ -95,6 +126,12 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x;
 
   const float* roi = rois + (size_t)r * 5;
+  // trunc(roi[0]) lies in [0, n) exactly when roi[0] lies in (-1, n); a NaN
+  // fails both tests
+  if (!(roi[0] > -1.0f && roi[0] < (float)n)) {
+    if (tid == 0) bad_batch_index(r, roi[0], n);
+    return;  // not reached: the launch has stopped
+  }
   const int b = (int)roi[0];
   const float offset = aligned ? 0.5f : 0.0f;
   const float start_w = roi[1] * scale - offset;
@@ -113,8 +150,8 @@ __global__ void __launch_bounds__(kThreads)
   const float count = fmaxf((float)(gh * gw), 1.0f);
   const int ny = ph * max(gh, 0), nx = pw * max(gw, 0);
   const int area = ph * pw, nout = nch * area;
-  const float* planes = input + ((size_t)b * c + c0) * h * w;
-  float* o = out + ((size_t)r * c + c0) * area;
+  const T* planes = input + ((size_t)b * c + c0) * h * w;
+  T* o = out + ((size_t)r * c + c0) * area;
 
   for (int base = 0; base < nout; base += kThreads * kPerThread) {
     float sum[kPerThread];
@@ -138,7 +175,7 @@ __global__ void __launch_bounds__(kThreads)
           const int p = pq / pw, q = pq - p * pw;
           const int sy0 = max(p * gh, y0) - y0, sy1 = min((p + 1) * gh, y1) - y0;
           const int sx0 = max(q * gw, x0) - x0, sx1 = min((q + 1) * gw, x1) - x0;
-          const float* plane = planes + (size_t)g * h * w;
+          const T* plane = planes + (size_t)g * h * w;
           float acc = 0.0f;
           if (kGrid > 0) {
 #pragma unroll
@@ -148,8 +185,10 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
               for (int v = 0; v < kGrid; ++v) {
                 const Sample X = xs[q * kGrid + v];
-                a += X.wlo * plane[Y.lo + X.lo] + X.whi * plane[Y.lo + X.hi];
-                d += X.wlo * plane[Y.hi + X.lo] + X.whi * plane[Y.hi + X.hi];
+                a += X.wlo * widen(plane[Y.lo + X.lo]) +
+                     X.whi * widen(plane[Y.lo + X.hi]);
+                d += X.wlo * widen(plane[Y.hi + X.lo]) +
+                     X.whi * widen(plane[Y.hi + X.hi]);
               }
               acc += Y.wlo * a + Y.whi * d;
             }
@@ -158,13 +197,13 @@ __global__ void __launch_bounds__(kThreads)
           }
           for (int sy = sy0; sy < sy1; ++sy) {
             const Sample Y = ys[sy];
-            const float* rlo = plane + Y.lo;
-            const float* rhi = plane + Y.hi;
+            const T* rlo = plane + Y.lo;
+            const T* rhi = plane + Y.hi;
             float a = 0.0f, d = 0.0f;  // the low and the high row
             for (int sx = sx0; sx < sx1; ++sx) {
               const Sample X = xs[sx];
-              a += X.wlo * rlo[X.lo] + X.whi * rlo[X.hi];
-              d += X.wlo * rhi[X.lo] + X.whi * rhi[X.hi];
+              a += X.wlo * widen(rlo[X.lo]) + X.whi * widen(rlo[X.hi]);
+              d += X.wlo * widen(rhi[X.lo]) + X.whi * widen(rhi[X.hi]);
             }
             acc += Y.wlo * a + Y.whi * d;
           }
@@ -175,28 +214,42 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int k = 0; k < kPerThread; ++k) {
       const int i = base + tid + k * kThreads;
-      if (i < nout) o[i] = sum[k] / count;
+      if (i < nout) finish(o + i, sum[k], count);
     }
   }
 }
 
+template <typename T>
+void launch(const void* input, const float* rois, void* out, int n, int c,
+            int h, int w, int k, int ph, int pw, float scale, int sr,
+            int aligned, cudaStream_t s) {
+  const long long blocks = (long long)k * ((c + kSlab - 1) / kSlab);
+  const T* in = static_cast<const T*>(input);
+  T* o = static_cast<T*>(out);
+  if (sr == 2 && ph * 2 <= kChunk && pw * 2 <= kChunk)
+    roi_align_forward_kernel<T, 2><<<(unsigned)blocks, kThreads, 0, s>>>(
+        in, rois, n, c, h, w, ph, pw, scale, sr, aligned, o);
+  else
+    roi_align_forward_kernel<T, 0><<<(unsigned)blocks, kThreads, 0, s>>>(
+        in, rois, n, c, h, w, ph, pw, scale, sr, aligned, o);
+}
+
 }  // namespace
 
-// input [n, c, h, w] f32, rois [k, 5] f32 (batch index, x1, y1, x2, y2),
-// out [k, c, ph, pw] f32. Batch indices must lie in [0, n).
-extern "C" int vt_roi_align_forward(const float* input, const float* rois,
-                                    float* out, int n, int c, int h, int w,
+// input [n, c, h, w] and out [k, c, ph, pw], both f32 (bf16 = 0) or both
+// bf16 (bf16 = 1); rois [k, 5] f32 (batch index, x1, y1, x2, y2). A batch
+// index outside [0, n) stops the launch on the card.
+extern "C" int vt_roi_align_forward(const void* input, const float* rois,
+                                    void* out, int n, int c, int h, int w,
                                     int k, int ph, int pw, float scale, int sr,
-                                    int aligned, void* stream) {
-  (void)n;
+                                    int aligned, int bf16, void* stream) {
   if ((long long)k * c * ph * pw == 0) return 0;
-  const long long blocks = (long long)k * ((c + kSlab - 1) / kSlab);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (sr == 2 && ph * 2 <= kChunk && pw * 2 <= kChunk)
-    roi_align_forward_kernel<2><<<(unsigned)blocks, kThreads, 0, s>>>(
-        input, rois, c, h, w, ph, pw, scale, sr, aligned, out);
+  if (bf16)
+    launch<__nv_bfloat16>(input, rois, out, n, c, h, w, k, ph, pw, scale, sr,
+                          aligned, s);
   else
-    roi_align_forward_kernel<0><<<(unsigned)blocks, kThreads, 0, s>>>(
-        input, rois, c, h, w, ph, pw, scale, sr, aligned, out);
+    launch<float>(input, rois, out, n, c, h, w, k, ph, pw, scale, sr,
+                  aligned, s);
   return (int)cudaGetLastError();
 }

@@ -53,7 +53,18 @@
 // memory above (111 KB a block at 7x7) admits two blocks an SM; the same
 // code at one block an SM ran 1.3-1.7x slower. The sampling rules (CUDA
 // edge rules, level extents) live in the weights.
+//
+// Element types: f32, and bf16 for the amp path, with the same geometry.
+// A bf16 pyramid is staged as it lies (a chunk is 16 KB) and widened to f32
+// at the multiply-add; weights and sums stay f32. Its 4 channels a thread
+// are one 8-byte cp.async where C is a multiple of 4; otherwise, since a
+// 2-byte element has no cp.async form, the thread loads them and stores
+// them to shared memory itself, and its arrival on the slot's barrier
+// (release) follows those stores. A bf16 output is rounded as the JAX
+// package rounds it: the f32 sum to bf16, then divided in f32 and rounded
+// again (vision_tpu/ops/poolers.py:62,273).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <stdio.h>
@@ -68,7 +79,7 @@ constexpr int kVecs = kCS / 4;                 // float4 a column of a slab
 constexpr int kThreads = kCols * kVecs;        // 256: thread (column, float4)
 constexpr int kRows = 8;                       // rows a chunk
 constexpr int kStages = 2;                     // chunks in the ring
-constexpr int kChunk = kRows * kCols * kCS;    // floats a chunk
+constexpr int kChunk = kRows * kCols * kCS;    // elements a chunk
 constexpr int kWSlots = 3;                     // items' weights in shared
 constexpr int kDesc = 16;                      // items described at a time
 constexpr int kMaxShared = 232448;             // bytes a block may ask for
@@ -98,11 +109,46 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src)
                : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// 4 consecutive channels: one copy of 16 (f32) or 8 (bf16) bytes.
+__device__ __forceinline__ void cp_async_4ch(float* dst, const float* src) {
+  cp_async16(dst, src);
+}
+__device__ __forceinline__ void cp_async_4ch(__nv_bfloat16* dst,
+                                             const __nv_bfloat16* src) {
+  cp_async8(dst, src);
+}
+
+// 4 consecutive channels of the ring, widened to f32.
+__device__ __forceinline__ float4 load_4ch(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load_4ch(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+__device__ __forceinline__ float finish(float sum, float div, float*) {
+  return sum / div;
+}
+__device__ __forceinline__ __nv_bfloat16 finish(float sum, float div,
+                                                __nv_bfloat16*) {
+  return __float2bfloat16_rn(__bfloat162float(__float2bfloat16_rn(sum)) / div);
 }
 
 // The barrier's phase completes once every thread's copies issued so far
@@ -111,6 +157,22 @@ __device__ __forceinline__ void arrive_on_copies(uint64_t* bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
                    smem_u32(bar))
                : "memory");
+}
+
+// For a thread that also stored to the slot itself: the async arrival
+// (with .noinc absent) nets zero and holds the phase open until the
+// thread's copies land; the plain arrival that follows counts, and its
+// release orders the thread's stores before the phase completes.
+__device__ __forceinline__ void arrive_on_copies_and_stores(uint64_t* bar) {
+  uint64_t state;
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+  asm volatile("mbarrier.arrive.shared::cta.b64 %0, [%1];\n"
+               : "=l"(state)
+               : "r"(smem_u32(bar))
+               : "memory");
+  (void)state;
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
@@ -147,22 +209,25 @@ __device__ __noinline__ void out_of_bounds(int k, int row0, int x0, int winy,
   __trap();
 }
 
-template <int kMaxPH, bool kVec16>
+// kVec: each thread's 4 channels are one cp.async (C % 4 == 0 and the
+// pyramid aligned to 4 elements); otherwise element by element.
+template <typename T, int kMaxPH, bool kVec>
 __global__ void __launch_bounds__(kThreads)
-    window_pool_kernel(const float* __restrict__ stacked,
+    window_pool_kernel(const T* __restrict__ stacked,
                        const int* __restrict__ row0,
                        const int* __restrict__ x0,
                        const float* __restrict__ wy,
                        const float* __restrict__ wx, int rrows, int wmax,
                        int c, int k_total, int ph, int pw, int winy, int winx,
-                       float div, float* __restrict__ out) {
-  extern __shared__ __align__(16) float smem[];
+                       float div, T* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   // weights in a slot, transposed so that one row's (column's) weights are
   // float4 broadcasts: w_y as [winy][kMaxPH], w_x as [winx][pwp]
   const int npq = ph * pw, pwp = (pw + 3) & ~3, nwy = ph * winy;
   const int nw = winy * kMaxPH + winx * pwp;
-  float* ring = smem;                               // [kStages][kChunk]
-  float* s_rows = ring + kStages * kChunk;          // [ph][kCols][kCS]
+  T* ring = reinterpret_cast<T*>(smem_raw);         // [kStages][kChunk]
+  float* s_rows = reinterpret_cast<float*>(ring + kStages * kChunk);
+                                                    // [ph][kCols][kCS]
   float* s_out = s_rows + ph * kCols * kCS;         // [kCS][npq]
   float* s_w = s_out + kCS * npq;                   // [kWSlots][nw]
   Desc* s_desc = reinterpret_cast<Desc*>(s_w + kWSlots * nw);  // [kDesc]
@@ -245,25 +310,33 @@ __global__ void __launch_bounds__(kThreads)
     const int cpg = chunks_per_group(d);
     const int g = q / cpg, y0 = (q - g * cpg) * kRows;
     const int x = g * kCols + col;
-    float* dst = ring + s * kChunk + col * kCS + 4 * f;
+    T* dst = ring + s * kChunk + col * kCS + 4 * f;
     if (x < d.nx) {
-      const float* src =
+      const T* src =
           stacked + ((size_t)(d.row + y0) * wmax + d.col + x) * c + d.c0 + 4 * f;
       const size_t row_stride = (size_t)wmax * c;
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         if (y0 + r >= d.ny) break;
-        if (kVec16) {
-          if (4 * f < d.nch) cp_async16(dst + r * kCols * kCS, src + r * row_stride);
+        if (kVec) {
+          if (4 * f < d.nch)
+            cp_async_4ch(dst + r * kCols * kCS, src + r * row_stride);
         } else {
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (4 * f + e < d.nch)
+          for (int e = 0; e < 4; ++e) {
+            if (4 * f + e >= d.nch) continue;
+            if (sizeof(T) == 4)
               cp_async4(dst + r * kCols * kCS + e, src + r * row_stride + e);
+            else
+              dst[r * kCols * kCS + e] = src[r * row_stride + e];
+          }
         }
       }
     }
-    arrive_on_copies(&full[s]);
+    if (sizeof(T) == 4 || kVec)
+      arrive_on_copies(&full[s]);
+    else
+      arrive_on_copies_and_stores(&full[s]);
   };
 
   // Producer state, the same in every thread: chunk `pq` of local item `pl`
@@ -306,13 +379,12 @@ __global__ void __launch_bounds__(kThreads)
       for (int ci = 0; ci < cpg; ++ci) {
         const int s = consumed % kStages;
         mbar_wait(&full[s], (consumed / kStages) & 1);
-        const float4* chunk =
-            reinterpret_cast<const float4*>(ring + s * kChunk) + col * kVecs + f;
+        const T* chunk = ring + s * kChunk + col * kCS + 4 * f;
 #pragma unroll
         for (int r = 0; r < kRows; ++r) {
           const int y = ci * kRows + r;
           if (y >= d.ny) break;
-          const float4 v = chunk[r * kCols * kVecs];
+          const float4 v = load_4ch(chunk + r * kCols * kCS);
           const float4* wr =
               reinterpret_cast<const float4*>(wyd + (d.ylo + y) * kMaxPH);
 #pragma unroll
@@ -381,29 +453,31 @@ __global__ void __launch_bounds__(kThreads)
       __syncthreads();
     }
 
-    float* dst = out + ((size_t)d.k * c + d.c0) * npq;
+    T* dst = out + ((size_t)d.k * c + d.c0) * npq;
     for (int i = t; i < d.nch * npq; i += kThreads)
-      dst[i] = ngroups ? s_out[i] / div : 0.0f;
+      dst[i] = finish(ngroups ? s_out[i] : 0.0f, div, dst);
     __syncthreads();  // s_out and this item's weight slot are free
   }
 }
 
-size_t shared_bytes(int max_ph, int ph, int pw, int winy, int winx) {
-  const size_t floats = (size_t)kStages * kChunk + (size_t)ph * kCols * kCS +
-                        (size_t)kCS * ph * pw +
+size_t shared_bytes(size_t elem, int max_ph, int ph, int pw, int winy,
+                    int winx) {
+  const size_t floats = (size_t)ph * kCols * kCS + (size_t)kCS * ph * pw +
                         kWSlots * ((size_t)winy * max_ph +
                                    (size_t)winx * ((pw + 3) & ~3));
-  return floats * sizeof(float) + kDesc * sizeof(Desc) + 8 +
-         kStages * sizeof(uint64_t);
+  return (size_t)kStages * kChunk * elem + floats * sizeof(float) +
+         kDesc * sizeof(Desc) + 8 + kStages * sizeof(uint64_t);
 }
 
-template <int kMaxPH, bool kVec16>
-int launch(const float* stacked, const int* row0, const int* x0,
-           const float* wy, const float* wx, float* out, int rrows, int wmax,
+template <typename T, int kMaxPH, bool kVec>
+int launch(const void* stacked_v, const int* row0, const int* x0,
+           const float* wy, const float* wx, void* out_v, int rrows, int wmax,
            int c, int k, int ph, int pw, int winy, int winx, float div,
            cudaStream_t stream) {
-  auto kernel = window_pool_kernel<kMaxPH, kVec16>;
-  const size_t smem = shared_bytes(kMaxPH, ph, pw, winy, winx);
+  auto kernel = window_pool_kernel<T, kMaxPH, kVec>;
+  const T* stacked = static_cast<const T*>(stacked_v);
+  T* out = static_cast<T*>(out_v);
+  const size_t smem = shared_bytes(sizeof(T), kMaxPH, ph, pw, winy, winx);
   if (smem > (size_t)kMaxShared) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -423,31 +497,43 @@ int launch(const float* stacked, const int* row0, const int* x0,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int dispatch(const void* stacked, const int* row0, const int* x0,
+             const float* wy, const float* wx, void* out, int rrows, int wmax,
+             int c, int k, int ph, int pw, int winy, int winx, float div,
+             cudaStream_t s) {
+  const bool vec =
+      c % 4 == 0 && reinterpret_cast<uintptr_t>(stacked) % (4 * sizeof(T)) == 0;
+  if (ph <= 8)
+    return vec ? launch<T, 8, true>(stacked, row0, x0, wy, wx, out, rrows,
+                                    wmax, c, k, ph, pw, winy, winx, div, s)
+               : launch<T, 8, false>(stacked, row0, x0, wy, wx, out, rrows,
+                                     wmax, c, k, ph, pw, winy, winx, div, s);
+  return vec ? launch<T, 16, true>(stacked, row0, x0, wy, wx, out, rrows, wmax,
+                                   c, k, ph, pw, winy, winx, div, s)
+             : launch<T, 16, false>(stacked, row0, x0, wy, wx, out, rrows,
+                                    wmax, c, k, ph, pw, winy, winx, div, s);
+}
+
 }  // namespace
 
-// stacked [rrows, wmax, c] f32, row0/x0 [k] int32 (each window is checked
-// on the card), wy [k, ph, winy] f32, wx [k, pw, winx] f32,
-// out [k, c, ph, pw] f32. ph, pw <= 16.
-extern "C" int vt_window_pool(const float* stacked, const int* row0,
+// stacked [rrows, wmax, c] and out [k, c, ph, pw], both f32 (bf16 = 0) or
+// both bf16 (bf16 = 1); row0/x0 [k] int32 (each window is checked on the
+// card), wy [k, ph, winy] f32, wx [k, pw, winx] f32. ph, pw <= 16.
+extern "C" int vt_window_pool(const void* stacked, const int* row0,
                               const int* x0, const float* wy, const float* wx,
-                              float* out, int rrows, int wmax, int c, int k,
+                              void* out, int rrows, int wmax, int c, int k,
                               int ph, int pw, int winy, int winx, float div,
-                              void* stream) {
+                              int bf16, void* stream) {
   if (k == 0 || c == 0) return 0;
   if (ph > 16 || pw > 16 || ph < 1 || pw < 1)
     return (int)cudaErrorInvalidValue;
   if ((long long)k * ((c + kCS - 1) / kCS) > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec16 =
-      c % 4 == 0 && reinterpret_cast<uintptr_t>(stacked) % 16 == 0;
-  if (ph <= 8)
-    return vec16 ? launch<8, true>(stacked, row0, x0, wy, wx, out, rrows,
-                                   wmax, c, k, ph, pw, winy, winx, div, s)
-                 : launch<8, false>(stacked, row0, x0, wy, wx, out, rrows,
-                                    wmax, c, k, ph, pw, winy, winx, div, s);
-  return vec16 ? launch<16, true>(stacked, row0, x0, wy, wx, out, rrows, wmax,
-                                  c, k, ph, pw, winy, winx, div, s)
-               : launch<16, false>(stacked, row0, x0, wy, wx, out, rrows,
+  if (bf16)
+    return dispatch<__nv_bfloat16>(stacked, row0, x0, wy, wx, out, rrows,
                                    wmax, c, k, ph, pw, winy, winx, div, s);
+  return dispatch<float>(stacked, row0, x0, wy, wx, out, rrows, wmax, c, k,
+                         ph, pw, winy, winx, div, s);
 }

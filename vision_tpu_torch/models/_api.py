@@ -7,7 +7,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import os
-from typing import Any, Callable, Dict, List, Union
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import torch
 
@@ -37,12 +37,16 @@ def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
 @dataclasses.dataclass(frozen=True)
 class Weights:
     """A checkpoint: ``url`` names where it is published, ``path`` the
-    local ``.pth`` file it loads from. Nothing is downloaded."""
+    local ``.pth`` file it loads from. Nothing is downloaded.
+    ``transforms`` builds the inference preset the checkpoint was evaluated
+    with (``weights.transforms()``)."""
 
     url: str
     meta: Dict[str, Any] = dataclasses.field(default_factory=dict, hash=False,
                                               compare=False)
     path: str = ""
+    transforms: Optional[Callable[..., Any]] = dataclasses.field(
+        default=None, hash=False, compare=False)
 
     def get_state_dict(self) -> Dict[str, torch.Tensor]:
         if not self.path or not os.path.isfile(self.path):
@@ -68,6 +72,10 @@ class WeightsEnum(enum.Enum):
     @property
     def meta(self) -> Dict[str, Any]:
         return self.value.meta
+
+    @property
+    def transforms(self) -> Optional[Callable[..., Any]]:
+        return self.value.transforms
 
 
 def register_model(name: str = None):

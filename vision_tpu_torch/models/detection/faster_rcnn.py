@@ -5,8 +5,15 @@ Backbone -> FPN -> RPN head -> fixed-size ``filter_proposals`` (top-k +
 per-level NMS) -> windowed ``MultiScaleRoIAlign`` -> box head ->
 fixed-size ``postprocess_detections`` (top-k + class-aware NMS). On the
 card the NMS, window-pool and RoIAlign steps run the package's CUDA
-kernels. Input: normalised, padded NCHW images; output: ``Detections``
-with ``detections_per_img`` rows per image.
+kernels. Input: normalised, padded NCHW images, as
+``transform.GeneralizedRCNNTransform`` builds them from raw images (whose
+``postprocess_boxes`` maps the boxes back); output: ``Detections`` with
+``detections_per_img`` rows per image, boxes in the canvas's frame.
+
+Amp (bf16) eval is the JAX package's switch: ``model.to(torch.bfloat16)``
+and a bf16 canvas. The trunk, the FPN, the heads and the pooled features
+run in bf16 (the pooler's kernels take bf16); anchors, box decoding, NMS
+and the final softmax run in f32, so boxes and scores come out f32.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from vision_tpu_torch.models.detection.roi_heads import (
 )
 from vision_tpu_torch.models.detection.rpn import RegionProposalNetwork, RPNHead
 from vision_tpu_torch.ops.poolers import MultiScaleRoIAlign
+from vision_tpu_torch.transforms._presets import ObjectDetection
 
 __all__ = [
     "FasterRCNN",
@@ -152,6 +160,7 @@ class FasterRCNN_ResNet50_FPN_Weights(WeightsEnum):
     COCO_V1 = Weights(
         url="https://download.pytorch.org/models/"
         "fasterrcnn_resnet50_fpn_coco-258fb6c6.pth",
+        transforms=ObjectDetection,
         meta={"num_params": 41755286,
               "_metrics": {"COCO-val2017": {"box_map": 37.0}}},
     )

@@ -17,6 +17,7 @@ as on the standard path, which eval-mode calls always take.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, Optional, Sequence, Type, Union
 
@@ -32,6 +33,7 @@ from vision_tpu_torch.models._api import (
 )
 from vision_tpu_torch.ops import _conv1x1_bn
 from vision_tpu_torch.ops.misc import BatchNorm2d, batch_mean_var
+from vision_tpu_torch.transforms._presets import ImageClassification
 
 __all__ = [
     "BasicBlock",
@@ -260,9 +262,10 @@ def init_weights(model: ResNet, generator: torch.Generator) -> None:
 _COMMON_META = {"min_size": (1, 1), "categories": "imagenet-1k"}
 
 
-def _cls_weights(url: str, metrics: Dict[str, float], num_params: int,
-                 ops: float, file_size: float) -> Weights:
-    return Weights(url=url, meta={
+def _cls_weights(url: str, crop: int, resize: int, metrics: Dict[str, float],
+                 num_params: int, ops: float, file_size: float) -> Weights:
+    return Weights(url=url, transforms=functools.partial(
+        ImageClassification, crop_size=crop, resize_size=resize), meta={
         **_COMMON_META,
         "num_params": num_params,
         "recipe": "",
@@ -277,91 +280,91 @@ _URL = "https://download.pytorch.org/models/"
 
 class ResNet18_Weights(WeightsEnum):
     IMAGENET1K_V1 = _cls_weights(
-        _URL + "resnet18-f37072fd.pth",
+        _URL + "resnet18-f37072fd.pth", 224, 256,
         {"acc@1": 69.758, "acc@5": 89.078}, 11689512, 1.814, 44.661)
     DEFAULT = IMAGENET1K_V1
 
 
 class ResNet34_Weights(WeightsEnum):
     IMAGENET1K_V1 = _cls_weights(
-        _URL + "resnet34-b627a593.pth",
+        _URL + "resnet34-b627a593.pth", 224, 256,
         {"acc@1": 73.314, "acc@5": 91.420}, 21797672, 3.664, 83.275)
     DEFAULT = IMAGENET1K_V1
 
 
 class ResNet50_Weights(WeightsEnum):
     IMAGENET1K_V1 = _cls_weights(
-        _URL + "resnet50-0676ba61.pth",
+        _URL + "resnet50-0676ba61.pth", 224, 256,
         {"acc@1": 76.130, "acc@5": 92.862}, 25557032, 4.089, 97.781)
     IMAGENET1K_V2 = _cls_weights(
-        _URL + "resnet50-11ad3fa6.pth",
+        _URL + "resnet50-11ad3fa6.pth", 224, 232,
         {"acc@1": 80.858, "acc@5": 95.434}, 25557032, 4.089, 97.79)
     DEFAULT = IMAGENET1K_V2
 
 
 class ResNet101_Weights(WeightsEnum):
     IMAGENET1K_V1 = _cls_weights(
-        _URL + "resnet101-63fe2227.pth",
+        _URL + "resnet101-63fe2227.pth", 224, 256,
         {"acc@1": 77.374, "acc@5": 93.546}, 44549160, 7.801, 170.511)
     IMAGENET1K_V2 = _cls_weights(
-        _URL + "resnet101-cd907fc2.pth",
+        _URL + "resnet101-cd907fc2.pth", 224, 232,
         {"acc@1": 81.886, "acc@5": 95.780}, 44549160, 7.801, 170.53)
     DEFAULT = IMAGENET1K_V2
 
 
 class ResNet152_Weights(WeightsEnum):
     IMAGENET1K_V1 = _cls_weights(
-        _URL + "resnet152-394f9c45.pth",
+        _URL + "resnet152-394f9c45.pth", 224, 256,
         {"acc@1": 78.312, "acc@5": 94.046}, 60192808, 11.514, 230.434)
     IMAGENET1K_V2 = _cls_weights(
-        _URL + "resnet152-f82ba261.pth",
+        _URL + "resnet152-f82ba261.pth", 224, 232,
         {"acc@1": 82.284, "acc@5": 96.002}, 60192808, 11.514, 230.474)
     DEFAULT = IMAGENET1K_V2
 
 
 class ResNeXt50_32X4D_Weights(WeightsEnum):
     IMAGENET1K_V1 = _cls_weights(
-        _URL + "resnext50_32x4d-7cdf4587.pth",
+        _URL + "resnext50_32x4d-7cdf4587.pth", 224, 256,
         {"acc@1": 77.618, "acc@5": 93.698}, 25028904, 4.23, 95.789)
     IMAGENET1K_V2 = _cls_weights(
-        _URL + "resnext50_32x4d-1a0047aa.pth",
+        _URL + "resnext50_32x4d-1a0047aa.pth", 224, 232,
         {"acc@1": 81.198, "acc@5": 95.340}, 25028904, 4.23, 95.833)
     DEFAULT = IMAGENET1K_V2
 
 
 class ResNeXt101_32X8D_Weights(WeightsEnum):
     IMAGENET1K_V1 = _cls_weights(
-        _URL + "resnext101_32x8d-8ba56ff5.pth",
+        _URL + "resnext101_32x8d-8ba56ff5.pth", 224, 256,
         {"acc@1": 79.312, "acc@5": 94.526}, 88791336, 16.414, 339.586)
     IMAGENET1K_V2 = _cls_weights(
-        _URL + "resnext101_32x8d-110c445d.pth",
+        _URL + "resnext101_32x8d-110c445d.pth", 224, 232,
         {"acc@1": 82.834, "acc@5": 96.228}, 88791336, 16.414, 339.673)
     DEFAULT = IMAGENET1K_V2
 
 
 class ResNeXt101_64X4D_Weights(WeightsEnum):
     IMAGENET1K_V1 = _cls_weights(
-        _URL + "resnext101_64x4d-173b62eb.pth",
+        _URL + "resnext101_64x4d-173b62eb.pth", 224, 232,
         {"acc@1": 83.246, "acc@5": 96.454}, 83455272, 15.46, 319.318)
     DEFAULT = IMAGENET1K_V1
 
 
 class Wide_ResNet50_2_Weights(WeightsEnum):
     IMAGENET1K_V1 = _cls_weights(
-        _URL + "wide_resnet50_2-95faca4d.pth",
+        _URL + "wide_resnet50_2-95faca4d.pth", 224, 256,
         {"acc@1": 78.468, "acc@5": 94.086}, 68883240, 11.398, 131.82)
     IMAGENET1K_V2 = _cls_weights(
-        _URL + "wide_resnet50_2-9ba9bcbe.pth",
+        _URL + "wide_resnet50_2-9ba9bcbe.pth", 224, 232,
         {"acc@1": 81.602, "acc@5": 95.758}, 68883240, 11.398, 263.124)
     DEFAULT = IMAGENET1K_V2
 
 
 class Wide_ResNet101_2_Weights(WeightsEnum):
     IMAGENET1K_V1 = _cls_weights(
-        _URL + "wide_resnet101_2-32ee1156.pth",
+        _URL + "wide_resnet101_2-32ee1156.pth", 224, 256,
         {"acc@1": 78.848, "acc@5": 94.284}, 126886696, 22.753, 242.896)
     IMAGENET1K_V2 = _cls_weights(
-        _URL + "wide_resnet101_2-d733dc28.pth",
+        _URL + "wide_resnet101_2-d733dc28.pth", 224, 232,
         {"acc@1": 82.510, "acc@5": 96.020}, 126886696, 22.753, 484.747)
     DEFAULT = IMAGENET1K_V2
 

@@ -21,6 +21,11 @@ The sampling rules live in the weights, computed here in PyTorch exactly
 as the JAX package computes them (``poolers.py:176-267``). The port keeps
 exact window origins: the 8-row alignment and the ``win + 8`` widening
 were for the TPU's DMA engine.
+
+Types: f32 or bf16 features (the amp path); the weights, the RoIs and the
+sums stay f32, and the pooled output has the features' type. In bf16 the
+window pool rounds as the JAX package does (``poolers.py:62,273``): the
+f32 sum to bf16, then divided by ``sr**2`` in f32 and rounded again.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ from torch import nn
 
 from vision_tpu_torch import _kernels
 from vision_tpu_torch.ops._topk import top_k
-from vision_tpu_torch.ops.roi_align import roi_align
+from vision_tpu_torch.ops.roi_align import KERNEL_DTYPES, roi_align
 
 __all__ = [
     "LevelMapper",
@@ -57,7 +62,8 @@ def window_pool_plain(
 
     ``stacked [R, WMAX, C]`` channels-last pyramid, ``row0``/``x0 [K]``
     window origins, ``w_y [K, PH, winy]``, ``w_x [K, PW, winx]`` ->
-    ``out [K, C, PH, PW] = sum_yx w_y w_x stacked[row0+y, x0+x] / div``.
+    ``out [K, C, PH, PW] = sum_yx w_y w_x stacked[row0+y, x0+x] / div``,
+    the sum in f32 rounded to ``stacked``'s type before the division.
     """
     winy = w_y.shape[2]
     winx = w_x.shape[2]
@@ -66,7 +72,7 @@ def window_pool_plain(
     windows = stacked[ys[:, :, None], xs[:, None, :]].float()  # [K, y, x, C]
     rows = torch.einsum("kpy,kyxc->kpxc", w_y, windows)
     out = torch.einsum("kqx,kpxc->kcpq", w_x, rows)
-    return (out / div).to(stacked.dtype)
+    return (out.to(stacked.dtype).float() / div).to(stacked.dtype)
 
 
 def _check_windows(stacked, row0, x0, winy, winx) -> None:
@@ -91,21 +97,24 @@ def window_pool_cuda(
     div: float = 1.0,
 ) -> torch.Tensor:
     """The kernel of ``csrc/window_pool.cu`` (same contract as
-    :func:`window_pool_plain`; f32, any C, ``PH, PW <= 16``).
+    :func:`window_pool_plain`; an f32 or bf16 pyramid, f32 weights, any C,
+    ``PH, PW <= 16``).
 
     It makes no host synchronisation. The kernel checks on the card that
     each window lies inside ``stacked``; a window that does not stops the
     launch, so the error surfaces at the next synchronisation (as a CUDA
     error, after which the CUDA context is unusable), not at this call."""
+    if stacked.dtype not in KERNEL_DTYPES or w_y.dtype != torch.float32 or (
+        w_x.dtype != torch.float32
+    ):
+        raise ValueError("window_pool_cuda takes an f32 or bf16 pyramid and "
+                         f"f32 weights, got {stacked.dtype}, {w_y.dtype}, "
+                         f"{w_x.dtype}")
     tensors = (stacked, row0, x0, w_y, w_x)
     if any(t.device != stacked.device for t in tensors) or (
         stacked.device.type != "cuda"
     ):
         raise ValueError("window_pool_cuda takes CUDA tensors on one device")
-    if stacked.dtype != torch.float32 or w_y.dtype != torch.float32 or (
-        w_x.dtype != torch.float32
-    ):
-        raise ValueError("window_pool_cuda takes f32 pyramid and weights")
     k, ph, winy = w_y.shape
     _, pw, winx = w_x.shape
     if ph > 16 or pw > 16:
@@ -116,13 +125,15 @@ def window_pool_cuda(
     stacked = stacked.contiguous()
     w_y = w_y.contiguous()
     w_x = w_x.contiguous()
-    out = torch.empty(k, c, ph, pw, device=stacked.device)
+    out = torch.empty(k, c, ph, pw, dtype=stacked.dtype, device=stacked.device)
     lib = _kernels.load("window_pool")
     _kernels.check(
         lib.vt_window_pool(
             stacked.data_ptr(), row0.data_ptr(), x0.data_ptr(),
             w_y.data_ptr(), w_x.data_ptr(), out.data_ptr(), r_rows, wmax, c,
-            k, ph, pw, winy, winx, float(div), _kernels.stream_handle(stacked),
+            k, ph, pw, winy, winx, float(div),
+            int(stacked.dtype == torch.bfloat16),
+            _kernels.stream_handle(stacked),
         ),
         "window_pool kernel",
     )

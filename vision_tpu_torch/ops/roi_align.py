@@ -7,6 +7,15 @@ tensors on the CPU. Both follow the JAX package's gather path
 both ways, a fixed ``sampling_ratio > 0`` grid or the adaptive
 ``ceil(roi / pooled)`` grid for ``sampling_ratio <= 0``. Forward only:
 the backward waits for the training path.
+
+Types: an f32 or a bf16 input, f32 boxes; the output has the input's
+type. Sampling weights and sums are f32 in both. A bf16 result is rounded
+as the JAX package's Pallas kernel rounds it
+(``vision_tpu/ops/_pallas/roi_align.py:104,230``): the f32 sum to bf16,
+then divided by the sample count in f32 and rounded again. The JAX gather
+path divides first and rounds once; the two agree where the count is a
+power of two (``sampling_ratio=2``) and may part by one bf16 step
+elsewhere.
 """
 
 from __future__ import annotations
@@ -18,6 +27,9 @@ import torch
 from vision_tpu_torch import _kernels
 
 __all__ = ["roi_align", "roi_align_cuda", "roi_align_plain"]
+
+# the element types of the kernel's input and output
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 _Size = Union[int, Tuple[int, int]]
 
@@ -135,7 +147,8 @@ def roi_align_plain(
         + (ix[None, None, :] + 0.5) * (bin_w / grid_w)[:, None, None]
     )
     val = _bilinear_gather(feat, batch_ind, y, x, yvalid, xvalid)
-    out = val.sum(dim=(3, 4)) / count  # [K, PH, PW, C]
+    # round the sum to the input's type, then divide (a no-op round in f32)
+    out = val.sum(dim=(3, 4)).to(orig_dtype).float() / count  # [K, PH, PW, C]
     return out.permute(0, 3, 1, 2).contiguous().to(orig_dtype)
 
 
@@ -149,11 +162,17 @@ def roi_align_cuda(
     aligned: bool = False,
 ) -> torch.Tensor:
     """The kernel of ``csrc/roi_align.cu`` (same contract as
-    :func:`roi_align_plain`; f32 only; batch indices in ``[0, N)``)."""
+    :func:`roi_align_plain`; an f32 or bf16 input, f32 boxes).
+
+    It makes no host synchronisation. The kernel checks each RoI's batch
+    index on the card: one outside ``[0, N)`` stops the launch, so the
+    error surfaces at the next synchronisation (as a CUDA error, after
+    which the CUDA context is unusable), not at this call."""
+    if input.dtype not in KERNEL_DTYPES or boxes.dtype != torch.float32:
+        raise ValueError("roi_align_cuda takes an f32 or bf16 input and f32 "
+                         f"boxes, got {input.dtype} and {boxes.dtype}")
     if input.device.type != "cuda" or boxes.device != input.device:
         raise ValueError("roi_align_cuda takes CUDA tensors")
-    if input.dtype != torch.float32 or boxes.dtype != torch.float32:
-        raise ValueError("roi_align_cuda takes f32 input and boxes")
     if input.dim() != 4 or boxes.dim() != 2 or boxes.shape[1] != 5:
         raise ValueError("input must be [N, C, H, W] and boxes [K, 5]")
     pooled_h, pooled_w = _pair(output_size)
@@ -161,13 +180,15 @@ def roi_align_cuda(
     k = boxes.shape[0]
     input = input.contiguous()
     boxes = boxes.contiguous()
-    out = torch.empty(k, c, pooled_h, pooled_w, device=input.device)
+    out = torch.empty(k, c, pooled_h, pooled_w, dtype=input.dtype,
+                      device=input.device)
     lib = _kernels.load("roi_align")
     _kernels.check(
         lib.vt_roi_align_forward(
             input.data_ptr(), boxes.data_ptr(), out.data_ptr(), n, c, h, w, k,
             pooled_h, pooled_w, float(spatial_scale), int(sampling_ratio),
-            int(bool(aligned)), _kernels.stream_handle(input),
+            int(bool(aligned)), int(input.dtype == torch.bfloat16),
+            _kernels.stream_handle(input),
         ),
         "roi_align kernel",
     )

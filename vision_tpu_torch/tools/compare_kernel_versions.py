@@ -126,11 +126,13 @@ def rowscan(lib, boxes, valid, thr):
 def roi_align(lib, inp, rois, size, scale, sr, aligned):
     ph, pw = (size, size) if isinstance(size, int) else size
     n, c, h, w = inp.shape
-    out = torch.empty(rois.shape[0], c, ph, pw, device=inp.device)
+    out = torch.empty(rois.shape[0], c, ph, pw, dtype=inp.dtype,
+                      device=inp.device)
     _kernels.check(lib.vt_roi_align_forward(
         inp.data_ptr(), rois.data_ptr(), out.data_ptr(), n, c, h, w,
         rois.shape[0], ph, pw, float(scale), int(sr), int(bool(aligned)),
-        _kernels.stream_handle(inp)), "roi_align")
+        int(inp.dtype == torch.bfloat16), _kernels.stream_handle(inp)),
+        "roi_align")
     return out
 
 
@@ -138,11 +140,12 @@ def window_pool(lib, stacked, row0, x0, w_y, w_x, div):
     k, ph, winy = w_y.shape
     _, pw, winx = w_x.shape
     r_rows, wmax, c = stacked.shape
-    out = torch.empty(k, c, ph, pw, device=stacked.device)
+    out = torch.empty(k, c, ph, pw, dtype=stacked.dtype, device=stacked.device)
     _kernels.check(lib.vt_window_pool(
         stacked.data_ptr(), row0.data_ptr(), x0.data_ptr(), w_y.data_ptr(),
         w_x.data_ptr(), out.data_ptr(), r_rows, wmax, c, k, ph, pw, winy,
-        winx, float(div), _kernels.stream_handle(stacked)), "window_pool")
+        winx, float(div), int(stacked.dtype == torch.bfloat16),
+        _kernels.stream_handle(stacked)), "window_pool")
     return out
 
 

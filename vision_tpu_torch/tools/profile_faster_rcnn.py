@@ -1,12 +1,18 @@
 """Where the time of one Faster R-CNN ResNet-50-FPN forward goes, on the card.
 
     python -m vision_tpu_torch.tools.profile_faster_rcnn [--steps 3]
+        [--cell 832 | request_f32 | request_bf16]
 
-Same model and input as ``chip_smoke.py`` (seeded random weights with
-``cls_score`` scaled x30, one 832x832 f32 image, TF32 off). Runs
-``--steps`` forwards under ``torch.profiler`` after two warm-up forwards
-and prints JSON lines: per step the host wall time
-and the summed device kernel time (their ratio is the device's busy
+Same model and inputs as ``chip_smoke.py`` (seeded random weights with
+``cls_score`` scaled x30, TF32 off). ``--cell 832``: one 832x832 f32 image
+(phase ``faster_rcnn``); ``request_f32`` / ``request_bf16``: a request of
+two seeded uint8 images of 480x640 and 427x640 through the preset, the
+transform (a 1344x1344 canvas, batch 2), the model (in bf16 for
+``request_bf16``: ``model.to(torch.bfloat16)`` and a bf16 canvas) and
+``postprocess_boxes`` (phases ``faster_rcnn_images`` and
+``faster_rcnn_amp``). Runs ``--steps`` forwards under ``torch.profiler``
+after two warm-up forwards and prints JSON lines: per step the host wall
+time and the summed device kernel time (their ratio is the device's busy
 share), the device time by kernel group, and the top kernels by device
 time. The Chrome trace goes to ``--trace``.
 """
@@ -23,6 +29,11 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from vision_tpu_torch.models import get_model
+from vision_tpu_torch.models.detection import (
+    FasterRCNN_ResNet50_FPN_Weights,
+    GeneralizedRCNNTransform,
+)
+from vision_tpu_torch.tools.detection_request import raw_images, serve
 
 # kernel-name fragments -> group, first match wins
 _GROUPS = (
@@ -58,25 +69,43 @@ def _device_us(evt) -> float:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=3)
-    ap.add_argument("--trace", default="build/profile/faster_rcnn_trace.json")
+    ap.add_argument("--cell", default="832",
+                    choices=("832", "request_f32", "request_bf16"))
+    ap.add_argument("--trace", default=None,
+                    help="default build/profile/faster_rcnn_<cell>_trace.json")
     args = ap.parse_args()
+    trace = args.trace or f"build/profile/faster_rcnn_{args.cell}_trace.json"
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     model = get_model("fasterrcnn_resnet50_fpn", seed=0)
     with torch.no_grad():
         model.roi_heads.box_predictor.cls_score.weight.mul_(30.0)
-    images = torch.randn(1, 3, 832, 832,
-                         generator=torch.Generator().manual_seed(1)).cuda()
+    if args.cell == "832":
+        images = torch.randn(1, 3, 832, 832,
+                             generator=torch.Generator().manual_seed(1)).cuda()
+
+        def step():
+            model(images)
+    else:
+        dtype = torch.bfloat16 if args.cell == "request_bf16" else torch.float32
+        model.to(dtype)
+        raw = raw_images()
+        preset = FasterRCNN_ResNet50_FPN_Weights.COCO_V1.transforms()
+        transform = GeneralizedRCNNTransform()
+
+        def step():
+            serve(model, preset, transform, raw, dtype)
+
     with torch.inference_mode():
         for _ in range(2):
-            model(images)
+            step()
         torch.cuda.synchronize()
         walls = []
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(args.steps):
                 t0 = time.perf_counter()
-                model(images)
+                step()
                 torch.cuda.synchronize()
                 walls.append((time.perf_counter() - t0) * 1e3)
 
@@ -88,7 +117,7 @@ def main() -> None:
     device_ms = sum(groups.values())
     wall_ms = sum(walls) / len(walls)
     print(json.dumps({
-        "device": torch.cuda.get_device_name(0), "size": 832,
+        "device": torch.cuda.get_device_name(0), "cell": args.cell,
         "wall_ms_per_step": walls, "device_ms_per_step": device_ms,
         "busy_share": device_ms / wall_ms,
         "kernel_launches_per_step": sum(e.count for e in kernels) / args.steps,
@@ -99,8 +128,8 @@ def main() -> None:
     print(json.dumps({"top_kernels": [
         {"name": e.key[:90], "ms_per_step": _device_us(e) / 1e3 / args.steps,
          "calls_per_step": e.count / args.steps} for e in top]}))
-    Path(args.trace).parent.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(args.trace)
+    Path(trace).parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(trace)
 
 
 if __name__ == "__main__":
