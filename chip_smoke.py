@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Builds the seven CUDA kernels of ``vision_tpu_torch`` from ``csrc/`` and
-drives the port's two main paths at full width, TF32 off, seeded random
+Builds the nine CUDA kernels of ``vision_tpu_torch`` from ``csrc/`` and
+drives the port's main paths at full width, TF32 off, seeded random
 weights:
 
 * Faster R-CNN ResNet-50-FPN inference (91 classes, one 832x832 f32 image)
@@ -18,6 +18,12 @@ weights:
   ``model.to(torch.bfloat16)`` and a bf16 canvas (amp), through the bf16
   variants of the window-pool and RoIAlign kernels, its FPN maps and RPN
   head outputs held against the f32 request's;
+* Faster R-CNN training on the same two images (batch 2, the 1344 canvas,
+  seeded gt boxes of 4 and 7 rows padded to 8): SGD steps of
+  ``make_detection_train_step`` with ``trainable_backbone_layers=3``,
+  through the NMS, window-pool and RoIAlign kernels forward and the
+  window-pool and RoIAlign backward kernels, held step by step against the
+  same steps through the plain versions, then timed;
 * ResNet-50 classification (1000 classes, a batch of 32 224x224 images):
   one eval batch, one batch of 8 uint8 375x500 images through the weights'
   ``ImageClassification`` preset against the CPU, then SGD steps of
@@ -92,6 +98,14 @@ AMP_BOX_TOL = 1.0
 # model on a 2x192x192 canvas on the CPU read 1.1e-2 to 2.5e-2. A layer
 # that computes the wrong thing in bf16 is off by the order of the map.
 AMP_VS_F32_TOL = 5e-2
+# Faster R-CNN training (phase faster_rcnn_train): the recipe's SGD (lr
+# 0.02 with its warmup, tools/detection_request.py:recipe_optimizer); the
+# gradients held against the plain path's: the box head's first layer, the
+# RPN head's conv, an FPN lateral conv and a conv of the last trunk stage
+DET_STEPS = 3
+DET_GRADS = ("roi_heads.box_head.fc6.weight", "rpn.head.conv.0.0.weight",
+             "backbone.fpn.inner_blocks.2.0.weight",
+             "backbone.body.layer4.1.conv2.weight")
 
 
 def emit(phase: str, **fields) -> None:
@@ -170,6 +184,10 @@ class Kernels:
                              conv1x1.matmul_stats_plain),
             "nms_rowscan": (nms, "nms_keep_sorted_rowscan_cuda",
                             nms.nms_keep_sorted_plain),
+            "window_pool_backward": (poolers, "window_pool_backward_cuda",
+                                     poolers.window_pool_backward_plain),
+            "roi_align_backward": (roi_align, "roi_align_backward_cuda",
+                                   roi_align.roi_align_backward_plain),
         }
         self.cuda = {n: getattr(m, a) for n, (m, a, _) in self.table.items()}
         self.plain = {n: p for n, (_, _, p) in self.table.items()}
@@ -321,17 +339,11 @@ def _sample_lines(start, length, pooled, grid, gmax, size):
     return hits > 0
 
 
-def roi_work(args):
-    """Bytes: the input pixels some sample reads (all channels), the RoIs,
-    the output. Operations: per sample and channel 4 corner weights, 4
-    products, 4 adds; one divide per output; against the peak of the
-    input's type."""
+def _roi_grid(rois, ph, pw, scale, sr, aligned):
+    """Per RoI the start, extent and sample grid of each axis, as the
+    kernels compute them."""
     import torch
 
-    inp, rois, size, scale, sr, aligned = args
-    ph, pw = (size, size) if isinstance(size, int) else size
-    n, c, h, w = inp.shape
-    k = rois.shape[0]
     off = 0.5 if aligned else 0.0
     sw = rois[:, 1] * scale - off
     sh = rois[:, 2] * scale - off
@@ -344,6 +356,21 @@ def roi_work(args):
         gw = gh
     else:
         gh, gw = torch.ceil(rh / ph), torch.ceil(rw / pw)
+    return sh, sw, rh, rw, gh, gw
+
+
+def roi_work(args):
+    """Bytes: the input pixels some sample reads (all channels), the RoIs,
+    the output. Operations: per sample and channel 4 corner weights, 4
+    products, 4 adds; one divide per output; against the peak of the
+    input's type."""
+    import torch
+
+    inp, rois, size, scale, sr, aligned = args
+    ph, pw = (size, size) if isinstance(size, int) else size
+    n, c, h, w = inp.shape
+    k = rois.shape[0]
+    sh, sw, rh, rw, gh, gw = _roi_grid(rois, ph, pw, scale, sr, aligned)
     gmax_h = max(int(gh.max()), 1)
     gmax_w = max(int(gw.max()), 1)
     ys = _sample_lines(sh, rh, ph, gh, gmax_h, h)
@@ -359,6 +386,36 @@ def roi_work(args):
               + k * c * ph * pw * elem)
     samples = float((gh * gw).sum()) * ph * pw
     return nbytes, c * samples * 12 + k * c * ph * pw, peak_flops(inp)
+
+
+def roi_backward_work(args):
+    """Bytes: the output gradient and the RoIs read, the whole input
+    gradient written (zeros included). Operations: the forward's, each
+    sample's corner weights and products now scattering the gradient; in
+    f32."""
+    grad, rois, (n, c, h, w), size, scale, sr, aligned = args
+    ph, pw = (size, size) if isinstance(size, int) else size
+    gh, gw = _roi_grid(rois, ph, pw, scale, sr, aligned)[4:]
+    samples = float((gh.clamp(min=0) * gw.clamp(min=0)).sum()) * ph * pw
+    nbytes = grad.numel() * 4 + rois.numel() * 4 + n * c * h * w * 4
+    return nbytes, c * samples * 12 + grad.numel(), PEAK_F32_FLOPS
+
+
+def window_backward_work(args):
+    """Bytes: the output gradient, the weights and origins read, the whole
+    pyramid gradient written (zeros included). Operations: per RoI the
+    contraction of ``w_x`` with the gradient over its non-zero columns,
+    then of ``w_y`` over its non-zero rows and those columns; in f32."""
+    import torch
+
+    grad, row0, x0, w_y, w_x, (r_rows, wmax) = args[:6]
+    k, c, ph, pw = grad.shape
+    nzy = (w_y != 0).any(1).sum(1).double()
+    nzx = (w_x != 0).any(1).sum(1).double()
+    nbytes = (grad.numel() + w_y.numel() + w_x.numel() + row0.numel()
+              + x0.numel() + r_rows * wmax * c) * 4
+    ops = 2 * c * float(torch.sum(ph * pw * nzx + ph * nzy * nzx))
+    return nbytes, ops, PEAK_F32_FLOPS
 
 
 def compare_kernel(fn, plain, args, exact=False):
@@ -426,6 +483,8 @@ def main() -> int:
     rows, model = faster_rcnn_phases(kernels)
     rows += faster_rcnn_image_phases(kernels, model)
     del model
+    torch.cuda.empty_cache()
+    rows += faster_rcnn_train_phase(kernels)
     torch.cuda.empty_cache()
     rows += resnet50_phases(kernels)
     emit("done", build_s=build_s, phases_s=time.perf_counter() - t_phases,
@@ -648,6 +707,136 @@ def faster_rcnn_image_phases(kernels, model):
     return rows
 
 
+def det_train_steps(batch, steps, first_step=None, timed=0):
+    """A fresh seeded Faster R-CNN R50-FPN (``trainable_backbone_layers=3``)
+    and ``steps`` SGD steps of ``make_detection_train_step`` on ``batch``,
+    the samplers drawing from a generator on its device seeded with 0; then
+    ``timed`` more steps. Returns each step's losses, the gradients of
+    ``DET_GRADS`` after the first step, and the timed steps' wall ms (host
+    clock around a step whose loss is read back)."""
+    import torch
+
+    from vision_tpu_torch.models import get_model
+    from vision_tpu_torch.parallel import make_detection_train_step
+    from vision_tpu_torch.tools.detection_request import recipe_optimizer
+
+    model = get_model("fasterrcnn_resnet50_fpn", seed=0,
+                      trainable_backbone_layers=3)
+    optimizer, scheduler = recipe_optimizer(model)
+    step = make_detection_train_step(model, optimizer)
+    gen = torch.Generator(device=batch["image"].device).manual_seed(0)
+    named = dict(model.named_parameters())
+    out = {"losses": [], "ms": [], "lr": [],
+           "trainable_params": sum(p.numel() for p in model.parameters()
+                                   if p.requires_grad),
+           "params": sum(p.numel() for p in model.parameters())}
+    for i in range(steps + timed):
+        ctx = first_step() if i == 0 and first_step else contextlib.nullcontext()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with ctx:
+            losses = step(batch, gen)
+            loss = float(losses["loss"])
+        if i >= steps:
+            out["ms"].append((time.perf_counter() - t) * 1e3)
+        out["lr"].append(optimizer.param_groups[0]["lr"])
+        scheduler.step()
+        out["losses"].append({k: float(v) for k, v in losses.items()})
+        if i == 0:
+            out["grads"] = {n: named[n].grad.clone() for n in DET_GRADS}
+        if not math.isfinite(loss):
+            raise RuntimeError(f"faster_rcnn_train: loss {loss} at step {i}")
+    return out
+
+
+def faster_rcnn_train_phase(kernels):
+    """Faster R-CNN training on the request's two images (batch 2, the 1344
+    canvas, seeded gt boxes): ``DET_STEPS`` SGD steps through the kernels
+    (the first recording every kernel's inputs; the launches counted over
+    all of them) against the same steps through the plain versions, from
+    the same weights and generator state. Step 1: each loss within 1e-4
+    relative, the gradients of ``DET_GRADS`` within 1e-3 of each one's
+    largest value (the same samples: the forward up to the pooler is the
+    same, NMS to the bit); the later steps' summed loss within
+    ``LATER_LOSS_TOL`` (each part is printed). Then 5
+    timed steps after a warm-up, and the backward kernels against their
+    plain versions at the recorded inputs."""
+    import torch
+
+    from vision_tpu_torch.models.detection import (
+        FasterRCNN_ResNet50_FPN_Weights,
+        GeneralizedRCNNTransform,
+    )
+    from vision_tpu_torch.tools.detection_request import (
+        GT_COUNTS,
+        GT_ROWS,
+        raw_images,
+        train_batch,
+    )
+
+    raw = raw_images()
+    with torch.no_grad():
+        batch = train_batch(FasterRCNN_ResNet50_FPN_Weights.COCO_V1.transforms(),
+                            GeneralizedRCNNTransform(), raw)
+    calls: dict = {}
+    kernels.reset()
+    torch.cuda.reset_peak_memory_stats()
+    run = det_train_steps(batch, DET_STEPS,
+                          first_step=lambda: kernels.recording(calls),
+                          timed=1 + TIMED_FORWARDS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = kernels.launches()
+    with kernels.plain_versions():
+        ref = det_train_steps(batch, DET_STEPS)
+    names = list(run["losses"][0])
+    loss_rel = [{k: abs(a[k] - b[k]) / max(abs(b[k]), 1e-30) for k in names}
+                for a, b in zip(run["losses"], ref["losses"])]
+    grad_rel = {n: rel_errs([run["grads"][n]], [ref["grads"][n]])[0]
+                for n in DET_GRADS}
+    ms = statistics.median(run["ms"][1:])
+    emit("faster_rcnn_train", model="fasterrcnn_resnet50_fpn",
+         params=run["params"], trainable_params=run["trainable_params"],
+         trainable_backbone_layers=3, input=list(batch["image"].shape),
+         gt_boxes=list(GT_COUNTS), gt_rows=GT_ROWS, dtype="float32",
+         optimizer="SGD lr 0.02 momentum 0.9 weight_decay 1e-4, linear "
+                   "warmup from 1e-3 over 1000 steps", lr_per_step=run["lr"],
+         steps_compared=DET_STEPS, losses=run["losses"][:DET_STEPS],
+         plain_losses=ref["losses"], loss_rel_err=loss_rel,
+         first_loss_tol=1e-4, later_loss_tol=LATER_LOSS_TOL,
+         grad_rel_err=grad_rel, grad_tol=1e-3, ms_per_step_median=ms,
+         images_per_s=len(raw) / ms * 1e3, ms_all=run["ms"],
+         timed_steps=TIMED_FORWARDS, peak_memory_gb=peak_gb,
+         launches=launches)
+    require_launched(launches, ("nms", "window_pool", "window_pool_backward",
+                                "roi_align", "roi_align_backward"),
+                     "Faster R-CNN train")
+    # later steps: the summed loss, as the ResNet-50 phase holds its loss.
+    # Each step samples RoIs from proposals that moved with the last
+    # update's round-off, so one RoI sampled otherwise moves the classifier
+    # loss alone by ~1/1024 of it (step 2); its share grows as that loss
+    # falls (one run read 6.3% at step 3, the sum 1.6%)
+    if (max(loss_rel[0].values()) > 1e-4
+            or max(r["loss"] for r in loss_rel[1:]) > LATER_LOSS_TOL
+            or max(grad_rel.values()) > 1e-3):
+        raise RuntimeError("the kernel train path disagrees with the plain path")
+    first, last = run["losses"][0]["loss"], run["losses"][DET_STEPS - 1]["loss"]
+    if first == last:
+        raise RuntimeError("the last compared loss equals the first: no update")
+    del run, ref
+    torch.cuda.empty_cache()
+
+    rows = []
+    for name in ("window_pool_backward", "roi_align_backward"):
+        cases = [kernel_case(kernels, name, args, "faster_rcnn_train")
+                 for args in calls[name]]
+        rows.append(kernel_row(name, cases, launches[name], dtype="float32",
+                               path="faster_rcnn_train (1344x1344, batch 2)",
+                               counterpart="XLA VJP, no pallas_call",
+                               same_bits_twice=all(c["same_bits_twice"]
+                                                   for c in cases)))
+    return rows
+
+
 def check_mapped_boxes(boxes, raw) -> None:
     """``postprocess_boxes`` gave each image [100, 4] finite f32 boxes."""
     import torch
@@ -668,21 +857,64 @@ SOURCES = {
                     "vision_tpu/ops/_pallas/window_pool.py:122"),
     "roi_align": ("vision_tpu_torch/csrc/roi_align.cu",
                   "vision_tpu/ops/_pallas/roi_align.py:116"),
+    # no pallas_call: the JAX package differentiates both through XLA
+    "window_pool_backward": ("vision_tpu_torch/csrc/window_pool_backward.cu",
+                             "vision_tpu/ops/poolers.py:82"),
+    "roi_align_backward": ("vision_tpu_torch/csrc/roi_align_backward.cu",
+                           "vision_tpu/ops/roi_align.py:420"),
 }
 WORK = {"nms": nms_work, "nms_rowscan": nms_work, "window_pool": window_work,
-        "roi_align": roi_work}
+        "roi_align": roi_work, "window_pool_backward": window_backward_work,
+        "roi_align_backward": roi_backward_work}
 
 
 def kernel_case(kernels, name, args, path, **meta):
     """One recorded call of kernel ``name`` against its plain version on
     the card: NMS keep masks bit for bit; f32 pools within 1e-5 of the
     largest plain value (f32 sums in another order); bf16 pools within one
-    bf16 step of each element (plus 1e-5 of the largest value). Prints
-    the case, with its times and bound, and returns it."""
+    bf16 step of each element (plus 1e-5 of the largest value); the
+    backward kernels the same bits on a second call and within 1e-5 of
+    their plain version in f64 on the CPU, relative to the largest sum of
+    the summed terms' magnitudes. Prints the case, with its times and
+    bound, and returns it."""
     import torch
 
     exact = name.startswith("nms")
     bf16 = args[0].dtype == torch.bfloat16
+    rel_gate = None
+    if name.endswith("_backward"):
+        # deterministic: the same bits again. Each gradient element sums
+        # many terms of both signs, so an f32 sum's error scales with the
+        # sum of the terms' magnitudes, not with the result: the kernel is
+        # held against the plain version evaluated in f64 (exact weights)
+        # on the CPU, within 1e-5 of the largest such sum (the plain
+        # version in f64 of |grad|, the weights being non-negative); the
+        # error over the largest result is printed beside it, and the f32
+        # plain version's on the card. (On the card PyTorch divides by a
+        # scalar as a product with its reciprocal, so the plain RoIAlign
+        # puts its samples up to an ulp away from the CPU's and the
+        # kernels', which divide.)
+        first, again = kernels.cuda[name](*args), kernels.cuda[name](*args)
+        plain32 = kernels.plain[name](*args)
+        torch.cuda.synchronize()
+        meta["same_bits_twice"] = bool(torch.equal(first, again))
+        cpu = [a.cpu() if torch.is_tensor(a) else a for a in args]
+        exact64 = kernels.plain[name](cpu[0].double(), *cpu[1:])
+        magnitude = float(kernels.plain[name](cpu[0].double().abs(),
+                                              *cpu[1:]).max())
+        scale64 = max(float(exact64.abs().max()), 1e-30)
+        err64 = float((first.cpu().double() - exact64).abs().max())
+        plain_err64 = float((plain32.cpu().double() - exact64).abs().max())
+        rel_gate = err64 / max(magnitude, 1e-30)
+        meta.update(err_vs_f64_over_term_sum=rel_gate,
+                    plain_err_vs_f64_over_term_sum=plain_err64 / max(
+                        magnitude, 1e-30),
+                    max_rel_err_vs_f64=err64 / scale64,
+                    plain_max_rel_err_vs_f64=plain_err64 / scale64)
+        del first, again, exact64, plain32
+        if not meta["same_bits_twice"]:
+            raise RuntimeError(f"{name} ({path}): two calls on the same "
+                               "inputs differ")
     err, rel, ms, dev_ms, plain_ms = compare_kernel(
         kernels.cuda[name], kernels.plain[name], args, exact=exact)
     nbytes, ops, peak = WORK[name](args)
@@ -690,6 +922,10 @@ def kernel_case(kernels, name, args, path, **meta):
     tol = 0.0 if exact else 1.0 if bf16 else 1e-5
     if name == "window_pool":
         shape = [list(args[3].shape), list(args[0].shape)]
+    elif name == "window_pool_backward":  # grad, w_y, pyramid
+        shape = [list(args[0].shape), list(args[3].shape), list(args[5])]
+    elif name == "roi_align_backward":  # grad, RoIs, input
+        shape = [list(args[0].shape), list(args[1].shape), list(args[2])]
     else:
         shape = [list(args[0].shape), list(args[1].shape)]
     case = dict(kernel=name, path=path, dtype=str(args[0].dtype)[6:],
@@ -700,7 +936,7 @@ def kernel_case(kernels, name, args, path, **meta):
                 bytes_bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
                 operations_bound_ms=ops / peak * 1e3)
     emit("kernel_case", **case)
-    if rel > tol:
+    if (rel if rel_gate is None else rel_gate) > tol:
         raise RuntimeError(f"{name} ({path}, {meta}) disagrees with its plain "
                            f"version: {rel} > {tol}")
     return case

@@ -21,6 +21,10 @@ kernel, absolute. Where the divisor (the sample count) is not a power of
 two, within two steps (2**-6): both round the sum to bf16 before they
 divide, so a sum rounded the other way moves the quotient by a step before
 its own rounding.
+
+The backward kernels of the window pool and of RoIAlign (f32) against their
+plain versions: within 1e-5 of the largest plain value (sums in another
+order), and bit-identical across calls on the same inputs.
 """
 
 import os
@@ -49,11 +53,18 @@ from vision_tpu_torch.ops.nms import (
 )
 from vision_tpu_torch.ops.poolers import (
     MultiScaleRoIAlign,
+    window_pool_backward_cuda,
+    window_pool_backward_plain,
     window_pool_cuda,
     window_pool_plain,
 )
 from vision_tpu_torch.models.detection import GeneralizedRCNNTransform
-from vision_tpu_torch.ops.roi_align import roi_align_cuda, roi_align_plain
+from vision_tpu_torch.ops.roi_align import (
+    roi_align_backward_cuda,
+    roi_align_backward_plain,
+    roi_align_cuda,
+    roi_align_plain,
+)
 from vision_tpu_torch.transforms import ImageClassification
 
 pytestmark = pytest.mark.cuda
@@ -337,12 +348,16 @@ def test_kernels_make_no_host_synchronisation(dev):
     boxes, valid = (t.to(dev) for t in _sorted_boxes(rng, 2, 300))
     feat, rois = (t.to(dev) for t in _pyramid_case(rng, 52, 64, 16))
     feat16 = feat.bfloat16()
+    gw = torch.randn(20, 64, 7, 7, device=dev)
+    gr = torch.randn(64, 16, 7, 7, device=dev)
     window_pool_cuda(*args)  # builds the kernels outside the checked region
     window_pool_cuda(*args16)
     nms_keep_sorted_rowscan_cuda(boxes, valid, 0.5)
     nms_keep_sorted_cuda(boxes, valid, 0.5)
     roi_align_cuda(feat, rois, 7, 1 / 16, 2, False)
     roi_align_cuda(feat16, rois, 7, 1 / 16, 2, False)
+    window_pool_backward_cuda(gw, *args[1:], tuple(args[0].shape[:2]))
+    roi_align_backward_cuda(gr, rois, tuple(feat.shape), 7, 1 / 16, 2, False)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -352,6 +367,9 @@ def test_kernels_make_no_host_synchronisation(dev):
         nms_keep_sorted_cuda(boxes, valid, 0.5)
         roi_align_cuda(feat, rois, 7, 1 / 16, 2, False)
         roi_align_cuda(feat16, rois, 7, 1 / 16, 2, False)
+        window_pool_backward_cuda(gw, *args[1:], tuple(args[0].shape[:2]))
+        roi_align_backward_cuda(gr, rois, tuple(feat.shape), 7, 1 / 16, 2,
+                                False)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
@@ -673,3 +691,194 @@ def test_image_classification_on_card_matches_cpu(dev):
     level = 1.0 / (255.0 * torch.tensor(preset.std))[:, None, None]
     assert bool((diff <= level * (1 + 1e-4) + 1e-5).all())
     assert float((diff > 1e-5).float().mean()) < 1e-3
+
+
+# ---------------------------------------------------------------- backward
+
+
+def _window_backward_case(rng, k, c, ph, winy, winx, r_rows=200, wmax=64):
+    """``_window_case``'s windows and weights (edge windows, gaps, a RoI
+    with all-zero weights), a third of them at one shared origin, and a
+    seeded output gradient."""
+    _, row0, x0, w_y, w_x = _window_case(rng, k, c, ph, winy, winx, r_rows,
+                                         wmax)
+    row0[k // 3: 2 * k // 3] = row0[k // 3]
+    x0[k // 3: 2 * k // 3] = x0[k // 3]
+    g = torch.from_numpy(rng.randn(k, c, ph, ph).astype(np.float32))
+    return g, row0, x0, w_y, w_x, (r_rows, wmax)
+
+
+def _same_bits_twice(fn, *args):
+    first = fn(*args)
+    again = fn(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    return first
+
+
+@pytest.mark.parametrize("winy,winx", [(32, 32), (20, 40)])
+@pytest.mark.parametrize("ph", [7, 14])
+@pytest.mark.parametrize("c", [1, 33, 64, 256])
+def test_window_pool_backward_kernel_matches_plain(dev, c, ph, winy, winx):
+    """Overlapping windows, C not a multiple of 4 or of the 32-channel
+    slab, PH above 8: within 1e-5 of the largest plain value, the same
+    bits on a second call."""
+    rng = np.random.RandomState(60 + c + ph + winx)
+    g, row0, x0, w_y, w_x, size = _window_backward_case(rng, 50, c, ph, winy,
+                                                        winx)
+    want = window_pool_backward_plain(g, row0, x0, w_y, w_x, size, 4.0)
+    before = window_pool_backward_cuda.launches
+    got = _same_bits_twice(window_pool_backward_cuda, g.to(dev), row0.to(dev),
+                           x0.to(dev), w_y.to(dev), w_x.to(dev), size, 4.0)
+    assert window_pool_backward_cuda.launches == before + 2
+    assert got.shape == (*size, c) and got.dtype == torch.float32
+    tol = 1e-5 * float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) <= tol
+
+
+def test_window_pool_backward_kernel_at_the_training_shape(dev):
+    """K = 1024 RoIs, 7x7, C = 256, 32x32 windows on a 1,292 x 336 pyramid,
+    origins drawn where a 1344 canvas's levels lie: the same bits twice,
+    within 1e-5 of the largest plain value (computed on the card)."""
+    rng = np.random.RandomState(61)
+    k, winy = 1024, 32
+    row0 = rng.randint(0, 1292 - winy + 1, k).astype(np.int32)
+    x0 = rng.randint(0, 336 - 32 + 1, k).astype(np.int32)
+    w_y = rng.rand(k, 7, winy).astype(np.float32)
+    w_x = rng.rand(k, 7, 32).astype(np.float32)
+    w_y[:, :, 12:] = 0.0  # ~11 non-zero rows, as the box head's
+    w_x[:, :, 24:] = 0.0
+    args = [torch.from_numpy(a).to(dev) for a in (
+        rng.randn(k, 256, 7, 7).astype(np.float32), row0, x0, w_y, w_x)]
+    got = _same_bits_twice(window_pool_backward_cuda, *args, (1292, 336), 4.0)
+    want = window_pool_backward_plain(*args, (1292, 336), 4.0)
+    tol = 1e-5 * float(want.abs().max())
+    assert float((got - want).abs().max()) <= tol
+
+
+def test_window_pool_backward_kernel_without_rois(dev):
+    g = torch.zeros(0, 8, 7, 7, device=dev)
+    empty = torch.zeros(0, dtype=torch.int32, device=dev)
+    got = window_pool_backward_cuda(g, empty, empty,
+                                    torch.zeros(0, 7, 32, device=dev),
+                                    torch.zeros(0, 7, 32, device=dev), (40, 50))
+    torch.cuda.synchronize()
+    assert got.shape == (40, 50, 8) and not got.any()
+
+
+def test_window_pool_backward_kernel_fails_on_a_window_outside_the_pyramid(dev):
+    _run_trapping("""if True:
+        import torch
+        from vision_tpu_torch.ops.poolers import window_pool_backward_cuda
+        g = torch.ones(1, 4, 2, 2, device="cuda")
+        w = torch.ones(1, 2, 8, device="cuda")
+        row0 = torch.tensor([13], device="cuda")
+        window_pool_backward_cuda(g, row0, torch.tensor([0], device="cuda"),
+                                  w, w, (20, 10))
+        print("returned", flush=True)
+        torch.cuda.synchronize()
+        print("synchronised", flush=True)
+    """)
+
+
+def _roi_backward_case(rng, k, c, size=7, n=2, h=40, w=50):
+    """``k`` RoIs on both images of a batch of ``n`` (some past the map's
+    edges, some sub-pixel), a seeded output gradient."""
+    xy = rng.uniform(-10, 180, (k, 2))
+    wh = rng.uniform(1, 120, (k, 2))
+    wh[: k // 8] = rng.uniform(0.1, 3, (k // 8, 2))
+    b = rng.randint(0, n, (k, 1))
+    b[:2] = n - 1
+    rois = torch.from_numpy(np.concatenate([b, xy, xy + wh], 1).astype(np.float32))
+    g = torch.from_numpy(rng.randn(k, c, size, size).astype(np.float32))
+    return g, rois, (n, c, h, w)
+
+
+@pytest.mark.parametrize("aligned", [False, True])
+@pytest.mark.parametrize("sr", [2, 0])
+@pytest.mark.parametrize("c", [1, 16, 33])
+def test_roi_align_backward_kernel_matches_plain(dev, c, sr, aligned):
+    """Both images, a fixed and the adaptive grid, aligned both ways, C
+    below, at and past the 16-channel slab: within 1e-5 of the largest
+    plain value, the same bits on a second call."""
+    rng = np.random.RandomState(70 + c + sr + aligned)
+    g, rois, shape = _roi_backward_case(rng, 64, c)
+    want = roi_align_backward_plain(g, rois, shape, 7, 0.25, sr, aligned)
+    before = roi_align_backward_cuda.launches
+    got = _same_bits_twice(roi_align_backward_cuda, g.to(dev), rois.to(dev),
+                           shape, 7, 0.25, sr, aligned)
+    assert roi_align_backward_cuda.launches == before + 2
+    assert got.shape == shape and got.dtype == torch.float32
+    tol = 1e-5 * float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("sr", [2, 0])
+def test_roi_align_backward_kernel_at_the_training_shape(dev, sr):
+    """The dense fallback's call at P2 of a 1344 canvas, batch 2: 64 RoIs,
+    C = 256, 336x336: the same bits twice, within 1e-5 of the largest plain
+    value (computed on the CPU)."""
+    rng = np.random.RandomState(80 + sr)
+    xy = rng.uniform(-20, 1344, (64, 2))
+    wh = rng.uniform(8, 600, (64, 2))
+    b = rng.randint(0, 2, (64, 1))
+    rois = torch.from_numpy(np.concatenate([b, xy, xy + wh], 1).astype(np.float32))
+    g = torch.from_numpy(rng.randn(64, 256, 7, 7).astype(np.float32))
+    shape = (2, 256, 336, 336)
+    got = _same_bits_twice(roi_align_backward_cuda, g.to(dev), rois.to(dev),
+                           shape, 7, 0.25, sr, False).cpu()
+    want = roi_align_backward_plain(g, rois, shape, 7, 0.25, sr, False)
+    tol = 1e-5 * float(want.abs().max())
+    assert float((got - want).abs().max()) <= tol
+
+
+def test_roi_align_backward_kernel_without_rois(dev):
+    got = roi_align_backward_cuda(torch.zeros(0, 4, 7, 7, device=dev),
+                                  torch.zeros(0, 5, device=dev), (2, 4, 9, 10),
+                                  7, 0.5, 2, False)
+    torch.cuda.synchronize()
+    assert got.shape == (2, 4, 9, 10) and not got.any()
+
+
+@pytest.mark.parametrize("batch_index", ["2.0", "-1.0", "float('nan')"])
+def test_roi_align_backward_kernel_fails_on_a_batch_index_outside_the_input(
+        dev, batch_index):
+    _run_trapping(f"""if True:
+        import torch
+        from vision_tpu_torch.ops.roi_align import roi_align_backward_cuda
+        g = torch.ones(1, 3, 2, 2, device="cuda")
+        rois = torch.tensor([[{batch_index}, 0, 0, 4, 4]], device="cuda")
+        roi_align_backward_cuda(g, rois, (2, 3, 8, 8), 2, 1.0, 2)
+        print("returned", flush=True)
+        torch.cuda.synchronize()
+        print("synchronised", flush=True)
+    """)
+
+
+def test_multiscale_pooler_backward_on_card_matches_cpu(dev):
+    """The pooler's gradient in each level, through the window-pool
+    backward kernel and the RoIAlign backward kernel (the dense recompute of
+    the RoIs that overflow a window of 8), against the CPU's plain path."""
+    rng = np.random.RandomState(90)
+    names = ["0", "1", "2", "3"]
+    feats = {n: rng.rand(2, 32, 64 >> i, 64 >> i).astype(np.float32)
+             for i, n in enumerate(names)}
+    xy = rng.uniform(0, 200, (100, 2))
+    wh = rng.uniform(4, 150, (100, 2))
+    b = rng.randint(0, 2, (100, 1))
+    rois = torch.from_numpy(np.concatenate([b, xy, xy + wh], 1).astype(np.float32))
+    g = torch.from_numpy(rng.randn(100, 32, 7, 7).astype(np.float32))
+    pooler = MultiScaleRoIAlign(names, 7, 2, window=8)
+    grads = []
+    counts = (window_pool_backward_cuda.launches, roi_align_backward_cuda.launches)
+    for device in ("cpu", dev):
+        x = {k: torch.from_numpy(v).to(device).requires_grad_()
+             for k, v in feats.items()}
+        pooler(x, rois.to(device), (256, 256)).backward(g.to(device))
+        grads.append({k: v.grad.cpu() for k, v in x.items()})
+    assert window_pool_backward_cuda.launches == counts[0] + 1
+    assert roi_align_backward_cuda.launches == counts[1] + 4
+    for k in names:
+        want = grads[0][k]
+        torch.testing.assert_close(grads[1][k], want, rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))

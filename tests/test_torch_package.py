@@ -21,8 +21,16 @@ from vision_tpu_torch.ops.nms import (
     nms_keep_sorted_cuda,
     nms_keep_sorted_rowscan_cuda,
 )
-from vision_tpu_torch.ops.poolers import window_pool, window_pool_cuda
-from vision_tpu_torch.ops.roi_align import roi_align, roi_align_cuda
+from vision_tpu_torch.ops.poolers import (
+    window_pool,
+    window_pool_backward_cuda,
+    window_pool_cuda,
+)
+from vision_tpu_torch.ops.roi_align import (
+    roi_align,
+    roi_align_backward_cuda,
+    roi_align_cuda,
+)
 
 PKG = Path(vision_tpu_torch.__file__).parent
 
@@ -34,7 +42,13 @@ def test_import_pulls_in_no_jax():
         "vision_tpu_torch.tools.profile_resnet_train, "
         "vision_tpu_torch.transforms.v2.functional, "
         "vision_tpu_torch.models.detection.transform, "
-        "vision_tpu_torch.ops.boxes\n"
+        "vision_tpu_torch.ops.boxes, vision_tpu_torch.ops.poolers, "
+        "vision_tpu_torch.ops.roi_align, "
+        "vision_tpu_torch.models.detection._utils, "
+        "vision_tpu_torch.models.detection.rpn, "
+        "vision_tpu_torch.models.detection.roi_heads, "
+        "vision_tpu_torch.models.detection.backbone_utils, "
+        "vision_tpu_torch.tools.profile_faster_rcnn\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'vision_tpu')]\n"
         "print(bad)\n"
@@ -137,3 +151,39 @@ def test_pooler_kernel_wrappers_refuse_non_f32_weights_and_boxes():
                          torch.zeros(1, dtype=torch.int32),
                          torch.zeros(1, dtype=torch.int32),
                          torch.zeros(1, 1, 2).bfloat16(), torch.zeros(1, 1, 2))
+
+
+def test_cpu_backward_takes_the_plain_path():
+    """The backward passes of the window pool and RoIAlign on CPU tensors:
+    the plain versions, and no kernel launch."""
+    wrappers = (window_pool_backward_cuda, roi_align_backward_cuda,
+                window_pool_cuda, roi_align_cuda)
+    counts = [w.launches for w in wrappers]
+    st = torch.rand(8, 8, 3, requires_grad=True)
+    window_pool(st, torch.tensor([0]), torch.tensor([1]), torch.rand(1, 2, 4),
+                torch.rand(1, 2, 4)).sum().backward()
+    feat = torch.rand(1, 3, 8, 8, requires_grad=True)
+    roi_align(feat, torch.tensor([[0.0, 1.0, 1.0, 6.0, 6.0]]), 2, 1.0,
+              2).sum().backward()
+    assert st.grad.shape == st.shape and feat.grad.shape == feat.shape
+    assert st.grad.abs().sum() > 0 and feat.grad.abs().sum() > 0
+    assert counts == [w.launches for w in wrappers]
+
+
+def test_backward_cuda_wrappers_refuse_what_they_do_not_take():
+    with pytest.raises(ValueError, match="CUDA"):
+        window_pool_backward_cuda(
+            torch.zeros(1, 1, 1, 2), torch.zeros(1, dtype=torch.int32),
+            torch.zeros(1, dtype=torch.int32), torch.zeros(1, 1, 2),
+            torch.zeros(1, 2, 2), (4, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        roi_align_backward_cuda(torch.zeros(1, 1, 2, 2), torch.zeros(1, 5),
+                                (1, 1, 4, 4), 2)
+    with pytest.raises(ValueError, match="f32"):
+        window_pool_backward_cuda(
+            torch.zeros(1, 1, 1, 2).bfloat16(), torch.zeros(1, dtype=torch.int32),
+            torch.zeros(1, dtype=torch.int32), torch.zeros(1, 1, 2),
+            torch.zeros(1, 2, 2), (4, 4))
+    with pytest.raises(ValueError, match="f32"):
+        roi_align_backward_cuda(torch.zeros(1, 1, 2, 2, dtype=torch.float64),
+                                torch.zeros(1, 5), (1, 1, 4, 4), 2)

@@ -1,18 +1,21 @@
 """RoIAlign parity: the port's ``roi_align`` (plain PyTorch path on the CPU,
 NCHW) against the JAX package's Pallas kernel in interpret mode and its
 gather path, which ``vision_tpu.ops.roi_align.roi_align`` runs off the
-TPU (NHWC). Tolerance 2e-5 absolute on inputs in [0, 1): the
-formulations sum the same samples in different orders."""
+TPU (NHWC); and its backward pass in the input against the JAX VJPs.
+Tolerance 2e-5 absolute on inputs in [0, 1): the formulations sum the
+same samples in different orders; gradients within 1e-5 of their largest
+value; ``gradcheck`` in float64 at its defaults."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from vision_tpu.ops._pallas.roi_align import roi_align_pallas
-from vision_tpu.ops.roi_align import _roi_align_gather
+from vision_tpu.ops.roi_align import _roi_align_gather, roi_align_mxu
 from vision_tpu.ops.roi_align import roi_align as jax_roi_align
-from vision_tpu_torch.ops.roi_align import roi_align
+from vision_tpu_torch.ops.roi_align import roi_align, roi_align_backward_plain
 
 ATOL = 2e-5
 
@@ -182,3 +185,68 @@ def test_row_column_form_matches_plain_and_jax(aligned, sr, size, kind):
             assert pairs <= 12  # one chunk pair a RoI at most
         elif kind == "partly_outside":
             assert pairs > 12  # sums carried across chunks
+
+
+def _jax_grad(fn, feat, rois, g, *args):
+    _, vjp = jax.vjp(lambda f: fn(f, jnp.asarray(rois), *args), jnp.asarray(feat))
+    return np.asarray(vjp(jnp.asarray(g))[0])
+
+
+def _backward_case(rng, size=(7, 5)):
+    feat = rng.rand(2, 20, 24, 3).astype(np.float32)
+    rois = _rois(rng, 16, 2, -5.0, 60.0)
+    g = rng.randn(16, *size, 3).astype(np.float32)
+    return feat, rois, g
+
+
+def _scaled_close(got, want, rel=1e-5):
+    scale = np.abs(want).max()
+    assert scale > 0
+    np.testing.assert_allclose(got, want, rtol=0, atol=rel * scale)
+
+
+@pytest.mark.parametrize("sr", [2, 0])
+@pytest.mark.parametrize("aligned", [False, True])
+def test_backward_plain_matches_jax_vjp(sr, aligned):
+    """Against ``jax.vjp`` of ``vision_tpu.ops.roi_align.roi_align`` (the
+    gather path off the TPU), at a fixed grid and the adaptive one."""
+    feat, rois, g = _backward_case(np.random.RandomState(30 + sr + aligned))
+    want = _jax_grad(jax_roi_align, feat, rois, g, (7, 5), 0.5, sr, aligned)
+    got = roi_align_backward_plain(
+        torch.from_numpy(g).permute(0, 3, 1, 2), torch.from_numpy(rois),
+        (2, 3, 20, 24), (7, 5), 0.5, sr, aligned)
+    assert got.shape == (2, 3, 20, 24) and got.dtype == torch.float32
+    _scaled_close(got.permute(0, 2, 3, 1).numpy(), want)
+
+
+@pytest.mark.parametrize("aligned", [False, True])
+def test_autograd_matches_jax_mxu_vjp(aligned):
+    """``roi_align`` differentiated by autograd on the CPU against the VJP of
+    the JAX package's ``roi_align_mxu`` (its TPU backward) at sr = 2."""
+    feat, rois, g = _backward_case(np.random.RandomState(40 + aligned))
+    want = _jax_grad(roi_align_mxu, feat, rois, g, (7, 5), 0.5, 2, aligned,
+                     "highest")
+    x = torch.from_numpy(feat).permute(0, 3, 1, 2).requires_grad_()
+    b = torch.from_numpy(rois).requires_grad_()
+    roi_align(x, b, (7, 5), 0.5, 2, aligned).backward(
+        torch.from_numpy(g).permute(0, 3, 1, 2))
+    _scaled_close(x.grad.permute(0, 2, 3, 1).numpy(), want)
+    assert b.grad is None  # torchvision's contract; JAX returns zeros
+
+
+@pytest.mark.parametrize("sr", [2, 0])
+@pytest.mark.parametrize("aligned", [False, True])
+def test_gradcheck_float64(sr, aligned):
+    rng = np.random.RandomState(50 + sr + aligned)
+    feat = torch.from_numpy(rng.rand(2, 2, 9, 11)).requires_grad_()
+    rois = torch.from_numpy(_rois(rng, 4, 2, -2.0, 14.0))
+    assert torch.autograd.gradcheck(
+        lambda f: roi_align(f, rois, (3, 2), 0.7, sr, aligned), (feat,))
+
+
+def test_saves_nothing_without_grad():
+    feat = torch.rand(1, 2, 8, 8, requires_grad=True)
+    rois = torch.tensor([[0.0, 1.0, 1.0, 6.0, 6.0]])
+    with torch.no_grad():
+        assert roi_align(feat, rois, 2, 1.0, 2).grad_fn is None
+    assert roi_align(feat.detach(), rois, 2, 1.0, 2).grad_fn is None

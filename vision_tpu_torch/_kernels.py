@@ -44,7 +44,7 @@ _F = ctypes.c_float
 # name -> (source, extra nvcc flags, {C function: argtypes}).
 # -fmad=false keeps each float operation rounded on its own, as the plain
 # PyTorch versions round them, so NMS keep masks agree bit for bit and the
-# RoIAlign sample positions agree to the last place.
+# RoIAlign sample positions (forward and backward) agree to the last place.
 _KERNELS: Dict[str, Tuple[str, List[str], Dict[str, list]]] = {
     "matmul_stats": (
         "matmul_stats.cu", [],
@@ -77,10 +77,21 @@ _KERNELS: Dict[str, Tuple[str, List[str], Dict[str, list]]] = {
         {"vt_roi_align_forward": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                   _F, _I, _I, _I, _P]},
     ),
+    "roi_align_backward": (
+        "roi_align_backward.cu", ["-fmad=false"],
+        {"vt_roi_align_backward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   _I, _F, _I, _I, _P]},
+    ),
     "window_pool": (
         "window_pool.cu", [],
         {"vt_window_pool": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _I, _F, _I, _P]},
+    ),
+    "window_pool_backward": (
+        "window_pool_backward.cu", [],
+        {"vt_window_pool_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                     _I, _I, _I, _I, _I, _I, _I, _F, _P],
+         "vt_window_pool_backward_scratch": [_I, _I]},
     ),
 }
 

@@ -16,7 +16,12 @@ from vision_tpu_torch.ops.feature_pyramid_network import FeaturePyramidNetwork
 from vision_tpu_torch.ops.misc import FrozenBatchNorm2d
 
 __all__ = ["BackboneWithFPN", "FrozenBasicBlock", "FrozenBottleneck",
-           "ResNetTrunk"]
+           "ResNetTrunk", "freeze_trunk_layers"]
+
+# the trunk's stages from the last to the first, as torchvision's
+# ``_resnet_fpn_extractor`` and the JAX recipe (``references/detection/
+# train.py:60``) count the trainable ones
+_STAGE_ORDER = ("layer4", "layer3", "layer2", "layer1", "conv1")
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
@@ -120,3 +125,16 @@ class BackboneWithFPN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         return self.fpn(self.body(x))
+
+
+def freeze_trunk_layers(trunk: ResNetTrunk, trainable_layers: int) -> None:
+    """Train only the last ``trainable_layers`` (0-5) stages of ``trunk``
+    in the order ``layer4, layer3, layer2, layer1, conv1``: the parameters
+    of every other stage get ``requires_grad_(False)``. The frozen batch
+    norms hold no parameters."""
+    if not 0 <= trainable_layers <= len(_STAGE_ORDER):
+        raise ValueError("trainable_layers must be in [0, 5], got "
+                         f"{trainable_layers}")
+    train = _STAGE_ORDER[:trainable_layers]
+    for name, p in trunk.named_parameters():
+        p.requires_grad_(name.split(".")[0] in train)

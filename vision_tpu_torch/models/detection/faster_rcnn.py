@@ -1,4 +1,4 @@
-"""Faster R-CNN ResNet-FPN inference (counterpart of
+"""Faster R-CNN ResNet-FPN inference and training loss (counterpart of
 ``vision_tpu/models/detection/faster_rcnn.py``, the v1 ResNet variant).
 
 Backbone -> FPN -> RPN head -> fixed-size ``filter_proposals`` (top-k +
@@ -9,6 +9,12 @@ kernels. Input: normalised, padded NCHW images, as
 ``transform.GeneralizedRCNNTransform`` builds them from raw images (whose
 ``postprocess_boxes`` maps the boxes back); output: ``Detections`` with
 ``detections_per_img`` rows per image, boxes in the canvas's frame.
+
+Training: ``compute_loss(images, gt_boxes, gt_labels, gt_valid,
+generator)`` gives the RPN's and the box head's losses, in f32; its
+backward pass runs the window pool's and RoIAlign's backward kernels on
+the card (``parallel.train.make_detection_train_step`` wraps it in an
+optimizer step).
 
 Amp (bf16) eval is the JAX package's switch: ``model.to(torch.bfloat16)``
 and a bf16 canvas. The trunk, the FPN, the heads and the pooled features
@@ -32,7 +38,10 @@ from vision_tpu_torch.models._api import (
     resolve_device,
 )
 from vision_tpu_torch.models.detection.anchor_utils import AnchorGenerator
-from vision_tpu_torch.models.detection.backbone_utils import BackboneWithFPN
+from vision_tpu_torch.models.detection.backbone_utils import (
+    BackboneWithFPN,
+    freeze_trunk_layers,
+)
 from vision_tpu_torch.models.detection.roi_heads import (
     Detections,
     FastRCNNPredictor,
@@ -129,6 +138,41 @@ class FasterRCNN(nn.Module):
             proposals.boxes, proposals.valid, image_size,
         )
 
+    def compute_loss(
+        self,
+        images: torch.Tensor,
+        gt_boxes: torch.Tensor,
+        gt_labels: torch.Tensor,
+        gt_valid: torch.Tensor,
+        generator: torch.Generator,
+    ) -> Dict[str, torch.Tensor]:
+        """The training losses ``{"loss_objectness", "loss_rpn_box_reg",
+        "loss_classifier", "loss_box_reg"}`` of ``images [N, 3, H, W]`` with
+        ``gt_boxes [N, G, 4]`` (canvas frame), ``gt_labels [N, G]`` and
+        ``gt_valid [N, G]`` (padding rows False). The RPN's sampler draws
+        from ``generator`` first, then the box head's; the proposals carry
+        no gradient."""
+        image_size = tuple(images.shape[-2:])
+        feats, objectness, deltas, anchors = self.features_and_rpn(images)
+        rpn_losses = self.rpn.compute_loss(objectness, deltas, anchors,
+                                           gt_boxes, gt_valid, generator)
+        proposals = self.rpn.filter_proposals(objectness, deltas, anchors,
+                                              image_size)
+        sampled = self.roi_heads.select_training_samples(
+            proposals.boxes, proposals.valid, gt_boxes, gt_labels, gt_valid,
+            generator)
+        n, s = sampled.boxes.shape[:2]
+        pooled = self.roi_heads.box_roi_pool(
+            {k: feats[k] for k in _FEATMAPS}, self.make_rois(sampled.boxes),
+            image_size,
+        )
+        class_logits, box_regression = self.roi_heads.box_predictor(
+            self.roi_heads.box_head(pooled)
+        )
+        return {**rpn_losses, **self.roi_heads.fastrcnn_loss(
+            class_logits.reshape(n, s, -1), box_regression.reshape(n, s, -1),
+            sampled)}
+
 
 @torch.no_grad()
 def init_weights(model: FasterRCNN, generator: torch.Generator) -> None:
@@ -185,12 +229,16 @@ def fasterrcnn_resnet50_fpn(
     weights: Optional[Union[FasterRCNN_ResNet50_FPN_Weights, Weights, str]] = None,
     device: Union[str, torch.device, None] = None,
     seed: int = 0,
+    trainable_backbone_layers: Optional[int] = None,
     **kwargs,
 ) -> FasterRCNN:
     """Faster R-CNN ResNet-50-FPN in eval mode, on ``device`` (the card
     when None). Without ``weights`` the parameters are torchvision's
     initialisation drawn from a CPU ``torch.Generator`` seeded with
-    ``seed``, so every device gets the same numbers."""
+    ``seed``, so every device gets the same numbers.
+    ``trainable_backbone_layers`` (0-5) leaves only the last that many
+    trunk stages trainable (``freeze_trunk_layers``); None trains all, as
+    the JAX recipe's default does."""
     device = resolve_device(device)
     weights = FasterRCNN_ResNet50_FPN_Weights.verify(weights)
     model = FasterRCNN(backbone_depth=50, **kwargs)
@@ -198,4 +246,6 @@ def fasterrcnn_resnet50_fpn(
         model.load_state_dict(_upgrade_state_dict(weights.get_state_dict()))
     else:
         init_weights(model, torch.Generator().manual_seed(seed))
+    if trainable_backbone_layers is not None:
+        freeze_trunk_layers(model.backbone.body, trainable_backbone_layers)
     return model.eval().to(device)

@@ -1,19 +1,26 @@
-"""Region Proposal Network, inference path (counterpart of
-``vision_tpu/models/detection/rpn.py``): the head, and
-``filter_proposals`` as fixed-size per-level top-k, decode, clip and
-per-level NMS, emitting ``post_nms_top_n`` proposals with a validity
-mask."""
+"""Region Proposal Network (counterpart of
+``vision_tpu/models/detection/rpn.py``): the head; ``filter_proposals`` as
+fixed-size per-level top-k, decode, clip and per-level NMS, emitting
+``post_nms_top_n`` proposals with a validity mask; and the training loss,
+``compute_loss``."""
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 from torch import nn
 
-from vision_tpu_torch.models.detection._utils import BoxCoder
+from vision_tpu_torch.models.detection._utils import (
+    BalancedPositiveNegativeSampler,
+    BoxCoder,
+    Matcher,
+    smooth_l1,
+    unit_box_where,
+)
 from vision_tpu_torch.models.detection.anchor_utils import AnchorGenerator
 from vision_tpu_torch.ops._topk import top_k
+from vision_tpu_torch.ops.boxes import box_iou
 from vision_tpu_torch.ops.nms import nms_mask
 
 __all__ = ["Proposals", "RPNHead", "RegionProposalNetwork"]
@@ -60,7 +67,8 @@ class RPNHead(nn.Module):
 
 class RegionProposalNetwork(nn.Module):
     """Holds the head and the anchor generator (``rpn.head`` in the state
-    dict) and the proposal filter's hyperparameters."""
+    dict), the proposal filter's hyperparameters and the loss's matcher
+    and sampler."""
 
     def __init__(
         self,
@@ -76,6 +84,10 @@ class RegionProposalNetwork(nn.Module):
         self.anchor_generator = anchor_generator
         self.head = head
         self.box_coder = BoxCoder(weights=(1.0, 1.0, 1.0, 1.0))
+        # torchvision's training defaults: IoU >= 0.7 positive, < 0.3
+        # negative; 256 anchors an image, half of them positive at most
+        self.proposal_matcher = Matcher(0.7, 0.3, allow_low_quality_matches=True)
+        self.sampler = BalancedPositiveNegativeSampler(256, 0.5)
         self.pre_nms_top_n = pre_nms_top_n
         self.post_nms_top_n = post_nms_top_n
         self.nms_thresh = nms_thresh
@@ -141,3 +153,44 @@ class RegionProposalNetwork(nn.Module):
         top_scores, top_idx = top_k(kept_scores, p)
         top_boxes = torch.gather(boxes, 1, top_idx[..., None].expand(-1, -1, 4))
         return Proposals(top_boxes, top_scores, top_scores > -torch.inf)
+
+    def compute_loss(
+        self,
+        objectness: List[torch.Tensor],
+        deltas: List[torch.Tensor],
+        anchors: List[torch.Tensor],
+        gt_boxes: torch.Tensor,
+        gt_valid: torch.Tensor,
+        generator: torch.Generator,
+    ) -> Dict[str, torch.Tensor]:
+        """Binary cross-entropy of the objectness on the sampled anchors,
+        and smooth-L1 (beta 1/9) of the deltas on the sampled positives,
+        each summed over an image over its number of sampled anchors, then
+        averaged over the images. ``gt_boxes [N, G, 4]`` with ``gt_valid
+        [N, G]``; the sampler draws from ``generator``.
+
+        Unlike the JAX package (``rpn.py:196-200``), anchors that are not
+        positive are encoded against a unit box: there their matched gt
+        can be a padding row of zeros, whose ``log(0)`` target made the
+        masked loss's gradient NaN."""
+        obj = torch.cat(objectness, 1).float()  # [N, R]
+        dl = torch.cat(deltas, 1).float()  # [N, R, 4]
+        all_anchors = torch.cat(anchors, 0)  # [R, 4]
+        matched = self.proposal_matcher(box_iou(gt_boxes, all_anchors),
+                                        valid_gt=gt_valid)  # [N, R]
+        pos, neg = self.sampler(matched, generator)
+        sampled = pos | neg
+        num_sampled = sampled.sum(1).clamp(min=1)
+
+        labels = (matched >= 0).to(obj.dtype)
+        bce = obj.clamp(min=0) - obj * labels + torch.log1p(torch.exp(-obj.abs()))
+        obj_loss = (bce * sampled).sum(1) / num_sampled
+
+        idx = matched.clamp(min=0)[..., None].expand(-1, -1, 4)
+        matched_boxes = torch.gather(gt_boxes.float(), 1, idx)  # [N, R, 4]
+        target = self.box_coder.encode(
+            unit_box_where(pos, matched_boxes),
+            unit_box_where(pos, all_anchors.expand_as(matched_boxes)))
+        box_loss = (smooth_l1(dl - target).sum(-1) * pos).sum(1) / num_sampled
+        return {"loss_objectness": obj_loss.mean(),
+                "loss_rpn_box_reg": box_loss.mean()}

@@ -17,6 +17,14 @@ Two formulations with the same result:
   capacity of ``min(overflow_capacity, K)`` rows, which runs on every
   call.
 
+Both are differentiable in the features (f32): the window pool through
+:class:`_WindowPool`, whose backward pass is the kernel
+``csrc/window_pool_backward.cu`` on the card (deterministic: no atomics)
+and :func:`window_pool_backward_plain` on the CPU; the dense path through
+``roi_align``'s. The pyramid is built by copies into a zero tensor and
+the overflow rows are patched in place, and autograd takes both back to
+each level.
+
 The sampling rules live in the weights, computed here in PyTorch exactly
 as the JAX package computes them (``poolers.py:176-267``). The port keeps
 exact window origins: the 8-row alignment and the ``win + 8`` widening
@@ -45,6 +53,8 @@ __all__ = [
     "LevelMapper",
     "MultiScaleRoIAlign",
     "window_pool",
+    "window_pool_backward_cuda",
+    "window_pool_backward_plain",
     "window_pool_cuda",
     "window_pool_plain",
 ]
@@ -63,16 +73,47 @@ def window_pool_plain(
     ``stacked [R, WMAX, C]`` channels-last pyramid, ``row0``/``x0 [K]``
     window origins, ``w_y [K, PH, winy]``, ``w_x [K, PW, winx]`` ->
     ``out [K, C, PH, PW] = sum_yx w_y w_x stacked[row0+y, x0+x] / div``,
-    the sum in f32 rounded to ``stacked``'s type before the division.
+    the sum in f32 (f64 for an f64 pyramid) rounded to ``stacked``'s type
+    before the division.
     """
+    acc = torch.promote_types(stacked.dtype, torch.float32)
     winy = w_y.shape[2]
     winx = w_x.shape[2]
     ys = row0.long()[:, None] + torch.arange(winy, device=stacked.device)
     xs = x0.long()[:, None] + torch.arange(winx, device=stacked.device)
-    windows = stacked[ys[:, :, None], xs[:, None, :]].float()  # [K, y, x, C]
-    rows = torch.einsum("kpy,kyxc->kpxc", w_y, windows)
-    out = torch.einsum("kqx,kpxc->kcpq", w_x, rows)
-    return (out.to(stacked.dtype).float() / div).to(stacked.dtype)
+    windows = stacked[ys[:, :, None], xs[:, None, :]].to(acc)  # [K, y, x, C]
+    rows = torch.einsum("kpy,kyxc->kpxc", w_y.to(acc), windows)
+    out = torch.einsum("kqx,kpxc->kcpq", w_x.to(acc), rows)
+    return (out.to(stacked.dtype).to(acc) / div).to(stacked.dtype)
+
+
+def window_pool_backward_plain(
+    grad: torch.Tensor,
+    row0: torch.Tensor,
+    x0: torch.Tensor,
+    w_y: torch.Tensor,
+    w_x: torch.Tensor,
+    size: Tuple[int, int],
+    div: float = 1.0,
+) -> torch.Tensor:
+    """Plain PyTorch window-pool backward in the pyramid: ``grad [K, C, PH,
+    PW]`` of the output -> the gradient ``[R, WMAX, C]`` of a pyramid of
+    ``size = (R, WMAX)``, in f32 (f64 for an f64 ``grad``): each RoI's
+    window gradient ``w_y^T (w_x g / div)`` scatter-added at its window."""
+    acc = torch.promote_types(grad.dtype, torch.float32)
+    k, c = grad.shape[:2]
+    winy = w_y.shape[2]
+    winx = w_x.shape[2]
+    g = grad.to(acc) / div
+    rows = torch.einsum("kqx,kcpq->kpxc", w_x.to(acc), g)
+    win = torch.einsum("kpy,kpxc->kyxc", w_y.to(acc), rows)  # [K, y, x, C]
+    ys = row0.long()[:, None] + torch.arange(winy, device=grad.device)
+    xs = x0.long()[:, None] + torch.arange(winx, device=grad.device)
+    out = torch.zeros(*size, c, dtype=acc, device=grad.device)
+    out.index_put_((ys[:, :, None].expand(k, winy, winx),
+                    xs[:, None, :].expand(k, winy, winx)), win,
+                   accumulate=True)
+    return out
 
 
 def _check_windows(stacked, row0, x0, winy, winx) -> None:
@@ -96,9 +137,10 @@ def window_pool_cuda(
     w_x: torch.Tensor,
     div: float = 1.0,
 ) -> torch.Tensor:
-    """The kernel of ``csrc/window_pool.cu`` (same contract as
+    """The forward kernel of ``csrc/window_pool.cu`` (same contract as
     :func:`window_pool_plain`; an f32 or bf16 pyramid, f32 weights, any C,
-    ``PH, PW <= 16``).
+    ``PH, PW <= 16``); :func:`window_pool` differentiates it through
+    :func:`window_pool_backward_cuda`.
 
     It makes no host synchronisation. The kernel checks on the card that
     each window lies inside ``stacked``; a window that does not stops the
@@ -140,13 +182,113 @@ def window_pool_cuda(
     return out
 
 
-def window_pool(stacked, row0, x0, w_y, w_x, div: float = 1.0) -> torch.Tensor:
-    """The CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors."""
+@_kernels.counted
+def window_pool_backward_cuda(
+    grad: torch.Tensor,
+    row0: torch.Tensor,
+    x0: torch.Tensor,
+    w_y: torch.Tensor,
+    w_x: torch.Tensor,
+    size: Tuple[int, int],
+    div: float = 1.0,
+) -> torch.Tensor:
+    """The kernel of ``csrc/window_pool_backward.cu`` (same contract as
+    :func:`window_pool_backward_plain`; f32 ``grad`` and weights, ``PH, PW
+    <= 16``). Every call on the same inputs gives the same bits: each
+    element is summed by one thread over the RoIs in the order of a stable
+    sort of ``row0``, with no atomics.
+
+    It makes no host synchronisation: the RoIs are sorted on the card, and
+    the kernel checks each window's bounds there, as the forward does (the
+    error surfaces at the next synchronisation)."""
+    if grad.dtype != torch.float32 or w_y.dtype != torch.float32 or (
+        w_x.dtype != torch.float32
+    ):
+        raise ValueError("window_pool_backward_cuda takes f32 grad and "
+                         f"weights, got {grad.dtype}, {w_y.dtype}, {w_x.dtype}")
+    tensors = (grad, row0, x0, w_y, w_x)
+    if any(t.device != grad.device for t in tensors) or (
+        grad.device.type != "cuda"
+    ):
+        raise ValueError("window_pool_backward_cuda takes CUDA tensors on one "
+                         "device")
+    k, c, ph, pw = grad.shape
+    winy = w_y.shape[2]
+    winx = w_x.shape[2]
+    if ph > 16 or pw > 16:
+        raise ValueError(f"window_pool_backward_cuda takes PH, PW <= 16, got "
+                         f"{ph}, {pw}")
+    if tuple(w_y.shape) != (k, ph, winy) or tuple(w_x.shape[:2]) != (k, pw):
+        raise ValueError(f"w_y {tuple(w_y.shape)} and w_x {tuple(w_x.shape)} "
+                         f"do not fit grad {tuple(grad.shape)}")
+    r_rows, wmax = size
+    row0 = row0.to(torch.int32).contiguous()
+    x0 = x0.to(torch.int32).contiguous()
+    sorted_row0, order = torch.sort(row0, stable=True)
+    order = order.to(torch.int32)
+    grad = grad.contiguous()
+    w_y = w_y.contiguous()
+    w_x = w_x.contiguous()
+    out = torch.empty(r_rows, wmax, c, dtype=torch.float32, device=grad.device)
+    lib = _kernels.load("window_pool_backward")
+    scratch = torch.empty(lib.vt_window_pool_backward_scratch(k, r_rows),
+                          dtype=torch.int32, device=grad.device)
+    _kernels.check(
+        lib.vt_window_pool_backward(
+            grad.data_ptr(), sorted_row0.data_ptr(), order.data_ptr(),
+            row0.data_ptr(), x0.data_ptr(), w_y.data_ptr(), w_x.data_ptr(),
+            scratch.data_ptr(), out.data_ptr(), r_rows, wmax, c, k, ph, pw,
+            winy, winx, float(div), _kernels.stream_handle(grad),
+        ),
+        "window_pool_backward kernel",
+    )
+    return out
+
+
+def _window_pool_forward(stacked, row0, x0, w_y, w_x, div):
     if stacked.device.type == "cpu":
         _check_windows(stacked, row0, x0, w_y.shape[2], w_x.shape[2])
         return window_pool_plain(stacked, row0, x0, w_y, w_x, div)
     return window_pool_cuda(stacked, row0, x0, w_y, w_x, div)
+
+
+class _WindowPool(torch.autograd.Function):
+    """The window pool with the backward pass in the pyramid; saves the
+    origins and the weights. Their own gradient is not computed: the
+    backward pass raises where ``w_y`` or ``w_x`` needs one (on the Faster
+    R-CNN path they come from proposals that carry no gradient)."""
+
+    @staticmethod
+    def forward(ctx, stacked, row0, x0, w_y, w_x, div):
+        ctx.save_for_backward(row0, x0, w_y, w_x)
+        ctx.size = tuple(stacked.shape[:2])
+        ctx.div = div
+        ctx.dtype = stacked.dtype
+        return _window_pool_forward(stacked, row0, x0, w_y, w_x, div)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.needs_input_grad[3] or ctx.needs_input_grad[4]:
+            raise NotImplementedError(
+                "window_pool computes no gradient for w_y or w_x")
+        row0, x0, w_y, w_x = ctx.saved_tensors
+        gs = None
+        if ctx.needs_input_grad[0]:
+            backward = (window_pool_backward_plain if grad.device.type == "cpu"
+                        else window_pool_backward_cuda)
+            gs = backward(grad, row0, x0, w_y, w_x, ctx.size,
+                          ctx.div).to(ctx.dtype)
+        return gs, None, None, None, None, None
+
+
+def window_pool(stacked, row0, x0, w_y, w_x, div: float = 1.0) -> torch.Tensor:
+    """The CUDA kernels for CUDA tensors, the plain versions for CPU
+    tensors. Differentiable in ``stacked``; where no gradient is wanted,
+    nothing is saved for one."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (stacked, w_y, w_x)):
+        return _WindowPool.apply(stacked, row0, x0, w_y, w_x, div)
+    return _window_pool_forward(stacked, row0, x0, w_y, w_x, div)
 
 
 class LevelMapper:

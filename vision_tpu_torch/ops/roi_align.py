@@ -1,16 +1,22 @@
-"""RoIAlign forward, NCHW (counterpart of ``vision_tpu/ops/roi_align.py``).
+"""RoIAlign, NCHW (counterpart of ``vision_tpu/ops/roi_align.py``).
 
 :func:`roi_align` runs the CUDA kernel ``csrc/roi_align.cu`` for tensors
 on the card and the plain PyTorch version :func:`roi_align_plain` for
 tensors on the CPU. Both follow the JAX package's gather path
 (``_roi_align_gather``): the reference's CUDA edge rules, ``aligned``
 both ways, a fixed ``sampling_ratio > 0`` grid or the adaptive
-``ceil(roi / pooled)`` grid for ``sampling_ratio <= 0``. Forward only:
-the backward waits for the training path.
+``ceil(roi / pooled)`` grid for ``sampling_ratio <= 0``.
+
+It is differentiable in ``input`` (f32): the backward pass is the kernel
+``csrc/roi_align_backward.cu`` on the card (deterministic: no atomics)
+and :func:`roi_align_backward_plain` on the CPU. The gradient of the
+boxes is None, as in torchvision (the JAX package returns zeros,
+``roi_align.py:431``).
 
 Types: an f32 or a bf16 input, f32 boxes; the output has the input's
-type. Sampling weights and sums are f32 in both. A bf16 result is rounded
-as the JAX package's Pallas kernel rounds it
+type. Sampling weights and sums are f32 in both (the plain version sums an
+f64 input in f64, for ``gradcheck``; its sample positions stay f32). A
+bf16 result is rounded as the JAX package's Pallas kernel rounds it
 (``vision_tpu/ops/_pallas/roi_align.py:104,230``): the f32 sum to bf16,
 then divided by the sample count in f32 and rounded again. The JAX gather
 path divides first and rounds once; the two agree where the count is a
@@ -26,7 +32,8 @@ import torch
 
 from vision_tpu_torch import _kernels
 
-__all__ = ["roi_align", "roi_align_cuda", "roi_align_plain"]
+__all__ = ["roi_align", "roi_align_backward_cuda", "roi_align_backward_plain",
+           "roi_align_cuda", "roi_align_plain"]
 
 # the element types of the kernel's input and output
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -54,8 +61,10 @@ def _bilinear_gather(feat, batch_ind, y, x, yvalid, xvalid):
     x_high = torch.where(x_low >= width - 1, width - 1, x_low + 1)
     x_low = x_low.clamp(max=width - 1)
     x = torch.where(x_low >= width - 1, x_low.to(x.dtype), x)
-    ly = y - y_low
-    lx = x - x_low
+    # the fractions are exact in f32; their products are taken in the
+    # features' type (exact in f64, where the plain version is a reference)
+    ly = (y - y_low).to(feat.dtype)
+    lx = (x - x_low).to(feat.dtype)
     hy = 1.0 - ly
     hx = 1.0 - lx
     b = batch_ind[:, None, None, None, None]
@@ -93,7 +102,9 @@ def roi_align_plain(
     _, _, height, width = input.shape
     k = boxes.shape[0]
     orig_dtype = input.dtype
-    feat = input.float().permute(0, 2, 3, 1)  # NHWC for the corner gather
+    # sums in f32 (f64 for an f64 input); sample positions in f32 always
+    acc = torch.promote_types(orig_dtype, torch.float32)
+    feat = input.to(acc).permute(0, 2, 3, 1)  # NHWC for the corner gather
     rois = boxes.float()
     dev = rois.device
 
@@ -148,7 +159,7 @@ def roi_align_plain(
     )
     val = _bilinear_gather(feat, batch_ind, y, x, yvalid, xvalid)
     # round the sum to the input's type, then divide (a no-op round in f32)
-    out = val.sum(dim=(3, 4)).to(orig_dtype).float() / count  # [K, PH, PW, C]
+    out = val.sum(dim=(3, 4)).to(orig_dtype).to(acc) / count  # [K, PH, PW, C]
     return out.permute(0, 3, 1, 2).contiguous().to(orig_dtype)
 
 
@@ -195,6 +206,110 @@ def roi_align_cuda(
     return out
 
 
+def roi_align_backward_plain(
+    grad: torch.Tensor,
+    boxes: torch.Tensor,
+    input_shape: Tuple[int, int, int, int],
+    output_size: _Size,
+    spatial_scale: float = 1.0,
+    sampling_ratio: int = -1,
+    aligned: bool = False,
+) -> torch.Tensor:
+    """Plain PyTorch RoIAlign backward: the gradient ``[N, C, H, W]`` of an
+    input of ``input_shape`` for ``grad [K, C, PH, PW]`` of the output,
+    in f32 (f64 for an f64 ``grad``): the autograd of
+    :func:`roi_align_plain`, which is linear in its input."""
+    acc = torch.promote_types(grad.dtype, torch.float32)
+    with torch.enable_grad():
+        x = torch.zeros(input_shape, dtype=acc, device=grad.device,
+                        requires_grad=True)
+        out = roi_align_plain(x, boxes, output_size, spatial_scale,
+                              sampling_ratio, aligned)
+        (gx,) = torch.autograd.grad(out, x, grad.to(acc))
+    return gx
+
+
+@_kernels.counted
+def roi_align_backward_cuda(
+    grad: torch.Tensor,
+    boxes: torch.Tensor,
+    input_shape: Tuple[int, int, int, int],
+    output_size: _Size,
+    spatial_scale: float = 1.0,
+    sampling_ratio: int = -1,
+    aligned: bool = False,
+) -> torch.Tensor:
+    """The kernel of ``csrc/roi_align_backward.cu`` (same contract as
+    :func:`roi_align_backward_plain`; f32 ``grad`` and boxes). Every call
+    on the same inputs gives the same bits: each element is summed by one
+    thread over the RoIs in index order, with no atomics.
+
+    It makes no host synchronisation. The kernel checks each RoI's batch
+    index on the card, as the forward does: one outside ``[0, N)`` stops
+    the launch, and the error surfaces at the next synchronisation."""
+    if grad.dtype != torch.float32 or boxes.dtype != torch.float32:
+        raise ValueError("roi_align_backward_cuda takes f32 grad and boxes, "
+                         f"got {grad.dtype} and {boxes.dtype}")
+    if grad.device.type != "cuda" or boxes.device != grad.device:
+        raise ValueError("roi_align_backward_cuda takes CUDA tensors")
+    pooled_h, pooled_w = _pair(output_size)
+    n, c, h, w = input_shape
+    k = boxes.shape[0]
+    if tuple(grad.shape) != (k, c, pooled_h, pooled_w) or boxes.dim() != 2 or (
+            boxes.shape[1] != 5):
+        raise ValueError(f"grad must be [{k}, {c}, {pooled_h}, {pooled_w}] and "
+                         f"boxes [K, 5], got {tuple(grad.shape)} and "
+                         f"{tuple(boxes.shape)}")
+    grad = grad.contiguous()
+    boxes = boxes.contiguous()
+    out = torch.empty(n, c, h, w, dtype=torch.float32, device=grad.device)
+    desc = torch.empty(k, 16, dtype=torch.int32, device=grad.device)
+    lib = _kernels.load("roi_align_backward")
+    _kernels.check(
+        lib.vt_roi_align_backward(
+            grad.data_ptr(), boxes.data_ptr(), desc.data_ptr(), out.data_ptr(),
+            n, c, h, w, k,
+            pooled_h, pooled_w, float(spatial_scale), int(sampling_ratio),
+            int(bool(aligned)), _kernels.stream_handle(grad),
+        ),
+        "roi_align_backward kernel",
+    )
+    return out
+
+
+def _roi_align_forward(input, boxes, output_size, spatial_scale,
+                       sampling_ratio, aligned):
+    if input.device.type == "cpu":
+        return roi_align_plain(input, boxes, output_size, spatial_scale,
+                               sampling_ratio, aligned)
+    return roi_align_cuda(input, boxes, output_size, spatial_scale,
+                          sampling_ratio, aligned)
+
+
+class _RoIAlign(torch.autograd.Function):
+    """RoIAlign with the backward pass in ``input``; saves only the boxes."""
+
+    @staticmethod
+    def forward(ctx, input, boxes, output_size, spatial_scale, sampling_ratio,
+                aligned):
+        ctx.save_for_backward(boxes)
+        ctx.args = (tuple(input.shape), output_size, spatial_scale,
+                    sampling_ratio, aligned)
+        ctx.dtype = input.dtype
+        return _roi_align_forward(input, boxes, output_size, spatial_scale,
+                                  sampling_ratio, aligned)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (boxes,) = ctx.saved_tensors
+        gx = None
+        if ctx.needs_input_grad[0]:
+            backward = (roi_align_backward_plain if grad.device.type == "cpu"
+                        else roi_align_backward_cuda)
+            gx = backward(grad, boxes, *ctx.args).to(ctx.dtype)
+        return gx, None, None, None, None, None
+
+
 def roi_align(
     input: torch.Tensor,
     boxes: torch.Tensor,
@@ -203,11 +318,12 @@ def roi_align(
     sampling_ratio: int = -1,
     aligned: bool = False,
 ) -> torch.Tensor:
-    """RoIAlign forward (``torchvision.ops.roi_align``'s contract):
-    ``input [N, C, H, W]``, ``boxes [K, 5]`` -> ``[K, C, PH, PW]``. The
-    CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
-    if input.device.type == "cpu":
-        return roi_align_plain(input, boxes, output_size, spatial_scale,
+    """RoIAlign (``torchvision.ops.roi_align``'s contract): ``input [N, C,
+    H, W]``, ``boxes [K, 5]`` -> ``[K, C, PH, PW]``. The CUDA kernels for
+    CUDA tensors, the plain versions for CPU tensors. Differentiable in
+    ``input``; where no gradient is wanted, nothing is saved for one."""
+    if torch.is_grad_enabled() and input.requires_grad:
+        return _RoIAlign.apply(input, boxes, output_size, spatial_scale,
                                sampling_ratio, aligned)
-    return roi_align_cuda(input, boxes, output_size, spatial_scale,
-                          sampling_ratio, aligned)
+    return _roi_align_forward(input, boxes, output_size, spatial_scale,
+                              sampling_ratio, aligned)

@@ -1,8 +1,10 @@
-"""The classification train step (counterpart of
-``vision_tpu/parallel/train.py``), on one device: forward in training mode,
-cross-entropy with label smoothing or soft labels, backward, one optimizer
-update. The mesh, buffer donation and ``reduce_across_devices`` of the JAX
-package have no counterpart here yet.
+"""Train steps on one device: the classification step (counterpart of
+``vision_tpu/parallel/train.py``: forward in training mode, cross-entropy
+with label smoothing or soft labels, backward, one optimizer update) and
+the two-stage detection step (counterpart of
+``references/detection/engine.py:make_detection_train_step``). The mesh,
+buffer donation and ``reduce_across_devices`` of the JAX package have no
+counterpart here yet.
 """
 
 from __future__ import annotations
@@ -13,7 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["cross_entropy_loss", "make_train_step"]
+__all__ = ["cross_entropy_loss", "make_detection_train_step",
+           "make_train_step"]
 
 
 def cross_entropy_loss(
@@ -76,5 +79,44 @@ def make_train_step(
             hits = logits.detach().argmax(-1) == labels
             metrics["accuracy"] = hits.float().mean()
         return metrics
+
+    return step
+
+
+def make_detection_train_step(
+    model: nn.Module,
+    optimizer: torch.optim.Optimizer,
+    compute_dtype: Optional[torch.dtype] = None,
+) -> Callable[[Dict[str, torch.Tensor], torch.Generator],
+              Dict[str, torch.Tensor]]:
+    """Build ``step(batch, generator) -> {"loss", "loss_objectness",
+    "loss_rpn_box_reg", "loss_classifier", "loss_box_reg"}`` for a
+    two-stage detector with ``compute_loss`` (Faster R-CNN) and
+    ``batch = {"image": [N, 3, H, W], "boxes": [N, G, 4], "labels": [N, G],
+    "valid": [N, G]}``, boxes in the canvas's frame, on the model's device.
+    The step puts the model in training mode, sums the losses in f32,
+    runs the backward pass and one update through ``optimizer``; the
+    samplers draw from ``generator`` (on the model's device). The losses
+    stay on the device: reading them is the caller's synchronisation.
+
+    f32 only: ``compute_dtype=torch.bfloat16`` raises, since the backward
+    kernels of the window pool and RoIAlign have no bf16 variant yet
+    (ROADMAP.md, queue 1: amp (bf16) detection training)."""
+    if compute_dtype is not None and compute_dtype != torch.float32:
+        raise NotImplementedError(
+            f"detection training in {compute_dtype} is not ported yet "
+            "(ROADMAP.md, queue 1: amp (bf16) detection training)")
+
+    def step(batch: Dict[str, torch.Tensor],
+             generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        losses = model.compute_loss(batch["image"], batch["boxes"],
+                                    batch["labels"], batch["valid"], generator)
+        total = sum(v.float() for v in losses.values())
+        total.backward()
+        optimizer.step()
+        return {"loss": total.detach(),
+                **{k: v.detach() for k, v in losses.items()}}
 
     return step

@@ -1,7 +1,8 @@
-"""Where the time of one Faster R-CNN ResNet-50-FPN forward goes, on the card.
+"""Where the time of one Faster R-CNN ResNet-50-FPN forward (or train
+step) goes, on the card.
 
     python -m vision_tpu_torch.tools.profile_faster_rcnn [--steps 3]
-        [--cell 832 | request_f32 | request_bf16]
+        [--cell 832 | request_f32 | request_bf16 | train]
 
 Same model and inputs as ``chip_smoke.py`` (seeded random weights with
 ``cls_score`` scaled x30, TF32 off). ``--cell 832``: one 832x832 f32 image
@@ -10,8 +11,12 @@ two seeded uint8 images of 480x640 and 427x640 through the preset, the
 transform (a 1344x1344 canvas, batch 2), the model (in bf16 for
 ``request_bf16``: ``model.to(torch.bfloat16)`` and a bf16 canvas) and
 ``postprocess_boxes`` (phases ``faster_rcnn_images`` and
-``faster_rcnn_amp``). Runs ``--steps`` forwards under ``torch.profiler``
-after two warm-up forwards and prints JSON lines: per step the host wall
+``faster_rcnn_amp``). ``train``: one SGD step of
+``make_detection_train_step`` on the training batch of the same two images
+(phase ``faster_rcnn_train``: ``trainable_backbone_layers=3``, the
+recipe's SGD with its warmup, no ``cls_score`` scaling), its loss read
+back. Runs ``--steps`` steps under ``torch.profiler``
+after two warm-up steps and prints JSON lines: per step the host wall
 time and the summed device kernel time (their ratio is the device's busy
 share), the device time by kernel group, and the top kernels by device
 time. The Chrome trace goes to ``--trace``.
@@ -33,12 +38,20 @@ from vision_tpu_torch.models.detection import (
     FasterRCNN_ResNet50_FPN_Weights,
     GeneralizedRCNNTransform,
 )
-from vision_tpu_torch.tools.detection_request import raw_images, serve
+from vision_tpu_torch.parallel import make_detection_train_step
+from vision_tpu_torch.tools.detection_request import (
+    raw_images,
+    recipe_optimizer,
+    serve,
+    train_batch,
+)
 
 # kernel-name fragments -> group, first match wins
 _GROUPS = (
     ("nms_", "nms kernel"),
+    ("window_pool_backward", "window-pool backward kernel"),
     ("window_pool", "window-pool kernel"),
+    ("roi_align_backward", "roi_align backward kernel"),
     ("roi_align", "roi_align kernel"),
     ("fprop", "convolution"),
     ("conv", "convolution"),
@@ -66,11 +79,20 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def _scaled_model():
+    """The served model as ``chip_smoke.py`` builds it: ``cls_score``
+    scaled x30 so that detections pass the score threshold."""
+    model = get_model("fasterrcnn_resnet50_fpn", seed=0)
+    with torch.no_grad():
+        model.roi_heads.box_predictor.cls_score.weight.mul_(30.0)
+    return model
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--cell", default="832",
-                    choices=("832", "request_f32", "request_bf16"))
+                    choices=("832", "request_f32", "request_bf16", "train"))
     ap.add_argument("--trace", default=None,
                     help="default build/profile/faster_rcnn_<cell>_trace.json")
     args = ap.parse_args()
@@ -78,10 +100,21 @@ def main() -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    model = get_model("fasterrcnn_resnet50_fpn", seed=0)
-    with torch.no_grad():
-        model.roi_heads.box_predictor.cls_score.weight.mul_(30.0)
-    if args.cell == "832":
+    if args.cell == "train":
+        model = get_model("fasterrcnn_resnet50_fpn", seed=0,
+                          trainable_backbone_layers=3)
+        optimizer, scheduler = recipe_optimizer(model)
+        train_step = make_detection_train_step(model, optimizer)
+        with torch.no_grad():
+            batch = train_batch(FasterRCNN_ResNet50_FPN_Weights.COCO_V1.transforms(),
+                                GeneralizedRCNNTransform(), raw_images())
+        gen = torch.Generator(device="cuda").manual_seed(0)
+
+        def step():
+            float(train_step(batch, gen)["loss"])
+            scheduler.step()
+    elif args.cell == "832":
+        model = _scaled_model()
         images = torch.randn(1, 3, 832, 832,
                              generator=torch.Generator().manual_seed(1)).cuda()
 
@@ -89,7 +122,7 @@ def main() -> None:
             model(images)
     else:
         dtype = torch.bfloat16 if args.cell == "request_bf16" else torch.float32
-        model.to(dtype)
+        model = _scaled_model().to(dtype)
         raw = raw_images()
         preset = FasterRCNN_ResNet50_FPN_Weights.COCO_V1.transforms()
         transform = GeneralizedRCNNTransform()
@@ -97,7 +130,8 @@ def main() -> None:
         def step():
             serve(model, preset, transform, raw, dtype)
 
-    with torch.inference_mode():
+    mode = torch.enable_grad if args.cell == "train" else torch.inference_mode
+    with mode():
         for _ in range(2):
             step()
         torch.cuda.synchronize()
