@@ -24,6 +24,12 @@ weights:
   through the NMS, window-pool and RoIAlign kernels forward and the
   window-pool and RoIAlign backward kernels, held step by step against the
   same steps through the plain versions, then timed;
+* Mask R-CNN ResNet-50-FPN (``maskrcnn_resnet50_fpn``) served from the same
+  two images in f32 and in bf16, its masks pasted into each image, and
+  trained with gt masks; Keypoint R-CNN ResNet-50-FPN
+  (``keypointrcnn_resnet50_fpn``) served in f32 and trained with gt
+  keypoints: the window pool, its backward and RoIAlign at the 14x14 head
+  shapes, and RoIAlign at the one-channel 28x28 mask targets;
 * ResNet-50 classification (1000 classes, a batch of 32 224x224 images):
   one eval batch, one batch of 8 uint8 375x500 images through the weights'
   ``ImageClassification`` preset against the CPU, then SGD steps of
@@ -51,6 +57,7 @@ without the package.
 from __future__ import annotations
 
 import contextlib
+import copy
 import importlib
 import json
 import math
@@ -106,6 +113,25 @@ DET_STEPS = 3
 DET_GRADS = ("roi_heads.box_head.fc6.weight", "rpn.head.conv.0.0.weight",
              "backbone.fpn.inner_blocks.2.0.weight",
              "backbone.body.layer4.1.conv2.weight")
+# Mask R-CNN and Keypoint R-CNN training: those four and the new heads'
+# first layers
+MASK_GRADS = DET_GRADS + ("roi_heads.mask_head.mask_fcn1.weight",
+                          "roi_heads.mask_predictor.conv5_mask.weight")
+KEYPOINT_GRADS = DET_GRADS + (
+    "roi_heads.keypoint_head.0.weight",
+    "roi_heads.keypoint_predictor.kps_score_lowres.weight")
+# Served masks, kernel path against plain path on the same boxes: f32
+# probabilities (28x28 and pasted) within MASK_TOL. In bf16 a pooled value
+# that rounds to the neighbouring bf16 value moves a logit of the four bf16
+# convs and the deconvolution by bf16 steps of the terms it sums, which
+# can be a large share of a logit near 0 (where the sigmoid is steepest):
+# there the gate is how far bf16 arithmetic itself moves the masks, the
+# plain bf16 path against the f32 model at the same boxes
+MASK_TOL = 1e-4
+# Served keypoints: a heatmap whose largest cell leads the next by less
+# than this share of the heatmaps' largest magnitude is a near-tie, where
+# the two paths' f32 round-off may pick the other cell
+NEAR_TIE = 1e-4
 
 
 def emit(phase: str, **fields) -> None:
@@ -418,17 +444,22 @@ def window_backward_work(args):
     return nbytes, ops, PEAK_F32_FLOPS
 
 
-def compare_kernel(fn, plain, args, exact=False):
-    """Kernel against plain version on the same inputs: (max abs error,
-    that error relative to the largest plain value, kernel ms by the
-    wrapper clock, kernel ``device_ms``, plain ms). For a bf16 output the
-    second is the largest error in bf16 steps: |got - want| over
-    2**-7 |want| + 1e-5 max |want| (one step of the element's magnitude,
-    plus the f32 round-off of sums taken in another order)."""
+def compare_kernel(fn, plain, args, exact=False, on_cpu=False):
+    """Kernel against plain version on the same inputs (with ``on_cpu``,
+    the plain version on the CPU): (max abs error, that error relative to
+    the largest plain value, kernel ms by the wrapper clock, kernel
+    ``device_ms``, plain ms on the card). For a bf16 output the second is
+    the largest error in bf16 steps: |got - want| over 2**-7 |want| + 1e-5
+    max |want| (one step of the element's magnitude, plus the f32
+    round-off of sums taken in another order)."""
     import torch
 
     got = fn(*args)
-    want = plain(*args)
+    if on_cpu:
+        got = got.cpu()
+        want = plain(*[a.cpu() if torch.is_tensor(a) else a for a in args])
+    else:
+        want = plain(*args)
     torch.cuda.synchronize()
     if exact:
         err = float((got.int() - want.int()).abs().max())
@@ -486,6 +517,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows += faster_rcnn_train_phase(kernels)
     torch.cuda.empty_cache()
+    rows += mask_rcnn_image_phases(kernels)
+    rows += mask_rcnn_train_phase(kernels)
+    torch.cuda.empty_cache()
+    keypoint_rcnn_phases(kernels)
+    torch.cuda.empty_cache()
     rows += resnet50_phases(kernels)
     emit("done", build_s=build_s, phases_s=time.perf_counter() - t_phases,
          total_s=time.perf_counter() - t0)
@@ -509,11 +545,7 @@ def faster_rcnn_phases(kernels):
     RoIAlign kernels, then once more through the row-serial NMS kernel."""
     import torch
 
-    from vision_tpu_torch.models import get_model
-
-    model = get_model("fasterrcnn_resnet50_fpn", seed=0)
-    with torch.no_grad():
-        model.roi_heads.box_predictor.cls_score.weight.mul_(CLS_SCALE)
+    model = scaled_detector("fasterrcnn_resnet50_fpn")
     gen = torch.Generator().manual_seed(1)
     images = torch.randn(1, 3, SIZE, SIZE, generator=gen).cuda()
     emit("model", name="fasterrcnn_resnet50_fpn", classes=91,
@@ -590,30 +622,34 @@ def rowscan_phase(kernels, model, images, dets):
     return kernel_row("nms_rowscan", cases, launches["nms_rowscan"])
 
 
-def serve_phase(kernels, model, preset, transform, raw, dtype, calls):
+def serve_phase(kernels, model, preset, transform, raw, dtype, calls,
+                request=None):
     """A warm-up request that records the kernels' inputs, ``TIMED_FORWARDS``
     timed requests (ms per image: host clock around a request that ends in
     ``torch.cuda.synchronize()``, over the images), the launch counts of
     those, one request through the plain versions, and the FPN maps and
-    RPN head outputs of the request's canvas."""
+    RPN head outputs of the request's canvas. ``request`` is
+    ``detection_request.serve`` unless given (same arguments; its first
+    result the ``ImageList``)."""
     import torch
 
     from vision_tpu_torch.tools.detection_request import serve
 
+    request = request or serve
     with torch.inference_mode():
         with kernels.recording(calls):
-            serve(model, preset, transform, raw, dtype)
+            request(model, preset, transform, raw, dtype)
         torch.cuda.synchronize()
         kernels.reset()
         times = []
         for _ in range(TIMED_FORWARDS):
             t = time.perf_counter()
-            out = serve(model, preset, transform, raw, dtype)
+            out = request(model, preset, transform, raw, dtype)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t) * 1e3 / len(raw))
         launches = kernels.launches()
         with kernels.plain_versions():
-            ref = serve(model, preset, transform, raw, dtype)
+            ref = request(model, preset, transform, raw, dtype)
         feats, objectness, deltas, _ = model.features_and_rpn(
             out[0].tensors.to(dtype))
         torch.cuda.synchronize()
@@ -707,21 +743,22 @@ def faster_rcnn_image_phases(kernels, model):
     return rows
 
 
-def det_train_steps(batch, steps, first_step=None, timed=0):
-    """A fresh seeded Faster R-CNN R50-FPN (``trainable_backbone_layers=3``)
-    and ``steps`` SGD steps of ``make_detection_train_step`` on ``batch``,
-    the samplers drawing from a generator on its device seeded with 0; then
-    ``timed`` more steps. Returns each step's losses, the gradients of
-    ``DET_GRADS`` after the first step, and the timed steps' wall ms (host
-    clock around a step whose loss is read back)."""
+def det_train_steps(batch, steps, first_step=None, timed=0,
+                    name="fasterrcnn_resnet50_fpn", grads=DET_GRADS):
+    """A fresh seeded detector ``name`` (R50-FPN,
+    ``trainable_backbone_layers=3``) and ``steps`` SGD steps of
+    ``make_detection_train_step`` on ``batch``, the samplers drawing from a
+    generator on its device seeded with 0; then ``timed`` more steps.
+    Returns each step's losses, the gradients of ``grads`` after the first
+    step, and the timed steps' wall ms (host clock around a step whose loss
+    is read back)."""
     import torch
 
     from vision_tpu_torch.models import get_model
     from vision_tpu_torch.parallel import make_detection_train_step
     from vision_tpu_torch.tools.detection_request import recipe_optimizer
 
-    model = get_model("fasterrcnn_resnet50_fpn", seed=0,
-                      trainable_backbone_layers=3)
+    model = get_model(name, seed=0, trainable_backbone_layers=3)
     optimizer, scheduler = recipe_optimizer(model)
     step = make_detection_train_step(model, optimizer)
     gen = torch.Generator(device=batch["image"].device).manual_seed(0)
@@ -743,24 +780,25 @@ def det_train_steps(batch, steps, first_step=None, timed=0):
         scheduler.step()
         out["losses"].append({k: float(v) for k, v in losses.items()})
         if i == 0:
-            out["grads"] = {n: named[n].grad.clone() for n in DET_GRADS}
+            out["grads"] = {n: named[n].grad.clone() for n in grads}
         if not math.isfinite(loss):
-            raise RuntimeError(f"faster_rcnn_train: loss {loss} at step {i}")
+            raise RuntimeError(f"{name} train: loss {loss} at step {i}")
     return out
 
 
-def faster_rcnn_train_phase(kernels):
-    """Faster R-CNN training on the request's two images (batch 2, the 1344
-    canvas, seeded gt boxes): ``DET_STEPS`` SGD steps through the kernels
-    (the first recording every kernel's inputs; the launches counted over
-    all of them) against the same steps through the plain versions, from
-    the same weights and generator state. Step 1: each loss within 1e-4
-    relative, the gradients of ``DET_GRADS`` within 1e-3 of each one's
-    largest value (the same samples: the forward up to the pooler is the
-    same, NMS to the bit); the later steps' summed loss within
-    ``LATER_LOSS_TOL`` (each part is printed). Then 5
-    timed steps after a warm-up, and the backward kernels against their
-    plain versions at the recorded inputs."""
+def det_train_phase(kernels, phase, name="fasterrcnn_resnet50_fpn",
+                    grads=DET_GRADS, num_classes=91, **extras):
+    """A detector trained on the request's two images (batch 2, the 1344
+    canvas, seeded gt boxes; with ``extras`` the gt masks or keypoints of
+    ``train_batch``): ``DET_STEPS`` SGD steps through the kernels (the
+    first recording every kernel's inputs; the launches counted over all of
+    them) against the same steps through the plain versions, from the same
+    weights and generator state. Step 1: each loss within 1e-4 relative,
+    the gradients of ``grads`` within 1e-3 of each one's largest value (the
+    same samples: the forward up to the pooler is the same, NMS to the
+    bit); the later steps' summed loss within ``LATER_LOSS_TOL`` (each part
+    is printed). Then 5 timed steps after a warm-up. Returns the recorded
+    calls and the launches."""
     import torch
 
     from vision_tpu_torch.models.detection import (
@@ -777,27 +815,29 @@ def faster_rcnn_train_phase(kernels):
     raw = raw_images()
     with torch.no_grad():
         batch = train_batch(FasterRCNN_ResNet50_FPN_Weights.COCO_V1.transforms(),
-                            GeneralizedRCNNTransform(), raw)
+                            GeneralizedRCNNTransform(), raw,
+                            num_classes=num_classes, **extras)
     calls: dict = {}
     kernels.reset()
     torch.cuda.reset_peak_memory_stats()
     run = det_train_steps(batch, DET_STEPS,
                           first_step=lambda: kernels.recording(calls),
-                          timed=1 + TIMED_FORWARDS)
+                          timed=1 + TIMED_FORWARDS, name=name, grads=grads)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = kernels.launches()
     with kernels.plain_versions():
-        ref = det_train_steps(batch, DET_STEPS)
+        ref = det_train_steps(batch, DET_STEPS, name=name, grads=grads)
     names = list(run["losses"][0])
     loss_rel = [{k: abs(a[k] - b[k]) / max(abs(b[k]), 1e-30) for k in names}
                 for a, b in zip(run["losses"], ref["losses"])]
     grad_rel = {n: rel_errs([run["grads"][n]], [ref["grads"][n]])[0]
-                for n in DET_GRADS}
+                for n in grads}
     ms = statistics.median(run["ms"][1:])
-    emit("faster_rcnn_train", model="fasterrcnn_resnet50_fpn",
-         params=run["params"], trainable_params=run["trainable_params"],
+    emit(phase, model=name, params=run["params"],
+         trainable_params=run["trainable_params"],
          trainable_backbone_layers=3, input=list(batch["image"].shape),
-         gt_boxes=list(GT_COUNTS), gt_rows=GT_ROWS, dtype="float32",
+         gt_boxes=list(GT_COUNTS), gt_rows=GT_ROWS,
+         gt_extras={k: list(batch[k].shape) for k in extras}, dtype="float32",
          optimizer="SGD lr 0.02 momentum 0.9 weight_decay 1e-4, linear "
                    "warmup from 1e-3 over 1000 steps", lr_per_step=run["lr"],
          steps_compared=DET_STEPS, losses=run["losses"][:DET_STEPS],
@@ -808,8 +848,7 @@ def faster_rcnn_train_phase(kernels):
          timed_steps=TIMED_FORWARDS, peak_memory_gb=peak_gb,
          launches=launches)
     require_launched(launches, ("nms", "window_pool", "window_pool_backward",
-                                "roi_align", "roi_align_backward"),
-                     "Faster R-CNN train")
+                                "roi_align", "roi_align_backward"), phase)
     # later steps: the summed loss, as the ResNet-50 phase holds its loss.
     # Each step samples RoIs from proposals that moved with the last
     # update's round-off, so one RoI sampled otherwise moves the classifier
@@ -818,13 +857,21 @@ def faster_rcnn_train_phase(kernels):
     if (max(loss_rel[0].values()) > 1e-4
             or max(r["loss"] for r in loss_rel[1:]) > LATER_LOSS_TOL
             or max(grad_rel.values()) > 1e-3):
-        raise RuntimeError("the kernel train path disagrees with the plain path")
+        raise RuntimeError(f"{phase}: the kernel train path disagrees with "
+                           "the plain path")
     first, last = run["losses"][0]["loss"], run["losses"][DET_STEPS - 1]["loss"]
     if first == last:
-        raise RuntimeError("the last compared loss equals the first: no update")
-    del run, ref
+        raise RuntimeError(f"{phase}: the last compared loss equals the "
+                           "first: no update")
+    del run, ref, batch
     torch.cuda.empty_cache()
+    return calls, launches
 
+
+def faster_rcnn_train_phase(kernels):
+    """Faster R-CNN training (``det_train_phase``), then the backward
+    kernels against their plain versions at the recorded inputs."""
+    calls, launches = det_train_phase(kernels, "faster_rcnn_train")
     rows = []
     for name in ("window_pool_backward", "roi_align_backward"):
         cases = [kernel_case(kernels, name, args, "faster_rcnn_train")
@@ -835,6 +882,265 @@ def faster_rcnn_train_phase(kernels):
                                same_bits_twice=all(c["same_bits_twice"]
                                                    for c in cases)))
     return rows
+
+
+def serve_masks(model, preset, transform, raw, dtype):
+    """The served Mask R-CNN request: ``detection_request.serve``, then
+    each image's masks pasted at its own size (``paste_masks``)."""
+    from vision_tpu_torch.tools.detection_request import paste_masks, serve
+
+    batch, dets, boxes = serve(model, preset, transform, raw, dtype)
+    return batch, dets, boxes, paste_masks(dets, boxes, raw)
+
+
+def scaled_detector(name):
+    """Detector ``name`` with seeded weights and ``cls_score`` scaled by
+    ``CLS_SCALE``, so that detections pass the score threshold."""
+    import torch
+
+    from vision_tpu_torch.models import get_model
+
+    model = get_model(name, seed=0)
+    with torch.no_grad():
+        model.roi_heads.box_predictor.cls_score.weight.mul_(CLS_SCALE)
+    return model
+
+
+def at_size(calls, name, size):
+    """The recorded calls of kernel ``name`` whose pooled output is ``size``
+    on a side (7 for the box pooler, 14 for the mask and keypoint poolers,
+    28 for the mask targets)."""
+    def out_size(args):
+        if name.endswith("_backward"):
+            return args[0].shape[2]
+        if name == "window_pool":
+            return args[3].shape[1]
+        return args[2] if isinstance(args[2], int) else args[2][0]
+    return [a for a in calls.get(name, []) if out_size(a) == size]
+
+
+def mask_rcnn_image_phases(kernels):
+    """Mask R-CNN served from the two raw images, in f32
+    (``mask_rcnn_images``) and in bf16 (``mask_rcnn_amp``): the request of
+    ``faster_rcnn_images`` with the 28x28 masks of every detection and the
+    masks pasted into each image at its own size, each against the same
+    request through the plain versions: detections as ``check_detections``
+    holds them; the mask branch through the plain versions on the same
+    detections' boxes: 28x28 and pasted masks within ``MASK_TOL`` in f32;
+    in bf16 no further from the plain bf16 masks than those lie from the
+    f32 model's masks at the same boxes (bf16 arithmetic's own reach; the
+    masks of the whole plain request are printed beside them). Then the window pool and
+    the dense fallback's RoIAlign at 14x14 against their plain versions at
+    the requests' inputs."""
+    import torch
+
+    from vision_tpu_torch.models.detection import (
+        GeneralizedRCNNTransform,
+        MaskRCNN_ResNet50_FPN_Weights,
+    )
+    from vision_tpu_torch.tools.detection_request import paste_masks, raw_images
+
+    raw = raw_images()
+    preset = MaskRCNN_ResNet50_FPN_Weights.COCO_V1.transforms()
+    transform = GeneralizedRCNNTransform()
+    model = scaled_detector("maskrcnn_resnet50_fpn")
+    params = sum(p.numel() for p in model.parameters())
+    launches_by = {}
+    calls = {}
+    for dtype, phase in ((torch.float32, "mask_rcnn_images"),
+                         (torch.bfloat16, "mask_rcnn_amp")):
+        if dtype == torch.bfloat16:
+            model32 = copy.deepcopy(model)
+        model.to(dtype)
+        calls[dtype] = {}
+        (batch, dets, boxes, pasted), (_, ref, _, _), times, launches, _ = (
+            serve_phase(kernels, model, preset, transform, raw, dtype,
+                        calls[dtype], request=serve_masks))
+        bf16 = dtype == torch.bfloat16
+        tag = "bf16" if bf16 else "f32"
+        check_detections(dets, ref, batch=len(raw), phase=phase,
+                         score_tol=AMP_SCORE_TOL if bf16 else 1e-4,
+                         box_tol=AMP_BOX_TOL if bf16 else 1e-2)
+        valid = dets.valid
+        tol = MASK_TOL
+        # the mask branch through the plain versions on this request's own
+        # detections: the two paths' boxes differ by round-off (check_detections),
+        # and a box moved by 5e-4 px moves its mask by ~1e-4 on its own
+        with torch.inference_mode(), kernels.plain_versions():
+            feats = model.backbone(batch.tensors.to(dtype))
+            same_boxes = dets._replace(masks=model.masks(
+                feats, dets.boxes, dets.labels, tuple(batch.tensors.shape[-2:])))
+            same_pasted = paste_masks(same_boxes, boxes, raw)
+        mask_err = float((dets.masks[valid].float()
+                          - same_boxes.masks[valid].float()).abs().max())
+        pasted_err = max(float((a[v].float() - b[v].float()).abs().max())
+                         for a, b, v in zip(pasted, same_pasted, valid))
+        ref_err = float((dets.masks[valid].float()
+                         - ref.masks[valid].float()).abs().max())
+        shapes_ok = (tuple(dets.masks.shape) == (len(raw), 100, 28, 28) and all(
+            tuple(p.shape) == (100, *r.shape[-2:]) for p, r in zip(pasted, raw)))
+        finite = bool(torch.isfinite(dets.masks.float()).all()) and all(
+            bool(torch.isfinite(p.float()).all()) for p in pasted)
+        fields = {}
+        if bf16:
+            # the f32 model's masks at the bf16 request's own boxes: how far
+            # bf16 arithmetic alone moves them, the gate of the bf16 check
+            with torch.inference_mode():
+                m32 = model32.masks(model32.backbone(batch.tensors), dets.boxes,
+                                    dets.labels, tuple(batch.tensors.shape[-2:]))
+            tol = float((same_boxes.masks[valid].float() - m32[valid]).abs().max())
+            fields = dict(masks_vs_f32_max_abs_err=float(
+                (dets.masks[valid].float() - m32[valid]).abs().max()),
+                plain_masks_vs_f32_max_abs_err=tol,
+                mask_mean_abs_err=float((dets.masks[valid].float()
+                                         - same_boxes.masks[valid].float()).abs().mean()))
+            del model32
+        emit(phase, model="maskrcnn_resnet50_fpn", params=params,
+             dtype=str(dtype)[6:], masks_dtype=str(dets.masks.dtype)[6:],
+             images=[list(r.shape) for r in raw], canvas=list(transform.fixed_size),
+             image_sizes=batch.image_sizes, ms_per_img_median=statistics.median(times),
+             ms_per_img_all=times, requests=TIMED_FORWARDS, launches=launches,
+             mask_max_abs_err=mask_err, pasted_max_abs_err=pasted_err,
+             mask_tol=tol, mask_max_abs_err_vs_plain_request=ref_err,
+             shapes_ok=shapes_ok, finite=finite, **fields)
+        if (params != MaskRCNN_ResNet50_FPN_Weights.COCO_V1.meta["num_params"]
+                or not shapes_ok or not finite):
+            raise RuntimeError(f"{phase}: wrong parameter count, mask shapes or "
+                               "non-finite masks")
+        require_launched(launches, ("nms", f"window_pool_{tag}",
+                                    f"roi_align_{tag}"), phase)
+        if bf16 and (launches["window_pool_f32"] or launches["roi_align_f32"]):
+            raise RuntimeError(f"{phase} launched an f32 pooler kernel: {launches}")
+        if not (mask_err <= tol and pasted_err <= tol):
+            raise RuntimeError(f"{phase}: masks differ from the plain path's")
+        check_mapped_boxes(boxes, raw)
+        launches_by[tag] = launches
+    del model
+    torch.cuda.empty_cache()
+
+    rows = []
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for name in ("window_pool", "roi_align"):
+            cases = [kernel_case(kernels, name, args, f"mask_rcnn ({tag}, 14x14)")
+                     for args in at_size(calls[dtype], name, 14)]
+            rows.append(kernel_row(
+                name, cases, launches_by[tag][f"{name}_{tag}"],
+                row_name=f"{name}_14x14" + ("_bf16" if tag == "bf16" else ""),
+                dtype=str(dtype)[6:],
+                path=f"mask_rcnn_{'amp' if tag == 'bf16' else 'images'} "
+                     "(1344x1344, batch 2; the mask pooler)"))
+    return rows
+
+
+def mask_rcnn_train_phase(kernels):
+    """Mask R-CNN training (``det_train_phase`` with the gt masks: the
+    ellipse inscribed in each gt box), its five losses and the gradients of
+    ``MASK_GRADS``; then the kernels at the shapes only this path gives
+    them against their plain versions: the window pool and its backward at
+    14x14 over 1,024 RoIs, RoIAlign's backward at 14x14 (the dense
+    fallback), and RoIAlign at the mask targets (one channel, 28x28, scale
+    1, the gt masks on the 1344 canvas)."""
+    calls, launches = det_train_phase(
+        kernels, "mask_rcnn_train", name="maskrcnn_resnet50_fpn",
+        grads=MASK_GRADS, masks=True)
+    if not at_size(calls, "roi_align", 28):
+        raise RuntimeError("mask_rcnn_train: no RoIAlign launch at the mask targets")
+    path = "mask_rcnn_train (1344x1344, batch 2)"
+    rows = []
+    for name, size, row_name in (
+            ("window_pool", 14, "window_pool_14x14_train"),
+            ("window_pool_backward", 14, "window_pool_backward_14x14"),
+            ("roi_align_backward", 14, "roi_align_backward_14x14"),
+            ("roi_align", 28, "roi_align_mask_targets")):
+        cases = [kernel_case(kernels, name, args, f"{path}, {row_name}")
+                 for args in at_size(calls, name, size)]
+        extra = {}
+        if name.endswith("_backward"):
+            extra = dict(counterpart="XLA VJP, no pallas_call",
+                         same_bits_twice=all(c["same_bits_twice"] for c in cases))
+        rows.append(kernel_row(name, cases, launches[name], row_name=row_name,
+                               dtype="float32", path=path,
+                               calls_per_step=len(cases), **extra))
+    return rows
+
+
+def keypoint_check(dets, ref, maps, ref_maps, phase) -> dict:
+    """Keypoint R-CNN kernel path against plain path on the valid rows: each
+    keypoint's heatmap cell equal wherever the plain heatmap's largest cell
+    leads the next by more than ``NEAR_TIE`` of the heatmaps' largest
+    magnitude, its position then within the boxes' 1e-2 px, and the
+    keypoint scores within ``NEAR_TIE`` of that magnitude."""
+    import torch
+
+    valid = dets.valid.flatten()
+    flat = ref_maps.float().flatten(2)[valid]  # [V, K, HM*HM]
+    scale = float(flat.abs().max())
+    top2 = flat.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > NEAR_TIE * scale
+    same_cell = maps.float().flatten(2)[valid].argmax(-1) == flat.argmax(-1)
+    pos_err = (dets.keypoints.flatten(0, 1)[valid]
+               - ref.keypoints.flatten(0, 1)[valid]).abs().amax(-1)
+    score_err = float((dets.keypoints_scores.flatten(0, 1)[valid]
+                       - ref.keypoints_scores.flatten(0, 1)[valid]).abs().max())
+    out = dict(keypoints_compared=int(clear.numel()), near_ties=int((~clear).sum()),
+               other_cell=int((~same_cell).sum()),
+               other_cell_without_near_tie=int((~same_cell & clear).sum()),
+               same_cell_max_pos_err=float(pos_err[same_cell].max()),
+               pos_tol=1e-2, score_max_abs_err=score_err,
+               score_tol=NEAR_TIE * scale, heatmap_scale=scale)
+    if (out["other_cell_without_near_tie"] or out["same_cell_max_pos_err"] > 1e-2
+            or not score_err <= NEAR_TIE * scale):
+        raise RuntimeError(f"{phase}: keypoints differ from the plain path's: {out}")
+    if not bool(torch.isfinite(dets.keypoints).all()):
+        raise RuntimeError(f"{phase}: non-finite keypoints")
+    return out
+
+
+def keypoint_rcnn_phases(kernels):
+    """Keypoint R-CNN (2 classes, 17 keypoints) served from the two raw
+    images in f32 (``keypoint_rcnn_images``: ``keypoint_check`` on the
+    valid rows, the detections as ``check_detections`` holds them), then
+    trained (``keypoint_rcnn_train``: ``det_train_phase`` with seeded gt
+    keypoints, the gradients of ``KEYPOINT_GRADS``). Its kernels run at the
+    shapes of the Mask R-CNN phases, whose rows they share."""
+    import torch
+
+    from vision_tpu_torch.models.detection import (
+        GeneralizedRCNNTransform,
+        KeypointRCNN_ResNet50_FPN_Weights,
+    )
+    from vision_tpu_torch.tools.detection_request import raw_images
+
+    raw = raw_images()
+    model = scaled_detector("keypointrcnn_resnet50_fpn")
+    params = sum(p.numel() for p in model.parameters())
+    maps = []
+    hook = model.roi_heads.keypoint_predictor.register_forward_hook(
+        lambda mod, args, out: maps.append(out))
+    transform = GeneralizedRCNNTransform()
+    (batch, dets, boxes), (_, ref, _), times, launches, _ = serve_phase(
+        kernels, model, KeypointRCNN_ResNet50_FPN_Weights.COCO_V1.transforms(),
+        transform, raw, torch.float32, {})
+    hook.remove()
+    check_detections(dets, ref, batch=len(raw), phase="keypoint_rcnn_images")
+    # the hook saw: the recorded request, the timed ones, the plain one
+    check = keypoint_check(dets, ref, maps[-2], maps[-1], "keypoint_rcnn_images")
+    emit("keypoint_rcnn_images", model="keypointrcnn_resnet50_fpn",
+         params=params, classes=2, num_keypoints=17, dtype="float32",
+         image_sizes=batch.image_sizes, ms_per_img_median=statistics.median(times),
+         ms_per_img_all=times, requests=TIMED_FORWARDS, launches=launches,
+         keypoints_shape=list(dets.keypoints.shape), **check)
+    if (params != KeypointRCNN_ResNet50_FPN_Weights.COCO_V1.meta["num_params"]
+            or tuple(dets.keypoints.shape) != (len(raw), 100, 17, 3)):
+        raise RuntimeError("keypoint_rcnn_images: wrong parameter count or shape")
+    require_launched(launches, ("nms", "window_pool_f32", "roi_align_f32"),
+                     "keypoint_rcnn_images")
+    check_mapped_boxes(boxes, raw)
+    del model, maps
+    torch.cuda.empty_cache()
+    det_train_phase(kernels, "keypoint_rcnn_train",
+                    name="keypointrcnn_resnet50_fpn", grads=KEYPOINT_GRADS,
+                    num_classes=2, keypoints=True)
 
 
 def check_mapped_boxes(boxes, raw) -> None:
@@ -870,7 +1176,7 @@ WORK = {"nms": nms_work, "nms_rowscan": nms_work, "window_pool": window_work,
 
 def kernel_case(kernels, name, args, path, **meta):
     """One recorded call of kernel ``name`` against its plain version on
-    the card: NMS keep masks bit for bit; f32 pools within 1e-5 of the
+    the card (RoIAlign's on the CPU): NMS keep masks bit for bit; f32 pools within 1e-5 of the
     largest plain value (f32 sums in another order); bf16 pools within one
     bf16 step of each element (plus 1e-5 of the largest value); the
     backward kernels the same bits on a second call and within 1e-5 of
@@ -915,8 +1221,13 @@ def kernel_case(kernels, name, args, path, **meta):
         if not meta["same_bits_twice"]:
             raise RuntimeError(f"{name} ({path}): two calls on the same "
                                "inputs differ")
+    # RoIAlign against its plain version on the CPU: on the card PyTorch
+    # divides by a scalar as a product with its reciprocal, which moves the
+    # plain version's samples by up to an ulp (1.2e-4 px at 1344 px, 3.7e-5
+    # of a 0/1 mask target), where the kernel and the CPU divide
     err, rel, ms, dev_ms, plain_ms = compare_kernel(
-        kernels.cuda[name], kernels.plain[name], args, exact=exact)
+        kernels.cuda[name], kernels.plain[name], args, exact=exact,
+        on_cpu=name == "roi_align")
     nbytes, ops, peak = WORK[name](args)
     b_ms, b_by = bound_ms(nbytes, ops, peak)
     tol = 0.0 if exact else 1.0 if bf16 else 1e-5

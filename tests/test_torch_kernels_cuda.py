@@ -882,3 +882,77 @@ def test_multiscale_pooler_backward_on_card_matches_cpu(dev):
         want = grads[0][k]
         torch.testing.assert_close(grads[1][k], want, rtol=0,
                                    atol=1e-5 * float(want.abs().max()))
+
+
+# ------------------------------------------- the Mask and Keypoint R-CNN shapes
+
+
+def _mask_head_window_case(rng, k, dtype=torch.float32):
+    """The 14x14 poolers' window pool on the pyramid of a 1344 canvas,
+    batch 2 (1,292 x 336 rows and columns, C = 256): ``k`` RoIs (200
+    detections served, 1,024 samples trained), 32x32 windows with ~11
+    non-zero rows and ~23 columns, as a RoI's 14 x 2 samples cover them."""
+    stacked = torch.from_numpy(rng.randn(1292, 336, 256).astype(np.float32))
+    row0 = rng.randint(0, 1292 - 32 + 1, k).astype(np.int32)
+    x0 = rng.randint(0, 336 - 32 + 1, k).astype(np.int32)
+    w_y = rng.rand(k, 14, 32).astype(np.float32)
+    w_x = rng.rand(k, 14, 32).astype(np.float32)
+    w_y[:, :, 12:] = 0.0
+    w_x[:, :, 24:] = 0.0
+    return (stacked.to(dtype), torch.from_numpy(row0), torch.from_numpy(x0),
+            torch.from_numpy(w_y), torch.from_numpy(w_x))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [200, 1024])
+def test_window_pool_kernel_at_the_mask_head_shape(dev, k, dtype):
+    """14x14 (PH above 8: the 16-row register tile, 186 KB of shared memory
+    a block in f32), against the plain version on the card: f32 within 1e-5
+    of the largest plain value, bf16 within one bf16 step."""
+    args = [t.to(dev) for t in _mask_head_window_case(
+        np.random.RandomState(100 + k), k, dtype)]
+    before = window_pool_cuda.launches
+    got = window_pool_cuda(*args, 4.0)
+    want = window_pool_plain(*args, 4.0)
+    torch.cuda.synchronize()
+    assert window_pool_cuda.launches == before + 1
+    assert got.shape == (k, 256, 14, 14) and got.dtype == dtype
+    if dtype == torch.bfloat16:
+        _bf16_step_close(got, want.cpu(), 1e-5 * float(want.float().abs().max()))
+    else:
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_window_pool_backward_kernel_at_the_mask_head_shape(dev):
+    """K = 1,024 trained RoIs at 14x14 (a [32 ch, 14, 14] gradient slab a
+    RoI, the 16-row template): the same bits twice, within 1e-5 of the
+    largest plain value (computed on the card)."""
+    rng = np.random.RandomState(110)
+    _, row0, x0, w_y, w_x = _mask_head_window_case(rng, 1024)
+    g = torch.from_numpy(rng.randn(1024, 256, 14, 14).astype(np.float32))
+    args = [t.to(dev) for t in (g, row0, x0, w_y, w_x)]
+    got = _same_bits_twice(window_pool_backward_cuda, *args, (1292, 336), 4.0)
+    want = window_pool_backward_plain(*args, (1292, 336), 4.0)
+    tol = 1e-5 * float(want.abs().max())
+    assert float((got - want).abs().max()) <= tol
+
+
+def test_roi_align_kernel_at_the_mask_target_shape(dev):
+    """Mask R-CNN's targets: 1,024 sampled boxes (8 px to the whole 1344
+    canvas, some past its edges) pooled from 16 one-channel 0/1 gt masks
+    at 28x28, sampling ratio 2, scale 1 (a block of 16 channels holds one):
+    within 1e-5 of the largest plain value (on the CPU, 128 RoIs at a
+    time)."""
+    rng = np.random.RandomState(120)
+    masks = torch.from_numpy((rng.rand(16, 1, 1344, 1344) > 0.5).astype(np.float32))
+    xy = rng.uniform(-20, 1300, (1024, 2))
+    wh = rng.uniform(8, 1344, (1024, 2))
+    b = rng.randint(0, 16, (1024, 1))
+    rois = torch.from_numpy(np.concatenate([b, xy, xy + wh], 1).astype(np.float32))
+    before = roi_align_cuda.launches
+    got = roi_align_cuda(masks.to(dev), rois.to(dev), 28, 1.0, 2).cpu()
+    assert roi_align_cuda.launches == before + 1
+    want = torch.cat([roi_align_plain(masks, rois[i:i + 128], 28, 1.0, 2)
+                      for i in range(0, 1024, 128)])
+    assert got.shape == (1024, 1, 28, 28)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())

@@ -8,6 +8,18 @@ JAX): conv kernels HWIO -> OIHW, dense kernels IO -> OI, batch norm
 frozen-BN buffers, and the Faster R-CNN renames (FPN
 ``inner_blocks_{i}`` -> ``inner_blocks.{i}.0``, and ``fc6`` from the JAX
 HWC flatten of the pooled features to torch's CHW flatten).
+
+Transposed convolutions (the Mask R-CNN and Keypoint R-CNN predictors'
+``conv5_mask`` and ``kps_score_lowres``): a flax ``nn.ConvTranspose``
+kernel is ``(kh, kw, in, out)`` and, with flax's default
+``transpose_kernel=False``, is applied without a spatial flip, where
+``torch.nn.ConvTranspose2d`` scatters with its ``(in, out, kh, kw)``
+weight as it lies. So the kernel maps to the weight transposed to
+``(in, out, kh, kw)`` and flipped along both spatial axes; flax's
+``"SAME"`` padding at stride 2 is torch's ``padding=(k - 2) // 2`` (0
+for the 2x2 kernel, 1 for the 4x4), which the port's modules set
+(``tests/test_torch_mask_rcnn.py`` pins both with kernels that are not
+symmetric).
 """
 
 from __future__ import annotations
@@ -46,7 +58,10 @@ def _torch_name(collection: str, path: Tuple[str, ...]) -> str:
 
 def _to_torch_layout(name: str, arr: np.ndarray, target: torch.Tensor,
                      module: nn.Module) -> np.ndarray:
-    if arr.ndim == 4:  # HWIO -> OIHW
+    if arr.ndim == 4 and isinstance(
+            module.get_submodule(name.rsplit(".", 1)[0]), nn.ConvTranspose2d):
+        arr = arr.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]  # -> (in, out, kh, kw)
+    elif arr.ndim == 4:  # HWIO -> OIHW
         arr = arr.transpose(3, 2, 0, 1)
     elif arr.ndim == 2:  # IO -> OI
         arr = arr.T

@@ -54,12 +54,15 @@ from vision_tpu_torch.transforms._presets import ObjectDetection
 
 __all__ = [
     "FasterRCNN",
+    "build_detector",
     "FasterRCNN_ResNet50_FPN_Weights",
     "fasterrcnn_resnet50_fpn",
     "init_weights",
 ]
 
 _FEATMAPS = ["0", "1", "2", "3"]
+# the modules whose convolutions torchvision initialises He-normal (fan out)
+_HE_NORMAL = ("backbone.body", "roi_heads.mask_", "roi_heads.keypoint_")
 
 
 class FasterRCNN(nn.Module):
@@ -120,7 +123,10 @@ class FasterRCNN(nn.Module):
             [batch_idx.repeat_interleave(p)[:, None], boxes.reshape(-1, 4)], 1
         )
 
-    def forward(self, images: torch.Tensor) -> Detections:
+    def forward(self, images: torch.Tensor, return_features: bool = False):
+        """``Detections`` of ``images``; with ``return_features`` also the
+        FPN feature dict the box path computed (the mask and keypoint
+        branches pool from it: no second backbone pass)."""
         image_size = tuple(images.shape[-2:])
         feats, objectness, deltas, anchors = self.features_and_rpn(images)
         proposals = self.rpn.filter_proposals(objectness, deltas, anchors,
@@ -133,10 +139,11 @@ class FasterRCNN(nn.Module):
         class_logits, box_regression = self.roi_heads.box_predictor(
             self.roi_heads.box_head(pooled)
         )
-        return self.roi_heads.postprocess_detections(
+        dets = self.roi_heads.postprocess_detections(
             class_logits.reshape(n, p, -1), box_regression.reshape(n, p, -1),
             proposals.boxes, proposals.valid, image_size,
         )
+        return (dets, feats) if return_features else dets
 
     def compute_loss(
         self,
@@ -145,13 +152,15 @@ class FasterRCNN(nn.Module):
         gt_labels: torch.Tensor,
         gt_valid: torch.Tensor,
         generator: torch.Generator,
-    ) -> Dict[str, torch.Tensor]:
+        return_internals: bool = False,
+    ):
         """The training losses ``{"loss_objectness", "loss_rpn_box_reg",
         "loss_classifier", "loss_box_reg"}`` of ``images [N, 3, H, W]`` with
         ``gt_boxes [N, G, 4]`` (canvas frame), ``gt_labels [N, G]`` and
         ``gt_valid [N, G]`` (padding rows False). The RPN's sampler draws
         from ``generator`` first, then the box head's; the proposals carry
-        no gradient."""
+        no gradient. With ``return_internals`` also ``(feats, sampled,
+        image_size)``, which the mask and keypoint losses take."""
         image_size = tuple(images.shape[-2:])
         feats, objectness, deltas, anchors = self.features_and_rpn(images)
         rpn_losses = self.rpn.compute_loss(objectness, deltas, anchors,
@@ -169,22 +178,26 @@ class FasterRCNN(nn.Module):
         class_logits, box_regression = self.roi_heads.box_predictor(
             self.roi_heads.box_head(pooled)
         )
-        return {**rpn_losses, **self.roi_heads.fastrcnn_loss(
+        losses = {**rpn_losses, **self.roi_heads.fastrcnn_loss(
             class_logits.reshape(n, s, -1), box_regression.reshape(n, s, -1),
             sampled)}
+        if return_internals:
+            return losses, (feats, sampled, image_size)
+        return losses
 
 
 @torch.no_grad()
 def init_weights(model: FasterRCNN, generator: torch.Generator) -> None:
     """torchvision's initialisation, drawn from ``generator``: the trunk's
-    convs He-normal (fan out), the FPN's He-uniform (a=1) with zero bias,
-    the RPN head's N(0, 0.01) with zero bias, the linear layers PyTorch's
-    default uniform. Frozen-BN buffers keep their identity values."""
+    convs, and the mask and keypoint heads' (transposed ones included),
+    He-normal (fan out), the FPN's He-uniform (a=1), the RPN head's N(0,
+    0.01), all with zero bias; the linear layers PyTorch's default uniform.
+    Frozen-BN buffers keep their identity values."""
     for name, m in model.named_modules():
-        if isinstance(m, nn.Conv2d):
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
             fan_in = m.weight[0].numel()
             fan_out = m.weight.shape[0] * m.weight[0, 0].numel()
-            if name.startswith("backbone.body"):
+            if name.startswith(_HE_NORMAL):
                 m.weight.normal_(0.0, math.sqrt(2.0 / fan_out),
                                  generator=generator)
             elif name.startswith("backbone.fpn"):
@@ -213,14 +226,51 @@ class FasterRCNN_ResNet50_FPN_Weights(WeightsEnum):
 
 def _upgrade_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Checkpoints written before torchvision wrapped the RPN and FPN convs
-    in ``Conv2dNormActivation`` name them without the inner ``.0``."""
+    in ``Conv2dNormActivation`` name them without the inner ``.0``. A
+    norm-free (v1) mask head that torchvision saved as a ``Sequential`` of
+    ``Conv2dNormActivation`` (``mask_head.{i}.0``) goes back to the
+    ``mask_fcn{i+1}`` names of the published checkpoints and of the JAX
+    package (its ``_frcnn_hooks``)."""
+    v1_mask = not any(re.match(r"^roi_heads\.mask_head\.\d+\.1\.", k) for k in sd)
     out = {}
     for k, v in sd.items():
         k = re.sub(r"^rpn\.head\.conv\.(weight|bias)$", r"rpn.head.conv.0.0.\1", k)
         k = re.sub(r"^(backbone\.fpn\.(?:inner|layer)_blocks\.\d+)\.(weight|bias)$",
                    r"\1.0.\2", k)
+        if v1_mask:
+            k = re.sub(r"^roi_heads\.mask_head\.(\d+)\.0\.(weight|bias)$",
+                       lambda m: f"roi_heads.mask_head.mask_fcn{int(m[1]) + 1}."
+                                 f"{m[2]}", k)
         out[k] = v
     return out
+
+
+def build_detector(
+    cls,
+    weights: Optional[Union[WeightsEnum, Weights, str]],
+    weights_enum,
+    device: Union[str, torch.device, None],
+    seed: int,
+    trainable_backbone_layers: Optional[int],
+    **kwargs,
+) -> nn.Module:
+    """A ResNet-50-FPN detector of class ``cls`` in eval mode, on ``device``
+    (the card when None). Without ``weights`` the parameters are
+    torchvision's initialisation drawn from a CPU ``torch.Generator``
+    seeded with ``seed``, so every device gets the same numbers.
+    ``trainable_backbone_layers`` (0-5) leaves only the last that many
+    trunk stages trainable (``freeze_trunk_layers``); None trains all, as
+    the JAX recipe's default does."""
+    device = resolve_device(device)
+    weights = weights_enum.verify(weights)
+    model = cls(backbone_depth=50, **kwargs)
+    if weights is not None:
+        model.load_state_dict(_upgrade_state_dict(weights.get_state_dict()))
+    else:
+        init_weights(model, torch.Generator().manual_seed(seed))
+    if trainable_backbone_layers is not None:
+        freeze_trunk_layers(model.backbone.body, trainable_backbone_layers)
+    return model.eval().to(device)
 
 
 @register_model()
@@ -232,20 +282,6 @@ def fasterrcnn_resnet50_fpn(
     trainable_backbone_layers: Optional[int] = None,
     **kwargs,
 ) -> FasterRCNN:
-    """Faster R-CNN ResNet-50-FPN in eval mode, on ``device`` (the card
-    when None). Without ``weights`` the parameters are torchvision's
-    initialisation drawn from a CPU ``torch.Generator`` seeded with
-    ``seed``, so every device gets the same numbers.
-    ``trainable_backbone_layers`` (0-5) leaves only the last that many
-    trunk stages trainable (``freeze_trunk_layers``); None trains all, as
-    the JAX recipe's default does."""
-    device = resolve_device(device)
-    weights = FasterRCNN_ResNet50_FPN_Weights.verify(weights)
-    model = FasterRCNN(backbone_depth=50, **kwargs)
-    if weights is not None:
-        model.load_state_dict(_upgrade_state_dict(weights.get_state_dict()))
-    else:
-        init_weights(model, torch.Generator().manual_seed(seed))
-    if trainable_backbone_layers is not None:
-        freeze_trunk_layers(model.backbone.body, trainable_backbone_layers)
-    return model.eval().to(device)
+    """Faster R-CNN ResNet-50-FPN (``build_detector``)."""
+    return build_detector(FasterRCNN, weights, FasterRCNN_ResNet50_FPN_Weights,
+                          device, seed, trainable_backbone_layers, **kwargs)

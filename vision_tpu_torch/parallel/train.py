@@ -91,10 +91,14 @@ def make_detection_train_step(
               Dict[str, torch.Tensor]]:
     """Build ``step(batch, generator) -> {"loss", "loss_objectness",
     "loss_rpn_box_reg", "loss_classifier", "loss_box_reg"}`` for a
-    two-stage detector with ``compute_loss`` (Faster R-CNN) and
-    ``batch = {"image": [N, 3, H, W], "boxes": [N, G, 4], "labels": [N, G],
-    "valid": [N, G]}``, boxes in the canvas's frame, on the model's device.
-    The step puts the model in training mode, sums the losses in f32,
+    two-stage detector with ``compute_loss`` (Faster R-CNN, Mask R-CNN,
+    Keypoint R-CNN) and ``batch = {"image": [N, 3, H, W], "boxes": [N, G,
+    4], "labels": [N, G], "valid": [N, G]}``, boxes in the canvas's frame,
+    on the model's device. A batch for Mask R-CNN also carries ``"masks"``
+    (``[N, G, H, W]``, canvas frame, padding rows zero), one for Keypoint
+    R-CNN ``"keypoints"`` (``[N, G, K, 3]``, canvas frame); the step hands
+    them to ``compute_loss``, and ``loss_mask`` or ``loss_keypoint`` joins
+    the sum and the result. The step puts the model in training mode, sums the losses in f32,
     runs the backward pass and one update through ``optimizer``; the
     samplers draw from ``generator`` (on the model's device). The losses
     stay on the device: reading them is the caller's synchronisation.
@@ -111,8 +115,11 @@ def make_detection_train_step(
              generator: torch.Generator) -> Dict[str, torch.Tensor]:
         model.train()
         optimizer.zero_grad(set_to_none=True)
+        extra = {f"gt_{k}": batch[k] for k in ("masks", "keypoints")
+                 if k in batch}
         losses = model.compute_loss(batch["image"], batch["boxes"],
-                                    batch["labels"], batch["valid"], generator)
+                                    batch["labels"], batch["valid"], generator,
+                                    **extra)
         total = sum(v.float() for v in losses.values())
         total.backward()
         optimizer.step()

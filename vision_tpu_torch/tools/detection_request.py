@@ -1,9 +1,11 @@
-"""The served Faster R-CNN request that ``chip_smoke.py`` (phases
-``faster_rcnn_images`` and ``faster_rcnn_amp``) and ``profile_faster_rcnn``
-(cells ``request_f32`` and ``request_bf16``) drive: two seeded uint8
-images of COCO's two most common sizes through the weights' preset, the
-transform, the model and ``postprocess_boxes``; and the training batch of
-the same images (phase ``faster_rcnn_train``, cell ``train``).
+"""The served detection request that ``chip_smoke.py`` (phases
+``faster_rcnn_images``, ``faster_rcnn_amp``, ``mask_rcnn_images``,
+``mask_rcnn_amp``, ``keypoint_rcnn_images``) and ``profile_faster_rcnn``
+(the ``request_*`` cells) drive: two seeded uint8 images of COCO's two
+most common sizes through the weights' preset, the transform, the model
+and ``postprocess_boxes``, and for Mask R-CNN ``paste_masks``; and the
+training batch of the same images, with gt masks and keypoints where the
+model takes them (phases ``*_train``, cells ``*train``).
 """
 
 from __future__ import annotations
@@ -12,12 +14,14 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from vision_tpu_torch.models.detection.roi_heads import paste_masks_in_image
 from vision_tpu_torch.models.detection.transform import resize_boxes
 
 IMAGE_SIZES = ((480, 640), (427, 640))
 SEED = 0
 GT_COUNTS = (4, 7)  # gt boxes of each image
 GT_ROWS = 8  # padded to
+NUM_KEYPOINTS = 17
 # the detection recipe's optimizer (references/detection/train.py: SGD,
 # torchvision's lr for 2 images a card, and its linear warmup from 1/1000
 # of the lr over the first 1000 steps, line 34)
@@ -46,12 +50,57 @@ def serve(model, preset, transform, raw, dtype=torch.float32):
     return batch, dets, boxes
 
 
-def train_batch(preset, transform, raw, seed: int = SEED):
+def paste_masks(dets, boxes, raw) -> List[torch.Tensor]:
+    """Each image's ``[D, H, W]`` mask probabilities at its own size: the
+    model's 28x28 masks pasted at the boxes ``serve`` mapped back, as
+    torchvision's ``transform.postprocess`` composes them."""
+    return [paste_masks_in_image(dets.masks[i], b, *r.shape[-2:])
+            for i, (b, r) in enumerate(zip(boxes, raw))]
+
+
+def ellipse_masks(boxes: torch.Tensor, valid: torch.Tensor,
+                  size: Tuple[int, int]) -> torch.Tensor:
+    """``[N, G, H, W]`` f32 0/1 masks on a canvas of ``size``: the filled
+    ellipse inscribed in each valid box (pixel centres inside it), zeros
+    for the padding rows; on the boxes' device."""
+    h, w = size
+    dev = boxes.device
+    cx = (boxes[..., 0] + boxes[..., 2])[..., None, None] / 2
+    cy = (boxes[..., 1] + boxes[..., 3])[..., None, None] / 2
+    rx = ((boxes[..., 2] - boxes[..., 0]) / 2).clamp(min=1e-6)[..., None, None]
+    ry = ((boxes[..., 3] - boxes[..., 1]) / 2).clamp(min=1e-6)[..., None, None]
+    px = torch.arange(w, device=dev, dtype=torch.float32) + 0.5
+    py = torch.arange(h, device=dev, dtype=torch.float32)[:, None] + 0.5
+    inside = ((px - cx) / rx) ** 2 + ((py - cy) / ry) ** 2 <= 1.0
+    return (inside & valid[..., None, None]).float()
+
+
+def seeded_keypoints(boxes: torch.Tensor, valid: torch.Tensor,
+                     gen: torch.Generator) -> torch.Tensor:
+    """``[N, G, NUM_KEYPOINTS, 3]`` keypoints (x, y, visibility) drawn
+    inside each valid box, about a quarter of them with visibility 0 (not
+    labelled), keypoint 0 of each box exactly on its right edge; zeros for
+    the padding rows."""
+    n, g = valid.shape
+    u = torch.rand(n, g, NUM_KEYPOINTS, 2, generator=gen)
+    lo, hi = boxes[..., None, :2], boxes[..., None, 2:]
+    xy = lo + u * (hi - lo)
+    xy[:, :, 0, 0] = boxes[..., 2]
+    vis = torch.where(torch.rand(n, g, NUM_KEYPOINTS, generator=gen) < 0.25,
+                      0.0, 2.0)
+    return torch.cat([xy, vis[..., None]], -1) * valid[..., None, None]
+
+
+def train_batch(preset, transform, raw, seed: int = SEED, num_classes: int = 91,
+                masks: bool = False, keypoints: bool = False):
     """The batch a detection train step takes for ``raw``: the canvas of
     ``transform``, and per image ``GT_COUNTS`` seeded gt boxes (16 px to
     half the image plus 16 on a side, inside the original image), mapped
-    to the resized image with ``resize_boxes``, labels in [1, 90], padded
-    to ``GT_ROWS`` rows. Everything on the canvas's device."""
+    to the resized image with ``resize_boxes``, labels in [1,
+    ``num_classes``), padded to ``GT_ROWS`` rows; with ``masks`` the
+    ``ellipse_masks`` of the boxes on the canvas, with ``keypoints`` the
+    ``seeded_keypoints`` (from another generator, so that the boxes are the
+    same either way). Everything on the canvas's device."""
     batch = transform([preset(r) for r in raw])
     gen = torch.Generator().manual_seed(seed + 1)
     n = len(raw)
@@ -64,11 +113,18 @@ def train_batch(preset, transform, raw, seed: int = SEED):
         wh = torch.rand(count, 2, generator=gen) * extent / 2 + 16
         xy = torch.rand(count, 2, generator=gen) * (extent - wh)
         boxes[i, :count] = resize_boxes(torch.cat([xy, xy + wh], 1), (h, w), size)
-        labels[i, :count] = torch.randint(1, 91, (count,), generator=gen)
+        labels[i, :count] = torch.randint(1, num_classes, (count,), generator=gen)
         valid[i, :count] = True
     dev = batch.tensors.device
-    return {"image": batch.tensors, "boxes": boxes.to(dev),
-            "labels": labels.to(dev), "valid": valid.to(dev)}
+    out = {"image": batch.tensors, "boxes": boxes.to(dev),
+           "labels": labels.to(dev), "valid": valid.to(dev)}
+    if masks:
+        out["masks"] = ellipse_masks(out["boxes"], out["valid"],
+                                     tuple(batch.tensors.shape[-2:]))
+    if keypoints:
+        out["keypoints"] = seeded_keypoints(
+            boxes, valid, torch.Generator().manual_seed(seed + 2)).to(dev)
+    return out
 
 
 def recipe_optimizer(model):

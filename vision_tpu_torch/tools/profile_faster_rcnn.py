@@ -1,8 +1,10 @@
-"""Where the time of one Faster R-CNN ResNet-50-FPN forward (or train
-step) goes, on the card.
+"""Where the time of one Faster R-CNN, Mask R-CNN or Keypoint R-CNN
+ResNet-50-FPN request (or train step) goes, on the card.
 
     python -m vision_tpu_torch.tools.profile_faster_rcnn [--steps 3]
-        [--cell 832 | request_f32 | request_bf16 | train]
+        [--cell 832 | request_f32 | request_bf16 | train | mask_request_f32
+         | mask_request_bf16 | mask_train | keypoint_request_f32
+         | keypoint_train]
 
 Same model and inputs as ``chip_smoke.py`` (seeded random weights with
 ``cls_score`` scaled x30, TF32 off). ``--cell 832``: one 832x832 f32 image
@@ -15,7 +17,12 @@ transform (a 1344x1344 canvas, batch 2), the model (in bf16 for
 ``make_detection_train_step`` on the training batch of the same two images
 (phase ``faster_rcnn_train``: ``trainable_backbone_layers=3``, the
 recipe's SGD with its warmup, no ``cls_score`` scaling), its loss read
-back. Runs ``--steps`` steps under ``torch.profiler``
+back. The ``mask_*`` and ``keypoint_*`` cells are the same for
+``maskrcnn_resnet50_fpn`` (its request pastes the masks into each image,
+``paste_masks``; its batch carries the gt masks) and
+``keypointrcnn_resnet50_fpn`` (its batch carries gt keypoints, labels in
+[1, 2)), as ``chip_smoke.py``'s phases of those names drive them. Runs
+``--steps`` steps under ``torch.profiler``
 after two warm-up steps and prints JSON lines: per step the host wall
 time and the summed device kernel time (their ratio is the device's busy
 share), the device time by kernel group, and the top kernels by device
@@ -40,11 +47,20 @@ from vision_tpu_torch.models.detection import (
 )
 from vision_tpu_torch.parallel import make_detection_train_step
 from vision_tpu_torch.tools.detection_request import (
+    paste_masks,
     raw_images,
     recipe_optimizer,
     serve,
     train_batch,
 )
+
+# cell prefix -> (model, its number of classes, gt extras of its batch)
+_MODELS = {"": ("fasterrcnn_resnet50_fpn", 91, {}),
+           "mask_": ("maskrcnn_resnet50_fpn", 91, {"masks": True}),
+           "keypoint_": ("keypointrcnn_resnet50_fpn", 2, {"keypoints": True})}
+_CELLS = ("832", "request_f32", "request_bf16", "train", "mask_request_f32",
+          "mask_request_bf16", "mask_train", "keypoint_request_f32",
+          "keypoint_train")
 
 # kernel-name fragments -> group, first match wins
 _GROUPS = (
@@ -79,10 +95,10 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def _scaled_model():
+def _scaled_model(name="fasterrcnn_resnet50_fpn"):
     """The served model as ``chip_smoke.py`` builds it: ``cls_score``
     scaled x30 so that detections pass the score threshold."""
-    model = get_model("fasterrcnn_resnet50_fpn", seed=0)
+    model = get_model(name, seed=0)
     with torch.no_grad():
         model.roi_heads.box_predictor.cls_score.weight.mul_(30.0)
     return model
@@ -91,8 +107,7 @@ def _scaled_model():
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=3)
-    ap.add_argument("--cell", default="832",
-                    choices=("832", "request_f32", "request_bf16", "train"))
+    ap.add_argument("--cell", default="832", choices=_CELLS)
     ap.add_argument("--trace", default=None,
                     help="default build/profile/faster_rcnn_<cell>_trace.json")
     args = ap.parse_args()
@@ -100,14 +115,16 @@ def main() -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if args.cell == "train":
-        model = get_model("fasterrcnn_resnet50_fpn", seed=0,
-                          trainable_backbone_layers=3)
+    prefix = next(p for p in ("mask_", "keypoint_", "") if args.cell.startswith(p))
+    name, classes, extras = _MODELS[prefix]
+    if args.cell.endswith("train"):
+        model = get_model(name, seed=0, trainable_backbone_layers=3)
         optimizer, scheduler = recipe_optimizer(model)
         train_step = make_detection_train_step(model, optimizer)
         with torch.no_grad():
             batch = train_batch(FasterRCNN_ResNet50_FPN_Weights.COCO_V1.transforms(),
-                                GeneralizedRCNNTransform(), raw_images())
+                                GeneralizedRCNNTransform(), raw_images(),
+                                num_classes=classes, **extras)
         gen = torch.Generator(device="cuda").manual_seed(0)
 
         def step():
@@ -121,16 +138,18 @@ def main() -> None:
         def step():
             model(images)
     else:
-        dtype = torch.bfloat16 if args.cell == "request_bf16" else torch.float32
-        model = _scaled_model().to(dtype)
+        dtype = torch.bfloat16 if args.cell.endswith("bf16") else torch.float32
+        model = _scaled_model(name).to(dtype)
         raw = raw_images()
         preset = FasterRCNN_ResNet50_FPN_Weights.COCO_V1.transforms()
         transform = GeneralizedRCNNTransform()
 
         def step():
-            serve(model, preset, transform, raw, dtype)
+            _, dets, boxes = serve(model, preset, transform, raw, dtype)
+            if prefix == "mask_":
+                paste_masks(dets, boxes, raw)
 
-    mode = torch.enable_grad if args.cell == "train" else torch.inference_mode
+    mode = torch.enable_grad if args.cell.endswith("train") else torch.inference_mode
     with mode():
         for _ in range(2):
             step()

@@ -140,9 +140,13 @@ def resample_matrix(
 @functools.lru_cache(maxsize=128)
 def _device_matrix(in_size: int, out_size: int, mode: str, antialias: bool,
                    align_corners: bool, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(
-        resample_matrix(in_size, out_size, mode, antialias, align_corners)
-    ).to(device)
+    # the cached matrix outlives the mode it was made in: it is never an
+    # inference tensor, so that a later product under autograd (the
+    # keypoint predictor's upsample in training) may save it
+    with torch.inference_mode(False):
+        return torch.from_numpy(
+            resample_matrix(in_size, out_size, mode, antialias, align_corners)
+        ).to(device)
 
 
 def resize_plane(
