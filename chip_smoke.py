@@ -23,10 +23,13 @@ weights:
   ``make_detection_train_step`` with ``trainable_backbone_layers=3``,
   through the NMS, window-pool and RoIAlign kernels forward and the
   window-pool and RoIAlign backward kernels, held step by step against the
-  same steps through the plain versions, then timed;
+  same steps through the plain versions, then timed; then the same in bf16
+  (``compute_dtype=torch.bfloat16``, the amp step), through the bf16
+  variants of all four pooler kernels, held against the same bf16 steps
+  through the plain versions and its first losses against the f32 step's;
 * Mask R-CNN ResNet-50-FPN (``maskrcnn_resnet50_fpn``) served from the same
   two images in f32 and in bf16, its masks pasted into each image, and
-  trained with gt masks; Keypoint R-CNN ResNet-50-FPN
+  trained with gt masks, in f32 and in bf16; Keypoint R-CNN ResNet-50-FPN
   (``keypointrcnn_resnet50_fpn``) served in f32 and trained with gt
   keypoints: the window pool, its backward and RoIAlign at the 14x14 head
   shapes, and RoIAlign at the one-channel 28x28 mask targets;
@@ -113,6 +116,21 @@ DET_STEPS = 3
 DET_GRADS = ("roi_heads.box_head.fc6.weight", "rpn.head.conv.0.0.weight",
              "backbone.fpn.inner_blocks.2.0.weight",
              "backbone.body.layer4.1.conv2.weight")
+# The amp train phases (compute_dtype=torch.bfloat16) against the same
+# bf16 steps through the plain versions: the two paths part only where a
+# pooler kernel's f32 sum, taken in another order, rounds to the
+# neighbouring bf16 value (a step, 2**-8 of a pooled value) and that
+# difference runs through the bf16 heads and, backward, the bf16 trunk, as
+# the served bf16 scores (AMP_SCORE_TOL) do: step 1's losses within 1e-2
+# relative, the gradients within 5e-2 of each one's largest value (a
+# gradient rounds in bf16 forward and backward), later summed losses within
+# LATER_LOSS_TOL. Step 1 against the f32 step: the RPN's two losses (on the
+# same anchors and gt) and the summed loss within AMP_VS_F32_TOL; the RoI
+# head's losses follow samples drawn from proposals that bf16 moves, and
+# are printed.
+AMP_FIRST_LOSS_TOL = 1e-2
+AMP_GRAD_TOL = 5e-2
+AMP_VS_F32_GATED = ("loss_objectness", "loss_rpn_box_reg", "loss")
 # Mask R-CNN and Keypoint R-CNN training: those four and the new heads'
 # first layers
 MASK_GRADS = DET_GRADS + ("roi_heads.mask_head.mask_fcn1.weight",
@@ -229,10 +247,12 @@ class Kernels:
             fn.launches_by_dtype = {}
 
     def launches(self) -> dict:
-        """Each wrapper's count, and the window pool's and RoIAlign's split
-        by variant: ``<name>_f32`` and ``<name>_bf16``."""
+        """Each wrapper's count, and the window pool's and RoIAlign's, and
+        their backward kernels', split by variant: ``<name>_f32`` and
+        ``<name>_bf16``."""
         out = {n: fn.launches for n, fn in self.counted.items()}
-        for n in ("window_pool", "roi_align"):
+        for n in ("window_pool", "roi_align", "window_pool_backward",
+                  "roi_align_backward"):
             by = self.counted[n].launches_by_dtype
             out[f"{n}_f32"] = by.get("float32", 0)
             out[f"{n}_bf16"] = by.get("bfloat16", 0)
@@ -416,31 +436,38 @@ def roi_work(args):
 
 def roi_backward_work(args):
     """Bytes: the output gradient and the RoIs read, the whole input
-    gradient written (zeros included). Operations: the forward's, each
-    sample's corner weights and products now scattering the gradient; in
-    f32."""
+    gradient written (zeros included), each in its own type. Operations:
+    the forward's, each sample's corner weights and products now scattering
+    the gradient; in f32 (the sums are f32 in both variants)."""
     grad, rois, (n, c, h, w), size, scale, sr, aligned = args
     ph, pw = (size, size) if isinstance(size, int) else size
     gh, gw = _roi_grid(rois, ph, pw, scale, sr, aligned)[4:]
     samples = float((gh.clamp(min=0) * gw.clamp(min=0)).sum()) * ph * pw
-    nbytes = grad.numel() * 4 + rois.numel() * 4 + n * c * h * w * 4
+    elem = grad.element_size()  # the gradient's type, in and out
+    nbytes = (grad.numel() + n * c * h * w) * elem + rois.numel() * 4
     return nbytes, c * samples * 12 + grad.numel(), PEAK_F32_FLOPS
 
 
 def window_backward_work(args):
     """Bytes: the output gradient, the weights and origins read, the whole
-    pyramid gradient written (zeros included). Operations: per RoI the
-    contraction of ``w_x`` with the gradient over its non-zero columns,
-    then of ``w_y`` over its non-zero rows and those columns; in f32."""
+    pyramid gradient written (zeros included), the gradients in their own
+    type. Operations: per RoI the cheaper of the two contraction orders
+    over its non-zero rows and columns, ``w_x`` first (PH PW nx + PH ny nx)
+    or ``w_y`` first (PH PW ny + PW ny nx), so that the bound does not
+    depend on the order a design takes; in f32 (the sums are f32 in both
+    variants)."""
     import torch
 
     grad, row0, x0, w_y, w_x, (r_rows, wmax) = args[:6]
     k, c, ph, pw = grad.shape
     nzy = (w_y != 0).any(1).sum(1).double()
     nzx = (w_x != 0).any(1).sum(1).double()
-    nbytes = (grad.numel() + w_y.numel() + w_x.numel() + row0.numel()
-              + x0.numel() + r_rows * wmax * c) * 4
-    ops = 2 * c * float(torch.sum(ph * pw * nzx + ph * nzy * nzx))
+    elem = grad.element_size()
+    nbytes = ((grad.numel() + r_rows * wmax * c) * elem
+              + (w_y.numel() + w_x.numel() + row0.numel() + x0.numel()) * 4)
+    x_first = ph * pw * nzx + ph * nzy * nzx
+    y_first = ph * pw * nzy + pw * nzy * nzx
+    ops = 2 * c * float(torch.minimum(x_first, y_first).sum())
     return nbytes, ops, PEAK_F32_FLOPS
 
 
@@ -744,10 +771,12 @@ def faster_rcnn_image_phases(kernels, model):
 
 
 def det_train_steps(batch, steps, first_step=None, timed=0,
-                    name="fasterrcnn_resnet50_fpn", grads=DET_GRADS):
+                    name="fasterrcnn_resnet50_fpn", grads=DET_GRADS,
+                    dtype=None):
     """A fresh seeded detector ``name`` (R50-FPN,
     ``trainable_backbone_layers=3``) and ``steps`` SGD steps of
-    ``make_detection_train_step`` on ``batch``, the samplers drawing from a
+    ``make_detection_train_step`` (``compute_dtype=dtype``) on ``batch``,
+    the samplers drawing from a
     generator on its device seeded with 0; then ``timed`` more steps.
     Returns each step's losses, the gradients of ``grads`` after the first
     step, and the timed steps' wall ms (host clock around a step whose loss
@@ -760,7 +789,7 @@ def det_train_steps(batch, steps, first_step=None, timed=0,
 
     model = get_model(name, seed=0, trainable_backbone_layers=3)
     optimizer, scheduler = recipe_optimizer(model)
-    step = make_detection_train_step(model, optimizer)
+    step = make_detection_train_step(model, optimizer, compute_dtype=dtype)
     gen = torch.Generator(device=batch["image"].device).manual_seed(0)
     named = dict(model.named_parameters())
     out = {"losses": [], "ms": [], "lr": [],
@@ -787,7 +816,7 @@ def det_train_steps(batch, steps, first_step=None, timed=0,
 
 
 def det_train_phase(kernels, phase, name="fasterrcnn_resnet50_fpn",
-                    grads=DET_GRADS, num_classes=91, **extras):
+                    grads=DET_GRADS, num_classes=91, f32_first=None, **extras):
     """A detector trained on the request's two images (batch 2, the 1344
     canvas, seeded gt boxes; with ``extras`` the gt masks or keypoints of
     ``train_batch``): ``DET_STEPS`` SGD steps through the kernels (the
@@ -797,8 +826,18 @@ def det_train_phase(kernels, phase, name="fasterrcnn_resnet50_fpn",
     the gradients of ``grads`` within 1e-3 of each one's largest value (the
     same samples: the forward up to the pooler is the same, NMS to the
     bit); the later steps' summed loss within ``LATER_LOSS_TOL`` (each part
-    is printed). Then 5 timed steps after a warm-up. Returns the recorded
-    calls and the launches."""
+    is printed). Then 5 timed steps after a warm-up.
+
+    With ``f32_first`` (the f32 phase's step 1 losses) the steps are the amp
+    steps (``compute_dtype=torch.bfloat16``), held against the same bf16
+    steps through the plain versions: step 1's losses within
+    ``AMP_FIRST_LOSS_TOL``, the gradients within ``AMP_GRAD_TOL``, the later
+    summed losses within ``LATER_LOSS_TOL``; and step 1's losses against
+    the f32 step's: the RPN's two and the sum within ``AMP_VS_F32_TOL``
+    (the RoI head's part on samples drawn from other proposals, printed).
+    Every pooler kernel launch must be a bf16 one, but RoIAlign's at the f32
+    mask targets. Returns the recorded calls, the launches and step 1's
+    losses."""
     import torch
 
     from vision_tpu_torch.models.detection import (
@@ -820,68 +859,109 @@ def det_train_phase(kernels, phase, name="fasterrcnn_resnet50_fpn",
     calls: dict = {}
     kernels.reset()
     torch.cuda.reset_peak_memory_stats()
+    amp = f32_first is not None
+    dtype = torch.bfloat16 if amp else None
     run = det_train_steps(batch, DET_STEPS,
                           first_step=lambda: kernels.recording(calls),
-                          timed=1 + TIMED_FORWARDS, name=name, grads=grads)
+                          timed=1 + TIMED_FORWARDS, name=name, grads=grads,
+                          dtype=dtype)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = kernels.launches()
     with kernels.plain_versions():
-        ref = det_train_steps(batch, DET_STEPS, name=name, grads=grads)
+        ref = det_train_steps(batch, DET_STEPS, name=name, grads=grads,
+                              dtype=dtype)
     names = list(run["losses"][0])
     loss_rel = [{k: abs(a[k] - b[k]) / max(abs(b[k]), 1e-30) for k in names}
                 for a, b in zip(run["losses"], ref["losses"])]
     grad_rel = {n: rel_errs([run["grads"][n]], [ref["grads"][n]])[0]
                 for n in grads}
     ms = statistics.median(run["ms"][1:])
+    first_tol, grad_tol = (AMP_FIRST_LOSS_TOL, AMP_GRAD_TOL) if amp else (
+        1e-4, 1e-3)
+    fields = {}
+    if amp:
+        vs_f32 = {k: abs(run["losses"][0][k] - f32_first[k])
+                  / max(abs(f32_first[k]), 1e-30) for k in names}
+        fields = dict(f32_first_losses=f32_first,
+                      first_loss_rel_err_vs_f32=vs_f32,
+                      vs_f32_tol=AMP_VS_F32_TOL,
+                      vs_f32_gated=list(AMP_VS_F32_GATED))
     emit(phase, model=name, params=run["params"],
          trainable_params=run["trainable_params"],
          trainable_backbone_layers=3, input=list(batch["image"].shape),
          gt_boxes=list(GT_COUNTS), gt_rows=GT_ROWS,
-         gt_extras={k: list(batch[k].shape) for k in extras}, dtype="float32",
+         gt_extras={k: list(batch[k].shape) for k in extras},
+         dtype="bfloat16" if amp else "float32",
          optimizer="SGD lr 0.02 momentum 0.9 weight_decay 1e-4, linear "
                    "warmup from 1e-3 over 1000 steps", lr_per_step=run["lr"],
          steps_compared=DET_STEPS, losses=run["losses"][:DET_STEPS],
          plain_losses=ref["losses"], loss_rel_err=loss_rel,
-         first_loss_tol=1e-4, later_loss_tol=LATER_LOSS_TOL,
-         grad_rel_err=grad_rel, grad_tol=1e-3, ms_per_step_median=ms,
+         first_loss_tol=first_tol, later_loss_tol=LATER_LOSS_TOL,
+         grad_rel_err=grad_rel, grad_tol=grad_tol, ms_per_step_median=ms,
          images_per_s=len(raw) / ms * 1e3, ms_all=run["ms"],
          timed_steps=TIMED_FORWARDS, peak_memory_gb=peak_gb,
-         launches=launches)
-    require_launched(launches, ("nms", "window_pool", "window_pool_backward",
-                                "roi_align", "roi_align_backward"), phase)
+         launches=launches, **fields)
+    tag = "bf16" if amp else "f32"
+    require_launched(launches, ("nms", f"window_pool_{tag}",
+                                f"window_pool_backward_{tag}",
+                                f"roi_align_{tag}", f"roi_align_backward_{tag}"),
+                     phase)
+    if amp and (launches["window_pool_f32"]
+                or launches["window_pool_backward_f32"]
+                or launches["roi_align_backward_f32"]):
+        raise RuntimeError(f"{phase} launched an f32 pooler kernel: {launches}")
+    if amp and max(vs_f32[k] for k in AMP_VS_F32_GATED) > AMP_VS_F32_TOL:
+        raise RuntimeError(f"{phase}: step 1's losses lie too far from the f32 "
+                           f"step's: {vs_f32}")
     # later steps: the summed loss, as the ResNet-50 phase holds its loss.
     # Each step samples RoIs from proposals that moved with the last
     # update's round-off, so one RoI sampled otherwise moves the classifier
     # loss alone by ~1/1024 of it (step 2); its share grows as that loss
     # falls (one run read 6.3% at step 3, the sum 1.6%)
-    if (max(loss_rel[0].values()) > 1e-4
+    if (max(loss_rel[0].values()) > first_tol
             or max(r["loss"] for r in loss_rel[1:]) > LATER_LOSS_TOL
-            or max(grad_rel.values()) > 1e-3):
+            or max(grad_rel.values()) > grad_tol):
         raise RuntimeError(f"{phase}: the kernel train path disagrees with "
                            "the plain path")
     first, last = run["losses"][0]["loss"], run["losses"][DET_STEPS - 1]["loss"]
     if first == last:
         raise RuntimeError(f"{phase}: the last compared loss equals the "
                            "first: no update")
+    first_losses = run["losses"][0]
     del run, ref, batch
     torch.cuda.empty_cache()
-    return calls, launches
+    return calls, launches, first_losses
+
+
+def backward_rows(kernels, calls, launches, phase, size, suffix=""):
+    """The two backward kernels against their plain versions at the
+    recorded calls of pooled size ``size``, a row each, named
+    ``<kernel><suffix>``, its launches those of the calls' type."""
+    rows = []
+    for name in ("window_pool_backward", "roi_align_backward"):
+        cases = [kernel_case(kernels, name, args, phase)
+                 for args in at_size(calls, name, size)]
+        tag = "bf16" if cases[0]["dtype"] == "bfloat16" else "f32"
+        rows.append(kernel_row(
+            name, cases, launches[f"{name}_{tag}"], row_name=name + suffix,
+            dtype=cases[0]["dtype"], path=f"{phase} (1344x1344, batch 2)",
+            calls_per_step=len(cases), counterpart="XLA VJP, no pallas_call",
+            same_bits_twice=all(c["same_bits_twice"] for c in cases)))
+    return rows
 
 
 def faster_rcnn_train_phase(kernels):
     """Faster R-CNN training (``det_train_phase``), then the backward
-    kernels against their plain versions at the recorded inputs."""
-    calls, launches = det_train_phase(kernels, "faster_rcnn_train")
-    rows = []
-    for name in ("window_pool_backward", "roi_align_backward"):
-        cases = [kernel_case(kernels, name, args, "faster_rcnn_train")
-                 for args in calls[name]]
-        rows.append(kernel_row(name, cases, launches[name], dtype="float32",
-                               path="faster_rcnn_train (1344x1344, batch 2)",
-                               counterpart="XLA VJP, no pallas_call",
-                               same_bits_twice=all(c["same_bits_twice"]
-                                                   for c in cases)))
-    return rows
+    kernels against their plain versions at the recorded inputs; the same
+    in bf16 (``faster_rcnn_train_amp``), through the backward kernels' bf16
+    variants."""
+    calls, launches, first = det_train_phase(kernels, "faster_rcnn_train")
+    rows = backward_rows(kernels, calls, launches, "faster_rcnn_train", 7)
+    del calls
+    calls, launches, _ = det_train_phase(kernels, "faster_rcnn_train_amp",
+                                         f32_first=first)
+    return rows + backward_rows(kernels, calls, launches,
+                                "faster_rcnn_train_amp", 7, "_bf16")
 
 
 def serve_masks(model, preset, transform, raw, dtype):
@@ -1039,8 +1119,10 @@ def mask_rcnn_train_phase(kernels):
     them against their plain versions: the window pool and its backward at
     14x14 over 1,024 RoIs, RoIAlign's backward at 14x14 (the dense
     fallback), and RoIAlign at the mask targets (one channel, 28x28, scale
-    1, the gt masks on the 1344 canvas)."""
-    calls, launches = det_train_phase(
+    1, the gt masks on the 1344 canvas); then the amp step
+    (``mask_rcnn_train_amp``) and both backward kernels' bf16 variants at
+    14x14."""
+    calls, launches, first = det_train_phase(
         kernels, "mask_rcnn_train", name="maskrcnn_resnet50_fpn",
         grads=MASK_GRADS, masks=True)
     if not at_size(calls, "roi_align", 28):
@@ -1049,19 +1131,20 @@ def mask_rcnn_train_phase(kernels):
     rows = []
     for name, size, row_name in (
             ("window_pool", 14, "window_pool_14x14_train"),
-            ("window_pool_backward", 14, "window_pool_backward_14x14"),
-            ("roi_align_backward", 14, "roi_align_backward_14x14"),
             ("roi_align", 28, "roi_align_mask_targets")):
         cases = [kernel_case(kernels, name, args, f"{path}, {row_name}")
                  for args in at_size(calls, name, size)]
-        extra = {}
-        if name.endswith("_backward"):
-            extra = dict(counterpart="XLA VJP, no pallas_call",
-                         same_bits_twice=all(c["same_bits_twice"] for c in cases))
         rows.append(kernel_row(name, cases, launches[name], row_name=row_name,
                                dtype="float32", path=path,
-                               calls_per_step=len(cases), **extra))
-    return rows
+                               calls_per_step=len(cases)))
+    rows += backward_rows(kernels, calls, launches, "mask_rcnn_train", 14,
+                          "_14x14")
+    del calls
+    calls, launches, _ = det_train_phase(
+        kernels, "mask_rcnn_train_amp", name="maskrcnn_resnet50_fpn",
+        grads=MASK_GRADS, f32_first=first, masks=True)
+    return rows + backward_rows(kernels, calls, launches,
+                                "mask_rcnn_train_amp", 14, "_14x14_bf16")
 
 
 def keypoint_check(dets, ref, maps, ref_maps, phase) -> dict:
@@ -1179,10 +1262,11 @@ def kernel_case(kernels, name, args, path, **meta):
     the card (RoIAlign's on the CPU): NMS keep masks bit for bit; f32 pools within 1e-5 of the
     largest plain value (f32 sums in another order); bf16 pools within one
     bf16 step of each element (plus 1e-5 of the largest value); the
-    backward kernels the same bits on a second call and within 1e-5 of
-    their plain version in f64 on the CPU, relative to the largest sum of
-    the summed terms' magnitudes. Prints the case, with its times and
-    bound, and returns it."""
+    backward kernels the same bits on a second call and, against their
+    plain version in f64 on the CPU, in f32 within 1e-5 of the largest sum
+    of the summed terms' magnitudes, in bf16 within one bf16 step of each
+    element plus that. Prints the case, with its times and bound, and
+    returns it."""
     import torch
 
     exact = name.startswith("nms")
@@ -1212,7 +1296,15 @@ def kernel_case(kernels, name, args, path, **meta):
         err64 = float((first.cpu().double() - exact64).abs().max())
         plain_err64 = float((plain32.cpu().double() - exact64).abs().max())
         rel_gate = err64 / max(magnitude, 1e-30)
-        meta.update(err_vs_f64_over_term_sum=rel_gate,
+        if bf16:
+            # rounded once from an f32 sum: within one bf16 step of the
+            # exact value (2**-7 of its magnitude), plus the f32 round-off
+            # of the sum, 1e-5 of the largest sum of term magnitudes
+            step = 2.0 ** -7 * exact64.abs() + 1e-5 * magnitude
+            rel_gate = float(((first.cpu().double() - exact64).abs()
+                              / step.clamp(min=1e-30)).max())
+            meta["max_err_vs_f64_in_bf16_steps"] = rel_gate
+        meta.update(err_vs_f64_over_term_sum=err64 / max(magnitude, 1e-30),
                     plain_err_vs_f64_over_term_sum=plain_err64 / max(
                         magnitude, 1e-30),
                     max_rel_err_vs_f64=err64 / scale64,

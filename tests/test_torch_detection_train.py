@@ -20,6 +20,8 @@ gradients within 1e-3 of each tensor's largest value (f32 backward passes
 of a deep net in another order).
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -128,7 +130,8 @@ def pair():
              for path, leaf in _leaves(jax.tree_util.tree_map(np.asarray, grads))}
     return dict(port=port, x=torch.from_numpy(x).permute(0, 3, 1, 2).contiguous(),
                 k1=k1, k2=k2, obj=obj, deltas=deltas, anchors=anchors,
-                props=props, losses=losses, grads=grads)
+                props=props, losses=losses, grads=grads, jm=jm,
+                variables=variables, x_nhwc=x)
 
 
 def _tensors(arrays):
@@ -436,8 +439,166 @@ def test_detection_train_step():
             torch.testing.assert_close(a[k], b[k], rtol=1e-5, atol=0)
 
 
-def test_detection_train_step_refuses_bf16():
-    model = FasterRCNN(**CFG)
-    opt = torch.optim.SGD(model.parameters(), lr=0.01)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_detection_train_step(model, opt, compute_dtype=torch.bfloat16)
+# ---------------------------------------------------------------- amp
+
+
+# The bf16 step against the JAX recipe's amp step (``references/detection/
+# engine.py:24-37``: the variables and the image cast to bf16, the gt f32),
+# the RoI head handed the JAX run's own samples (in bf16 the two libraries'
+# proposals part by round-off, and a proposal that moves changes the
+# samples, as NMS and top-k on bf16 scores break ties by other rules), the
+# RPN sampler the JAX masks as above. Tolerances: each layer rounds its
+# output to bf16 (2**-9 relative), the two libraries at other places and
+# with other sums, over some twenty layers of trunk, FPN and heads, which
+# ``test_torch_amp.py`` holds to 3e-2 of
+# each map's largest value; the losses are smooth functions of those
+# outputs taken in f32: within 3e-2 relative. A gradient passes the chain
+# twice, the activations and the cotangents each rounded in bf16, and deep
+# in the trunk a ReLU whose pre-activation lies within bf16 round-off of 0
+# takes the other branch in one library and not the other: two bf16 paths
+# may each lie as far from the f32 gradient as bf16 arithmetic carries it.
+# So a gradient is held to twice how far the JAX amp step's own gradient
+# lies from the f32 gradient (each relative to the f32 gradient's largest
+# value), which itself must stay under AMP_NOISE_MAX: a path that computed
+# another function would lie at the order of the gradient itself.
+AMP_LOSS_TOL = 3e-2
+AMP_NOISE_MAX = 0.25
+
+
+def _bf16(tree):
+    return jax.tree_util.tree_map(
+        lambda a: a.astype(jnp.bfloat16)
+        if jnp.issubdtype(a.dtype, jnp.floating) else a, tree)
+
+
+@pytest.fixture(scope="module")
+def amp_pair(pair):
+    """The JAX amp step's losses, gradients and samples, and one bf16 step
+    of ``make_detection_train_step`` (SGD at lr 0) on the port with those
+    samples: its losses and gradients."""
+    jm, variables = pair["jm"], pair["variables"]
+    image = jnp.asarray(pair["x_nhwc"]).astype(jnp.bfloat16)
+
+    def loss_fn(params):
+        losses, (_, sampled, _) = jm.apply(
+            {**_bf16(variables), "params": _bf16(params)}, image, *_gt_jax(),
+            jax.random.PRNGKey(KEY), method="compute_loss",
+            _return_internals=True)
+        return sum(v.astype(jnp.float32) for v in losses.values()), (
+            losses, sampled)
+
+    (_, (losses, sampled)), grads = jax.jit(
+        jax.value_and_grad(loss_fn, has_aux=True))(variables["params"])
+    grads = {_torch_name("params", path): leaf for path, leaf in _leaves(
+        jax.tree_util.tree_map(np.asarray, grads))}
+    samples = SampledProposals(*_tensors(sampled))
+    samples = samples._replace(labels=samples.labels.long())
+
+    port = pair["port"]
+    heads = port.roi_heads
+    rpn_sampler = port.rpn.sampler
+    port.rpn.sampler = JaxSampler(
+        jutils.BalancedPositiveNegativeSampler(256, 0.5), pair["k1"])
+    heads.select_training_samples = lambda *args: samples
+    was_training = port.training
+    try:
+        opt = torch.optim.SGD(port.parameters(), lr=0.0)
+        step = make_detection_train_step(port, opt,
+                                         compute_dtype=torch.bfloat16)
+        boxes, labels, valid = _gt_torch()
+        out = step({"image": pair["x"], "boxes": boxes, "labels": labels,
+                    "valid": valid}, None)
+    finally:
+        port.rpn.sampler = rpn_sampler
+        del heads.select_training_samples
+        port.train(was_training)
+    port_grads = {n: p.grad.clone() for n, p in port.named_parameters()}
+    port.zero_grad(set_to_none=True)
+    return dict(losses={k: float(v) for k, v in losses.items()},
+                grads=grads, port_losses={k: float(v) for k, v in out.items()},
+                port_grads=port_grads)
+
+
+def test_amp_step_losses_match_jax(pair, amp_pair):
+    """The four losses within ``AMP_LOSS_TOL`` of the JAX amp step's, summed
+    into ``loss``; and not the f32 step's: the step ran in bf16."""
+    got, want = amp_pair["port_losses"], amp_pair["losses"]
+    assert set(got) == set(want) | {"loss"}
+    for k, v in want.items():
+        _rel_close(got[k], v, AMP_LOSS_TOL)
+    np.testing.assert_allclose(got["loss"], sum(got[k] for k in want),
+                               rtol=1e-6)
+    f32 = {k: float(v) for k, v in pair["losses"].items()}
+    assert max(abs(got[k] - f32[k]) / abs(f32[k]) for k in want) > 1e-5
+
+
+@pytest.mark.parametrize("name", GRADS)
+def test_amp_step_gradients_match_jax(pair, amp_pair, name):
+    """f32 master gradients (through the cast) within twice the JAX amp
+    step's own distance from the JAX f32 gradient, relative to the f32
+    gradient's largest value."""
+    port = pair["port"]
+    target = dict(port.named_parameters())[name]
+    want = _to_torch_layout(name, amp_pair["grads"][name], target, port)
+    f32 = _to_torch_layout(name, pair["grads"][name], target, port)
+    got = amp_pair["port_grads"][name]
+    assert got.dtype == torch.float32
+    scale = np.abs(f32).max()
+    noise = np.abs(want - f32).max() / scale
+    assert 0 < noise < AMP_NOISE_MAX  # the JAX step ran in bf16, and near f32
+    assert np.abs(got.numpy() - want).max() <= 2 * noise * scale
+
+
+def test_amp_step_trains_in_bf16_with_f32_masters():
+    """Three bf16 steps on the CPU: finite losses, the parameters and the
+    momentum buffers f32 and updated, the pooler's backward passes taken in
+    bf16 (its plain versions, on the CPU), the first step's losses again to
+    the bit from the same weights and seed."""
+    poolers = importlib.import_module("vision_tpu_torch.ops.poolers")
+    roi_mod = importlib.import_module("vision_tpu_torch.ops.roi_align")
+    seen = []
+
+    def spy(fn):
+        def call(grad, *args):
+            seen.append(grad.dtype)
+            return fn(grad, *args)
+        return call
+
+    def run():
+        model = FasterRCNN(**CFG)
+        init_weights(model, torch.Generator().manual_seed(0))
+        freeze_trunk_layers(model.backbone.body, 3)
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        opt = torch.optim.SGD([p for p in model.parameters() if p.requires_grad],
+                              lr=0.02, momentum=0.9, weight_decay=1e-4)
+        step = make_detection_train_step(model, opt,
+                                         compute_dtype=torch.bfloat16)
+        boxes, labels, valid = _gt_torch()
+        x = torch.from_numpy(np.random.RandomState(0).rand(2, 3, SIZE, SIZE)
+                             .astype(np.float32))
+        g = torch.Generator().manual_seed(0)
+        outs = [step({"image": x, "boxes": boxes, "labels": labels,
+                      "valid": valid}, g) for _ in range(3)]
+        return model, opt, before, outs
+
+    saved = (poolers.window_pool_backward_plain, roi_mod.roi_align_backward_plain)
+    poolers.window_pool_backward_plain = spy(saved[0])
+    roi_mod.roi_align_backward_plain = spy(saved[1])
+    try:
+        model, opt, before, outs = run()
+    finally:
+        poolers.window_pool_backward_plain, roi_mod.roi_align_backward_plain = saved
+    assert seen and set(seen) == {torch.bfloat16}
+    for out in outs:
+        assert all(torch.isfinite(v) and v.dtype == torch.float32
+                   for v in out.values())
+        torch.testing.assert_close(out["loss"], sum(
+            v for k, v in out.items() if k != "loss"))
+    assert float(outs[2]["loss"]) != float(outs[0]["loss"])
+    for name, p in model.named_parameters():
+        assert p.dtype == torch.float32
+        assert (not torch.equal(p.detach(), before[name])) == p.requires_grad
+    assert all(s["momentum_buffer"].dtype == torch.float32
+               for s in opt.state.values())
+    _, _, _, again = run()
+    assert all(torch.equal(outs[0][k], again[0][k]) for k in outs[0])

@@ -22,9 +22,12 @@ two, within two steps (2**-6): both round the sum to bf16 before they
 divide, so a sum rounded the other way moves the quotient by a step before
 its own rounding.
 
-The backward kernels of the window pool and of RoIAlign (f32) against their
-plain versions: within 1e-5 of the largest plain value (sums in another
-order), and bit-identical across calls on the same inputs.
+The backward kernels of the window pool and of RoIAlign against their
+plain versions: in f32 within 1e-5 of the largest plain value (sums in
+another order); in bf16 (a bf16 output gradient, f32 sums, the gradient
+rounded once) within one bf16 step of the plain version's f32 sum rounded
+to bf16, plus 1e-5 of the largest value; in both, bit-identical across
+calls on the same inputs.
 """
 
 import os
@@ -358,6 +361,9 @@ def test_kernels_make_no_host_synchronisation(dev):
     roi_align_cuda(feat16, rois, 7, 1 / 16, 2, False)
     window_pool_backward_cuda(gw, *args[1:], tuple(args[0].shape[:2]))
     roi_align_backward_cuda(gr, rois, tuple(feat.shape), 7, 1 / 16, 2, False)
+    window_pool_backward_cuda(gw.bfloat16(), *args[1:], tuple(args[0].shape[:2]))
+    roi_align_backward_cuda(gr.bfloat16(), rois, tuple(feat.shape), 7, 1 / 16,
+                            2, False)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -370,6 +376,10 @@ def test_kernels_make_no_host_synchronisation(dev):
         window_pool_backward_cuda(gw, *args[1:], tuple(args[0].shape[:2]))
         roi_align_backward_cuda(gr, rois, tuple(feat.shape), 7, 1 / 16, 2,
                                 False)
+        window_pool_backward_cuda(gw.bfloat16(), *args[1:],
+                                  tuple(args[0].shape[:2]))
+        roi_align_backward_cuda(gr.bfloat16(), rois, tuple(feat.shape), 7,
+                                1 / 16, 2, False)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
@@ -766,6 +776,48 @@ def test_window_pool_backward_kernel_without_rois(dev):
     assert got.shape == (40, 50, 8) and not got.any()
 
 
+def _bf16_backward_close(got, want):
+    """``got`` (the bf16 kernel) within one bf16 step of ``want`` (the plain
+    version's f32 sum) rounded to bf16, plus 1e-5 of the largest value."""
+    want = want.cpu()
+    _bf16_step_close(got, want.bfloat16(), 1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("winy,winx", [(32, 32), (20, 40)])
+@pytest.mark.parametrize("ph", [7, 14])
+@pytest.mark.parametrize("c", [1, 33, 64, 256])
+def test_window_pool_backward_bf16_kernel_matches_plain(dev, c, ph, winy, winx):
+    """The cases of the f32 test with a bf16 output gradient: a bf16
+    gradient in the pyramid, the same bits on a second call."""
+    rng = np.random.RandomState(160 + c + ph + winx)
+    g, row0, x0, w_y, w_x, size = _window_backward_case(rng, 50, c, ph, winy,
+                                                        winx)
+    g = g.bfloat16()
+    want = window_pool_backward_plain(g, row0, x0, w_y, w_x, size, 4.0)
+    before = window_pool_backward_cuda.launches_by_dtype.get("bfloat16", 0)
+    got = _same_bits_twice(window_pool_backward_cuda, g.to(dev), row0.to(dev),
+                           x0.to(dev), w_y.to(dev), w_x.to(dev), size, 4.0)
+    assert window_pool_backward_cuda.launches_by_dtype["bfloat16"] == before + 2
+    assert got.shape == (*size, c) and got.dtype == torch.bfloat16
+    _bf16_backward_close(got, want)
+
+
+@pytest.mark.parametrize("ph", [7, 14])
+def test_window_pool_backward_bf16_kernel_at_the_training_shapes(dev, ph):
+    """K = 1,024 RoIs on the 1,292 x 336 pyramid of a 1344 canvas, C = 256,
+    at the box head's 7x7 and the mask head's 14x14, a bf16 output
+    gradient: the same bits twice, within one bf16 step (the plain version
+    computed on the card)."""
+    rng = np.random.RandomState(170 + ph)
+    _, row0, x0, w_y, w_x = _mask_head_window_case(rng, 1024)
+    w_y, w_x = w_y[:, :ph].contiguous(), w_x[:, :ph].contiguous()
+    g = torch.from_numpy(rng.randn(1024, 256, ph, ph).astype(np.float32))
+    args = [t.to(dev) for t in (g.bfloat16(), row0, x0, w_y, w_x)]
+    got = _same_bits_twice(window_pool_backward_cuda, *args, (1292, 336), 4.0)
+    want = window_pool_backward_plain(*args, (1292, 336), 4.0)
+    _bf16_backward_close(got, want)
+
+
 def test_window_pool_backward_kernel_fails_on_a_window_outside_the_pyramid(dev):
     _run_trapping("""if True:
         import torch
@@ -830,6 +882,69 @@ def test_roi_align_backward_kernel_at_the_training_shape(dev, sr):
     want = roi_align_backward_plain(g, rois, shape, 7, 0.25, sr, False)
     tol = 1e-5 * float(want.abs().max())
     assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("aligned", [False, True])
+@pytest.mark.parametrize("sr", [2, 0])
+@pytest.mark.parametrize("c", [1, 16, 33, 65])
+def test_roi_align_backward_bf16_kernel_matches_plain(dev, c, sr, aligned):
+    """The cases of the f32 test with a bf16 output gradient (and C past
+    the 64-channel block): a bf16 gradient, the same bits on a second
+    call."""
+    rng = np.random.RandomState(180 + c + sr + aligned)
+    g, rois, shape = _roi_backward_case(rng, 64, c)
+    g = g.bfloat16()
+    want = roi_align_backward_plain(g, rois, shape, 7, 0.25, sr, aligned)
+    before = roi_align_backward_cuda.launches_by_dtype.get("bfloat16", 0)
+    got = _same_bits_twice(roi_align_backward_cuda, g.to(dev), rois.to(dev),
+                           shape, 7, 0.25, sr, aligned)
+    assert roi_align_backward_cuda.launches_by_dtype["bfloat16"] == before + 2
+    assert got.shape == shape and got.dtype == torch.bfloat16
+    _bf16_backward_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("size", [7, 14])
+def test_roi_align_backward_kernel_splits_a_small_map(dev, size, dtype):
+    """The dense fallback at P5 of a 1344 canvas, batch 2: 64 large RoIs
+    (the ones that overflow their windows) covering all of a 42x42 map,
+    where the tiles are few and each RoI's sum is split into chunks added
+    in order: the same bits twice, within 1e-5 of the largest plain value
+    (f32) or one bf16 step (bf16), the plain version on the CPU."""
+    rng = np.random.RandomState(190 + size)
+    xy = rng.uniform(-40, 200, (64, 2))
+    wh = rng.uniform(1100, 1400, (64, 2))
+    b = rng.randint(0, 2, (64, 1))
+    rois = torch.from_numpy(np.concatenate([b, xy, xy + wh], 1).astype(np.float32))
+    g = torch.from_numpy(rng.randn(64, 256, size, size).astype(np.float32))
+    g = g.to(dtype)
+    shape = (2, 256, 42, 42)
+    got = _same_bits_twice(roi_align_backward_cuda, g.to(dev), rois.to(dev),
+                           shape, size, 1 / 32, 2, False).cpu()
+    want = roi_align_backward_plain(g, rois, shape, size, 1 / 32, 2, False)
+    assert got.dtype == dtype
+    if dtype == torch.bfloat16:
+        _bf16_backward_close(got, want)
+    else:
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("sr", [2, 0])
+def test_roi_align_backward_bf16_kernel_at_the_training_shape(dev, sr):
+    """The f32 training-shape case (P2 of a 1344 canvas, batch 2, 64 RoIs,
+    C = 256, 14x14) with a bf16 output gradient: the same bits twice,
+    within one bf16 step of the plain version on the CPU."""
+    rng = np.random.RandomState(200 + sr)
+    xy = rng.uniform(-20, 1344, (64, 2))
+    wh = rng.uniform(8, 600, (64, 2))
+    b = rng.randint(0, 2, (64, 1))
+    rois = torch.from_numpy(np.concatenate([b, xy, xy + wh], 1).astype(np.float32))
+    g = torch.from_numpy(rng.randn(64, 256, 14, 14).astype(np.float32)).bfloat16()
+    shape = (2, 256, 336, 336)
+    got = _same_bits_twice(roi_align_backward_cuda, g.to(dev), rois.to(dev),
+                           shape, 14, 0.25, sr, False).cpu()
+    want = roi_align_backward_plain(g, rois, shape, 14, 0.25, sr, False)
+    _bf16_backward_close(got, want)
 
 
 def test_roi_align_backward_kernel_without_rois(dev):

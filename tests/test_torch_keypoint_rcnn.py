@@ -350,3 +350,56 @@ def test_detection_train_step_takes_keypoints():
     assert all(torch.isfinite(v) for v in out.values())
     torch.testing.assert_close(out["loss"], sum(v for k, v in out.items()
                                                 if k != "loss"))
+
+
+def test_amp_train_step_matches_the_f32_step_on_the_same_samples():
+    """The Keypoint R-CNN amp step (``compute_dtype=torch.bfloat16``) on
+    ``train_batch(..., keypoints=True)``, its RoI head handed the f32 step's
+    own samples (bf16 moves the proposals, and a proposal that moves changes
+    the samples), both at lr 0 from the same weights and generator: the six
+    losses within 3e-2 relative of the f32 step's (each layer rounds to bf16,
+    2**-9, over some twenty layers; ``test_torch_detection_train.py`` derives
+    the same bound), the gradients of ``GRADS`` f32 and within 0.25 of each
+    one's largest value (bf16 carries a deep gradient some 0.1 of it from
+    f32 in ``test_torch_detection_train.py``; a step that computed another
+    function would lie at the order of the gradient itself), and not equal
+    to the f32 step's: the step ran in bf16."""
+    raw = raw_images(((48, 64), (43, 64)))
+    transform = GeneralizedRCNNTransform(80, 133, device="cpu")
+    with torch.no_grad():
+        batch = train_batch(KeypointRCNN_ResNet50_FPN_Weights.COCO_V1.transforms(
+            device="cpu"), transform, raw, num_classes=2, keypoints=True)
+    model = tkp.KeypointRCNN(**CFG)
+    init_weights(model, torch.Generator().manual_seed(0))
+    heads = model.roi_heads
+    select = heads.select_training_samples
+    samples = []
+
+    def once(*args):
+        if not samples:
+            samples.append(select(*args))
+        return samples[0]
+
+    heads.select_training_samples = once
+    runs = []
+    try:
+        for dtype in (None, torch.bfloat16):
+            opt = torch.optim.SGD(model.parameters(), lr=0.0)
+            out = make_detection_train_step(model, opt, compute_dtype=dtype)(
+                batch, torch.Generator().manual_seed(0))
+            named = dict(model.named_parameters())
+            runs.append(({k: float(v) for k, v in out.items()},
+                         {n: named[n].grad.clone() for n in GRADS}))
+    finally:
+        del heads.select_training_samples
+    (f32, g32), (bf16, g16) = runs
+    assert "loss_keypoint" in bf16 and len(bf16) == 6
+    assert all(np.isfinite(v) for v in bf16.values())
+    for k, v in f32.items():
+        _rel_close(bf16[k], v, 3e-2)
+    assert any(bf16[k] != f32[k] for k in f32)
+    for name in GRADS:
+        assert g16[name].dtype == torch.float32
+        scale = float(g32[name].abs().max())
+        assert scale > 0
+        assert float((g16[name] - g32[name]).abs().max()) <= 0.25 * scale

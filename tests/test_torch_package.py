@@ -179,11 +179,21 @@ def test_backward_cuda_wrappers_refuse_what_they_do_not_take():
     with pytest.raises(ValueError, match="CUDA"):
         roi_align_backward_cuda(torch.zeros(1, 1, 2, 2), torch.zeros(1, 5),
                                 (1, 1, 4, 4), 2)
-    with pytest.raises(ValueError, match="f32"):
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        window_pool_backward_cuda(
+            torch.zeros(1, 1, 1, 2).half(), torch.zeros(1, dtype=torch.int32),
+            torch.zeros(1, dtype=torch.int32), torch.zeros(1, 1, 2),
+            torch.zeros(1, 2, 2), (4, 4))
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        roi_align_backward_cuda(torch.zeros(1, 1, 2, 2, dtype=torch.float64),
+                                torch.zeros(1, 5), (1, 1, 4, 4), 2)
+    # a bf16 gradient passes the type check (the bf16 variants), and is
+    # refused for lying on the CPU
+    with pytest.raises(ValueError, match="CUDA"):
         window_pool_backward_cuda(
             torch.zeros(1, 1, 1, 2).bfloat16(), torch.zeros(1, dtype=torch.int32),
             torch.zeros(1, dtype=torch.int32), torch.zeros(1, 1, 2),
             torch.zeros(1, 2, 2), (4, 4))
-    with pytest.raises(ValueError, match="f32"):
-        roi_align_backward_cuda(torch.zeros(1, 1, 2, 2, dtype=torch.float64),
+    with pytest.raises(ValueError, match="CUDA"):
+        roi_align_backward_cuda(torch.zeros(1, 1, 2, 2).bfloat16(),
                                 torch.zeros(1, 5), (1, 1, 4, 4), 2)

@@ -142,6 +142,41 @@ def test_window_pool_autograd_matches_jax_vjp_with_div():
     _scaled_close(st.grad.numpy(), want)
 
 
+def test_window_pool_backward_bf16_matches_jax_vjp():
+    """A bf16 pyramid and output gradient: the port's gradient (the plain
+    version's f32 sum rounded once to bf16, as ``_WindowPool.backward``
+    casts it) against ``jax.vjp`` of ``_window_pool_xla`` on the same bf16
+    values. The JAX VJP rounds each RoI's window gradient to bf16 and
+    scatter-adds the windows in bf16, a rounding an add; so each element
+    may part by 2**-9 of its terms' magnitude sum for the port's rounding,
+    each window's and each add's: 2**-9 (windows + 2) times that sum."""
+    stacked, row0, x0, w_y, w_x, g = _overlapping_windows(np.random.RandomState(10))
+    st16 = torch.from_numpy(stacked).bfloat16()
+    g16 = torch.from_numpy(g).bfloat16()
+    idx = [torch.from_numpy(a) for a in (row0, x0, w_y, w_x)]
+    _, vjp = jax.vjp(lambda s: _window_pool_xla(s, *map(jnp.asarray, (
+        row0, x0, w_y, w_x))), jnp.asarray(st16.float().numpy()).astype(jnp.bfloat16))
+    (want,) = vjp(jnp.asarray(g16.float().permute(0, 2, 3, 1).numpy())
+                  .astype(jnp.bfloat16))
+    want = np.asarray(want.astype(jnp.float32))
+    st = st16.clone().requires_grad_()
+    window_pool(st, *idx).backward(g16)
+    assert st.grad.dtype == torch.bfloat16
+    plain = window_pool_backward_plain(g16, *idx, stacked.shape[:2])
+    assert plain.dtype == torch.float32
+    assert torch.equal(st.grad, plain.bfloat16())
+    terms = window_pool_backward_plain(g16.float().abs(), *idx,
+                                       stacked.shape[:2]).numpy()
+    ones = torch.ones(len(row0), 1, 1, 1)
+    windows = window_pool_backward_plain(
+        ones, *idx[:2], torch.ones(len(row0), 1, w_y.shape[2]),
+        torch.ones(len(row0), 1, w_x.shape[2]), stacked.shape[:2]).numpy()
+    assert windows.max() >= 4  # overlapping windows: several adds
+    err = np.abs(st.grad.float().numpy() - want)
+    assert (err <= 2.0 ** -9 * (windows + 2) * terms + 1e-6 * terms.max()).all()
+    assert np.abs(want).max() > 0
+
+
 def test_window_pool_gradcheck_float64():
     rng = np.random.RandomState(9)
     stacked, row0, x0, w_y, w_x, _ = _overlapping_windows(

@@ -234,6 +234,34 @@ def test_autograd_matches_jax_mxu_vjp(aligned):
     assert b.grad is None  # torchvision's contract; JAX returns zeros
 
 
+@pytest.mark.parametrize("aligned", [False, True])
+def test_backward_bf16_matches_jax_mxu_vjp(aligned):
+    """A bf16 input and output gradient at sr = 2: the port's gradient (the
+    plain version's f32 sum rounded once to bf16, as ``_RoIAlign.backward``
+    casts it) against ``jax.vjp`` of ``roi_align_mxu`` on the same bf16
+    values, which also sums in f32 and rounds once: within one bf16 step of
+    each element (2**-7 of its magnitude: f32 sums in another order may
+    round to the neighbouring value) plus 1e-5 of the largest value."""
+    feat, rois, g = _backward_case(np.random.RandomState(44 + aligned))
+    x16 = torch.from_numpy(feat).permute(0, 3, 1, 2).bfloat16()
+    g16 = torch.from_numpy(g).permute(0, 3, 1, 2).bfloat16()
+    want = _jax_grad(roi_align_mxu, x16.float().permute(0, 2, 3, 1).numpy()
+                     .astype(jnp.bfloat16), rois,
+                     g16.float().permute(0, 2, 3, 1).numpy().astype(jnp.bfloat16),
+                     (7, 5), 0.5, 2, aligned).astype(np.float32)
+    x = x16.clone().requires_grad_()
+    roi_align(x, torch.from_numpy(rois), (7, 5), 0.5, 2, aligned).backward(g16)
+    assert x.grad.dtype == torch.bfloat16
+    plain = roi_align_backward_plain(g16, torch.from_numpy(rois), tuple(x.shape),
+                                     (7, 5), 0.5, 2, aligned)
+    assert plain.dtype == torch.float32
+    assert torch.equal(x.grad, plain.bfloat16())
+    got = x.grad.float().permute(0, 2, 3, 1).numpy()
+    assert np.abs(want).max() > 0
+    np.testing.assert_allclose(got, want, rtol=2.0 ** -7,
+                               atol=1e-5 * np.abs(want).max())
+
+
 @pytest.mark.parametrize("sr", [2, 0])
 @pytest.mark.parametrize("aligned", [False, True])
 def test_gradcheck_float64(sr, aligned):

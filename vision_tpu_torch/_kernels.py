@@ -80,7 +80,8 @@ _KERNELS: Dict[str, Tuple[str, List[str], Dict[str, list]]] = {
     "roi_align_backward": (
         "roi_align_backward.cu", ["-fmad=false"],
         {"vt_roi_align_backward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                   _I, _F, _I, _I, _P]},
+                                   _I, _F, _I, _I, _I, _P],
+         "vt_roi_align_backward_scratch": [_I, _I, _I, _I, _I, _I, _I]},
     ),
     "window_pool": (
         "window_pool.cu", [],
@@ -90,7 +91,7 @@ _KERNELS: Dict[str, Tuple[str, List[str], Dict[str, list]]] = {
     "window_pool_backward": (
         "window_pool_backward.cu", [],
         {"vt_window_pool_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                     _I, _I, _I, _I, _I, _I, _I, _F, _P],
+                                     _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
          "vt_window_pool_backward_scratch": [_I, _I]},
     ),
 }

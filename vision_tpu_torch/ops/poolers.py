@@ -17,7 +17,8 @@ Two formulations with the same result:
   capacity of ``min(overflow_capacity, K)`` rows, which runs on every
   call.
 
-Both are differentiable in the features (f32): the window pool through
+Both are differentiable in the features (f32 or bf16; a bf16 gradient is
+its f32 sum rounded once): the window pool through
 :class:`_WindowPool`, whose backward pass is the kernel
 ``csrc/window_pool_backward.cu`` on the card (deterministic: no atomics)
 and :func:`window_pool_backward_plain` on the CPU; the dense path through
@@ -193,19 +194,22 @@ def window_pool_backward_cuda(
     div: float = 1.0,
 ) -> torch.Tensor:
     """The kernel of ``csrc/window_pool_backward.cu`` (same contract as
-    :func:`window_pool_backward_plain`; f32 ``grad`` and weights, ``PH, PW
-    <= 16``). Every call on the same inputs gives the same bits: each
+    :func:`window_pool_backward_plain`; an f32 or bf16 ``grad``, f32
+    weights, ``PH, PW <= 16``). The gradient has ``grad``'s type: in bf16
+    the f32 sum rounded once, as the plain version followed by a cast to
+    bf16 rounds it. Every call on the same inputs gives the same bits: each
     element is summed by one thread over the RoIs in the order of a stable
     sort of ``row0``, with no atomics.
 
     It makes no host synchronisation: the RoIs are sorted on the card, and
     the kernel checks each window's bounds there, as the forward does (the
     error surfaces at the next synchronisation)."""
-    if grad.dtype != torch.float32 or w_y.dtype != torch.float32 or (
+    if grad.dtype not in KERNEL_DTYPES or w_y.dtype != torch.float32 or (
         w_x.dtype != torch.float32
     ):
-        raise ValueError("window_pool_backward_cuda takes f32 grad and "
-                         f"weights, got {grad.dtype}, {w_y.dtype}, {w_x.dtype}")
+        raise ValueError("window_pool_backward_cuda takes an f32 or bf16 grad "
+                         f"and f32 weights, got {grad.dtype}, {w_y.dtype}, "
+                         f"{w_x.dtype}")
     tensors = (grad, row0, x0, w_y, w_x)
     if any(t.device != grad.device for t in tensors) or (
         grad.device.type != "cuda"
@@ -229,7 +233,7 @@ def window_pool_backward_cuda(
     grad = grad.contiguous()
     w_y = w_y.contiguous()
     w_x = w_x.contiguous()
-    out = torch.empty(r_rows, wmax, c, dtype=torch.float32, device=grad.device)
+    out = torch.empty(r_rows, wmax, c, dtype=grad.dtype, device=grad.device)
     lib = _kernels.load("window_pool_backward")
     scratch = torch.empty(lib.vt_window_pool_backward_scratch(k, r_rows),
                           dtype=torch.int32, device=grad.device)
@@ -238,7 +242,8 @@ def window_pool_backward_cuda(
             grad.data_ptr(), sorted_row0.data_ptr(), order.data_ptr(),
             row0.data_ptr(), x0.data_ptr(), w_y.data_ptr(), w_x.data_ptr(),
             scratch.data_ptr(), out.data_ptr(), r_rows, wmax, c, k, ph, pw,
-            winy, winx, float(div), _kernels.stream_handle(grad),
+            winy, winx, float(div), int(grad.dtype == torch.bfloat16),
+            _kernels.stream_handle(grad),
         ),
         "window_pool_backward kernel",
     )

@@ -7,9 +7,10 @@ tensors on the CPU. Both follow the JAX package's gather path
 both ways, a fixed ``sampling_ratio > 0`` grid or the adaptive
 ``ceil(roi / pooled)`` grid for ``sampling_ratio <= 0``.
 
-It is differentiable in ``input`` (f32): the backward pass is the kernel
-``csrc/roi_align_backward.cu`` on the card (deterministic: no atomics)
-and :func:`roi_align_backward_plain` on the CPU. The gradient of the
+It is differentiable in ``input`` (f32 or bf16): the backward pass is the
+kernel ``csrc/roi_align_backward.cu`` on the card (deterministic: no
+atomics) and :func:`roi_align_backward_plain` on the CPU; a bf16 gradient
+is its f32 sum rounded once. The gradient of the
 boxes is None, as in torchvision (the JAX package returns zeros,
 ``roi_align.py:431``).
 
@@ -240,16 +241,19 @@ def roi_align_backward_cuda(
     aligned: bool = False,
 ) -> torch.Tensor:
     """The kernel of ``csrc/roi_align_backward.cu`` (same contract as
-    :func:`roi_align_backward_plain`; f32 ``grad`` and boxes). Every call
-    on the same inputs gives the same bits: each element is summed by one
-    thread over the RoIs in index order, with no atomics.
+    :func:`roi_align_backward_plain`; an f32 or bf16 ``grad``, f32 boxes).
+    The gradient has ``grad``'s type: in bf16 the f32 sum rounded once, as
+    the plain version followed by a cast to bf16 rounds it. Every call on
+    the same inputs gives the same bits: each element is summed by one
+    thread over the RoIs in index order (in chunks of a fixed size, added
+    in chunk order, where the map is small), with no atomics.
 
     It makes no host synchronisation. The kernel checks each RoI's batch
     index on the card, as the forward does: one outside ``[0, N)`` stops
     the launch, and the error surfaces at the next synchronisation."""
-    if grad.dtype != torch.float32 or boxes.dtype != torch.float32:
-        raise ValueError("roi_align_backward_cuda takes f32 grad and boxes, "
-                         f"got {grad.dtype} and {boxes.dtype}")
+    if grad.dtype not in KERNEL_DTYPES or boxes.dtype != torch.float32:
+        raise ValueError("roi_align_backward_cuda takes an f32 or bf16 grad "
+                         f"and f32 boxes, got {grad.dtype} and {boxes.dtype}")
     if grad.device.type != "cuda" or boxes.device != grad.device:
         raise ValueError("roi_align_backward_cuda takes CUDA tensors")
     pooled_h, pooled_w = _pair(output_size)
@@ -262,15 +266,21 @@ def roi_align_backward_cuda(
                          f"{tuple(boxes.shape)}")
     grad = grad.contiguous()
     boxes = boxes.contiguous()
-    out = torch.empty(n, c, h, w, dtype=torch.float32, device=grad.device)
-    desc = torch.empty(k, 16, dtype=torch.int32, device=grad.device)
+    out = torch.empty(n, c, h, w, dtype=grad.dtype, device=grad.device)
     lib = _kernels.load("roi_align_backward")
+    floats = lib.vt_roi_align_backward_scratch(n, c, h, w, k, pooled_h,
+                                               pooled_w)
+    if floats < 0:
+        raise ValueError(f"roi_align_backward_cuda: the scratch of {k} RoIs on "
+                         f"a {h}x{w} map passes 2**31 floats")
+    scratch = torch.empty(floats, dtype=torch.float32, device=grad.device)
     _kernels.check(
         lib.vt_roi_align_backward(
-            grad.data_ptr(), boxes.data_ptr(), desc.data_ptr(), out.data_ptr(),
-            n, c, h, w, k,
+            grad.data_ptr(), boxes.data_ptr(), scratch.data_ptr(),
+            out.data_ptr(), n, c, h, w, k,
             pooled_h, pooled_w, float(spatial_scale), int(sampling_ratio),
-            int(bool(aligned)), _kernels.stream_handle(grad),
+            int(bool(aligned)), int(grad.dtype == torch.bfloat16),
+            _kernels.stream_handle(grad),
         ),
         "roi_align_backward kernel",
     )

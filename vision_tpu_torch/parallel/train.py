@@ -2,9 +2,9 @@
 ``vision_tpu/parallel/train.py``: forward in training mode, cross-entropy
 with label smoothing or soft labels, backward, one optimizer update) and
 the two-stage detection step (counterpart of
-``references/detection/engine.py:make_detection_train_step``). The mesh,
-buffer donation and ``reduce_across_devices`` of the JAX package have no
-counterpart here yet.
+``references/detection/engine.py:make_detection_train_step``, f32 or the
+bf16 amp step). The mesh, buffer donation and ``reduce_across_devices`` of
+the JAX package have no counterpart here yet.
 """
 
 from __future__ import annotations
@@ -14,6 +14,8 @@ from typing import Callable, Dict, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from vision_tpu_torch.ops.misc import FrozenBatchNorm2d
 
 __all__ = ["cross_entropy_loss", "make_detection_train_step",
            "make_train_step"]
@@ -98,18 +100,26 @@ def make_detection_train_step(
     (``[N, G, H, W]``, canvas frame, padding rows zero), one for Keypoint
     R-CNN ``"keypoints"`` (``[N, G, K, 3]``, canvas frame); the step hands
     them to ``compute_loss``, and ``loss_mask`` or ``loss_keypoint`` joins
-    the sum and the result. The step puts the model in training mode, sums the losses in f32,
-    runs the backward pass and one update through ``optimizer``; the
+    the sum and the result. The step puts the model in training mode, sums
+    the losses in f32, runs the backward pass and one update through ``optimizer``; the
     samplers draw from ``generator`` (on the model's device). The losses
     stay on the device: reading them is the caller's synchronisation.
 
-    f32 only: ``compute_dtype=torch.bfloat16`` raises, since the backward
-    kernels of the window pool and RoIAlign have no bf16 variant yet
-    (ROADMAP.md, queue 1: amp (bf16) detection training)."""
-    if compute_dtype is not None and compute_dtype != torch.float32:
-        raise NotImplementedError(
-            f"detection training in {compute_dtype} is not ported yet "
-            "(ROADMAP.md, queue 1: amp (bf16) detection training)")
+    ``compute_dtype=torch.bfloat16`` is the JAX recipe's amp step
+    (``references/detection/engine.py:24-37``): the parameters, the frozen
+    batch-norm constants and the image are cast at the step boundary, while
+    the gt boxes, labels, masks and keypoints stay f32, so that all box
+    arithmetic promotes to f32; the losses are summed in f32; the master
+    parameters and the optimizer state stay f32 (the cast is
+    differentiable, so the optimizer sees f32 gradients). The window pool
+    and RoIAlign take their bf16 kernels forward and backward."""
+    loss_of = _LossOf(model)
+    # the frozen batch-norm constants; no other buffer (a live batch norm's
+    # running statistics stay f32, as in the JAX recipe)
+    frozen = {f"{mod_name}.{name}"
+              for mod_name, mod in loss_of.named_modules()
+              if isinstance(mod, FrozenBatchNorm2d)
+              for name, _ in mod.named_buffers(recurse=False)}
 
     def step(batch: Dict[str, torch.Tensor],
              generator: torch.Generator) -> Dict[str, torch.Tensor]:
@@ -117,9 +127,19 @@ def make_detection_train_step(
         optimizer.zero_grad(set_to_none=True)
         extra = {f"gt_{k}": batch[k] for k in ("masks", "keypoints")
                  if k in batch}
-        losses = model.compute_loss(batch["image"], batch["boxes"],
-                                    batch["labels"], batch["valid"], generator,
-                                    **extra)
+        args = (batch["image"], batch["boxes"], batch["labels"],
+                batch["valid"], generator)
+        if compute_dtype is None or compute_dtype == torch.float32:
+            losses = loss_of(*args, **extra)
+        else:
+            cast = {name: p.to(compute_dtype)
+                    for name, p in loss_of.named_parameters()
+                    if p.is_floating_point()}
+            cast.update((name, b.to(compute_dtype))
+                        for name, b in loss_of.named_buffers()
+                        if name in frozen and b.is_floating_point())
+            losses = torch.func.functional_call(
+                loss_of, cast, (args[0].to(compute_dtype), *args[1:]), extra)
         total = sum(v.float() for v in losses.values())
         total.backward()
         optimizer.step()
@@ -127,3 +147,16 @@ def make_detection_train_step(
                 **{k: v.detach() for k, v in losses.items()}}
 
     return step
+
+
+class _LossOf(nn.Module):
+    """``model.compute_loss`` as a module's forward, so that
+    ``torch.func.functional_call`` can swap the model's tensors for one
+    call."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, *args, **kwargs):
+        return self.model.compute_loss(*args, **kwargs)

@@ -1,31 +1,43 @@
-"""Time another version of the NMS, RoIAlign and window-pool kernels against
-the package's own, in one process on one card, on the inputs that the
-Faster R-CNN forward of ``chip_smoke.py`` gives them.
+"""Time another version of the NMS, RoIAlign and window-pool kernels, and
+of the two backward kernels, against the package's own, in one process on
+one card, on the inputs that ``chip_smoke.py``'s paths give them.
 
     python -m vision_tpu_torch.tools.compare_kernel_versions OTHER_DIR
 
-``OTHER_DIR`` holds some of ``nms.cu``, ``roi_align.cu``, ``nms_rowscan.cu``
-and ``window_pool.cu``, with the same C entry points as ``csrc/`` (for
-example the files of an earlier commit, unpacked with ``git archive``);
-each kernel whose source is there is compared. They are built with the
-package's own ``nvcc`` flags into ``OTHER_DIR/build``. The model (seeded
-random weights, ``cls_score`` x30, one seeded 832x832 image, TF32 off)
-runs once as it is, recording the inputs of the bitmask NMS, RoIAlign and
-window-pool wrappers, and once under ``VISION_TPU_NMS_KERNEL=rowscan``,
-recording the row-serial NMS's. RoIAlign gets two more cases on the P2
-call's map and RoIs: ``aligned=True``, and the adaptive grid
-(``sampling_ratio=0``).
+``OTHER_DIR`` holds some of ``nms.cu``, ``roi_align.cu``, ``nms_rowscan.cu``,
+``window_pool.cu``, ``window_pool_backward.cu`` and ``roi_align_backward.cu``
+(for example the files of an earlier commit, unpacked with ``git
+archive``); each kernel whose source is there is compared. They are built
+with the package's own ``nvcc`` flags into ``OTHER_DIR/build``. The forward
+kernels keep the package's C entry points; a backward source may also have
+the f32-only entry points without the ``bf16`` flag (and, for RoIAlign,
+without the scratch function) that the backward kernels had before their
+bf16 variants, told apart by the source's own text.
+
+The forward inputs: the model (seeded random weights, ``cls_score`` x30,
+one seeded 832x832 image, TF32 off) runs once as it is, recording the
+inputs of the bitmask NMS, RoIAlign and window-pool wrappers, and once
+under ``VISION_TPU_NMS_KERNEL=rowscan``, recording the row-serial NMS's.
+RoIAlign gets two more cases on the P2 call's map and RoIs:
+``aligned=True``, and the adaptive grid (``sampling_ratio=0``). The backward
+inputs: one f32 train step of Faster R-CNN (the 7x7 box pooler) and one of
+Mask R-CNN (7x7 and the 14x14 mask pooler) on ``chip_smoke.py``'s training
+batch (two seeded images on the 1344 canvas, seeded gt boxes and masks),
+recording every call of the two backward wrappers.
 
 For each recorded call, the two versions' outputs are compared (NMS masks
-bit for bit, RoIAlign and the window pool within 1e-5 of the largest
-value) and each version's device time is taken in turns (package, other,
-other, package): 20 calls queued behind a spin kernel, over 20. Each NMS
-kernel is also timed on the same boxes at thresholds -1 (every box after
-a row's first is suppressed: what the chain costs with no tests left) and
-2 (every valid box is kept: the most tests), and the bitmask NMS's device
-time is split by kernel (its mask pass and its scan) with
-``torch.profiler``. One JSON line per call, then the card's name and power
-limit. Needs a CUDA device and ``nvcc``.
+bit for bit, the others within 1e-5 of the largest value) and each
+version's device time is taken in turns (package, other, other, package):
+20 calls queued behind a spin kernel, over 20; a backward call's time
+includes its wrapper's device work (the sort of the window origins), the
+same for both versions. Each NMS kernel is also timed on the same boxes at
+thresholds -1 (every box after a row's first is suppressed: what the chain
+costs with no tests left) and 2 (every valid box is kept: the most tests),
+and the bitmask NMS's and the backward kernels' device time is split by
+kernel (the NMS mask pass and scan; the backward passes' describe, sum and
+other kernels, and the wrapper's sort) with ``torch.profiler``. One JSON
+line per call, then the card's name and power limit. Needs a CUDA device
+and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -48,7 +60,18 @@ from vision_tpu_torch.models import get_model
 SPIN_CYCLES = 30_000_000  # ~17 ms: the timed calls queue behind it
 CLS_SCALE = 30.0
 SIZE = 832
-KERNELS = ("nms", "roi_align", "nms_rowscan", "window_pool")
+KERNELS = ("nms", "roi_align", "nms_rowscan", "window_pool",
+           "window_pool_backward", "roi_align_backward")
+BACKWARD = ("window_pool_backward", "roi_align_backward")
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the backward kernels' f32-only C entry points, before the bf16 flag
+_F32_ONLY = {
+    "window_pool_backward": {
+        "vt_window_pool_backward": [_P] * 9 + [_I] * 8 + [_F, _P],
+        "vt_window_pool_backward_scratch": [_I, _I]},
+    "roi_align_backward": {
+        "vt_roi_align_backward": [_P] * 4 + [_I] * 7 + [_F, _I, _I, _P]},
+}
 
 
 def device_ms(fn, launches: int = 20, warmup: int = 2) -> float:
@@ -92,6 +115,16 @@ def kernel_split_ms(fn, calls: int = 20) -> dict:
     return dict(split)
 
 
+def f32_only(name: str, source: Path) -> bool:
+    """Whether a backward source has the entry points without the bf16
+    flag."""
+    if name not in BACKWARD:
+        return False
+    found = re.search(r"extern \"C\" int vt_%s\((.*?)\)" % name,
+                      source.read_text(), re.S)
+    return found is not None and "bf16" not in found.group(1)
+
+
 def build_other(name: str, other: Path) -> ctypes.CDLL:
     source, extra, functions = _kernels._KERNELS[name]
     out = other / "build" / f"lib{name}.so"
@@ -99,6 +132,9 @@ def build_other(name: str, other: Path) -> ctypes.CDLL:
     subprocess.run([_kernels._nvcc(), *_kernels._NVCC_FLAGS, *extra, "-o",
                     str(out), str(other / source)], check=True)
     lib = ctypes.CDLL(str(out))
+    lib.f32_only = f32_only(name, other / source)
+    if lib.f32_only:
+        functions = _F32_ONLY[name]
     for fn, argtypes in functions.items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
@@ -149,8 +185,50 @@ def window_pool(lib, stacked, row0, x0, w_y, w_x, div):
     return out
 
 
+def window_pool_backward(lib, grad, row0, x0, w_y, w_x, size, div):
+    """``window_pool_backward_cuda``'s work on ``lib``'s kernel."""
+    k, c, ph, pw = grad.shape
+    r_rows, wmax = size
+    sorted_row0, order = torch.sort(row0, stable=True)
+    order = order.to(torch.int32)
+    out = torch.empty(r_rows, wmax, c, dtype=grad.dtype, device=grad.device)
+    scratch = torch.empty(lib.vt_window_pool_backward_scratch(k, r_rows),
+                          dtype=torch.int32, device=grad.device)
+    args = [grad.data_ptr(), sorted_row0.data_ptr(), order.data_ptr(),
+            row0.data_ptr(), x0.data_ptr(), w_y.data_ptr(), w_x.data_ptr(),
+            scratch.data_ptr(), out.data_ptr(), r_rows, wmax, c, k, ph, pw,
+            w_y.shape[2], w_x.shape[2], float(div)]
+    if not getattr(lib, "f32_only", False):
+        args.append(int(grad.dtype == torch.bfloat16))
+    _kernels.check(lib.vt_window_pool_backward(
+        *args, _kernels.stream_handle(grad)), "window_pool_backward")
+    return out
+
+
+def roi_align_backward(lib, grad, rois, shape, size, scale, sr, aligned):
+    """``roi_align_backward_cuda``'s work on ``lib``'s kernel."""
+    ph, pw = (size, size) if isinstance(size, int) else size
+    n, c, h, w = shape
+    k = rois.shape[0]
+    out = torch.empty(shape, dtype=grad.dtype, device=grad.device)
+    if getattr(lib, "f32_only", False):
+        scratch = torch.empty(k, 16, dtype=torch.int32, device=grad.device)
+        tail = []
+    else:
+        scratch = torch.empty(lib.vt_roi_align_backward_scratch(
+            n, c, h, w, k, ph, pw), dtype=torch.float32, device=grad.device)
+        tail = [int(grad.dtype == torch.bfloat16)]
+    _kernels.check(lib.vt_roi_align_backward(
+        grad.data_ptr(), rois.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+        n, c, h, w, k, ph, pw, float(scale), int(sr), int(bool(aligned)),
+        *tail, _kernels.stream_handle(grad)), "roi_align_backward")
+    return out
+
+
 RUNNERS = {"nms": nms, "roi_align": roi_align, "nms_rowscan": rowscan,
-           "window_pool": window_pool}
+           "window_pool": window_pool,
+           "window_pool_backward": window_pool_backward,
+           "roi_align_backward": roi_align_backward}
 
 
 def window_stats(stacked, row0, x0, w_y, w_x, div) -> dict:
@@ -232,6 +310,71 @@ def record_inputs() -> dict:
     return calls
 
 
+def record_backward_inputs() -> dict:
+    """The arguments of every call of the two backward wrappers in one f32
+    train step of Faster R-CNN and one of Mask R-CNN (``chip_smoke.py``'s
+    batch and optimizer), as the kernels receive them, each tagged with its
+    step and pooled size."""
+    from vision_tpu_torch.models.detection import (
+        FasterRCNN_ResNet50_FPN_Weights,
+        GeneralizedRCNNTransform,
+    )
+    from vision_tpu_torch.parallel import make_detection_train_step
+    from vision_tpu_torch.tools.detection_request import (
+        raw_images,
+        recipe_optimizer,
+        train_batch,
+    )
+
+    poolers = importlib.import_module("vision_tpu_torch.ops.poolers")
+    roi_mod = importlib.import_module("vision_tpu_torch.ops.roi_align")
+    slots = {"window_pool_backward": (poolers, "window_pool_backward_cuda"),
+             "roi_align_backward": (roi_mod, "roi_align_backward_cuda")}
+    wrappers = {name: getattr(mod, attr) for name, (mod, attr) in slots.items()}
+    calls = {name: [] for name in BACKWARD}
+    step_name = ""
+
+    def recorder(name):
+        def rec(*args):
+            if name == "window_pool_backward":
+                grad, row0, x0, w_y, w_x, size = args[:6]
+                saved = (grad.contiguous().clone(),
+                         row0.to(torch.int32).contiguous(),
+                         x0.to(torch.int32).contiguous(),
+                         w_y.contiguous().clone(), w_x.contiguous().clone(),
+                         tuple(size), args[6] if len(args) > 6 else 1.0)
+            else:
+                saved = tuple(a.contiguous().clone() if torch.is_tensor(a) else a
+                              for a in args)
+            calls[name].append((f"{step_name} {args[0].shape[2]}x"
+                                f"{args[0].shape[3]}", saved))
+            return wrappers[name](*args)
+        return rec
+
+    raw = raw_images()
+    for name, extras in (("fasterrcnn_resnet50_fpn", {}),
+                         ("maskrcnn_resnet50_fpn", {"masks": True})):
+        step_name = name.split("_")[0]
+        with torch.no_grad():
+            batch = train_batch(
+                FasterRCNN_ResNet50_FPN_Weights.COCO_V1.transforms(),
+                GeneralizedRCNNTransform(), raw, **extras)
+        model = get_model(name, seed=0, trainable_backbone_layers=3)
+        optimizer, _ = recipe_optimizer(model)
+        step = make_detection_train_step(model, optimizer)
+        for n, (mod, attr) in slots.items():
+            setattr(mod, attr, recorder(n))
+        try:
+            step(batch, torch.Generator(device="cuda").manual_seed(0))
+            torch.cuda.synchronize()
+        finally:
+            for n, (mod, attr) in slots.items():
+                setattr(mod, attr, wrappers[n])
+        del model, optimizer, step, batch
+        torch.cuda.empty_cache()
+    return calls
+
+
 def main() -> int:
     if len(sys.argv) != 2 or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
@@ -244,12 +387,17 @@ def main() -> int:
         print(f"no kernel source in {other}", file=sys.stderr)
         return 2
     libs = {n: (_kernels.load(n), build_other(n, other)) for n in names}
-    calls = record_inputs()
+    calls = {}
+    if any(n not in BACKWARD for n in names):
+        calls.update({n: [("forward", a) for a in c]
+                      for n, c in record_inputs().items()})
+    if any(n in BACKWARD for n in names):
+        calls.update(record_backward_inputs())
     failed = False
     for name in names:
         run = RUNNERS[name]
         ours, theirs = libs[name]
-        for i, args in enumerate(calls[name]):
+        for i, (where, args) in enumerate(calls[name]):
             got, want = run(ours, *args), run(theirs, *args)
             torch.cuda.synchronize()
             if name in ("nms", "nms_rowscan"):
@@ -262,7 +410,17 @@ def main() -> int:
             turns = [device_ms(lambda lib=lib: run(lib, *args))
                      for lib in (ours, theirs, theirs, ours)]
             extra = {}
-            if name == "window_pool":
+            if name in BACKWARD:
+                extra = {"path": where, "dtype": str(args[0].dtype)[6:],
+                         "kernels_ms": kernel_split_ms(lambda: run(ours, *args)),
+                         "other_kernels_ms": kernel_split_ms(
+                             lambda: run(theirs, *args))}
+                if name == "roi_align_backward":
+                    extra.update(map=list(args[2]), rois=args[1].shape[0],
+                                 call=i)
+                else:
+                    extra.update(rois=args[0].shape[0], pyramid=list(args[5]))
+            elif name == "window_pool":
                 extra = window_stats(*args)
             elif name == "roi_align":
                 extra = {"map": list(args[0].shape), "rois": args[1].shape[0],
@@ -280,7 +438,8 @@ def main() -> int:
                     extra["other_kernels_ms"] = kernel_split_ms(
                         lambda: run(theirs, *args))
             print(json.dumps({
-                "kernel": name, "shape": [list(a.shape) for a in args[:2]],
+                "kernel": name, "other_f32_only": theirs.f32_only,
+                "shape": [list(a.shape) for a in args[:2]],
                 "device_ms": (turns[0] + turns[3]) / 2,
                 "other_device_ms": (turns[1] + turns[2]) / 2,
                 "turns_ms": turns, "max_err": err, "agree": ok, **extra}),

@@ -2,9 +2,9 @@
 ResNet-50-FPN request (or train step) goes, on the card.
 
     python -m vision_tpu_torch.tools.profile_faster_rcnn [--steps 3]
-        [--cell 832 | request_f32 | request_bf16 | train | mask_request_f32
-         | mask_request_bf16 | mask_train | keypoint_request_f32
-         | keypoint_train]
+        [--cell 832 | request_f32 | request_bf16 | train | train_amp
+         | mask_request_f32 | mask_request_bf16 | mask_train | mask_train_amp
+         | keypoint_request_f32 | keypoint_train]
 
 Same model and inputs as ``chip_smoke.py`` (seeded random weights with
 ``cls_score`` scaled x30, TF32 off). ``--cell 832``: one 832x832 f32 image
@@ -17,7 +17,8 @@ transform (a 1344x1344 canvas, batch 2), the model (in bf16 for
 ``make_detection_train_step`` on the training batch of the same two images
 (phase ``faster_rcnn_train``: ``trainable_backbone_layers=3``, the
 recipe's SGD with its warmup, no ``cls_score`` scaling), its loss read
-back. The ``mask_*`` and ``keypoint_*`` cells are the same for
+back; ``train_amp`` the same step with ``compute_dtype=torch.bfloat16``
+(phase ``faster_rcnn_train_amp``). The ``mask_*`` and ``keypoint_*`` cells are the same for
 ``maskrcnn_resnet50_fpn`` (its request pastes the masks into each image,
 ``paste_masks``; its batch carries the gt masks) and
 ``keypointrcnn_resnet50_fpn`` (its batch carries gt keypoints, labels in
@@ -58,9 +59,9 @@ from vision_tpu_torch.tools.detection_request import (
 _MODELS = {"": ("fasterrcnn_resnet50_fpn", 91, {}),
            "mask_": ("maskrcnn_resnet50_fpn", 91, {"masks": True}),
            "keypoint_": ("keypointrcnn_resnet50_fpn", 2, {"keypoints": True})}
-_CELLS = ("832", "request_f32", "request_bf16", "train", "mask_request_f32",
-          "mask_request_bf16", "mask_train", "keypoint_request_f32",
-          "keypoint_train")
+_CELLS = ("832", "request_f32", "request_bf16", "train", "train_amp",
+          "mask_request_f32", "mask_request_bf16", "mask_train",
+          "mask_train_amp", "keypoint_request_f32", "keypoint_train")
 
 # kernel-name fragments -> group, first match wins
 _GROUPS = (
@@ -117,10 +118,13 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     prefix = next(p for p in ("mask_", "keypoint_", "") if args.cell.startswith(p))
     name, classes, extras = _MODELS[prefix]
-    if args.cell.endswith("train"):
+    training = "train" in args.cell
+    if training:
         model = get_model(name, seed=0, trainable_backbone_layers=3)
         optimizer, scheduler = recipe_optimizer(model)
-        train_step = make_detection_train_step(model, optimizer)
+        train_step = make_detection_train_step(
+            model, optimizer, compute_dtype=torch.bfloat16
+            if args.cell.endswith("_amp") else None)
         with torch.no_grad():
             batch = train_batch(FasterRCNN_ResNet50_FPN_Weights.COCO_V1.transforms(),
                                 GeneralizedRCNNTransform(), raw_images(),
@@ -149,7 +153,7 @@ def main() -> None:
             if prefix == "mask_":
                 paste_masks(dets, boxes, raw)
 
-    mode = torch.enable_grad if args.cell.endswith("train") else torch.inference_mode
+    mode = torch.enable_grad if training else torch.inference_mode
     with mode():
         for _ in range(2):
             step()
