@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the nine CUDA kernels of ``vision_tpu_torch`` from ``csrc/`` and
+Builds the eleven CUDA kernels of ``vision_tpu_torch`` from ``csrc/`` and
 drives the port's main paths at full width, TF32 off, seeded random
 weights:
 
@@ -33,6 +33,12 @@ weights:
   (``keypointrcnn_resnet50_fpn``) served in f32 and trained with gt
   keypoints: the window pool, its backward and RoIAlign at the 14x14 head
   shapes, and RoIAlign at the one-channel 28x28 mask targets;
+* the deform-trunk Mask R-CNN (``maskrcnn_resnet50_fpn_deform``, deformable
+  3x3s in C3-C5, 13 a forward) served from the same two images in f32 and
+  in bf16 and trained in f32 and in bf16, with its offset predictors drawn
+  from a seeded normal (offsets of RMS ~1.5 px, some samples outside their
+  maps): the deformable convolution's column kernel and its backward
+  kernels, at each distinct shape of the path;
 * ResNet-50 classification (1000 classes, a batch of 32 224x224 images):
   one eval batch, one batch of 8 uint8 375x500 images through the weights'
   ``ImageClassification`` preset against the CPU, then SGD steps of
@@ -121,10 +127,10 @@ DET_GRADS = ("roi_heads.box_head.fc6.weight", "rpn.head.conv.0.0.weight",
 # pooler kernel's f32 sum, taken in another order, rounds to the
 # neighbouring bf16 value (a step, 2**-8 of a pooled value) and that
 # difference runs through the bf16 heads and, backward, the bf16 trunk, as
-# the served bf16 scores (AMP_SCORE_TOL) do: step 1's losses within 1e-2
-# relative, the gradients within 5e-2 of each one's largest value (a
-# gradient rounds in bf16 forward and backward), later summed losses within
-# LATER_LOSS_TOL. Step 1 against the f32 step: the RPN's two losses (on the
+# the served bf16 scores (AMP_SCORE_TOL) do: step 1's losses and the later
+# steps' summed losses within 1e-2 relative, the gradients within 5e-2 of
+# each one's largest value (a gradient rounds in bf16 forward and
+# backward). Step 1 against the f32 step: the RPN's two losses (on the
 # same anchors and gt) and the summed loss within AMP_VS_F32_TOL; the RoI
 # head's losses follow samples drawn from proposals that bf16 moves, and
 # are printed.
@@ -146,6 +152,19 @@ KEYPOINT_GRADS = DET_GRADS + (
 # there the gate is how far bf16 arithmetic itself moves the masks, the
 # plain bf16 path against the f32 model at the same boxes
 MASK_TOL = 1e-4
+# The deform-trunk Mask R-CNN (maskrcnn_resnet50_fpn_deform): its offset
+# predictors are zero at init, where the model is the plain one, so each
+# phase first draws them from a seeded normal scaled to give offsets of
+# OFFSET_RMS px on its own images (tools/detection_request.py:seed_offsets);
+# a phase fails if the offsets' RMS is under OFFSET_RMS_MIN or no sample
+# falls outside its map. Its train phases also hold these gradients: each
+# stage's deformable conv and offset predictors
+OFFSET_RMS_MIN = 0.25
+DEFORM_PARAMS = 44_982_235  # 44,401,393 + 13 offset predictors (580,842)
+DEFORM_GRADS = MASK_GRADS + ("backbone.body.layer2.0.conv2.weight",
+                             "backbone.body.layer2.0.conv2_offset.weight",
+                             "backbone.body.layer3.1.conv2_offset.weight",
+                             "backbone.body.layer4.2.conv2_offset.weight")
 # Served keypoints: a heatmap whose largest cell leads the next by less
 # than this share of the heatmaps' largest magnitude is a near-tie, where
 # the two paths' f32 round-off may pick the other cell
@@ -216,6 +235,7 @@ class Kernels:
         poolers = importlib.import_module("vision_tpu_torch.ops.poolers")
         roi_align = importlib.import_module("vision_tpu_torch.ops.roi_align")
         conv1x1 = importlib.import_module("vision_tpu_torch.ops._conv1x1_bn")
+        deform = importlib.import_module("vision_tpu_torch.ops.deform_conv")
 
         # name -> (module, wrapper attribute, plain version)
         self.table = {
@@ -232,6 +252,10 @@ class Kernels:
                                      poolers.window_pool_backward_plain),
             "roi_align_backward": (roi_align, "roi_align_backward_cuda",
                                    roi_align.roi_align_backward_plain),
+            "deform_conv": (deform, "deform_im2col_cuda",
+                            deform.deform_im2col_plain),
+            "deform_conv_backward": (deform, "deform_conv_backward_cuda",
+                                     deform.deform_conv_backward_plain),
         }
         self.cuda = {n: getattr(m, a) for n, (m, a, _) in self.table.items()}
         self.plain = {n: p for n, (_, _, p) in self.table.items()}
@@ -247,12 +271,12 @@ class Kernels:
             fn.launches_by_dtype = {}
 
     def launches(self) -> dict:
-        """Each wrapper's count, and the window pool's and RoIAlign's, and
-        their backward kernels', split by variant: ``<name>_f32`` and
-        ``<name>_bf16``."""
+        """Each wrapper's count, and the window pool's and RoIAlign's, the
+        deformable convolution's, and their backward kernels', split by
+        variant: ``<name>_f32`` and ``<name>_bf16``."""
         out = {n: fn.launches for n, fn in self.counted.items()}
         for n in ("window_pool", "roi_align", "window_pool_backward",
-                  "roi_align_backward"):
+                  "roi_align_backward", "deform_conv", "deform_conv_backward"):
             by = self.counted[n].launches_by_dtype
             out[f"{n}_f32"] = by.get("float32", 0)
             out[f"{n}_bf16"] = by.get("bfloat16", 0)
@@ -547,6 +571,8 @@ def main() -> int:
     rows += mask_rcnn_image_phases(kernels)
     rows += mask_rcnn_train_phase(kernels)
     torch.cuda.empty_cache()
+    rows += mask_rcnn_deform_phases(kernels)
+    torch.cuda.empty_cache()
     keypoint_rcnn_phases(kernels)
     torch.cuda.empty_cache()
     rows += resnet50_phases(kernels)
@@ -772,15 +798,18 @@ def faster_rcnn_image_phases(kernels, model):
 
 def det_train_steps(batch, steps, first_step=None, timed=0,
                     name="fasterrcnn_resnet50_fpn", grads=DET_GRADS,
-                    dtype=None):
+                    dtype=None, setup=None, twin=None):
     """A fresh seeded detector ``name`` (R50-FPN,
-    ``trainable_backbone_layers=3``) and ``steps`` SGD steps of
+    ``trainable_backbone_layers=3``; ``setup(model)`` called on it first,
+    where given) and ``steps`` SGD steps of
     ``make_detection_train_step`` (``compute_dtype=dtype``) on ``batch``,
     the samplers drawing from a
     generator on its device seeded with 0; then ``timed`` more steps.
     Returns each step's losses, the gradients of ``grads`` after the first
     step, and the timed steps' wall ms (host clock around a step whose loss
-    is read back)."""
+    is read back), and the peak memory allocated over the timed steps; with
+    ``twin``, also ``twin(model, generator)``'s result from just before
+    each of the ``steps`` steps."""
     import torch
 
     from vision_tpu_torch.models import get_model
@@ -788,6 +817,8 @@ def det_train_steps(batch, steps, first_step=None, timed=0,
     from vision_tpu_torch.tools.detection_request import recipe_optimizer
 
     model = get_model(name, seed=0, trainable_backbone_layers=3)
+    if setup is not None:
+        setup(model)
     optimizer, scheduler = recipe_optimizer(model)
     step = make_detection_train_step(model, optimizer, compute_dtype=dtype)
     gen = torch.Generator(device=batch["image"].device).manual_seed(0)
@@ -796,7 +827,12 @@ def det_train_steps(batch, steps, first_step=None, timed=0,
            "trainable_params": sum(p.numel() for p in model.parameters()
                                    if p.requires_grad),
            "params": sum(p.numel() for p in model.parameters())}
+    out["twin"] = []
     for i in range(steps + timed):
+        if twin is not None and i < steps:
+            out["twin"].append(twin(model, gen))
+        if i == steps:
+            torch.cuda.reset_peak_memory_stats()
         ctx = first_step() if i == 0 and first_step else contextlib.nullcontext()
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -812,32 +848,69 @@ def det_train_steps(batch, steps, first_step=None, timed=0,
             out["grads"] = {n: named[n].grad.clone() for n in grads}
         if not math.isfinite(loss):
             raise RuntimeError(f"{name} train: loss {loss} at step {i}")
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def plain_twin_step(kernels, model, gen, batch, dtype, grads):
+    """One train step through the plain versions from ``model``'s weights
+    and ``gen``'s state, on copies of both (the two are left as they were):
+    its losses and the gradients of ``grads``."""
+    import torch
+
+    from vision_tpu_torch.parallel import make_detection_train_step
+
+    twin = copy.deepcopy(model)
+    params = [p for p in twin.parameters() if p.requires_grad]
+    step = make_detection_train_step(twin, torch.optim.SGD(params, lr=0.0),
+                                     compute_dtype=dtype)
+    g = torch.Generator(device=gen.device)
+    g.set_state(gen.get_state())
+    with kernels.plain_versions():
+        losses = step(batch, g)
+    named = dict(twin.named_parameters())
+    out = ({k: float(v) for k, v in losses.items()},
+           {n: named[n].grad.clone() for n in grads})
+    del twin, step, params
     return out
 
 
 def det_train_phase(kernels, phase, name="fasterrcnn_resnet50_fpn",
-                    grads=DET_GRADS, num_classes=91, f32_first=None, **extras):
+                    grads=DET_GRADS, num_classes=91, f32_first=None,
+                    prepare=None, require=(), **extras):
     """A detector trained on the request's two images (batch 2, the 1344
     canvas, seeded gt boxes; with ``extras`` the gt masks or keypoints of
     ``train_batch``): ``DET_STEPS`` SGD steps through the kernels (the
     first recording every kernel's inputs; the launches counted over all of
-    them) against the same steps through the plain versions, from the same
-    weights and generator state. Step 1: each loss within 1e-4 relative,
-    the gradients of ``grads`` within 1e-3 of each one's largest value (the
-    same samples: the forward up to the pooler is the same, NMS to the
-    bit); the later steps' summed loss within ``LATER_LOSS_TOL`` (each part
-    is printed). Then 5 timed steps after a warm-up.
+    them), each against one step through the plain versions from the same
+    weights and generator state (``plain_twin_step``). Step 1: each loss
+    within 1e-4 relative, the gradients of ``grads`` within 1e-3 of each
+    one's largest value (the same samples: the forward up to the pooler is
+    the same, NMS to the bit); the later steps' summed loss within 1e-4
+    (each part is printed). Then 5 timed steps after a warm-up.
+
+    Each plain step starts where the kernel path stands, not from the plain
+    path's own last step: three steps apart the two trajectories part by
+    more than their round-off, since after an update a RoI whose box sits
+    on a pooler level's or window's edge switches with the last bit, and at
+    this random init a mask RoI's binary cross-entropy is some 18 a pixel,
+    so one RoI moves the mask loss by percents (the deform model's plain
+    path, whose gathers scatter their gradients with atomics, read step-2
+    mask losses of 14.63 and 14.39 in two runs of the same code, the kernel
+    path 14.63 in both).
 
     With ``f32_first`` (the f32 phase's step 1 losses) the steps are the amp
     steps (``compute_dtype=torch.bfloat16``), held against the same bf16
-    steps through the plain versions: step 1's losses within
-    ``AMP_FIRST_LOSS_TOL``, the gradients within ``AMP_GRAD_TOL``, the later
-    summed losses within ``LATER_LOSS_TOL``; and step 1's losses against
-    the f32 step's: the RPN's two and the sum within ``AMP_VS_F32_TOL``
-    (the RoI head's part on samples drawn from other proposals, printed).
-    Every pooler kernel launch must be a bf16 one, but RoIAlign's at the f32
-    mask targets. Returns the recorded calls, the launches and step 1's
-    losses."""
+    steps through the plain versions: each step's losses within
+    ``AMP_FIRST_LOSS_TOL`` (step 1 each loss, later steps the sum), the
+    gradients within ``AMP_GRAD_TOL``; and step 1's losses against the f32
+    step's: the RPN's two and the sum within ``AMP_VS_F32_TOL`` (the RoI
+    head's part on samples drawn from other proposals, printed). Every
+    pooler kernel launch must be a bf16 one, but RoIAlign's at the f32
+    mask targets. ``prepare(model, images)`` readies each fresh model (the
+    deform model's offset predictors), outside the counted launches; the
+    kernels of ``require`` must launch too (in the step's type). Returns
+    the recorded calls, the launches and step 1's losses."""
     import torch
 
     from vision_tpu_torch.models.detection import (
@@ -858,18 +931,23 @@ def det_train_phase(kernels, phase, name="fasterrcnn_resnet50_fpn",
                             num_classes=num_classes, **extras)
     calls: dict = {}
     kernels.reset()
-    torch.cuda.reset_peak_memory_stats()
     amp = f32_first is not None
     dtype = torch.bfloat16 if amp else None
+
+    def setup(model):
+        if prepare is not None:
+            prepare(model, batch["image"])
+        kernels.reset()
+
+    def twin(model, gen):
+        return plain_twin_step(kernels, model, gen, batch, dtype, grads)
+
     run = det_train_steps(batch, DET_STEPS,
                           first_step=lambda: kernels.recording(calls),
                           timed=1 + TIMED_FORWARDS, name=name, grads=grads,
-                          dtype=dtype)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+                          dtype=dtype, setup=setup, twin=twin)
     launches = kernels.launches()
-    with kernels.plain_versions():
-        ref = det_train_steps(batch, DET_STEPS, name=name, grads=grads,
-                              dtype=dtype)
+    ref = {"losses": [t[0] for t in run["twin"]], "grads": run["twin"][0][1]}
     names = list(run["losses"][0])
     loss_rel = [{k: abs(a[k] - b[k]) / max(abs(b[k]), 1e-30) for k in names}
                 for a, b in zip(run["losses"], ref["losses"])]
@@ -896,30 +974,31 @@ def det_train_phase(kernels, phase, name="fasterrcnn_resnet50_fpn",
                    "warmup from 1e-3 over 1000 steps", lr_per_step=run["lr"],
          steps_compared=DET_STEPS, losses=run["losses"][:DET_STEPS],
          plain_losses=ref["losses"], loss_rel_err=loss_rel,
-         first_loss_tol=first_tol, later_loss_tol=LATER_LOSS_TOL,
-         grad_rel_err=grad_rel, grad_tol=grad_tol, ms_per_step_median=ms,
+         loss_tol=first_tol, grad_rel_err=grad_rel, grad_tol=grad_tol,
+         ms_per_step_median=ms,
          images_per_s=len(raw) / ms * 1e3, ms_all=run["ms"],
-         timed_steps=TIMED_FORWARDS, peak_memory_gb=peak_gb,
+         timed_steps=TIMED_FORWARDS, peak_memory_gb=run["peak_gb"],
+         recorded_inputs_gb=sum(a.numel() * a.element_size()
+                                for args in calls.values() for call in args
+                                for a in call if torch.is_tensor(a)) / 1e9,
          launches=launches, **fields)
     tag = "bf16" if amp else "f32"
     require_launched(launches, ("nms", f"window_pool_{tag}",
                                 f"window_pool_backward_{tag}",
-                                f"roi_align_{tag}", f"roi_align_backward_{tag}"),
+                                f"roi_align_{tag}", f"roi_align_backward_{tag}",
+                                *(f"{n}_{tag}" for n in require)),
                      phase)
     if amp and (launches["window_pool_f32"]
                 or launches["window_pool_backward_f32"]
-                or launches["roi_align_backward_f32"]):
-        raise RuntimeError(f"{phase} launched an f32 pooler kernel: {launches}")
+                or launches["roi_align_backward_f32"]
+                or any(launches[f"{n}_f32"] for n in require)):
+        raise RuntimeError(f"{phase} launched an f32 pooler or deform kernel: "
+                           f"{launches}")
     if amp and max(vs_f32[k] for k in AMP_VS_F32_GATED) > AMP_VS_F32_TOL:
         raise RuntimeError(f"{phase}: step 1's losses lie too far from the f32 "
                            f"step's: {vs_f32}")
-    # later steps: the summed loss, as the ResNet-50 phase holds its loss.
-    # Each step samples RoIs from proposals that moved with the last
-    # update's round-off, so one RoI sampled otherwise moves the classifier
-    # loss alone by ~1/1024 of it (step 2); its share grows as that loss
-    # falls (one run read 6.3% at step 3, the sum 1.6%)
     if (max(loss_rel[0].values()) > first_tol
-            or max(r["loss"] for r in loss_rel[1:]) > LATER_LOSS_TOL
+            or max(r["loss"] for r in loss_rel[1:]) > first_tol
             or max(grad_rel.values()) > grad_tol):
         raise RuntimeError(f"{phase}: the kernel train path disagrees with "
                            "the plain path")
@@ -1000,8 +1079,31 @@ def at_size(calls, name, size):
 
 
 def mask_rcnn_image_phases(kernels):
-    """Mask R-CNN served from the two raw images, in f32
-    (``mask_rcnn_images``) and in bf16 (``mask_rcnn_amp``): the request of
+    """Mask R-CNN served from the two raw images (``serve_mask_phases``),
+    then the window pool and the dense fallback's RoIAlign at 14x14 against
+    their plain versions at the requests' inputs."""
+    import torch
+
+    calls, launches_by = serve_mask_phases(
+        kernels, "maskrcnn_resnet50_fpn", ("mask_rcnn_images", "mask_rcnn_amp"))
+    rows = []
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for name in ("window_pool", "roi_align"):
+            cases = [kernel_case(kernels, name, args, f"mask_rcnn ({tag}, 14x14)")
+                     for args in at_size(calls[dtype], name, 14)]
+            rows.append(kernel_row(
+                name, cases, launches_by[tag][f"{name}_{tag}"],
+                row_name=f"{name}_14x14" + ("_bf16" if tag == "bf16" else ""),
+                dtype=str(dtype)[6:],
+                path=f"mask_rcnn_{'amp' if tag == 'bf16' else 'images'} "
+                     "(1344x1344, batch 2; the mask pooler)"))
+    return rows
+
+
+def serve_mask_phases(kernels, name, phases, num_params=None, prepare=None,
+                      require=()):
+    """A Mask R-CNN ``name`` served from the two raw images, in f32
+    (``phases[0]``) and in bf16 (``phases[1]``): the request of
     ``faster_rcnn_images`` with the 28x28 masks of every detection and the
     masks pasted into each image at its own size, each against the same
     request through the plain versions: detections as ``check_detections``
@@ -1009,9 +1111,11 @@ def mask_rcnn_image_phases(kernels):
     detections' boxes: 28x28 and pasted masks within ``MASK_TOL`` in f32;
     in bf16 no further from the plain bf16 masks than those lie from the
     f32 model's masks at the same boxes (bf16 arithmetic's own reach; the
-    masks of the whole plain request are printed beside them). Then the window pool and
-    the dense fallback's RoIAlign at 14x14 against their plain versions at
-    the requests' inputs."""
+    masks of the whole plain request are printed beside them).
+    ``prepare(model, canvas)`` readies the f32 model on the request's
+    canvas first; the kernels of ``require`` must launch too. The model
+    has ``num_params`` parameters (the published Mask R-CNN's when None).
+    Returns the recorded calls of each type and the launches."""
     import torch
 
     from vision_tpu_torch.models.detection import (
@@ -1023,12 +1127,16 @@ def mask_rcnn_image_phases(kernels):
     raw = raw_images()
     preset = MaskRCNN_ResNet50_FPN_Weights.COCO_V1.transforms()
     transform = GeneralizedRCNNTransform()
-    model = scaled_detector("maskrcnn_resnet50_fpn")
+    model = scaled_detector(name)
+    if prepare is not None:
+        with torch.no_grad():
+            prepare(model, transform([preset(r) for r in raw]).tensors)
     params = sum(p.numel() for p in model.parameters())
+    num_params = num_params or MaskRCNN_ResNet50_FPN_Weights.COCO_V1.meta[
+        "num_params"]
     launches_by = {}
     calls = {}
-    for dtype, phase in ((torch.float32, "mask_rcnn_images"),
-                         (torch.bfloat16, "mask_rcnn_amp")):
+    for dtype, phase in zip((torch.float32, torch.bfloat16), phases):
         if dtype == torch.bfloat16:
             model32 = copy.deepcopy(model)
         model.to(dtype)
@@ -1075,7 +1183,7 @@ def mask_rcnn_image_phases(kernels):
                 mask_mean_abs_err=float((dets.masks[valid].float()
                                          - same_boxes.masks[valid].float()).abs().mean()))
             del model32
-        emit(phase, model="maskrcnn_resnet50_fpn", params=params,
+        emit(phase, model=name, params=params,
              dtype=str(dtype)[6:], masks_dtype=str(dets.masks.dtype)[6:],
              images=[list(r.shape) for r in raw], canvas=list(transform.fixed_size),
              image_sizes=batch.image_sizes, ms_per_img_median=statistics.median(times),
@@ -1083,33 +1191,23 @@ def mask_rcnn_image_phases(kernels):
              mask_max_abs_err=mask_err, pasted_max_abs_err=pasted_err,
              mask_tol=tol, mask_max_abs_err_vs_plain_request=ref_err,
              shapes_ok=shapes_ok, finite=finite, **fields)
-        if (params != MaskRCNN_ResNet50_FPN_Weights.COCO_V1.meta["num_params"]
-                or not shapes_ok or not finite):
+        if params != num_params or not shapes_ok or not finite:
             raise RuntimeError(f"{phase}: wrong parameter count, mask shapes or "
                                "non-finite masks")
         require_launched(launches, ("nms", f"window_pool_{tag}",
-                                    f"roi_align_{tag}"), phase)
-        if bf16 and (launches["window_pool_f32"] or launches["roi_align_f32"]):
-            raise RuntimeError(f"{phase} launched an f32 pooler kernel: {launches}")
+                                    f"roi_align_{tag}",
+                                    *(f"{n}_{tag}" for n in require)), phase)
+        if bf16 and (launches["window_pool_f32"] or launches["roi_align_f32"]
+                     or any(launches[f"{n}_f32"] for n in require)):
+            raise RuntimeError(f"{phase} launched an f32 pooler or deform "
+                               f"kernel: {launches}")
         if not (mask_err <= tol and pasted_err <= tol):
             raise RuntimeError(f"{phase}: masks differ from the plain path's")
         check_mapped_boxes(boxes, raw)
         launches_by[tag] = launches
     del model
     torch.cuda.empty_cache()
-
-    rows = []
-    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        for name in ("window_pool", "roi_align"):
-            cases = [kernel_case(kernels, name, args, f"mask_rcnn ({tag}, 14x14)")
-                     for args in at_size(calls[dtype], name, 14)]
-            rows.append(kernel_row(
-                name, cases, launches_by[tag][f"{name}_{tag}"],
-                row_name=f"{name}_14x14" + ("_bf16" if tag == "bf16" else ""),
-                dtype=str(dtype)[6:],
-                path=f"mask_rcnn_{'amp' if tag == 'bf16' else 'images'} "
-                     "(1344x1344, batch 2; the mask pooler)"))
-    return rows
+    return calls, launches_by
 
 
 def mask_rcnn_train_phase(kernels):
@@ -1226,6 +1324,317 @@ def keypoint_rcnn_phases(kernels):
                     num_classes=2, keypoints=True)
 
 
+def seed_deform_offsets(model, images) -> None:
+    """``seed_offsets`` on ``images``, its per-predictor RMS printed."""
+    from vision_tpu_torch.tools.detection_request import OFFSET_RMS, seed_offsets
+
+    rms = seed_offsets(model, images, rms=OFFSET_RMS)
+    emit("deform_offsets_seeded", target_rms=OFFSET_RMS, predictors=len(rms),
+         rms_per_predictor=rms, images=list(images.shape))
+
+
+def offset_stats(calls, phase) -> dict:
+    """Over the recorded deformable-conv calls of one forward: the offsets'
+    RMS (px), the share of samples outside their map (not strictly inside
+    (-1, H) x (-1, W)) and the share of corners that are invalid (of the
+    samples' four corners, those outside the map, the outside samples'
+    included). Fails the phase if the RMS is under ``OFFSET_RMS_MIN`` or no
+    sample falls outside its map."""
+    import torch
+
+    from vision_tpu_torch.ops.deform_conv import sample_positions
+
+    sq = n_off = outside = samples = bad = 0.0
+    for x, off, _mask, k, stride, pad, dil in calls:
+        h, w = x.shape[-2:]
+        y, xx = sample_positions(off, k, stride, pad, dil)
+        ins = (y > -1) & (y < h) & (xx > -1) & (xx < w)
+        yl, xl = torch.floor(y), torch.floor(xx)
+        vy = [(yl >= 0), (yl + 1 <= h - 1)]
+        vx = [(xl >= 0), (xl + 1 <= w - 1)]
+        valid = sum((ins & a & b).sum() for a in vy for b in vx)
+        sq += float(off.float().pow(2).sum())
+        n_off += off.numel()
+        outside += float((~ins).sum())
+        samples += ins.numel()
+        bad += 4 * ins.numel() - float(valid)
+    out = dict(offset_rms=math.sqrt(sq / n_off), samples_outside=outside / samples,
+               corners_invalid=bad / (4 * samples), calls=len(calls),
+               rms_min=OFFSET_RMS_MIN)
+    emit("deform_offsets", path=phase, **out)
+    if out["offset_rms"] < OFFSET_RMS_MIN or outside == 0:
+        raise RuntimeError(f"{phase}: the offsets are not real: {out}")
+    return out
+
+
+def deform_key(args):
+    """A deformable-conv call's shape: its input's and its offsets' (which
+    give the stride)."""
+    return (tuple(args[0].shape), tuple(args[1].shape))
+
+
+def distinct(calls):
+    """The first call of each distinct shape, and how often each came."""
+    first, count = {}, {}
+    for args in calls:
+        key = deform_key(args)
+        first.setdefault(key, args)
+        count[key] = count.get(key, 0) + 1
+    return [(first[k], count[k]) for k in first]
+
+
+def deform_work(args):
+    """Bytes: the input, the offsets (and mask) read once, the f32 columns
+    written once. Operations: per column element the four products, three
+    sums (and the mask's product), in f32."""
+    x, off, mask, k = args[:4]
+    n, _, oh, ow = off.shape
+    cols = n * oh * ow * k[0] * k[1] * x.shape[1]
+    nbytes = (x.numel() * x.element_size() + off.numel() * off.element_size()
+              + (0 if mask is None else mask.numel() * mask.element_size())
+              + cols * 4)
+    return nbytes, cols * (8 if mask is not None else 7), PEAK_F32_FLOPS
+
+
+def deform_backward_work(args):
+    """Bytes: the input, the offsets (and mask) and ``g_cols`` read once,
+    the input's gradient (its type) and the offsets' (and mask's) gradients
+    (f32) written once. Operations, per column element: the input's
+    gradient (two products and a sum a corner: 12), the offsets'
+    (four differences, four products, two sums and the two running sums:
+    12) and the mask's (8), in f32."""
+    x, off, mask, g_cols = args[:4]
+    nbytes = (2 * x.numel() * x.element_size() + off.numel() * (
+        off.element_size() + 4) + g_cols.numel() * 4
+        + (0 if mask is None else mask.numel() * (mask.element_size() + 4)))
+    return nbytes, g_cols.numel() * (32 if mask is not None else 24), PEAK_F32_FLOPS
+
+
+def deform_case(kernels, args, path, count, **meta):
+    """The column kernel against its plain version on the card at one
+    recorded call: within 1e-5 of the largest plain value in f32 and with a
+    bf16 input (the columns are f32 in both: a bf16 input is widened
+    exactly), its bits compared and printed; ``ms``, ``device_ms`` and the
+    plain version's ms of one call, ``count`` calls a forward."""
+    import torch
+
+    got = kernels.cuda["deform_conv"](*args)
+    want = kernels.plain["deform_conv"](*args)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(got, want))
+    del got, want
+    err, rel, ms, dev_ms, plain_ms = compare_kernel(
+        kernels.cuda["deform_conv"], kernels.plain["deform_conv"], args)
+    nbytes, ops, peak = deform_work(args)
+    b_ms, b_by = bound_ms(nbytes, ops, peak)
+    case = dict(kernel="deform_conv", path=path, dtype=str(args[0].dtype)[6:],
+                shape=[list(args[0].shape), list(args[1].shape)],
+                stride=args[4], mask=args[2] is not None, calls_per_forward=count,
+                **meta, same_bits=same, max_abs_err=err, max_rel_err=rel,
+                tol=1e-5, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by,
+                bytes_bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
+                operations_bound_ms=ops / peak * 1e3)
+    emit("kernel_case", **case)
+    if rel > 1e-5:
+        raise RuntimeError(f"deform_conv ({path}) disagrees with its plain "
+                           f"version: {rel} > 1e-5")
+    return case
+
+
+def deform_backward_case(kernels, args, path, count, **meta):
+    """The backward kernels at one recorded call: the same bits on a second
+    call, and against the plain version in f64 on the card (sample
+    positions f32, as always): each gradient in f32 within 1e-5 of the
+    largest sum of its terms' magnitudes (its f32 sum's error scales with
+    that, not with the result); the bf16 input's gradient within one bf16
+    step of the exact value plus that. Times as ``deform_case``."""
+    import torch
+
+    cuda, plain = kernels.cuda["deform_conv_backward"], kernels.plain[
+        "deform_conv_backward"]
+    first, again = cuda(*args), cuda(*args)
+    torch.cuda.synchronize()
+    same = all((a is None and b is None) or bool(torch.equal(a, b))
+               for a, b in zip(first, again))
+    del again
+    x, off, mask, g = args[:4]
+    rest = args[4:]
+    exact = plain(x.double(), off, None if mask is None else mask.double(),
+                  g.double(), *rest)
+    mags = deform_backward_magnitudes(x, off, mask, g, *rest)
+    names = ("input", "offset", "mask")
+    errs, gates = {}, {}
+    for nm, got, want, mag in zip(names, first, exact, mags):
+        if want is None:
+            continue
+        diff = (got.double() - want).abs()
+        m = float(mag.max())
+        errs[nm] = float(diff.max())
+        if nm == "input" and got.dtype == torch.bfloat16:
+            step = 2.0 ** -7 * want.abs() + 1e-5 * m
+            gates[nm] = float((diff / step.clamp(min=1e-30)).max())
+        else:
+            gates[nm] = float(diff.max()) / max(m, 1e-30)
+    del first, exact, mags
+    bf16 = x.dtype == torch.bfloat16
+    ms = cuda_ms(lambda: cuda(*args))
+    dev_ms = device_ms(lambda: cuda(*args))
+    plain_ms = cuda_ms(lambda: plain(*args), reps=5, warmup=1)
+    nbytes, ops, peak = deform_backward_work(args)
+    b_ms, b_by = bound_ms(nbytes, ops, peak)
+    tols = {nm: (1.0 if nm == "input" and bf16 else 1e-5) for nm in gates}
+    case = dict(kernel="deform_conv_backward", path=path,
+                dtype=str(x.dtype)[6:], shape=[list(x.shape), list(off.shape)],
+                stride=args[5], mask=mask is not None, calls_per_step=count,
+                **meta, same_bits_twice=same, max_abs_err_vs_f64=errs,
+                gate=gates, gate_tol=tols,
+                max_abs_err=max(errs.values()), ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                bytes_bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
+                operations_bound_ms=ops / peak * 1e3)
+    emit("kernel_case", **case)
+    if not same:
+        raise RuntimeError(f"deform_conv_backward ({path}): two calls on the "
+                           "same inputs differ")
+    if any(gates[nm] > tols[nm] for nm in gates):
+        raise RuntimeError(f"deform_conv_backward ({path}) disagrees with its "
+                           f"plain version: {gates}")
+    return case
+
+
+def deform_backward_magnitudes(x, off, mask, g, k, stride, pad, dil):
+    """In f64, per gradient element the sum of its terms' magnitudes: the
+    input's, |g| m w scattered (the plain backward of |g|); the offsets',
+    sum over the channels of |g| m (hx |v1| + lx |v2| + hx |v3| + lx |v4|)
+    in y and (hy |v1| + hy |v2| + ly |v3| + ly |v4|) in x; the mask's, sum
+    of |g| (w1 |v1| + ... + w4 |v4|)."""
+    import torch
+
+    from vision_tpu_torch.ops.deform_conv import (
+        _corners,
+        deform_conv_backward_plain,
+    )
+
+    m64 = None if mask is None else mask.double()
+    gi = deform_conv_backward_plain(x.double(), off, m64, g.double().abs(), k,
+                                    stride, pad, dil)[0]
+    (v1, v2, v3, v4), (hy, ly, hx, lx) = _corners(x.double().abs(), off, k,
+                                                  stride, pad, dil)
+    n, og, k2, oh, ow, cg = v1.shape
+    ga = g.double().abs().reshape(n, oh, ow, k2, og, cg).permute(0, 4, 3, 1, 2, 5)
+    mm = 1.0 if mask is None else m64.reshape(n, og, k2, oh, ow)
+    my = (ga * (hx[..., None] * (v1 + v3) + lx[..., None] * (v2 + v4))).sum(-1) * mm
+    mx = (ga * (hy[..., None] * (v1 + v2) + ly[..., None] * (v3 + v4))).sum(-1) * mm
+    go = torch.stack([my, mx], 3).reshape(off.shape)
+    gm = None
+    if mask is not None:
+        gm = (ga * ((hy * hx)[..., None] * v1 + (hy * lx)[..., None] * v2
+                    + (ly * hx)[..., None] * v3 + (ly * lx)[..., None] * v4)
+              ).sum(-1).reshape(mask.shape)
+    return gi, go, gm
+
+
+def deform_rows(kernels, calls, launches, phase, row_name, backward=False,
+                modulated=None):
+    """The deformable convolution's row (or its backward's) at the recorded
+    calls of one forward (one step): a case a distinct shape, its times
+    weighted by its calls; with ``modulated`` also one case at that call
+    with a seeded mask (in the row's error, not its times)."""
+    import torch
+
+    case_fn = deform_backward_case if backward else deform_case
+    name = "deform_conv_backward" if backward else "deform_conv"
+    cases, weighted = [], []
+    for args, count in distinct(calls):
+        c = case_fn(kernels, args, phase, count)
+        cases.append(c)
+        weighted.append(dict(c, **{k: c[k] * count for k in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "bytes_bound_ms",
+            "operations_bound_ms")}))
+    extra = {}
+    if modulated is not None:
+        args = list(modulated)
+        x, off = args[:2]
+        gen = torch.Generator(device=x.device).manual_seed(7)
+        n, _, oh, ow = off.shape
+        args[2] = torch.rand(n, off.shape[1] // 2, oh, ow, device=x.device,
+                             generator=gen).to(off.dtype)
+        c = case_fn(kernels, tuple(args), phase + " (seeded DCNv2 mask)", 0,
+                    modulated=True)
+        extra = dict(modulated_case=dict(
+            max_abs_err=c["max_abs_err"], ms=c["ms"], device_ms=c["device_ms"],
+            plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
+            shape=c["shape"]))
+    row = kernel_row(name, weighted, launches, row_name=row_name,
+                     dtype=cases[0]["dtype"], path=f"{phase} (1344x1344, batch 2)",
+                     distinct_shapes=len(cases), calls=len(calls),
+                     **{"calls_per_step" if backward else "calls_per_forward":
+                        len(calls)}, **extra)
+    if modulated is not None:
+        row["max_abs_err"] = max(row["max_abs_err"], extra["modulated_case"][
+            "max_abs_err"])
+    if backward:
+        row["same_bits_twice"] = all(c["same_bits_twice"] for c in cases)
+    return row
+
+
+def mask_rcnn_deform_phases(kernels):
+    """``maskrcnn_resnet50_fpn_deform`` (DCNv1 in C3-C5, 13 deformable 3x3s
+    a forward) with its offset predictors seeded (``seed_deform_offsets``):
+    served from the two raw images in f32 (``mask_rcnn_deform_images``) and
+    bf16 (``mask_rcnn_deform_amp``), as ``serve_mask_phases`` holds the
+    Mask R-CNN requests, and trained in f32 (``mask_rcnn_deform_train``)
+    and bf16 (``mask_rcnn_deform_train_amp``), as ``det_train_phase`` holds
+    the train steps, with the gradients of ``DEFORM_GRADS``; each phase
+    through both deform kernels; the offsets' statistics of the request and
+    of the train step. Then the column kernel at each distinct shape of the
+    requests (f32 and bf16 input; one C4 call again with a seeded DCNv2
+    mask), and the backward kernels at each of the train steps'."""
+    import torch
+
+    calls, launches = serve_mask_phases(
+        kernels, "maskrcnn_resnet50_fpn_deform",
+        ("mask_rcnn_deform_images", "mask_rcnn_deform_amp"),
+        num_params=DEFORM_PARAMS, prepare=seed_deform_offsets,
+        require=("deform_conv",))
+    per_forward = [a for a in calls[torch.float32]["deform_conv"]][:13]
+    offset_stats(per_forward, "mask_rcnn_deform_images")
+    c4 = [a for a in per_forward if a[0].shape[1] == 256][1]
+    rows = [
+        deform_rows(kernels, per_forward, launches["f32"]["deform_conv_f32"],
+                    "mask_rcnn_deform_images", "deform_conv", modulated=c4),
+        deform_rows(kernels, calls[torch.bfloat16]["deform_conv"][:13],
+                    launches["bf16"]["deform_conv_bf16"],
+                    "mask_rcnn_deform_amp", "deform_conv_bf16"),
+    ]
+    del calls, per_forward, c4
+    torch.cuda.empty_cache()
+
+    train, tlaunches, first = det_train_phase(
+        kernels, "mask_rcnn_deform_train", name="maskrcnn_resnet50_fpn_deform",
+        grads=DEFORM_GRADS, masks=True, prepare=seed_deform_offsets,
+        require=("deform_conv", "deform_conv_backward"))
+    offset_stats(train["deform_conv"][:13], "mask_rcnn_deform_train")
+    bwd = train["deform_conv_backward"]
+    c4 = [a for a in bwd if a[0].shape[1] == 256][1]
+    rows.append(deform_rows(kernels, bwd, tlaunches["deform_conv_backward_f32"],
+                            "mask_rcnn_deform_train", "deform_conv_backward",
+                            backward=True, modulated=c4))
+    del train, bwd, c4
+    torch.cuda.empty_cache()
+    train, tlaunches, _ = det_train_phase(
+        kernels, "mask_rcnn_deform_train_amp",
+        name="maskrcnn_resnet50_fpn_deform", grads=DEFORM_GRADS,
+        f32_first=first, masks=True, prepare=seed_deform_offsets,
+        require=("deform_conv", "deform_conv_backward"))
+    rows.append(deform_rows(kernels, train["deform_conv_backward"],
+                            tlaunches["deform_conv_backward_bf16"],
+                            "mask_rcnn_deform_train_amp",
+                            "deform_conv_backward_bf16", backward=True))
+    return rows
+
+
 def check_mapped_boxes(boxes, raw) -> None:
     """``postprocess_boxes`` gave each image [100, 4] finite f32 boxes."""
     import torch
@@ -1251,6 +1660,11 @@ SOURCES = {
                              "vision_tpu/ops/poolers.py:82"),
     "roi_align_backward": ("vision_tpu_torch/csrc/roi_align_backward.cu",
                            "vision_tpu/ops/roi_align.py:420"),
+    # no pallas_call: XLA gathers and an einsum, differentiated by XLA
+    "deform_conv": ("vision_tpu_torch/csrc/deform_conv.cu",
+                    "vision_tpu/ops/deform_conv.py:88"),
+    "deform_conv_backward": ("vision_tpu_torch/csrc/deform_conv_backward.cu",
+                             "vision_tpu/ops/deform_conv.py:88"),
 }
 WORK = {"nms": nms_work, "nms_rowscan": nms_work, "window_pool": window_work,
         "roi_align": roi_work, "window_pool_backward": window_backward_work,

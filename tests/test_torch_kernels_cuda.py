@@ -28,6 +28,15 @@ another order); in bf16 (a bf16 output gradient, f32 sums, the gradient
 rounded once) within one bf16 step of the plain version's f32 sum rounded
 to bf16, plus 1e-5 of the largest value; in both, bit-identical across
 calls on the same inputs.
+
+The deformable convolution's column kernel against its plain version: the
+same bits in f32 and in bf16 (a bf16 input is widened exactly, and the
+kernel, built with -fmad=false, rounds each product and sum as the plain
+version does). Its backward kernels: the same bits on a second call; the
+input's gradient in f32 within 1e-5 of the largest plain value, in bf16
+within one bf16 step of the plain f32 sum rounded to bf16 plus 1e-5 of the
+largest value; the offsets' and the mask's gradients (f32 sums over the
+channels in another order) within 1e-5 of their largest plain value.
 """
 
 import os
@@ -62,6 +71,13 @@ from vision_tpu_torch.ops.poolers import (
     window_pool_plain,
 )
 from vision_tpu_torch.models.detection import GeneralizedRCNNTransform
+from vision_tpu_torch.ops.deform_conv import (
+    deform_conv2d,
+    deform_conv_backward_cuda,
+    deform_conv_backward_plain,
+    deform_im2col_cuda,
+    deform_im2col_plain,
+)
 from vision_tpu_torch.ops.roi_align import (
     roi_align_backward_cuda,
     roi_align_backward_plain,
@@ -344,7 +360,8 @@ def test_roi_align_bf16_kernel_at_pyramid_shapes(dev, size, k, sr):
 
 def test_kernels_make_no_host_synchronisation(dev):
     """Under the sync debug mode "error", any PyTorch operation that waits
-    for the card raises; no wrapper does, in f32 or in bf16."""
+    for the card raises; no wrapper does, in f32 or in bf16 (the deformable
+    convolution's backward with its sort and search included)."""
     rng = np.random.RandomState(5)
     args = [t.to(dev) for t in _window_case(rng, 20, 64, 7, 32, 32)]
     args16 = [args[0].bfloat16(), *args[1:]]
@@ -353,6 +370,11 @@ def test_kernels_make_no_host_synchronisation(dev):
     feat16 = feat.bfloat16()
     gw = torch.randn(20, 64, 7, 7, device=dev)
     gr = torch.randn(64, 16, 7, 7, device=dev)
+    dc = [t.to(dev) for t in _deform_case(rng, 2, 8, 9, 11, 1, 2, 1, 1, True)]
+    dc16 = [dc[0].bfloat16(), *dc[1:]]
+    gc = torch.randn(2, 9, 11, 9, 8, device=dev)
+    deform_im2col_cuda(*dc, 3, 1, 1, 1)
+    deform_conv_backward_cuda(*dc, gc, 3, 1, 1, 1)
     window_pool_cuda(*args)  # builds the kernels outside the checked region
     window_pool_cuda(*args16)
     nms_keep_sorted_rowscan_cuda(boxes, valid, 0.5)
@@ -380,6 +402,10 @@ def test_kernels_make_no_host_synchronisation(dev):
                                   tuple(args[0].shape[:2]))
         roi_align_backward_cuda(gr.bfloat16(), rois, tuple(feat.shape), 7,
                                 1 / 16, 2, False)
+        deform_im2col_cuda(*dc, 3, 1, 1, 1)
+        deform_im2col_cuda(*dc16, 3, 1, 1, 1)
+        deform_conv_backward_cuda(*dc, gc, 3, 1, 1, 1)
+        deform_conv_backward_cuda(*dc16, gc, 3, 1, 1, 1)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
@@ -1071,3 +1097,120 @@ def test_roi_align_kernel_at_the_mask_target_shape(dev):
                       for i in range(0, 1024, 128)])
     assert got.shape == (1024, 1, 28, 28)
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+# ---------------------------------------------------------------- deform
+
+
+def _deform_case(rng, n, c, h, w, stride, og, pad, dil, with_mask, k=3,
+                 spread=1.5):
+    """A seeded input ``[n, c, h, w]``, offsets of RMS ``spread`` px with
+    one in 20 sent 3 maps away (outside the map) and one in 20 on an exact
+    integer, and a mask in (0, 1) (or None)."""
+    oh = (h + 2 * pad - (dil * (k - 1) + 1)) // stride + 1
+    ow = (w + 2 * pad - (dil * (k - 1) + 1)) // stride + 1
+    x = rng.randn(n, c, h, w).astype(np.float32)
+    off = (rng.randn(n, 2 * og * k * k, oh, ow) * spread).astype(np.float32)
+    pick = rng.rand(*off.shape)
+    off[pick < 0.05] = 3.0 * max(h, w) * np.sign(off[pick < 0.05])
+    off[pick > 0.95] = np.round(off[pick > 0.95])
+    mask = rng.rand(n, og * k * k, oh, ow).astype(np.float32) if with_mask else None
+    return (torch.from_numpy(x), torch.from_numpy(off),
+            None if mask is None else torch.from_numpy(mask))
+
+
+# (n, c, h, w, stride, og, pad, dil, mask): small maps with samples outside
+# them, C not a multiple of 4, two offset groups, stride 2, dilation; then
+# the C3 shapes of Mask R-CNN on the 1344 canvas, batch 2 (the first block's
+# stride-2 call on the 336x336 map, and the others' on 168x168)
+DEFORM_CASES = [
+    (2, 8, 9, 11, 1, 1, 1, 1, False),
+    (1, 6, 10, 7, 2, 2, 1, 1, True),
+    (2, 5, 8, 8, 1, 1, 2, 2, True),
+    (1, 64, 20, 24, 2, 1, 1, 1, False),
+    (2, 128, 336, 336, 2, 1, 1, 1, False),
+    (2, 128, 168, 168, 1, 1, 1, 1, True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", DEFORM_CASES)
+def test_deform_im2col_kernel_matches_plain(dev, case, dtype):
+    """The columns, every element written: the plain version's bits (f32,
+    and bf16 widened), for both input types."""
+    n, c, h, w, stride, og, pad, dil, with_mask = case
+    rng = np.random.RandomState(200 + c + h)
+    x, off, mask = (None if t is None else t.to(dev)
+                    for t in _deform_case(rng, *case))
+    x = x.to(dtype)
+    before = deform_im2col_cuda.launches
+    got = deform_im2col_cuda(x, off, mask, 3, stride, pad, dil)
+    want = deform_im2col_plain(x, off, mask, 3, stride, pad, dil)
+    torch.cuda.synchronize()
+    assert deform_im2col_cuda.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.equal(got, want), float((got - want).abs().max())
+    # samples outside the map give zero columns
+    assert bool((got == 0).any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", DEFORM_CASES)
+def test_deform_backward_kernel_matches_plain(dev, case, dtype):
+    """The input's, the offsets' and the mask's gradients: the same bits
+    twice, against the plain version's (autograd of the plain columns) on
+    the card."""
+    n, c, h, w, stride, og, pad, dil, with_mask = case
+    rng = np.random.RandomState(300 + c + h)
+    x, off, mask = (None if t is None else t.to(dev)
+                    for t in _deform_case(rng, *case))
+    x = x.to(dtype)
+    oh, ow = off.shape[-2:]
+    g = torch.randn(n, oh, ow, 9, c, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(c))
+    before = deform_conv_backward_cuda.launches
+    first = deform_conv_backward_cuda(x, off, mask, g, 3, stride, pad, dil)
+    again = deform_conv_backward_cuda(x, off, mask, g, 3, stride, pad, dil)
+    want = deform_conv_backward_plain(x, off, mask, g, 3, stride, pad, dil)
+    torch.cuda.synchronize()
+    assert deform_conv_backward_cuda.launches == before + 2
+    for a, b in zip(first, again):
+        assert (a is None and b is None) or torch.equal(a, b)
+    gi, go, gm = first
+    assert gi.dtype == dtype and gi.shape == x.shape
+    assert go.dtype == torch.float32 and go.shape == off.shape
+    assert (gm is None) == (mask is None)
+    if dtype == torch.bfloat16:
+        _bf16_backward_close(gi, want[0])
+    else:
+        assert float((gi - want[0]).abs().max()) <= 1e-5 * float(
+            want[0].abs().max())
+    for got_t, want_t in zip(first[1:], want[1:]):
+        if want_t is not None:
+            assert float((got_t - want_t).abs().max()) <= 1e-5 * float(
+                want_t.abs().max())
+    # samples outside the map carry no offset gradient
+    assert bool((go == 0).any())
+
+
+def test_deform_conv2d_routes_by_device(dev):
+    """A CUDA tensor launches the kernels (forward, and backward once a
+    gradient is asked for) and never the plain versions' path; the same
+    call on CPU tensors launches nothing."""
+    rng = np.random.RandomState(7)
+    x, off, mask = _deform_case(rng, 1, 8, 9, 9, 1, 1, 1, 1, True)
+    weight = torch.from_numpy(rng.randn(4, 8, 3, 3).astype(np.float32))
+    counts = (deform_im2col_cuda.launches, deform_conv_backward_cuda.launches)
+    deform_conv2d(x, off, weight, None, 1, 1, 1, mask)
+    assert counts == (deform_im2col_cuda.launches,
+                      deform_conv_backward_cuda.launches)
+    xd = x.to(dev).requires_grad_(True)
+    out = deform_conv2d(xd, off.to(dev), weight.to(dev), None, 1, 1, 1,
+                        mask.to(dev))
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert (deform_im2col_cuda.launches, deform_conv_backward_cuda.launches
+            ) == (counts[0] + 1, counts[1] + 1)
+    want = deform_conv2d(x, off, weight, None, 1, 1, 1, mask)
+    assert float((out.cpu() - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())

@@ -43,8 +43,9 @@ _F = ctypes.c_float
 
 # name -> (source, extra nvcc flags, {C function: argtypes}).
 # -fmad=false keeps each float operation rounded on its own, as the plain
-# PyTorch versions round them, so NMS keep masks agree bit for bit and the
-# RoIAlign sample positions (forward and backward) agree to the last place.
+# PyTorch versions round them, so NMS keep masks agree bit for bit, the
+# RoIAlign sample positions (forward and backward) agree to the last place,
+# and the deformable convolution's columns are the plain version's bits.
 _KERNELS: Dict[str, Tuple[str, List[str], Dict[str, list]]] = {
     "matmul_stats": (
         "matmul_stats.cu", [],
@@ -82,6 +83,15 @@ _KERNELS: Dict[str, Tuple[str, List[str], Dict[str, list]]] = {
         {"vt_roi_align_backward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                    _I, _F, _I, _I, _I, _P],
          "vt_roi_align_backward_scratch": [_I, _I, _I, _I, _I, _I, _I]},
+    ),
+    "deform_conv": (
+        "deform_conv.cu", ["-fmad=false"],
+        {"vt_deform_im2col": [_P, _P, _P, _P] + [_I] * 15 + [_I, _P]},
+    ),
+    "deform_conv_backward": (
+        "deform_conv_backward.cu", ["-fmad=false"],
+        {"vt_deform_scatter_keys": [_P, _P] + [_I] * 15 + [_P],
+         "vt_deform_backward": [_P] * 9 + [_I] * 15 + [_I, _P]},
     ),
     "window_pool": (
         "window_pool.cu", [],

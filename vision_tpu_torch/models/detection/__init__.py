@@ -17,6 +17,7 @@ from vision_tpu_torch.models.detection.mask_rcnn import (
     MaskRCNN,
     MaskRCNN_ResNet50_FPN_Weights,
     maskrcnn_resnet50_fpn,
+    maskrcnn_resnet50_fpn_deform,
 )
 from vision_tpu_torch.models.detection.roi_heads import (
     Detections,
@@ -43,6 +44,7 @@ __all__ = [
     "fasterrcnn_resnet50_fpn",
     "keypointrcnn_resnet50_fpn",
     "maskrcnn_resnet50_fpn",
+    "maskrcnn_resnet50_fpn_deform",
     "paste_masks_in_image",
     "resize_boxes",
     "resize_keypoints",

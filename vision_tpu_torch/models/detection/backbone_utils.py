@@ -1,22 +1,25 @@
 """ResNet trunk with frozen batch norm + FPN, NCHW (counterpart of
 ``vision_tpu/models/detection/backbone_utils.py``, the frozen-BN v1 path).
 Module names are torchvision's, so ``backbone.body.layer1.0.conv1.weight``
-and the like load from a torchvision checkpoint."""
+and the like load from a torchvision checkpoint. ``deform_stages`` puts
+deformable 3x3 convolutions into the bottlenecks of the listed stages
+(``DeformFrozenBottleneck``), as the JAX trunk does."""
 
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Dict
+from typing import Dict, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vision_tpu_torch.ops.deform_conv import DeformConv2d
 from vision_tpu_torch.ops.feature_pyramid_network import FeaturePyramidNetwork
 from vision_tpu_torch.ops.misc import FrozenBatchNorm2d
 
-__all__ = ["BackboneWithFPN", "FrozenBasicBlock", "FrozenBottleneck",
-           "ResNetTrunk", "freeze_trunk_layers"]
+__all__ = ["BackboneWithFPN", "DeformFrozenBottleneck", "FrozenBasicBlock",
+           "FrozenBottleneck", "ResNetTrunk", "freeze_trunk_layers"]
 
 # the trunk's stages from the last to the first, as torchvision's
 # ``_resnet_fpn_extractor`` and the JAX recipe (``references/detection/
@@ -77,27 +80,67 @@ class FrozenBottleneck(nn.Module):
         return F.relu(out + identity)
 
 
+class DeformFrozenBottleneck(FrozenBottleneck):
+    """``FrozenBottleneck`` with ``conv2`` a deformable 3x3 convolution
+    (counterpart of ``_DeformFrozenBottleneck``, DCNv1, or DCNv2 with
+    ``modulated``): ``conv2_offset``, a 3x3 convolution with a bias and the
+    block's stride, predicts each tap's (dy, dx) (18 channels) and, when
+    ``modulated``, 9 mask logits through a sigmoid (27 channels). The
+    detectors' initialisation zeroes it, so that the block starts as the
+    plain one (DCNv2: with its conv2 branch halved)."""
+
+    def __init__(self, cin: int, planes: int, stride: int = 1,
+                 downsample: bool = False, modulated: bool = False):
+        super().__init__(cin, planes, stride, downsample)
+        self.modulated = modulated
+        self.conv2 = DeformConv2d(planes, planes, 3, stride, padding=1,
+                                  bias=False)
+        self.conv2_offset = nn.Conv2d(planes, (3 if modulated else 2) * 9, 3,
+                                      stride, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.relu(self.bn1(self.conv1(x)))
+        pred = self.conv2_offset(out)
+        if self.modulated:
+            offset, mask = pred[:, :18], torch.sigmoid(pred[:, 18:])
+        else:
+            offset, mask = pred, None
+        out = F.relu(self.bn2(self.conv2(out, offset, mask)))
+        out = self.bn3(self.conv3(out))
+        identity = x if self.downsample is None else self.downsample(x)
+        return F.relu(out + identity)
+
+
 _DEPTHS = {18: (FrozenBasicBlock, (2, 2, 2, 2)),
            50: (FrozenBottleneck, (3, 4, 6, 3))}
 
 
 class ResNetTrunk(nn.Module):
     """ResNet body without the classifier, returning the four stage outputs
-    under the keys "0".."3"."""
+    under the keys "0".."3". ``deform_stages`` lists 1-based stage indices
+    (2..4 = C3..C5) whose bottlenecks are ``DeformFrozenBottleneck``s, with
+    ``deform_modulated`` (DCNv2)."""
 
-    def __init__(self, depth: int = 50):
+    def __init__(self, depth: int = 50, deform_stages: Sequence[int] = (),
+                 deform_modulated: bool = False):
         super().__init__()
         block, layers = _DEPTHS[depth]
+        if deform_stages and block is not FrozenBottleneck:
+            raise ValueError("deform_stages requires a Bottleneck trunk")
         self.conv1 = nn.Conv2d(3, 64, 7, 2, padding=3, bias=False)
         self.bn1 = FrozenBatchNorm2d(64)
         cin = 64
         for i, (planes, blocks) in enumerate(zip((64, 128, 256, 512), layers)):
             stride = 1 if i == 0 else 2
             stage = []
+            deform = (i + 1) in deform_stages
             for j in range(blocks):
                 s = stride if j == 0 else 1
                 needs_ds = j == 0 and (s != 1 or cin != planes * block.expansion)
-                stage.append(block(cin, planes, s, needs_ds))
+                stage.append(
+                    DeformFrozenBottleneck(cin, planes, s, needs_ds,
+                                           deform_modulated) if deform
+                    else block(cin, planes, s, needs_ds))
                 cin = planes * block.expansion
             self.add_module(f"layer{i + 1}", nn.Sequential(*stage))
         self.out_channels = [c * block.expansion for c in (64, 128, 256, 512)]
@@ -115,11 +158,14 @@ class ResNetTrunk(nn.Module):
 class BackboneWithFPN(nn.Module):
     """Trunk -> FPN over all four stages; children ``body`` and ``fpn`` as
     in torchvision. Returns {"0", "1", "2", "3", "pool"} NCHW maps of
-    ``out_channels``."""
+    ``out_channels``. ``deform_stages`` and ``deform_modulated`` go to the
+    trunk."""
 
-    def __init__(self, depth: int = 50, out_channels: int = 256):
+    def __init__(self, depth: int = 50, out_channels: int = 256,
+                 deform_stages: Sequence[int] = (),
+                 deform_modulated: bool = False):
         super().__init__()
-        self.body = ResNetTrunk(depth)
+        self.body = ResNetTrunk(depth, deform_stages, deform_modulated)
         self.fpn = FeaturePyramidNetwork(self.body.out_channels, out_channels)
         self.out_channels = out_channels
 

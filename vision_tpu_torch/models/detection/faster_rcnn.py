@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import math
 import re
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -49,6 +49,7 @@ from vision_tpu_torch.models.detection.roi_heads import (
     TwoMLPHead,
 )
 from vision_tpu_torch.models.detection.rpn import RegionProposalNetwork, RPNHead
+from vision_tpu_torch.ops.deform_conv import DeformConv2d
 from vision_tpu_torch.ops.poolers import MultiScaleRoIAlign
 from vision_tpu_torch.transforms._presets import ObjectDetection
 
@@ -67,7 +68,9 @@ _HE_NORMAL = ("backbone.body", "roi_heads.mask_", "roi_heads.keypoint_")
 
 class FasterRCNN(nn.Module):
     """Faster R-CNN with a frozen-BN ResNet-FPN backbone. Module and
-    state-dict names are torchvision's."""
+    state-dict names are torchvision's. ``deform_stages`` (1-based trunk
+    stages, (2, 3, 4) = C3-C5) and ``deform_modulated`` make those stages'
+    3x3 convolutions deformable (``DeformFrozenBottleneck``)."""
 
     def __init__(
         self,
@@ -80,9 +83,13 @@ class FasterRCNN(nn.Module):
         box_score_thresh: float = 0.05,
         box_nms_thresh: float = 0.5,
         box_detections_per_img: int = 100,
+        deform_stages: Sequence[int] = (),
+        deform_modulated: bool = False,
     ):
         super().__init__()
-        self.backbone = BackboneWithFPN(backbone_depth, out_channels=256)
+        self.backbone = BackboneWithFPN(backbone_depth, out_channels=256,
+                                        deform_stages=tuple(deform_stages),
+                                        deform_modulated=deform_modulated)
         sizes = ((32,), (64,), (128,), (256,), (512,))
         anchor_generator = AnchorGenerator(sizes, ((0.5, 1.0, 2.0),) * 5)
         self.rpn = RegionProposalNetwork(
@@ -192,9 +199,16 @@ def init_weights(model: FasterRCNN, generator: torch.Generator) -> None:
     convs, and the mask and keypoint heads' (transposed ones included),
     He-normal (fan out), the FPN's He-uniform (a=1), the RPN head's N(0,
     0.01), all with zero bias; the linear layers PyTorch's default uniform.
-    Frozen-BN buffers keep their identity values."""
+    Frozen-BN buffers keep their identity values. A deformable trunk's
+    offset predictors (``conv2_offset``) are zero, weight and bias, as the
+    JAX package's are, and draw nothing, so that its other parameters are
+    the plain model's of the same seed; its deformable ``conv2`` is drawn as
+    the plain trunk's."""
     for name, m in model.named_modules():
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+        if name.endswith("conv2_offset"):
+            m.weight.zero_()
+            m.bias.zero_()
+        elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, DeformConv2d)):
             fan_in = m.weight[0].numel()
             fan_out = m.weight.shape[0] * m.weight[0, 0].numel()
             if name.startswith(_HE_NORMAL):
@@ -260,12 +274,21 @@ def build_detector(
     seeded with ``seed``, so every device gets the same numbers.
     ``trainable_backbone_layers`` (0-5) leaves only the last that many
     trunk stages trainable (``freeze_trunk_layers``); None trains all, as
-    the JAX recipe's default does."""
+    the JAX recipe's default does. A checkpoint must hold every tensor of
+    the model but a deformable trunk's offset predictors, which start at
+    zero where it has none (a plain checkpoint in a deform model)."""
     device = resolve_device(device)
     weights = weights_enum.verify(weights)
     model = cls(backbone_depth=50, **kwargs)
     if weights is not None:
-        model.load_state_dict(_upgrade_state_dict(weights.get_state_dict()))
+        missing, unexpected = model.load_state_dict(
+            _upgrade_state_dict(weights.get_state_dict()), strict=False)
+        if unexpected or any(".conv2_offset." not in k for k in missing):
+            raise RuntimeError(f"checkpoint does not fit the model: missing "
+                               f"{missing}, unexpected {unexpected}")
+        with torch.no_grad():
+            for k in missing:
+                model.get_parameter(k).zero_()
     else:
         init_weights(model, torch.Generator().manual_seed(seed))
     if trainable_backbone_layers is not None:

@@ -18,7 +18,7 @@ at 14x14, and their targets pooled from the gt masks by ``roi_align`` at
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Union
+from typing import NamedTuple, Optional, Sequence, Union
 
 import torch
 
@@ -37,7 +37,7 @@ from vision_tpu_torch.ops.poolers import MultiScaleRoIAlign
 from vision_tpu_torch.transforms._presets import ObjectDetection
 
 __all__ = ["MaskDetections", "MaskRCNN", "MaskRCNN_ResNet50_FPN_Weights",
-           "maskrcnn_resnet50_fpn"]
+           "maskrcnn_resnet50_fpn", "maskrcnn_resnet50_fpn_deform"]
 
 
 class MaskDetections(NamedTuple):
@@ -125,3 +125,27 @@ def maskrcnn_resnet50_fpn(
     """Mask R-CNN ResNet-50-FPN v1 (``faster_rcnn.build_detector``)."""
     return build_detector(MaskRCNN, weights, MaskRCNN_ResNet50_FPN_Weights,
                           device, seed, trainable_backbone_layers, **kwargs)
+
+
+@register_model()
+def maskrcnn_resnet50_fpn_deform(
+    *,
+    weights: Optional[Union[MaskRCNN_ResNet50_FPN_Weights, Weights, str]] = None,
+    deform_stages: Sequence[int] = (2, 3, 4),
+    deform_modulated: bool = False,
+    device: Union[str, torch.device, None] = None,
+    seed: int = 0,
+    trainable_backbone_layers: Optional[int] = None,
+    **kwargs,
+) -> MaskRCNN:
+    """Mask R-CNN ResNet-50-FPN with deformable 3x3 convolutions in the
+    trunk's C3-C5 bottlenecks (the JAX package's ``maskrcnn_resnet50_fpn_
+    deform``, BASELINE config 5; DCNv2 with ``deform_modulated``). Its offset
+    predictors start at zero, so that a plain ``MaskRCNN_ResNet50_FPN_Weights``
+    checkpoint loads (they stay zero) and the model then computes what the
+    plain one does; without weights every other parameter is the plain
+    model's of the same seed."""
+    return build_detector(MaskRCNN, weights, MaskRCNN_ResNet50_FPN_Weights,
+                          device, seed, trainable_backbone_layers,
+                          deform_stages=tuple(deform_stages),
+                          deform_modulated=deform_modulated, **kwargs)

@@ -1,6 +1,7 @@
 """Operators (counterpart of ``vision_tpu/ops``)."""
 
 from vision_tpu_torch.ops._conv1x1_bn import matmul_stats
+from vision_tpu_torch.ops.deform_conv import DeformConv2d, deform_conv2d
 from vision_tpu_torch.ops.boxes import (
     box_area,
     box_convert,
@@ -20,6 +21,7 @@ from vision_tpu_torch.ops.roi_align import roi_align
 
 __all__ = [
     "BatchNorm2d",
+    "DeformConv2d",
     "FrozenBatchNorm2d",
     "MultiScaleRoIAlign",
     "batched_nms",
@@ -30,6 +32,7 @@ __all__ = [
     "box_iou_rotated",
     "clip_boxes_to_image",
     "complete_box_iou",
+    "deform_conv2d",
     "distance_box_iou",
     "generalized_box_iou",
     "masks_to_boxes",

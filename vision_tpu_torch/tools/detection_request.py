@@ -5,7 +5,8 @@
 most common sizes through the weights' preset, the transform, the model
 and ``postprocess_boxes``, and for Mask R-CNN ``paste_masks``; and the
 training batch of the same images, with gt masks and keypoints where the
-model takes them (phases ``*_train``, cells ``*train``).
+model takes them (phases ``*_train``, cells ``*train``); and the seeded
+offset predictors of a deformable trunk (``seed_offsets``).
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ NUM_KEYPOINTS = 17
 LR = 0.02
 WARMUP_FACTOR = 1e-3
 WARMUP_ITERS = 1000
+# the offsets' RMS (px) that ``seed_offsets`` gives a deformable trunk
+OFFSET_RMS = 1.5
 
 
 def raw_images(sizes: Sequence[Tuple[int, int]] = IMAGE_SIZES,
@@ -125,6 +128,47 @@ def train_batch(preset, transform, raw, seed: int = SEED, num_classes: int = 91,
         out["keypoints"] = seeded_keypoints(
             boxes, valid, torch.Generator().manual_seed(seed + 2)).to(dev)
     return out
+
+
+@torch.no_grad()
+def seed_offsets(model, images: torch.Tensor, rms: float = OFFSET_RMS,
+                 seed: int = SEED) -> List[float]:
+    """Give every ``conv2_offset`` of a deformable trunk seeded normal
+    weights (zero bias), scaled block by block so that what it predicts on
+    ``images`` has an RMS of about ``rms`` (px for the offsets; the DCNv2
+    mask logits alike): at init they are zero and the deform model is the
+    plain one. The predictors are drawn in trunk order, each scaled by the
+    RMS of its own input with the earlier ones already drawn, in one pass
+    of the backbone; the weights come from a CPU generator, so every device
+    gets the same numbers. Returns each predictor's offset RMS on
+    ``images``."""
+    gen = torch.Generator().manual_seed(seed)
+    read: List[float] = []
+
+    def draw(mod, args):
+        x = args[0].float()
+        fan_in = mod.weight[0].numel()
+        std = rms / (float(x.pow(2).mean().sqrt()) * fan_in ** 0.5)
+        w = torch.randn(mod.weight.shape, generator=gen) * std
+        mod.weight.copy_(w)
+        mod.bias.zero_()
+
+    def measure(mod, args, out):
+        read.append(float(out[:, :18].float().pow(2).mean().sqrt()))
+
+    hooks = []
+    for name, mod in model.named_modules():
+        if name.endswith("conv2_offset"):
+            hooks += [mod.register_forward_pre_hook(draw),
+                      mod.register_forward_hook(measure)]
+    if not hooks:
+        raise ValueError("the model has no conv2_offset to seed")
+    try:
+        model.backbone(images)
+    finally:
+        for h in hooks:
+            h.remove()
+    return read
 
 
 def recipe_optimizer(model):

@@ -4,7 +4,8 @@ ResNet-50-FPN request (or train step) goes, on the card.
     python -m vision_tpu_torch.tools.profile_faster_rcnn [--steps 3]
         [--cell 832 | request_f32 | request_bf16 | train | train_amp
          | mask_request_f32 | mask_request_bf16 | mask_train | mask_train_amp
-         | keypoint_request_f32 | keypoint_train]
+         | keypoint_request_f32 | keypoint_train | deform_request_f32
+         | deform_request_bf16 | deform_train | deform_train_amp]
 
 Same model and inputs as ``chip_smoke.py`` (seeded random weights with
 ``cls_score`` scaled x30, TF32 off). ``--cell 832``: one 832x832 f32 image
@@ -22,7 +23,13 @@ back; ``train_amp`` the same step with ``compute_dtype=torch.bfloat16``
 ``maskrcnn_resnet50_fpn`` (its request pastes the masks into each image,
 ``paste_masks``; its batch carries the gt masks) and
 ``keypointrcnn_resnet50_fpn`` (its batch carries gt keypoints, labels in
-[1, 2)), as ``chip_smoke.py``'s phases of those names drive them. Runs
+[1, 2)), as ``chip_smoke.py``'s phases of those names drive them; the
+``deform_*`` cells are the ``mask_*`` ones for
+``maskrcnn_resnet50_fpn_deform`` with its offset predictors seeded
+(``seed_offsets``, offsets of RMS ~1.5 px on the cell's canvas), as
+``chip_smoke.py``'s ``mask_rcnn_deform_*`` phases drive it, and also
+print the device time of the deformable convolution's products
+(``torch.matmul``, the ``deform_conv2d.product`` ranges). Runs
 ``--steps`` steps under ``torch.profiler``
 after two warm-up steps and prints JSON lines: per step the host wall
 time and the summed device kernel time (their ratio is the device's busy
@@ -51,6 +58,7 @@ from vision_tpu_torch.tools.detection_request import (
     paste_masks,
     raw_images,
     recipe_optimizer,
+    seed_offsets,
     serve,
     train_batch,
 )
@@ -58,14 +66,21 @@ from vision_tpu_torch.tools.detection_request import (
 # cell prefix -> (model, its number of classes, gt extras of its batch)
 _MODELS = {"": ("fasterrcnn_resnet50_fpn", 91, {}),
            "mask_": ("maskrcnn_resnet50_fpn", 91, {"masks": True}),
-           "keypoint_": ("keypointrcnn_resnet50_fpn", 2, {"keypoints": True})}
+           "keypoint_": ("keypointrcnn_resnet50_fpn", 2, {"keypoints": True}),
+           "deform_": ("maskrcnn_resnet50_fpn_deform", 91, {"masks": True})}
 _CELLS = ("832", "request_f32", "request_bf16", "train", "train_amp",
           "mask_request_f32", "mask_request_bf16", "mask_train",
-          "mask_train_amp", "keypoint_request_f32", "keypoint_train")
+          "mask_train_amp", "keypoint_request_f32", "keypoint_train",
+          "deform_request_f32", "deform_request_bf16", "deform_train",
+          "deform_train_amp")
 
 # kernel-name fragments -> group, first match wins
 _GROUPS = (
     ("nms_", "nms kernel"),
+    ("im2col_kernel", "deform kernel"),
+    ("input_grad_kernel", "deform backward kernel"),
+    ("offset_grad_kernel", "deform backward kernel"),
+    ("keys_kernel", "deform backward kernel"),
     ("window_pool_backward", "window-pool backward kernel"),
     ("window_pool", "window-pool kernel"),
     ("roi_align_backward", "roi_align backward kernel"),
@@ -116,7 +131,8 @@ def main() -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    prefix = next(p for p in ("mask_", "keypoint_", "") if args.cell.startswith(p))
+    prefix = next(p for p in ("mask_", "keypoint_", "deform_", "")
+                  if args.cell.startswith(p))
     name, classes, extras = _MODELS[prefix]
     training = "train" in args.cell
     if training:
@@ -129,6 +145,8 @@ def main() -> None:
             batch = train_batch(FasterRCNN_ResNet50_FPN_Weights.COCO_V1.transforms(),
                                 GeneralizedRCNNTransform(), raw_images(),
                                 num_classes=classes, **extras)
+        if prefix == "deform_":
+            seed_offsets(model, batch["image"])
         gen = torch.Generator(device="cuda").manual_seed(0)
 
         def step():
@@ -143,14 +161,18 @@ def main() -> None:
             model(images)
     else:
         dtype = torch.bfloat16 if args.cell.endswith("bf16") else torch.float32
-        model = _scaled_model(name).to(dtype)
+        model = _scaled_model(name)
         raw = raw_images()
         preset = FasterRCNN_ResNet50_FPN_Weights.COCO_V1.transforms()
         transform = GeneralizedRCNNTransform()
+        if prefix == "deform_":
+            with torch.no_grad():
+                seed_offsets(model, transform([preset(r) for r in raw]).tensors)
+        model.to(dtype)
 
         def step():
             _, dets, boxes = serve(model, preset, transform, raw, dtype)
-            if prefix == "mask_":
+            if prefix in ("mask_", "deform_"):
                 paste_masks(dets, boxes, raw)
 
     mode = torch.enable_grad if training else torch.inference_mode
@@ -181,6 +203,16 @@ def main() -> None:
     }))
     print(json.dumps({"device_ms_by_group": dict(
         sorted(groups.items(), key=lambda kv: -kv[1]))}))
+    if prefix == "deform_":
+        # the ranges as the host opened them (the trace also carries each
+        # as a device-side annotation of the same name): their kernels'
+        # device time
+        products = [e for e in prof.events() if e.name == "deform_conv2d.product"
+                    and e.device_type == torch.autograd.DeviceType.CPU]
+        print(json.dumps({"deform_product": {
+            "device_ms_per_step": sum(e.device_time_total for e in products)
+            / 1e3 / args.steps,
+            "calls_per_step": len(products) / args.steps}}))
     top = sorted(kernels, key=_device_us, reverse=True)[:15]
     print(json.dumps({"top_kernels": [
         {"name": e.key[:90], "ms_per_step": _device_us(e) / 1e3 / args.steps,
