@@ -38,7 +38,9 @@ weights:
   in bf16 and trained in f32 and in bf16, with its offset predictors drawn
   from a seeded normal (offsets of RMS ~1.5 px, some samples outside their
   maps): the deformable convolution's column kernel and its backward
-  kernels, at each distinct shape of the path;
+  kernels, at each distinct shape of the path; and its DCNv2 variant
+  (``deform_modulated=True``, the seeded predictors also giving each
+  sample's mask) served in f32 and trained in bf16;
 * ResNet-50 classification (1000 classes, a batch of 32 224x224 images):
   one eval batch, one batch of 8 uint8 375x500 images through the weights'
   ``ImageClassification`` preset against the CPU, then SGD steps of
@@ -161,6 +163,10 @@ MASK_TOL = 1e-4
 # stage's deformable conv and offset predictors
 OFFSET_RMS_MIN = 0.25
 DEFORM_PARAMS = 44_982_235  # 44,401,393 + 13 offset predictors (580,842)
+# DCNv2 (deform_modulated=True): the 13 predictors also give the mask
+# logits, 27 channels each (871,263 parameters)
+DEFORM_V2_PARAMS = 45_272_656
+DEFORM_V2 = {"deform_modulated": True}
 DEFORM_GRADS = MASK_GRADS + ("backbone.body.layer2.0.conv2.weight",
                              "backbone.body.layer2.0.conv2_offset.weight",
                              "backbone.body.layer3.1.conv2_offset.weight",
@@ -573,6 +579,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows += mask_rcnn_deform_phases(kernels)
     torch.cuda.empty_cache()
+    rows += mask_rcnn_deform_v2_phases(kernels)
+    torch.cuda.empty_cache()
     keypoint_rcnn_phases(kernels)
     torch.cuda.empty_cache()
     rows += resnet50_phases(kernels)
@@ -798,10 +806,11 @@ def faster_rcnn_image_phases(kernels, model):
 
 def det_train_steps(batch, steps, first_step=None, timed=0,
                     name="fasterrcnn_resnet50_fpn", grads=DET_GRADS,
-                    dtype=None, setup=None, twin=None):
+                    dtype=None, setup=None, twin=None, model_kwargs=None):
     """A fresh seeded detector ``name`` (R50-FPN,
-    ``trainable_backbone_layers=3``; ``setup(model)`` called on it first,
-    where given) and ``steps`` SGD steps of
+    ``trainable_backbone_layers=3``, and ``model_kwargs`` for its builder;
+    ``setup(model)`` called on it first, where given) and ``steps`` SGD
+    steps of
     ``make_detection_train_step`` (``compute_dtype=dtype``) on ``batch``,
     the samplers drawing from a
     generator on its device seeded with 0; then ``timed`` more steps.
@@ -816,7 +825,8 @@ def det_train_steps(batch, steps, first_step=None, timed=0,
     from vision_tpu_torch.parallel import make_detection_train_step
     from vision_tpu_torch.tools.detection_request import recipe_optimizer
 
-    model = get_model(name, seed=0, trainable_backbone_layers=3)
+    model = get_model(name, seed=0, trainable_backbone_layers=3,
+                      **(model_kwargs or {}))
     if setup is not None:
         setup(model)
     optimizer, scheduler = recipe_optimizer(model)
@@ -877,7 +887,7 @@ def plain_twin_step(kernels, model, gen, batch, dtype, grads):
 
 def det_train_phase(kernels, phase, name="fasterrcnn_resnet50_fpn",
                     grads=DET_GRADS, num_classes=91, f32_first=None,
-                    prepare=None, require=(), **extras):
+                    prepare=None, require=(), model_kwargs=None, **extras):
     """A detector trained on the request's two images (batch 2, the 1344
     canvas, seeded gt boxes; with ``extras`` the gt masks or keypoints of
     ``train_batch``): ``DET_STEPS`` SGD steps through the kernels (the
@@ -909,8 +919,9 @@ def det_train_phase(kernels, phase, name="fasterrcnn_resnet50_fpn",
     pooler kernel launch must be a bf16 one, but RoIAlign's at the f32
     mask targets. ``prepare(model, images)`` readies each fresh model (the
     deform model's offset predictors), outside the counted launches; the
-    kernels of ``require`` must launch too (in the step's type). Returns
-    the recorded calls, the launches and step 1's losses."""
+    kernels of ``require`` must launch too (in the step's type).
+    ``model_kwargs`` go to the model's builder. Returns the recorded calls,
+    the launches and step 1's losses."""
     import torch
 
     from vision_tpu_torch.models.detection import (
@@ -945,7 +956,8 @@ def det_train_phase(kernels, phase, name="fasterrcnn_resnet50_fpn",
     run = det_train_steps(batch, DET_STEPS,
                           first_step=lambda: kernels.recording(calls),
                           timed=1 + TIMED_FORWARDS, name=name, grads=grads,
-                          dtype=dtype, setup=setup, twin=twin)
+                          dtype=dtype, setup=setup, twin=twin,
+                          model_kwargs=model_kwargs)
     launches = kernels.launches()
     ref = {"losses": [t[0] for t in run["twin"]], "grads": run["twin"][0][1]}
     names = list(run["losses"][0])
@@ -1052,14 +1064,15 @@ def serve_masks(model, preset, transform, raw, dtype):
     return batch, dets, boxes, paste_masks(dets, boxes, raw)
 
 
-def scaled_detector(name):
-    """Detector ``name`` with seeded weights and ``cls_score`` scaled by
-    ``CLS_SCALE``, so that detections pass the score threshold."""
+def scaled_detector(name, **model_kwargs):
+    """Detector ``name`` (``model_kwargs`` to its builder) with seeded
+    weights and ``cls_score`` scaled by ``CLS_SCALE``, so that detections
+    pass the score threshold."""
     import torch
 
     from vision_tpu_torch.models import get_model
 
-    model = get_model(name, seed=0)
+    model = get_model(name, seed=0, **model_kwargs)
     with torch.no_grad():
         model.roi_heads.box_predictor.cls_score.weight.mul_(CLS_SCALE)
     return model
@@ -1101,9 +1114,10 @@ def mask_rcnn_image_phases(kernels):
 
 
 def serve_mask_phases(kernels, name, phases, num_params=None, prepare=None,
-                      require=()):
-    """A Mask R-CNN ``name`` served from the two raw images, in f32
-    (``phases[0]``) and in bf16 (``phases[1]``): the request of
+                      require=(), model_kwargs=None):
+    """A Mask R-CNN ``name`` (``model_kwargs`` to its builder) served from
+    the two raw images, in f32 (``phases[0]``) and, where ``phases`` names
+    a second, in bf16 (``phases[1]``): the request of
     ``faster_rcnn_images`` with the 28x28 masks of every detection and the
     masks pasted into each image at its own size, each against the same
     request through the plain versions: detections as ``check_detections``
@@ -1127,7 +1141,7 @@ def serve_mask_phases(kernels, name, phases, num_params=None, prepare=None,
     raw = raw_images()
     preset = MaskRCNN_ResNet50_FPN_Weights.COCO_V1.transforms()
     transform = GeneralizedRCNNTransform()
-    model = scaled_detector(name)
+    model = scaled_detector(name, **(model_kwargs or {}))
     if prepare is not None:
         with torch.no_grad():
             prepare(model, transform([preset(r) for r in raw]).tensors)
@@ -1338,14 +1352,18 @@ def offset_stats(calls, phase) -> dict:
     RMS (px), the share of samples outside their map (not strictly inside
     (-1, H) x (-1, W)) and the share of corners that are invalid (of the
     samples' four corners, those outside the map, the outside samples'
-    included). Fails the phase if the RMS is under ``OFFSET_RMS_MIN`` or no
-    sample falls outside its map."""
+    included); for DCNv2 calls, the masks' mean and range. Fails the phase
+    if the RMS is under ``OFFSET_RMS_MIN`` or no sample falls outside its
+    map."""
     import torch
 
     from vision_tpu_torch.ops.deform_conv import sample_positions
 
     sq = n_off = outside = samples = bad = 0.0
-    for x, off, _mask, k, stride, pad, dil in calls:
+    masks = []
+    for x, off, mask, k, stride, pad, dil in calls:
+        if mask is not None:
+            masks.append(mask.float().flatten())
         h, w = x.shape[-2:]
         y, xx = sample_positions(off, k, stride, pad, dil)
         ins = (y > -1) & (y < h) & (xx > -1) & (xx < w)
@@ -1361,6 +1379,10 @@ def offset_stats(calls, phase) -> dict:
     out = dict(offset_rms=math.sqrt(sq / n_off), samples_outside=outside / samples,
                corners_invalid=bad / (4 * samples), calls=len(calls),
                rms_min=OFFSET_RMS_MIN)
+    if masks:
+        m = torch.cat(masks)
+        out.update(modulated_calls=len(masks), mask_mean=float(m.mean()),
+                   mask_min=float(m.min()), mask_max=float(m.max()))
     emit("deform_offsets", path=phase, **out)
     if out["offset_rms"] < OFFSET_RMS_MIN or outside == 0:
         raise RuntimeError(f"{phase}: the offsets are not real: {out}")
@@ -1412,10 +1434,10 @@ def deform_backward_work(args):
 
 def deform_case(kernels, args, path, count, **meta):
     """The column kernel against its plain version on the card at one
-    recorded call: within 1e-5 of the largest plain value in f32 and with a
-    bf16 input (the columns are f32 in both: a bf16 input is widened
-    exactly), its bits compared and printed; ``ms``, ``device_ms`` and the
-    plain version's ms of one call, ``count`` calls a forward."""
+    recorded call: the same bits in f32 and with a bf16 input (the columns
+    are f32 in both: a bf16 input is widened exactly, and both round each
+    product and sum on its own); ``ms``, ``device_ms`` and the plain
+    version's ms of one call, ``count`` calls a forward."""
     import torch
 
     got = kernels.cuda["deform_conv"](*args)
@@ -1431,14 +1453,14 @@ def deform_case(kernels, args, path, count, **meta):
                 shape=[list(args[0].shape), list(args[1].shape)],
                 stride=args[4], mask=args[2] is not None, calls_per_forward=count,
                 **meta, same_bits=same, max_abs_err=err, max_rel_err=rel,
-                tol=1e-5, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                tol="same bits", ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by,
                 bytes_bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
                 operations_bound_ms=ops / peak * 1e3)
     emit("kernel_case", **case)
-    if rel > 1e-5:
-        raise RuntimeError(f"deform_conv ({path}) disagrees with its plain "
-                           f"version: {rel} > 1e-5")
+    if not same:
+        raise RuntimeError(f"deform_conv ({path}) is not its plain version's "
+                           f"bits: {err} off")
     return case
 
 
@@ -1632,6 +1654,66 @@ def mask_rcnn_deform_phases(kernels):
                             tlaunches["deform_conv_backward_bf16"],
                             "mask_rcnn_deform_train_amp",
                             "deform_conv_backward_bf16", backward=True))
+    return rows
+
+
+def mask_rcnn_deform_v2_phases(kernels):
+    """The DCNv2 deform trunk (``maskrcnn_resnet50_fpn_deform(
+    deform_modulated=True)``: each predictor also gives the 9 mask logits
+    of its deformable conv, which multiplies each sample by their sigmoid),
+    its predictors seeded (``seed_deform_offsets``: mask logits of RMS
+    ~1.5 too): served from the two raw images in f32
+    (``mask_rcnn_deform_v2_images``, held as ``mask_rcnn_deform_images``)
+    and trained in bf16 (``mask_rcnn_deform_v2_train_amp``, held as
+    ``mask_rcnn_deform_train_amp``, its step 1 against one f32 step of the
+    same model through the kernels); every deformable call must carry a
+    mask. Then the column kernel at each distinct shape of the request and
+    the backward kernels at each of the amp step's, with their masks."""
+    import torch
+
+    from vision_tpu_torch.models.detection import (
+        FasterRCNN_ResNet50_FPN_Weights,
+        GeneralizedRCNNTransform,
+    )
+    from vision_tpu_torch.tools.detection_request import raw_images, train_batch
+
+    name = "maskrcnn_resnet50_fpn_deform"
+    calls, launches = serve_mask_phases(
+        kernels, name, ("mask_rcnn_deform_v2_images",),
+        num_params=DEFORM_V2_PARAMS, prepare=seed_deform_offsets,
+        require=("deform_conv",), model_kwargs=DEFORM_V2)
+    per_forward = calls[torch.float32]["deform_conv"][:13]
+    offset_stats(per_forward, "mask_rcnn_deform_v2_images")
+    if any(a[2] is None for a in per_forward):
+        raise RuntimeError("mask_rcnn_deform_v2_images: a deformable call "
+                           "without a mask")
+    rows = [deform_rows(kernels, per_forward, launches["f32"]["deform_conv_f32"],
+                        "mask_rcnn_deform_v2_images", "deform_conv_v2")]
+    del calls, per_forward
+    torch.cuda.empty_cache()
+
+    with torch.no_grad():
+        batch = train_batch(FasterRCNN_ResNet50_FPN_Weights.COCO_V1.transforms(),
+                            GeneralizedRCNNTransform(), raw_images(), masks=True)
+    first = det_train_steps(
+        batch, 1, name=name, grads=DEFORM_GRADS, model_kwargs=DEFORM_V2,
+        setup=lambda model: seed_deform_offsets(model, batch["image"]))[
+            "losses"][0]
+    del batch
+    torch.cuda.empty_cache()
+    train, tlaunches, _ = det_train_phase(
+        kernels, "mask_rcnn_deform_v2_train_amp", name=name,
+        grads=DEFORM_GRADS, f32_first=first, masks=True,
+        prepare=seed_deform_offsets, require=("deform_conv",
+                                              "deform_conv_backward"),
+        model_kwargs=DEFORM_V2)
+    bwd = train["deform_conv_backward"]
+    if any(a[2] is None for a in bwd):
+        raise RuntimeError("mask_rcnn_deform_v2_train_amp: a deformable "
+                           "backward call without a mask")
+    rows.append(deform_rows(kernels, bwd, tlaunches["deform_conv_backward_bf16"],
+                            "mask_rcnn_deform_v2_train_amp",
+                            "deform_conv_backward_v2_bf16", backward=True))
     return rows
 
 

@@ -45,11 +45,19 @@ from vision_tpu_torch.models.detection.backbone_utils import (
 )
 from vision_tpu_torch.ops import DeformConv2d, deform_conv2d
 from vision_tpu_torch.ops.deform_conv import (
+    MARGIN,
+    SMEM_LIMIT,
     deform_conv2d_plain,
     deform_conv_backward_cuda,
+    deform_conv_backward_plain,
+    deform_corner_records_plain,
     deform_im2col_cuda,
     deform_im2col_plain,
+    deform_records_input_grad_plain,
+    deform_tile_codes_plain,
     sample_positions,
+    sort_corners,
+    tile_plan,
 )
 
 # (n, c_in, h, w, c_out, (kh, kw), stride, pad, dil, groups, og, mask, bias)
@@ -244,6 +252,236 @@ def test_cuda_wrappers_refuse_what_they_do_not_take():
     with pytest.raises(ValueError, match="offset shape"):
         deform_conv2d(x, torch.zeros(1, 18, 3, 3), torch.zeros(2, 2, 3, 3),
                       padding=1)
+
+
+# ---------------------------------------------------------------- the kernels' bookkeeping
+
+
+def _pile_up(n=1, c=4, size=32, seed=0):
+    """A 32x32 map whose every tap of every output position (3x3, stride 1,
+    padding 1) samples within one pixel of the centre: one pixel's range
+    of corners runs to thousands."""
+    rng = np.random.RandomState(seed)
+    base = np.arange(size)[None, :] - 1 + np.arange(3)[:, None]  # [3, OH]
+    centre = (size - 1) / 2.0
+    dy = centre - base[:, None, :, None] + rng.uniform(-1, 1, (3, 3, size, size))
+    dx = centre - base[None, :, None, :] + rng.uniform(-1, 1, (3, 3, size, size))
+    off = np.stack([dy, dx], 2).reshape(1, 18, size, size)
+    off = np.repeat(off, n, 0).astype(np.float32)
+    x = rng.randn(n, c, size, size)
+    return torch.from_numpy(x), torch.from_numpy(off)
+
+
+def _records_case(case, seed):
+    """An f64 input, f32 offsets, an f64 mask (or None) and f64 g_cols of a
+    ``CASES`` entry, NCHW, and its geometry."""
+    arrays = _case(case, seed)
+    stride, pad, dil = arrays["geometry"]
+    x, off, weight, _, mask = _port_args(arrays)
+    kernel = tuple(weight.shape[-2:])
+    og = off.shape[1] // (2 * kernel[0] * kernel[1])
+    g = torch.from_numpy(np.random.RandomState(seed + 1).randn(
+        x.shape[0], *off.shape[-2:], kernel[0] * kernel[1], x.shape[1]))
+    return (x.double(), off, None if mask is None else mask.double(), g,
+            (kernel, stride, pad, dil), og)
+
+
+@pytest.mark.parametrize("case", CASES + ["pile-up"], ids=IDS + ["pile-up"])
+def test_corner_records_sum_to_the_input_gradient(case):
+    """The backward's records (a row and weight times mask a corner), put
+    in sorted order and each pixel's range summed, in f64: the plain
+    backward's input gradient within 1e-12."""
+    if case == "pile-up":
+        x, off = _pile_up(n=2)
+        mask, og, geometry = None, 1, (3, 1, 1, 1)
+        g = torch.from_numpy(np.random.RandomState(3).randn(2, 32, 32, 9, 4))
+    else:
+        x, off, mask, g, geometry, og = _records_case(case, 11)
+    keys, rows, weights = deform_corner_records_plain(
+        off, mask, *geometry, x.shape[-2:], dtype=torch.float64)
+    got = deform_records_input_grad_plain(keys, rows, weights, g, x.shape, og)
+    want = deform_conv_backward_plain(x, off, mask, g, *geometry)[0]
+    assert got.dtype == torch.float64 and got.shape == x.shape
+    assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
+    # the ranges the kernel walks: each pixel's count of corners
+    buckets = x.shape[0] * og * x.shape[2] * x.shape[3]
+    _, starts = sort_corners(keys, buckets)
+    counts = torch.bincount(keys, minlength=buckets + 1)
+    assert torch.equal(starts[1:].long() - starts[:-1].long(), counts[:-1])
+    if case == "pile-up":
+        counts = torch.bincount(keys)[:-1]
+        assert int(counts.max()) > 1000, int(counts.max())
+
+
+def test_corner_records_layout():
+    """Corner ``t = 4 (((b og + g) K² + tap) L + pos) + k``: its key is the
+    pixel it reads, or ``N og H W`` where invalid; its row the sample's
+    g_cols row; its f32 weight the fractions' product times the mask, both
+    0 where invalid."""
+    x, off, mask, _, (kernel, stride, pad, dil), og = _records_case(CASES[1], 12)
+    mask = mask.float()
+    n, _, h, w = x.shape
+    keys, rows, weights = deform_corner_records_plain(
+        off, mask, kernel, stride, pad, dil, (h, w))
+    assert keys.dtype == rows.dtype == torch.int64
+    assert weights.dtype == torch.float32
+    y, xs = sample_positions(off, kernel, stride, pad, dil)
+    _, _, k2, oh, ow = y.shape
+    assert keys.numel() == 4 * n * og * k2 * oh * ow
+    none = n * og * h * w
+    checked = 0
+    for b, g, tap, oy, ox in np.ndindex(n, og, k2, oh, ow):
+        s = ((b * og + g) * k2 + tap) * oh * ow + oy * ow + ox
+        yy, xx = y[b, g, tap, oy, ox], xs[b, g, tap, oy, ox]
+        inside = -1 < float(yy) < h and -1 < float(xx) < w
+        yl, xl = torch.floor(yy), torch.floor(xx)
+        ly, lx = yy - yl, xx - xl
+        for k in range(4):
+            cy, cx = int(yl) + (k >> 1), int(xl) + (k & 1)
+            valid = inside and 0 <= cy < h and 0 <= cx < w
+            t = 4 * s + k
+            if not valid:
+                assert (int(keys[t]), int(rows[t]), float(weights[t])) == (none, 0, 0.0)
+                continue
+            wt = ((1 - ly) if k < 2 else ly) * (lx if k & 1 else (1 - lx))
+            assert int(keys[t]) == (b * og + g) * h * w + cy * w + cx
+            assert int(rows[t]) == (b * oh * ow + oy * ow + ox) * k2 + tap
+            assert torch.equal(weights[t], wt * mask[b, g * k2 + tap, oy, ox])
+            checked += 1
+    assert checked > 0 and int((keys == none).sum()) > 0
+
+
+def test_sort_corners_gives_each_pixel_its_range():
+    """The stable sort keeps a pixel's corners in corner order, and the
+    starts bracket each pixel's range, the invalid corners last."""
+    keys = torch.tensor([3, 1, 5, 3, 0, 5, 1, 3], dtype=torch.int32)  # 5: invalid
+    order, starts = sort_corners(keys, 5)
+    assert order.tolist() == [4, 1, 6, 0, 3, 7, 2, 5]
+    assert starts.dtype == torch.int32
+    assert starts.tolist() == [0, 1, 3, 3, 6, 6]
+
+
+def _staged_columns(x, off, mask, geometry, plan):
+    """The columns as the forward kernel forms them under ``plan``: each
+    corner's value read from its tile's staged window (decoded back to the
+    map's pixel, which must lie inside the map), from the window's zero
+    pixel, or from the map; the four summed in the plain version's order,
+    times the mask."""
+    kernel, stride, pad, dil = geometry
+    n, c, h, w = x.shape
+    codes = deform_tile_codes_plain(off, kernel, stride, pad, dil, (h, w), plan)
+    _, og, k2, oh, ow, _ = codes.shape
+    cg = c // og
+    zero_pixel = plan.wr * plan.wc
+    wy0 = ((torch.arange(oh) // plan.th) * plan.th * stride - pad
+           - plan.margin)[:, None]
+    wx0 = ((torch.arange(ow) // plan.tw) * plan.tw * stride - pad
+           - plan.margin)[None, :]
+    y, xs = sample_positions(off, kernel, stride, pad, dil)
+    ly, lx = y - torch.floor(y), xs - torch.floor(xs)
+    inside = (y > -1) & (y < h) & (xs > -1) & (xs < w)
+    hy, hx = 1.0 - ly, 1.0 - lx
+    zero = torch.zeros(())
+    fr = [torch.where(inside, t, zero) for t in (hy, ly, hx, lx)]
+    weights = (fr[0] * fr[2], fr[0] * fr[3], fr[1] * fr[2], fr[1] * fr[3])
+    planes = x.reshape(n, og, cg, h * w)
+    values = []
+    for k in range(4):
+        code = codes[..., k]
+        staged = (code >= 0) & (code < zero_pixel)
+        r = code.clamp(min=0) // max(plan.wc, 1)
+        cc = code.clamp(min=0) % max(plan.wc, 1)
+        pix = torch.where(staged, (wy0 + r) * w + (wx0 + cc), -1 - code)
+        assert bool(((wy0 + r)[staged] >= 0).all() & ((wy0 + r)[staged] < h).all())
+        assert bool(((wx0 + cc)[staged] >= 0).all() & ((wx0 + cc)[staged] < w).all())
+        pix = torch.where(code == zero_pixel, torch.zeros_like(pix), pix)
+        v = torch.gather(planes, 3, pix.reshape(n, og, 1, -1).expand(-1, -1, cg, -1))
+        v = v.reshape(n, og, cg, k2, oh, ow).permute(0, 1, 3, 4, 5, 2)
+        values.append(torch.where((code == zero_pixel)[..., None], zero, v))
+    cols = weights[0][..., None] * values[0]
+    for k in range(1, 4):
+        cols = cols + weights[k][..., None] * values[k]
+    if mask is not None:
+        cols = cols * mask.reshape(n, og, k2, oh, ow)[..., None]
+    return cols.permute(0, 3, 4, 2, 1, 5).reshape(n, oh, ow, k2, c), codes
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_tile_windows_give_the_plain_columns(case):
+    """The forward's tiles: with offsets of RMS 3 px (some beyond the
+    margin) and a few sent outside the map, each corner decoded from its
+    tile's window, or read from the map, gives the plain columns' bits;
+    the same with no window at all (every corner from the map)."""
+    arrays = _case(case, 13)
+    arrays["off"] = arrays["off"] * 2.0
+    stride, pad, dil = (v[0] for v in arrays["geometry"])
+    x, off, weight, _, mask = _port_args(arrays)
+    kernel = tuple(weight.shape[-2:])
+    n, c = x.shape[:2]
+    og = off.shape[1] // (2 * kernel[0] * kernel[1])
+    plan = tile_plan("forward", n, c, og, off.shape[-2:], kernel, stride, dil)
+    assert plan.margin == MARGIN and plan.smem <= SMEM_LIMIT
+    want = deform_im2col_plain(x, off, mask, kernel, stride, pad, dil)
+    geometry = (kernel, stride, pad, dil)
+    got, codes = _staged_columns(x, off, mask, geometry, plan)
+    assert torch.equal(got, want)
+    zero_pixel = plan.wr * plan.wc
+    assert bool(((codes >= 0) & (codes < zero_pixel)).any())
+    assert bool((codes == zero_pixel).any())
+    empty = plan._replace(margin=0, wr=0, wc=0)
+    got, codes = _staged_columns(x, off, mask, geometry, empty)
+    assert torch.equal(got, want) and not bool((codes > 0).any())
+
+
+def test_tile_windows_cover_offsets_within_the_margin():
+    """Every valid corner of a sample whose offsets lie within ``MARGIN``
+    px is staged (forward and backward tiles, stride 1 and 2, at the
+    model's C3 widths); beyond it some are read from the map."""
+    rng = np.random.RandomState(14)
+    for stride, size in ((1, 40), (2, 80)):
+        oh = (size + 2 - 3) // stride + 1
+        x = torch.randn(1, 4, size, size)
+        for spread, staged_all in ((MARGIN - 1e-3, True), (3.0 * MARGIN, False)):
+            off = torch.from_numpy(rng.uniform(-spread, spread, (1, 18, oh, oh))
+                                   .astype(np.float32))
+            for kind in ("forward", "backward"):
+                plan = tile_plan(kind, 1, 128, 1, (oh, oh), 3, stride, 1)
+                codes = deform_tile_codes_plain(off, 3, stride, 1, 1, (size, size), plan)
+                assert bool((codes < 0).any()) != staged_all, (kind, stride)
+                assert bool(((codes >= 0) & (codes < plan.wr * plan.wc)).any())
+
+
+def test_tile_plan_fits_shared_memory():
+    """The model's shapes keep the full margin in both tiles; the forward
+    splits the channels where its tiles alone would not fill the card; a
+    window too large for shared memory shrinks its margin, and then goes,
+    and a kernel whose records do not fit at all is refused."""
+    # a 4 x 8 tile of a 3x3 kernel: (th - 1) s + 2 + 2 margin + 1 rows,
+    # (tw - 1) s + 2 + 2 margin + 1 columns
+    c3 = tile_plan("forward", 2, 128, 1, (168, 168), 3, 1, 1)
+    assert (c3.th, c3.tw, c3.margin, c3.wr, c3.wc, c3.splits) == (
+        4, 8, MARGIN, 6 + 2 * MARGIN, 10 + 2 * MARGIN, 1)
+    # C5's 132 tiles a call split into 8 (the 16 chunks of 512 channels)
+    c5 = tile_plan("forward", 2, 512, 1, (42, 42), 3, 1, 1)
+    assert c5.splits == 8
+    back = tile_plan("backward", 2, 256, 1, (84, 84), 3, 2, 1)
+    assert (back.th, back.tw, back.margin, back.wr, back.wc) == (
+        4, 8, MARGIN, 9 + 2 * MARGIN, 17 + 2 * MARGIN)
+    # the backward's blocks are twice as wide: C4's 462 split in 2
+    assert tile_plan("backward", 2, 256, 1, (84, 84), 3, 1, 1).splits == 2
+    assert tile_plan("backward", 2, 128, 1, (168, 168), 3, 1, 1).splits == 1
+    for kind in ("forward", "backward"):
+        for dil, margin in ((1, MARGIN), (40, 0)):
+            plan = tile_plan(kind, 1, 64, 1, (32, 32), 3, 1, dil)
+            assert plan.smem <= SMEM_LIMIT and plan.margin <= margin
+        wide = tile_plan(kind, 1, 64, 1, (32, 32), 7, 1, 60)
+        assert (wide.margin, wide.wr, wide.wc) == (0, 0, 0)
+    big = tile_plan("forward", 1, 8, 1, (8, 8), 41, 1, 1)
+    assert big.th * big.tw < 32 and big.smem <= SMEM_LIMIT
+    with pytest.raises(ValueError, match="do not fit"):
+        tile_plan("forward", 1, 8, 1, (8, 8), 80, 1, 1)
+    with pytest.raises(ValueError, match="kind"):
+        tile_plan("sideways", 1, 8, 1, (8, 8), 3, 1, 1)
 
 
 # ---------------------------------------------------------------- block

@@ -72,9 +72,11 @@ from vision_tpu_torch.ops.poolers import (
 )
 from vision_tpu_torch.models.detection import GeneralizedRCNNTransform
 from vision_tpu_torch.ops.deform_conv import (
+    _corner_records_cuda,
     deform_conv2d,
     deform_conv_backward_cuda,
     deform_conv_backward_plain,
+    deform_corner_records_plain,
     deform_im2col_cuda,
     deform_im2col_plain,
 )
@@ -1121,8 +1123,9 @@ def _deform_case(rng, n, c, h, w, stride, og, pad, dil, with_mask, k=3,
 
 # (n, c, h, w, stride, og, pad, dil, mask): small maps with samples outside
 # them, C not a multiple of 4, two offset groups, stride 2, dilation; then
-# the C3 shapes of Mask R-CNN on the 1344 canvas, batch 2 (the first block's
-# stride-2 call on the 336x336 map, and the others' on 168x168)
+# every shape of Mask R-CNN's C3-C5 on the 1344 canvas, batch 2 (each
+# stage's first block's stride-2 call, and the others'), with a DCNv2 mask
+# at one C3 and one C5 shape
 DEFORM_CASES = [
     (2, 8, 9, 11, 1, 1, 1, 1, False),
     (1, 6, 10, 7, 2, 2, 1, 1, True),
@@ -1130,7 +1133,27 @@ DEFORM_CASES = [
     (1, 64, 20, 24, 2, 1, 1, 1, False),
     (2, 128, 336, 336, 2, 1, 1, 1, False),
     (2, 128, 168, 168, 1, 1, 1, 1, True),
+    (2, 256, 168, 168, 2, 1, 1, 1, False),
+    (2, 256, 84, 84, 1, 1, 1, 1, False),
+    (2, 512, 84, 84, 2, 1, 1, 1, True),
+    (2, 512, 42, 42, 1, 1, 1, 1, False),
 ]
+
+
+def _deform_pile_up(dev, n=2, c=64, size=32, seed=0):
+    """A 32x32 map whose every tap of every output position (3x3, stride
+    1, padding 1) samples within one pixel of the centre: one pixel's
+    range runs to thousands of corners, all read from beyond the tiles'
+    windows."""
+    rng = np.random.RandomState(seed)
+    base = np.arange(size)[None, :] - 1 + np.arange(3)[:, None]  # [3, OH]
+    centre = (size - 1) / 2.0
+    shape = (n, 3, 3, size, size)
+    dy = centre - base[None, :, None, :, None] + rng.uniform(-1, 1, shape)
+    dx = centre - base[None, None, :, None, :] + rng.uniform(-1, 1, shape)
+    off = np.stack([dy, dx], 3).reshape(n, 18, size, size).astype(np.float32)
+    x = rng.randn(n, c, size, size).astype(np.float32)
+    return torch.from_numpy(x).to(dev), torch.from_numpy(off).to(dev)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1191,6 +1214,55 @@ def test_deform_backward_kernel_matches_plain(dev, case, dtype):
                 want_t.abs().max())
     # samples outside the map carry no offset gradient
     assert bool((go == 0).any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_deform_kernels_on_a_pile_up(dev, dtype):
+    """Thousands of corners on one pixel: the columns are the plain
+    version's bits; the backward gives the same bits twice and lies within
+    the tolerances of ``test_deform_backward_kernel_matches_plain``."""
+    x, off = _deform_pile_up(dev)
+    x = x.to(dtype)
+    got = deform_im2col_cuda(x, off, None, 3, 1, 1, 1)
+    want = deform_im2col_plain(x, off, None, 3, 1, 1, 1)
+    assert torch.equal(got, want)
+    g = torch.randn(*got.shape, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(5))
+    first = deform_conv_backward_cuda(x, off, None, g, 3, 1, 1, 1)
+    again = deform_conv_backward_cuda(x, off, None, g, 3, 1, 1, 1)
+    want = deform_conv_backward_plain(x, off, None, g, 3, 1, 1, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+    keys = deform_corner_records_plain(off, None, 3, 1, 1, 1, (32, 32))[0]
+    counts = torch.bincount(keys)[:-1]
+    assert int(counts.max()) > 1000
+    if dtype == torch.bfloat16:
+        _bf16_backward_close(first[0], want[0])
+    else:
+        assert float((first[0] - want[0]).abs().max()) <= 1e-5 * float(
+            want[0].abs().max())
+    assert float((first[1] - want[1]).abs().max()) <= 1e-5 * float(
+        want[1].abs().max())
+
+
+@pytest.mark.parametrize("case", DEFORM_CASES[:6])
+def test_deform_corner_records_kernel_matches_plain(dev, case):
+    """The keys kernel's keys and records (row, f32 weight times mask)
+    are :func:`deform_corner_records_plain`'s, to the bit."""
+    n, c, h, w, stride, og, pad, dil, with_mask = case
+    rng = np.random.RandomState(400 + c + h)
+    _, off, mask = (None if t is None else t.to(dev)
+                    for t in _deform_case(rng, *case))
+    oh, ow = off.shape[-2:]
+    keys, recs = _corner_records_cuda(
+        off, mask, (n, c, h, w, 3, 3, oh, ow, og, stride, stride, pad, pad,
+                    dil, dil))
+    want_keys, want_rows, want_w = deform_corner_records_plain(
+        off, mask, 3, stride, pad, dil, (h, w))
+    torch.cuda.synchronize()
+    assert torch.equal(keys.long(), want_keys)
+    assert torch.equal(recs[:, 0].long(), want_rows)
+    assert torch.equal(recs[:, 1].view(torch.float32), want_w)
 
 
 def test_deform_conv2d_routes_by_device(dev):

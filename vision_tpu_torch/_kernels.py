@@ -86,12 +86,12 @@ _KERNELS: Dict[str, Tuple[str, List[str], Dict[str, list]]] = {
     ),
     "deform_conv": (
         "deform_conv.cu", ["-fmad=false"],
-        {"vt_deform_im2col": [_P, _P, _P, _P] + [_I] * 15 + [_I, _P]},
+        {"vt_deform_im2col": [_P] * 4 + [_I] * 15 + [_I] * 6 + [_I, _P]},
     ),
     "deform_conv_backward": (
         "deform_conv_backward.cu", ["-fmad=false"],
-        {"vt_deform_scatter_keys": [_P, _P] + [_I] * 15 + [_P],
-         "vt_deform_backward": [_P] * 9 + [_I] * 15 + [_I, _P]},
+        {"vt_deform_scatter_keys": [_P] * 4 + [_I] * 15 + [_P],
+         "vt_deform_backward": [_P] * 12 + [_I] * 15 + [_I] * 6 + [_I, _P]},
     ),
     "window_pool": (
         "window_pool.cu", [],

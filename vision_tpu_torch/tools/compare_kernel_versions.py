@@ -1,18 +1,26 @@
-"""Time another version of the NMS, RoIAlign and window-pool kernels, and
-of the two backward kernels, against the package's own, in one process on
-one card, on the inputs that ``chip_smoke.py``'s paths give them.
+"""Time another version of the NMS, RoIAlign and window-pool kernels, of
+the two pooler backward kernels and of the deformable convolution's two
+libraries, against the package's own, in one process on one card, on the
+inputs that ``chip_smoke.py``'s paths give them.
 
     python -m vision_tpu_torch.tools.compare_kernel_versions OTHER_DIR
 
 ``OTHER_DIR`` holds some of ``nms.cu``, ``roi_align.cu``, ``nms_rowscan.cu``,
-``window_pool.cu``, ``window_pool_backward.cu`` and ``roi_align_backward.cu``
-(for example the files of an earlier commit, unpacked with ``git
-archive``); each kernel whose source is there is compared. They are built
-with the package's own ``nvcc`` flags into ``OTHER_DIR/build``. The forward
-kernels keep the package's C entry points; a backward source may also have
-the f32-only entry points without the ``bf16`` flag (and, for RoIAlign,
-without the scratch function) that the backward kernels had before their
-bf16 variants, told apart by the source's own text.
+``window_pool.cu``, ``window_pool_backward.cu``, ``roi_align_backward.cu``,
+``deform_conv.cu`` and ``deform_conv_backward.cu`` (these two with their
+``deform_sample.cuh``; for example the files of an earlier commit,
+unpacked with ``git archive``); each kernel whose source is there is
+compared. They are built with the package's own ``nvcc`` flags into
+``OTHER_DIR/build``. The forward kernels keep the package's C entry
+points; a backward source may also have the f32-only entry points without
+the ``bf16`` flag (and, for RoIAlign, without the scratch function) that
+the backward kernels had before their bf16 variants, told apart by the
+source's own text. A deformable-convolution source may have the first
+design's entry points (a channels-last input, no tile plan; keys without
+records), also told apart by its text: it then runs with that design's
+wrapper work (the input's channels-last copy; the keys, the sort and the
+int64 ranges), and a source with the package's entry points runs under
+the package's own wrappers.
 
 The forward inputs: the model (seeded random weights, ``cls_score`` x30,
 one seeded 832x832 image, TF32 off) runs once as it is, recording the
@@ -35,13 +43,26 @@ thresholds -1 (every box after a row's first is suppressed: what the chain
 costs with no tests left) and 2 (every valid box is kept: the most tests),
 and the bitmask NMS's and the backward kernels' device time is split by
 kernel (the NMS mask pass and scan; the backward passes' describe, sum and
-other kernels, and the wrapper's sort) with ``torch.profiler``. One JSON
-line per call, then the card's name and power limit. Needs a CUDA device
-and ``nvcc``.
+other kernels, and the wrapper's sort) with ``torch.profiler``.
+
+The deformable convolution's inputs: ``maskrcnn_resnet50_fpn_deform``
+(seeded weights and offset predictors, ``seed_offsets``) serves one
+request of ``chip_smoke.py``'s two raw images in f32 and one in bf16,
+recording the 13 calls of the column kernel in each, and takes one train
+step in f32 and one in bf16 (``compute_dtype``) on its training batch,
+recording the 13 calls of the backward in each. Each call's two outputs
+agree (the columns bit for bit; the backward's gradients within 1e-5 of
+the largest value, the bf16 input's gradient within a bf16 step of it);
+each version's device time, its wrapper's work included, is taken in
+turns, and the backward's is split by kernel (keys, record pass, sort,
+input sum, offsets, other). Then a line sums each request's and each
+step's calls for both versions. One JSON line per call, then the card's
+name and power limit. Needs a CUDA device and ``nvcc``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import importlib
 import json
@@ -61,9 +82,19 @@ SPIN_CYCLES = 30_000_000  # ~17 ms: the timed calls queue behind it
 CLS_SCALE = 30.0
 SIZE = 832
 KERNELS = ("nms", "roi_align", "nms_rowscan", "window_pool",
-           "window_pool_backward", "roi_align_backward")
+           "window_pool_backward", "roi_align_backward", "deform_conv",
+           "deform_conv_backward")
 BACKWARD = ("window_pool_backward", "roi_align_backward")
+DEFORM = ("deform_conv", "deform_conv_backward")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the deformable convolution's first entry points: a channels-last input
+# and no tile plan; keys without records, int64 ranges
+_FIRST_DEFORM = {
+    "deform_conv": {"vt_deform_im2col": [_P] * 4 + [_I] * 15 + [_I, _P]},
+    "deform_conv_backward": {
+        "vt_deform_scatter_keys": [_P] * 2 + [_I] * 15 + [_P],
+        "vt_deform_backward": [_P] * 9 + [_I] * 15 + [_I, _P]},
+}
 # the backward kernels' f32-only C entry points, before the bf16 flag
 _F32_ONLY = {
     "window_pool_backward": {
@@ -125,6 +156,18 @@ def f32_only(name: str, source: Path) -> bool:
     return found is not None and "bf16" not in found.group(1)
 
 
+def first_deform(name: str, source: Path) -> bool:
+    """Whether a deformable-convolution source has the first design's
+    entry points (no tile plan in the forward's, no records in the
+    backward's)."""
+    if name not in DEFORM:
+        return False
+    entry = "vt_deform_im2col" if name == "deform_conv" else "vt_deform_backward"
+    found = re.search(r"extern \"C\" int %s\((.*?)\)" % entry,
+                      source.read_text(), re.S)
+    return found is not None and not re.search(r"\b(th|recs)\b", found.group(1))
+
+
 def build_other(name: str, other: Path) -> ctypes.CDLL:
     source, extra, functions = _kernels._KERNELS[name]
     out = other / "build" / f"lib{name}.so"
@@ -133,8 +176,11 @@ def build_other(name: str, other: Path) -> ctypes.CDLL:
                     str(out), str(other / source)], check=True)
     lib = ctypes.CDLL(str(out))
     lib.f32_only = f32_only(name, other / source)
+    lib.first_deform = first_deform(name, other / source)
     if lib.f32_only:
         functions = _F32_ONLY[name]
+    if lib.first_deform:
+        functions = _FIRST_DEFORM[name]
     for fn, argtypes in functions.items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
@@ -225,10 +271,84 @@ def roi_align_backward(lib, grad, rois, shape, size, scale, sr, aligned):
     return out
 
 
+@contextlib.contextmanager
+def _library(name: str, lib):
+    """The package's wrappers, with ``lib`` as kernel library ``name``."""
+    _kernels.load(name)
+    saved = _kernels._libs[name]
+    _kernels._libs[name] = lib
+    try:
+        yield
+    finally:
+        _kernels._libs[name] = saved
+
+
+def _deform_module():
+    return importlib.import_module("vision_tpu_torch.ops.deform_conv")
+
+
+def deform_conv(lib, x, off, mask, k, stride, pad, dil):
+    """``deform_im2col_cuda``'s work on ``lib``: the package's wrapper, or
+    for the first design's entry points its wrapper's (a channels-last copy
+    of the input)."""
+    dc = _deform_module()
+    if not getattr(lib, "first_deform", False):
+        with _library("deform_conv", lib):
+            return dc.deform_im2col_cuda(x, off, mask, k, stride, pad, dil)
+    geo, (stride, pad, dil), xx, o, m = dc._kernel_args(
+        x, off, mask, k, stride, pad, dil, "deform_conv")
+    n, c, h, w, kh, kw, oh, ow, og = geo
+    cols = torch.empty(n, oh, ow, kh * kw, c, dtype=torch.float32,
+                       device=x.device)
+    _kernels.check(lib.vt_deform_im2col(
+        xx.permute(0, 2, 3, 1).contiguous().data_ptr(), o.data_ptr(),
+        0 if m is None else m.data_ptr(), cols.data_ptr(), n, c, h, w, kh, kw,
+        oh, ow, og, *stride, *pad, *dil, int(x.dtype == torch.bfloat16),
+        _kernels.stream_handle(x)), "deform_conv")
+    return cols
+
+
+def deform_conv_backward(lib, x, off, mask, g_cols, k, stride, pad, dil):
+    """``deform_conv_backward_cuda``'s work on ``lib``: the package's
+    wrapper, or for the first design's entry points its wrapper's (a
+    channels-last copy of the input, the keys, their stable sort and int64
+    ranges)."""
+    dc = _deform_module()
+    if not getattr(lib, "first_deform", False):
+        with _library("deform_conv_backward", lib):
+            return dc.deform_conv_backward_cuda(x, off, mask, g_cols, k, stride,
+                                                pad, dil)
+    geo, (stride, pad, dil), xx, o, m = dc._kernel_args(
+        x, off, mask, k, stride, pad, dil, "deform_conv_backward")
+    n, c, h, w, kh, kw, oh, ow, og = geo
+    dev, stream = x.device, _kernels.stream_handle(x)
+    geometry = (n, c, h, w, kh, kw, oh, ow, og, *stride, *pad, *dil)
+    keys = torch.empty(4 * n * og * kh * kw * oh * ow, dtype=torch.int32,
+                       device=dev)
+    _kernels.check(lib.vt_deform_scatter_keys(o.data_ptr(), keys.data_ptr(),
+                                              *geometry, stream), "keys")
+    sorted_keys, order = torch.sort(keys, stable=True)
+    starts = torch.searchsorted(sorted_keys, torch.arange(
+        n * og * h * w + 1, dtype=torch.int32, device=dev))
+    gi = torch.empty(n, c, h, w, dtype=x.dtype, device=dev)
+    go = torch.empty(o.shape, dtype=torch.float32, device=dev)
+    gm = None if m is None else torch.empty(m.shape, dtype=torch.float32,
+                                            device=dev)
+    _kernels.check(lib.vt_deform_backward(
+        xx.permute(0, 2, 3, 1).contiguous().data_ptr(), o.data_ptr(),
+        0 if m is None else m.data_ptr(), g_cols.contiguous().data_ptr(),
+        order.data_ptr(), starts.data_ptr(), gi.data_ptr(), go.data_ptr(),
+        0 if gm is None else gm.data_ptr(), *geometry,
+        int(x.dtype == torch.bfloat16), stream), "deform_conv_backward")
+    return gi, go, gm
+
+
 RUNNERS = {"nms": nms, "roi_align": roi_align, "nms_rowscan": rowscan,
            "window_pool": window_pool,
            "window_pool_backward": window_pool_backward,
-           "roi_align_backward": roi_align_backward}
+           "roi_align_backward": roi_align_backward,
+           "deform_conv": deform_conv,
+           "deform_conv_backward": deform_conv_backward}
 
 
 def window_stats(stacked, row0, x0, w_y, w_x, div) -> dict:
@@ -375,6 +495,156 @@ def record_backward_inputs() -> dict:
     return calls
 
 
+def record_deform_inputs() -> dict:
+    """The arguments of the column kernel's 13 calls in one request of
+    ``maskrcnn_resnet50_fpn_deform`` in f32 and one in bf16, and of the
+    backward's 13 in one f32 and one bf16 train step (``chip_smoke.py``'s
+    images, batch and optimizer; seeded offset predictors), each tagged
+    with its path."""
+    from vision_tpu_torch.models.detection import (
+        FasterRCNN_ResNet50_FPN_Weights,
+        GeneralizedRCNNTransform,
+    )
+    from vision_tpu_torch.parallel import make_detection_train_step
+    from vision_tpu_torch.tools.detection_request import (
+        raw_images,
+        recipe_optimizer,
+        seed_offsets,
+        serve,
+        train_batch,
+    )
+
+    dc = _deform_module()
+    attrs = {"deform_conv": "deform_im2col_cuda",
+             "deform_conv_backward": "deform_conv_backward_cuda"}
+    wrappers = {name: getattr(dc, attr) for name, attr in attrs.items()}
+    calls = {name: [] for name in DEFORM}
+    where = {"tag": "", "record": ""}
+
+    def recorder(name):
+        def rec(*args):
+            if name == where["record"]:
+                calls[name].append((where["tag"], tuple(
+                    a.contiguous().clone() if torch.is_tensor(a) else a
+                    for a in args)))
+            return wrappers[name](*args)
+        return rec
+
+    raw = raw_images()
+    preset = FasterRCNN_ResNet50_FPN_Weights.COCO_V1.transforms()
+    transform = GeneralizedRCNNTransform()
+    for name, attr in attrs.items():
+        setattr(dc, attr, recorder(name))
+    try:
+        model = get_model("maskrcnn_resnet50_fpn_deform", seed=0)
+        with torch.no_grad():
+            seed_offsets(model, transform([preset(r) for r in raw]).tensors)
+        where["record"] = "deform_conv"
+        for dtype in (torch.float32, torch.bfloat16):
+            where["tag"] = f"request {str(dtype)[6:]}"
+            model.to(dtype)
+            with torch.inference_mode():
+                serve(model, preset, transform, raw, dtype)
+        del model
+        with torch.no_grad():
+            batch = train_batch(preset, transform, raw, masks=True)
+        where["record"] = "deform_conv_backward"
+        for dtype in (None, torch.bfloat16):
+            model = get_model("maskrcnn_resnet50_fpn_deform", seed=0,
+                              trainable_backbone_layers=3)
+            with torch.no_grad():
+                seed_offsets(model, batch["image"])
+            optimizer, _ = recipe_optimizer(model)
+            step = make_detection_train_step(model, optimizer,
+                                             compute_dtype=dtype)
+            where["tag"] = "train " + ("bf16" if dtype else "float32")
+            step(batch, torch.Generator(device="cuda").manual_seed(0))
+            torch.cuda.synchronize()
+            del model, optimizer, step
+            torch.cuda.empty_cache()
+    finally:
+        for name, attr in attrs.items():
+            setattr(dc, attr, wrappers[name])
+    return calls
+
+
+def deform_split(split: dict) -> dict:
+    """A deformable backward's device ms by pass: keys, record pass, sort
+    (and the ranges' search), input sum, offsets (with the splits' sum),
+    other."""
+    out = defaultdict(float)
+    for kernel, ms in split.items():
+        if kernel == "keys_kernel":
+            group = "keys"
+        elif kernel == "sort_records_kernel":
+            group = "record pass"
+        elif kernel.startswith("input_grad_kernel"):
+            group = "input sum"
+        elif kernel.startswith(("offset_grad_kernel", "finish_kernel")):
+            group = "offsets"
+        elif re.search(r"sort|Sort|radix|Radix|searchsorted", kernel):
+            group = "sort"
+        else:
+            group = "other"
+        out[group] += ms
+    return dict(out)
+
+
+def compare_deform(name: str, ours, theirs, calls) -> bool:
+    """One line per recorded call (agreement, device ms in turns, the
+    backward's split), then one a path summing its calls. Returns whether
+    every call agreed."""
+    run = RUNNERS[name]
+    totals = defaultdict(lambda: defaultdict(float))
+    ok_all = True
+    for where, args in calls:
+        got, want = run(ours, *args), run(theirs, *args)
+        torch.cuda.synchronize()
+        if name == "deform_conv":
+            ok = bool(torch.equal(got, want))
+            err = float((got - want).abs().max())
+        else:
+            errs = {}
+            for label, a, b in zip(("input", "offset", "mask"), got, want):
+                if b is not None:
+                    errs[label] = float((a.float() - b.float()).abs().max()
+                                        / b.float().abs().max().clamp(min=1e-30))
+            tol = {k: 2.0 ** -7 if k == "input" and args[0].dtype == torch.bfloat16
+                   else 1e-5 for k in errs}
+            ok = all(errs[k] <= tol[k] for k in errs)
+            err = errs
+        del got, want
+        turns = [device_ms(lambda lib=lib: run(lib, *args))
+                 for lib in (ours, theirs, theirs, ours)]
+        line = {"kernel": name, "path": where, "dtype": str(args[0].dtype)[6:],
+                "other_first_design": theirs.first_deform,
+                "shape": [list(args[0].shape), list(args[1].shape)],
+                "stride": args[4] if name == "deform_conv" else args[5],
+                "mask": args[2] is not None,
+                "device_ms": (turns[0] + turns[3]) / 2,
+                "other_device_ms": (turns[1] + turns[2]) / 2,
+                "turns_ms": turns, "max_err": err, "agree": ok}
+        line["factor"] = line["other_device_ms"] / line["device_ms"]
+        t = totals[where]
+        t["calls"] += 1
+        t["device_ms"] += line["device_ms"]
+        t["other_device_ms"] += line["other_device_ms"]
+        t["slowest_factor"] = min(t.get("slowest_factor", 1e9), line["factor"])
+        if name == "deform_conv_backward":
+            line["split_ms"] = deform_split(kernel_split_ms(lambda: run(ours, *args)))
+            line["other_split_ms"] = deform_split(
+                kernel_split_ms(lambda: run(theirs, *args)))
+            for tag in ("split_ms", "other_split_ms"):
+                for k, v in line[tag].items():
+                    t[f"{tag}:{k}"] += v
+        print(json.dumps(line), flush=True)
+        ok_all &= ok
+    for where, t in totals.items():
+        print(json.dumps({"kernel": name, "path": where, "summed_over_calls": {
+            **t, "factor": t["other_device_ms"] / t["device_ms"]}}), flush=True)
+    return ok_all
+
+
 def main() -> int:
     if len(sys.argv) != 2 or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
@@ -388,15 +658,20 @@ def main() -> int:
         return 2
     libs = {n: (_kernels.load(n), build_other(n, other)) for n in names}
     calls = {}
-    if any(n not in BACKWARD for n in names):
+    if any(n not in BACKWARD + DEFORM for n in names):
         calls.update({n: [("forward", a) for a in c]
                       for n, c in record_inputs().items()})
     if any(n in BACKWARD for n in names):
         calls.update(record_backward_inputs())
+    if any(n in DEFORM for n in names):
+        calls.update(record_deform_inputs())
     failed = False
     for name in names:
         run = RUNNERS[name]
         ours, theirs = libs[name]
+        if name in DEFORM:
+            failed |= not compare_deform(name, ours, theirs, calls[name])
+            continue
         for i, (where, args) in enumerate(calls[name]):
             got, want = run(ours, *args), run(theirs, *args)
             torch.cuda.synchronize()

@@ -81,6 +81,8 @@ _GROUPS = (
     ("input_grad_kernel", "deform backward kernel"),
     ("offset_grad_kernel", "deform backward kernel"),
     ("keys_kernel", "deform backward kernel"),
+    ("sort_records_kernel", "deform backward kernel"),
+    ("finish_kernel", "deform backward kernel"),
     ("window_pool_backward", "window-pool backward kernel"),
     ("window_pool", "window-pool kernel"),
     ("roi_align_backward", "roi_align backward kernel"),
