@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Builds the eleven CUDA kernels of ``vision_tpu_torch`` from ``csrc/`` and
-drives the port's main paths at full width, TF32 off, seeded random
-weights:
+Builds the eleven CUDA kernels of ``vision_tpu_torch`` from ``csrc/``
+(``nvcc``) and its JPEG codec (``csrc/jpeg_codec.cpp``, ``g++``, no
+library), all at once, and drives the port's main paths at full width, TF32
+off, seeded random weights:
 
 * Faster R-CNN ResNet-50-FPN inference (91 classes, one 832x832 f32 image)
   through ``fasterrcnn_resnet50_fpn``: the bitmask NMS, window-pool and
@@ -31,7 +32,7 @@ weights:
   two images in f32 and in bf16, its masks pasted into each image, and
   trained with gt masks, in f32 and in bf16; Keypoint R-CNN ResNet-50-FPN
   (``keypointrcnn_resnet50_fpn``) served in f32 and trained with gt
-  keypoints: the window pool, its backward and RoIAlign at the 14x14 head
+  keypoints, in f32 and in bf16: the window pool, its backward and RoIAlign at the 14x14 head
   shapes, and RoIAlign at the one-channel 28x28 mask targets;
 * the deform-trunk Mask R-CNN (``maskrcnn_resnet50_fpn_deform``, deformable
   3x3s in C3-C5, 13 a forward) served from the same two images in f32 and
@@ -48,7 +49,17 @@ weights:
   and in bf16, through the ``matmul_stats`` kernels (36 launches a
   forward): the pipelined FP32 kernel in f32, the ``wgmma`` kernel in bf16,
   and never the guarded general kernel, which one more f32 step drives
-  with its wrapper swapped in.
+  with its wrapper swapped in;
+* ImageNet eval from encoded JPEGs (``tools/imagenet_e2e.py``, the cells of
+  ``bench.py``'s ``_bench_e2e*``: 32 seeded 375x500 JPEGs at quality 75,
+  encoded by the port's codec, batch 64, 12 batches, one synchronisation
+  at the end): the codec itself (host decode against the card's, the
+  encoder's tables against IJG's, host ms an image); ResNet-50 in bf16
+  from JPEGs decoded on host threads through the pinned
+  ``prefetch_to_device`` queue, from the Huffman pass alone with the rest
+  of the decode on the card (coefficient limit 5), and from decoded frames
+  already on the card; ResNet-18 in f32 through its weights' preset
+  (BASELINE config 1). Each first batch is held against the CPU.
 
 Every kernel is held against its plain PyTorch version on the card at the
 inputs the model gave it, and each path's result against a run of the same
@@ -77,6 +88,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -548,15 +560,19 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
 
     from vision_tpu_torch import _kernels
+    from vision_tpu_torch.io import _codecs
 
     smi = nvidia_smi()
     emit("env", nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count())
     t0 = time.perf_counter()
-    build_s = _kernels.build_all()
-    emit("build", seconds=build_s, wall_s=time.perf_counter() - t0,
-         dir=str(_kernels.build_dir()))
+    with ThreadPoolExecutor(1) as pool:  # g++ beside the nvcc processes
+        codec = pool.submit(_codecs.build)
+        build_s = _kernels.build_all()
+        codec_s = codec.result()
+    emit("build", seconds=build_s, codec_seconds=codec_s,
+         wall_s=time.perf_counter() - t0, dir=str(_kernels.build_dir()))
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -584,6 +600,8 @@ def main() -> int:
     keypoint_rcnn_phases(kernels)
     torch.cuda.empty_cache()
     rows += resnet50_phases(kernels)
+    torch.cuda.empty_cache()
+    imagenet_e2e_phases()
     emit("done", build_s=build_s, phases_s=time.perf_counter() - t_phases,
          total_s=time.perf_counter() - t0)
 
@@ -1296,8 +1314,12 @@ def keypoint_rcnn_phases(kernels):
     images in f32 (``keypoint_rcnn_images``: ``keypoint_check`` on the
     valid rows, the detections as ``check_detections`` holds them), then
     trained (``keypoint_rcnn_train``: ``det_train_phase`` with seeded gt
-    keypoints, the gradients of ``KEYPOINT_GRADS``). Its kernels run at the
-    shapes of the Mask R-CNN phases, whose rows they share."""
+    keypoints, the gradients of ``KEYPOINT_GRADS``), and trained in amp
+    (``keypoint_rcnn_train_amp``: held as ``mask_rcnn_train_amp`` is, step
+    1 against a plain bf16 step from the kernel path's weights at losses
+    1e-2 and gradients 5e-2, its RPN losses and sum within 5e-2 of the f32
+    step's). Its kernels run at the shapes of the Mask R-CNN phases, whose
+    rows they share."""
     import torch
 
     from vision_tpu_torch.models.detection import (
@@ -1333,9 +1355,14 @@ def keypoint_rcnn_phases(kernels):
     check_mapped_boxes(boxes, raw)
     del model, maps
     torch.cuda.empty_cache()
-    det_train_phase(kernels, "keypoint_rcnn_train",
+    _, _, first = det_train_phase(kernels, "keypoint_rcnn_train",
+                                  name="keypointrcnn_resnet50_fpn",
+                                  grads=KEYPOINT_GRADS, num_classes=2,
+                                  keypoints=True)
+    torch.cuda.empty_cache()
+    det_train_phase(kernels, "keypoint_rcnn_train_amp",
                     name="keypointrcnn_resnet50_fpn", grads=KEYPOINT_GRADS,
-                    num_classes=2, keypoints=True)
+                    num_classes=2, f32_first=first, keypoints=True)
 
 
 def seed_deform_offsets(model, images) -> None:
@@ -2039,6 +2066,276 @@ def resnet50_preset_check(model) -> None:
     if tuple(x.shape) != (8, 3, 224, 224) or not rel <= 1e-3:
         raise RuntimeError("ResNet-50 through its preset on the card disagrees "
                            "with the CPU")
+
+
+# ImageNet eval from encoded JPEGs (bench.py:_bench_e2e and neighbours)
+E2E_BATCH = 64
+E2E_BATCHES = 12
+E2E_DEVICE_INPUT_ITERS = 20
+E2E_CHECKED = 8  # images of the first batch held against the CPU
+E2E_INPUT_TOL = 1e-4  # preprocessed f32 input, card against CPU, absolute
+AMP_LOGITS_TOL = 5e-2  # bf16 logits against f32, of the largest
+# the timed batches' logits against the checked batch's on the card (the
+# same images), of the largest: f32, bf16
+TIMED_LOGITS_TOL = {"float32": 1e-3, "bfloat16": 1e-2}
+RESNET18_PARAMS = 11_689_512
+# Annex K tables, natural order (libjpeg's jcparam.c std_*_quant_tbl)
+ANNEX_K = (
+    [16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+     14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+     18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+     49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99],
+    [17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+     24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99]
+    + [99] * 32,
+)
+
+
+def ijg_table(basic, quality: int) -> list:
+    """libjpeg's ``jpeg_set_quality``: the table scaled by
+    ``jpeg_quality_scaling``, rounded, clamped to 1..255."""
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    return [min(max((v * scale + 50) // 100, 1), 255) for v in basic]
+
+
+def jpeg_codec_phase(jpegs) -> None:
+    """The port's codec on the card's host: the 32 JPEGs of ``make_jpegs``
+    (encoded there by the port's encoder) decoded on the host and on the
+    card (coefficient limit 8), at most 1 count apart; the encoder's
+    quantisation tables against the IJG formula at five qualities; host
+    ms an image on one core, the whole decode and the Huffman pass alone
+    (``bench.py:521-545``), and the decode rate on all the host's cores
+    through the library's batch decoder."""
+    import numpy as np
+    import torch
+
+    from vision_tpu_torch.io import _codecs, decode_jpeg, encode_jpeg
+    from vision_tpu_torch.io.jpeg_device import host_decode_batch
+    from vision_tpu_torch.tools import imagenet_e2e as e2e
+
+    host = decode_jpeg(jpegs, device="cpu")
+    dev = [d.cpu() for d in decode_jpeg(jpegs)]
+    diff = [(h.int() - d.int()).abs() for h, d in zip(host, dev)]
+    max_err = max(int(d.max()) for d in diff)
+    share = sum(int((d > 0).sum()) for d in diff) / sum(d.numel() for d in diff)
+    img = torch.from_numpy(np.random.RandomState(5).randint(
+        0, 256, (3, 40, 56), dtype=np.uint8))
+    tables_ok = {}
+    for q in (10, 50, 75, 95, 100):
+        _, qt, samp, _ = _codecs.jpeg_coefficients_native(encode_jpeg(img, q))
+        tables_ok[q] = (samp == [(2, 2), (1, 1), (1, 1)] and all(
+            t.tolist() == ijg_table(ANNEX_K[min(ci, 1)], q)
+            for ci, t in enumerate(qt)))
+    full_ms, huff_ms = e2e.host_decode_ms(jpegs[:16], 64)
+    threads = len(os.sched_getaffinity(0))
+    with ThreadPoolExecutor(threads) as pool:
+        host_decode_batch(jpegs, pool=pool)
+        t0 = time.perf_counter()
+        host_decode_batch(jpegs * 8, pool=pool)
+        rate = len(jpegs) * 8 / (time.perf_counter() - t0)
+    emit("jpeg_codec", jpegs=len(jpegs), shape=list(host[0].shape),
+         bytes_mean=sum(map(len, jpegs)) / len(jpegs),
+         host_vs_device_max_abs_err=max_err, differing_share=share,
+         tol=1, tables_match_ijg=tables_ok, host_full_ms_per_img=full_ms,
+         host_huffman_ms_per_img=huff_ms, host_threads=threads,
+         host_decode_img_per_s=rate)
+    if (max_err > 1 or not all(tables_ok.values())
+            or tuple(host[0].shape) != (3, 375, 500)):
+        raise RuntimeError("jpeg_codec: host and card decodes disagree, or the "
+                           "encoder's tables are not IJG's")
+
+
+def e2e_rate(batches, step, device):
+    """Images a second of ``step`` over ``batches`` (a callable of the
+    batch count, whose pinned batches the queue takes over) through
+    ``prefetch_to_device``, one synchronisation at the end, after one
+    warm-up batch; and the logits of each timed batch."""
+    import torch
+
+    from vision_tpu_torch.io import prefetch_to_device
+
+    for x in prefetch_to_device(batches(1), device=device, donate_pinned=True):
+        step(x)
+    torch.cuda.synchronize()
+    outs = []
+    t0 = time.perf_counter()
+    for x in prefetch_to_device(batches(E2E_BATCHES), depth=2, device=device,
+                                donate_pinned=True):
+        outs.append(step(x))
+    torch.cuda.synchronize()
+    return E2E_BATCH * E2E_BATCHES / (time.perf_counter() - t0), outs
+
+
+def check_timed(phase, outs, ref) -> dict:
+    """Every timed batch holds the images of the checked batch (``bench.py``
+    cycles through 32 streams, batch 64), so its logits must be the checked
+    batch's, ``ref``, computed on the card outside the queue: within
+    ``TIMED_LOGITS_TOL`` of the largest. A batch the queue landed late,
+    twice or torn shows here."""
+    tol = TIMED_LOGITS_TOL[str(ref.dtype).removeprefix("torch.")]
+    ref = ref.float()
+    err = max(float((o.float() - ref).abs().max()) for o in outs)
+    err /= float(ref.abs().max())
+    total = sum(float(o.float().sum()) for o in outs)
+    if not err <= tol or not math.isfinite(total):
+        raise RuntimeError(f"{phase}: a timed batch's logits are off the "
+                           f"checked batch's by {err} (tol {tol}), or not "
+                           "finite")
+    return {"timed_batches_vs_checked_rel_err": err, "timed_tol": tol,
+            "logits_sum": total}
+
+
+def check_logits(phase, x_card, x_cpu, model, cpu_model, model16=None) -> dict:
+    """The f32 model's logits on the card against the CPU's within 1e-3 of
+    the largest (``resnet50_preset_check``'s tolerance), and with
+    ``model16`` the bf16 model's on the same input against those within
+    ``AMP_LOGITS_TOL``."""
+    import torch
+
+    logits = model(x_card).cpu()
+    want = cpu_model(x_cpu)
+    out = {"logits_rel_err": float((logits - want).abs().max() / want.abs().max()),
+           "logits_tol": 1e-3}
+    if model16 is not None:
+        l16 = model16(x_card.to(torch.bfloat16)).float().cpu()
+        out.update(bf16_logits_rel_err=float(
+            (l16 - logits).abs().max() / logits.abs().max()),
+            bf16_logits_tol=AMP_LOGITS_TOL)
+    if not out["logits_rel_err"] <= 1e-3 or not out.get(
+            "bf16_logits_rel_err", 0.0) <= AMP_LOGITS_TOL:
+        raise RuntimeError(f"{phase}: logits disagree: {out}")
+    return out
+
+
+def imagenet_e2e_phases() -> None:
+    """ResNet eval from encoded JPEGs (``tools/imagenet_e2e.py``), batch 64,
+    12 timed batches, one synchronisation at the end: ``jpeg_codec``;
+    ResNet-50 in bf16 from host-decoded images (``resnet50_e2e_images``),
+    from the Huffman pass with the rest of the decode on the card
+    (``resnet50_e2e_device_decode``, coefficient limit 5) and from decoded
+    frames already on the card (``resnet50_e2e_device_input``); ResNet-18
+    in f32 through its weights' preset (``resnet18_e2e_images``, BASELINE
+    config 1). A checked batch of each, decoded by the same library call
+    but not pinned and moved outside the queue: 8 images' preprocessed f32
+    input against the CPU's, their logits against the CPU model's, the
+    bf16 logits against the f32 ones on the card; the device decode's
+    pixels against the host decode at the same scale. Every timed batch
+    holds the checked batch's images, and its logits are held against the
+    checked batch's (``check_timed``)."""
+    import torch
+
+    from vision_tpu_torch.io import decode_jpeg
+    from vision_tpu_torch.io.jpeg_device import decode_threads
+    from vision_tpu_torch.models import ResNet18_Weights, get_model
+    from vision_tpu_torch.models._api import resolve_device
+    from vision_tpu_torch.tools import imagenet_e2e as e2e
+
+    t0 = time.perf_counter()
+    jpegs = e2e.make_jpegs()
+    encode_s = time.perf_counter() - t0
+    jpeg_codec_phase(jpegs)
+    if E2E_BATCH % len(jpegs):
+        raise RuntimeError("check_timed needs every batch to hold the same "
+                           "images: a batch of a multiple of the streams")
+    threads = decode_threads()
+    cuda = resolve_device(None)
+    pin = cuda.type == "cuda"
+    n = E2E_CHECKED
+    with torch.inference_mode(), ThreadPoolExecutor(threads) as pool:
+        model32 = get_model("resnet50", seed=0)
+        model16 = get_model("resnet50", seed=0).to(torch.bfloat16)
+        cpu50 = get_model("resnet50", seed=0, device="cpu")
+
+        def host_batches(count):
+            return e2e.host_decode_batches(jpegs, E2E_BATCH, count, pool, pin=pin)
+
+        def step50(raw):
+            return model16(e2e.preprocess(raw))
+
+        first = next(e2e.host_decode_batches(jpegs, E2E_BATCH, 1, pool))
+        frames = first.to(cuda)
+        x_card = e2e.preprocess(frames[:n], torch.float32)
+        x_cpu = e2e.preprocess(first[:n], torch.float32)
+        input_err = float((x_card.cpu() - x_cpu).abs().max())
+        check = check_logits("resnet50_e2e_images", x_card, x_cpu, model32,
+                             cpu50, model16)
+        ref50 = step50(frames)
+        rate, outs = e2e_rate(host_batches, step50, cuda)
+        timed = check_timed("resnet50_e2e_images", outs, ref50)
+        emit("resnet50_e2e_images", model="resnet50", dtype="bfloat16",
+             batch=E2E_BATCH, batches=E2E_BATCHES, image=list(first.shape[1:]),
+             jpeg_encode_s=encode_s, host_threads=threads,
+             input_max_abs_err=input_err, input_tol=E2E_INPUT_TOL,
+             images_per_s=rate, **timed, **check)
+        if not input_err <= E2E_INPUT_TOL:
+            raise RuntimeError("resnet50_e2e_images: input off the CPU's")
+
+        coefs = next(e2e.coef_batches(jpegs, E2E_BATCH, 1, pool))
+        coefs_card = [[t.to(cuda) for t in coefs[0]],
+                      [t.to(cuda) for t in coefs[1]], *coefs[2:]]
+        imgs = e2e.decode_on_device(coefs_card)
+        ref = torch.stack(decode_jpeg(
+            [jpegs[i % len(jpegs)] for i in range(E2E_BATCH)], device="cpu",
+            scale=(e2e.COEF_LIMIT, 8)))
+        pix_err = int((imgs.cpu().int() - ref.int()).abs().max())
+        pix_share = float(((imgs.cpu() != ref).sum()) / imgs.numel())
+
+        def coef_batches(count):
+            return e2e.coef_batches(jpegs, E2E_BATCH, count, pool, pin=pin)
+
+        ref_dd = model16(e2e.preprocess(imgs, nhwc=False))
+        rate, outs = e2e_rate(coef_batches, lambda c: model16(e2e.preprocess(
+            e2e.decode_on_device(c), nhwc=False)), cuda)
+        timed = check_timed("resnet50_e2e_device_decode", outs, ref_dd)
+        emit("resnet50_e2e_device_decode", model="resnet50", dtype="bfloat16",
+             batch=E2E_BATCH, batches=E2E_BATCHES, coef_limit=e2e.COEF_LIMIT,
+             image=list(imgs.shape[1:]),
+             coef_bytes_per_img=sum(c[0].numel() * 2 for c in coefs[0]),
+             pixels_vs_host_max_abs_err=pix_err, pixels_differing_share=pix_share,
+             pixel_tol=1, host_threads=threads, images_per_s=rate, **timed)
+        if pix_err > 1 or tuple(imgs.shape[1:]) != (3, 235, 313):
+            raise RuntimeError("resnet50_e2e_device_decode: card decode off the "
+                               "host's, or wrong size")
+
+        step50(frames)
+        torch.cuda.synchronize()
+        outs = []
+        t0 = time.perf_counter()
+        for _ in range(E2E_DEVICE_INPUT_ITERS):
+            outs.append(step50(frames))
+        torch.cuda.synchronize()
+        rate = E2E_BATCH * E2E_DEVICE_INPUT_ITERS / (time.perf_counter() - t0)
+        timed = check_timed("resnet50_e2e_device_input", outs, ref50)
+        emit("resnet50_e2e_device_input", model="resnet50", dtype="bfloat16",
+             batch=E2E_BATCH, iters=E2E_DEVICE_INPUT_ITERS,
+             image=list(frames.shape[1:]), images_per_s=rate, **timed)
+        del model32, model16, cpu50, frames, outs, ref50, ref_dd, imgs
+        torch.cuda.empty_cache()
+
+        model18 = get_model("resnet18", seed=0)
+        params = sum(p.numel() for p in model18.parameters())
+        preset = ResNet18_Weights.DEFAULT.transforms()
+        cpu_preset = ResNet18_Weights.DEFAULT.transforms(device="cpu")
+
+        def step18(raw):
+            return model18(preset(raw.permute(0, 3, 1, 2)))
+
+        nchw = first[:n].permute(0, 3, 1, 2)
+        x_card, x_cpu = preset(nchw.to(cuda)), cpu_preset(nchw)
+        input_err = float((x_card.cpu() - x_cpu).abs().max())
+        check = check_logits("resnet18_e2e_images", x_card, x_cpu, model18,
+                             get_model("resnet18", seed=0, device="cpu"))
+        ref18 = step18(first.to(cuda))
+        rate, outs = e2e_rate(host_batches, step18, cuda)
+        timed = check_timed("resnet18_e2e_images", outs, ref18)
+        emit("resnet18_e2e_images", model="resnet18", params=params,
+             dtype="float32", preset=repr(preset), batch=E2E_BATCH,
+             batches=E2E_BATCHES, host_threads=threads,
+             input_max_abs_err=input_err, input_tol=E2E_INPUT_TOL,
+             images_per_s=rate, **timed, **check)
+        if params != RESNET18_PARAMS or not input_err <= E2E_INPUT_TOL:
+            raise RuntimeError("resnet18_e2e_images: wrong parameter count, or "
+                               "input off the CPU's")
 
 
 def require_only(launches: dict, name: str, want: int, what: str) -> None:

@@ -1,5 +1,5 @@
 """The port's package boundary: importing ``vision_tpu_torch`` pulls in
-neither JAX nor ``vision_tpu``; entry points refuse to run without a card
+none of JAX, ``vision_tpu`` and PIL; entry points refuse to run without a card
 unless asked for the CPU; CPU tensors take the plain PyTorch versions and
 never count a kernel launch; the CUDA wrappers refuse CPU tensors."""
 
@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import vision_tpu_torch
+import vision_tpu_torch.io
 from vision_tpu_torch.models import get_model
 from vision_tpu_torch.models.detection import fasterrcnn_resnet50_fpn
 from vision_tpu_torch.ops._conv1x1_bn import matmul_stats, matmul_stats_cuda
@@ -48,9 +49,13 @@ def test_import_pulls_in_no_jax():
         "vision_tpu_torch.models.detection.rpn, "
         "vision_tpu_torch.models.detection.roi_heads, "
         "vision_tpu_torch.models.detection.backbone_utils, "
-        "vision_tpu_torch.tools.profile_faster_rcnn\n"
+        "vision_tpu_torch.tools.profile_faster_rcnn, vision_tpu_torch.io, "
+        "vision_tpu_torch.io.image, vision_tpu_torch.io.jpeg_device, "
+        "vision_tpu_torch.io.prefetch, vision_tpu_torch.io._exif, "
+        "vision_tpu_torch.tools.imagenet_e2e, "
+        "vision_tpu_torch.tools.profile_imagenet_e2e\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'vision_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'vision_tpu', 'PIL')]\n"
         "print(bad)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -60,11 +65,12 @@ def test_import_pulls_in_no_jax():
 
 def test_no_source_imports_jax_or_vision_tpu():
     pattern = re.compile(
-        r"^\s*(import|from)\s+(jax|jaxlib|flax|vision_tpu)\b(?!_)", re.M
+        r"^\s*(import|from)\s+(jax|jaxlib|flax|vision_tpu|PIL)\b(?!_)", re.M
     )
     sources = list(PKG.rglob("*.py"))
     assert len(sources) > 10
     assert PKG / "transforms" / "v2" / "functional" / "_resample.py" in sources
+    assert PKG / "io" / "_exif.py" in sources
     for src in sources:
         assert not pattern.search(src.read_text()), src
 
@@ -77,6 +83,14 @@ def test_default_device_raises_without_cuda(monkeypatch):
         get_model("fasterrcnn_resnet50_fpn", device="cuda")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         get_model("resnet50", fused_bn=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        vision_tpu_torch.io.decode_jpeg(b"\xff\xd8\xff")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        vision_tpu_torch.io.prefetch_to_device([])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        vision_tpu_torch.io.decode_batch([b"\xff\xd8\xff"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        vision_tpu_torch.io.decode_batch([])
 
 
 def test_cpu_tensors_take_the_plain_path():

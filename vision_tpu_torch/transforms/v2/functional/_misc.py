@@ -4,7 +4,8 @@
 
 from __future__ import annotations
 
-from typing import Sequence
+import functools
+from typing import Sequence, Tuple
 
 import torch
 
@@ -20,14 +21,24 @@ _VALUE_BITS = {
 }
 
 
+@functools.lru_cache(maxsize=64)
+def _channel_values(values: Tuple[float, ...], dtype: torch.dtype,
+                    device: torch.device) -> torch.Tensor:
+    """``values`` as a ``[C, 1, 1]`` tensor on ``device``, made once: a list
+    copied to the card on every call would hold the host until the card's
+    stream drains. Never an inference tensor, so that autograd may save it."""
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=dtype).to(device)[:, None, None]
+
+
 def normalize_image(image: torch.Tensor, mean: Sequence[float],
                     std: Sequence[float]) -> torch.Tensor:
     """``(x - mean) / std`` over the channel axis (-3) of a float image."""
     if not image.is_floating_point():
         raise TypeError(f"normalize expects float input, got {image.dtype}")
-    mean = torch.as_tensor(mean, dtype=image.dtype, device=image.device)
-    std = torch.as_tensor(std, dtype=image.dtype, device=image.device)
-    return (image - mean[:, None, None]) / std[:, None, None]
+    mean = _channel_values(tuple(float(m) for m in mean), image.dtype, image.device)
+    std = _channel_values(tuple(float(s) for s in std), image.dtype, image.device)
+    return (image - mean) / std
 
 
 def to_dtype_image(image: torch.Tensor, dtype: torch.dtype = torch.float32,
