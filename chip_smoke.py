@@ -42,6 +42,15 @@ off, seeded random weights:
   kernels, at each distinct shape of the path; and its DCNv2 variant
   (``deform_modulated=True``, the seeded predictors also giving each
   sample's mask) served in f32 and trained in bf16;
+* RetinaNet ResNet-50-FPN (``retinanet_resnet50_fpn``: P3-P7, 9 anchors a
+  location, 91 classes) served from the same two images in f32 and in
+  bf16 and trained in f32 and in bf16, and its v2
+  (``retinanet_resnet50_fpn_v2``: live batch norm in the trunk, GroupNorm
+  in the head) served in f32 and trained in bf16: one bitmask NMS an image
+  over P3-P7's 5,000 candidates, 91 labels apart by offsets (row
+  ``nms_retinanet``); each train phase ends with the trained model's
+  detections through that kernel; the per-level top-k timed three ways
+  (line ``topk_retinanet``);
 * ResNet-50 classification (1000 classes, a batch of 32 224x224 images):
   one eval batch, one batch of 8 uint8 375x500 images through the weights'
   ``ImageClassification`` preset against the CPU, then SGD steps of
@@ -187,6 +196,21 @@ DEFORM_GRADS = MASK_GRADS + ("backbone.body.layer2.0.conv2.weight",
 # than this share of the heatmaps' largest magnitude is a near-tie, where
 # the two paths' f32 round-off may pick the other cell
 NEAR_TIE = 1e-4
+# RetinaNet (retinanet_resnet50_fpn, _v2): at the seeded init the
+# classification bias's prior (0.01) keeps every score under the 0.05
+# threshold; cls_logits' weight scaled x4 spreads the logits (std ~0.27
+# -> ~1.1 on a 666 canvas on the CPU), so that detections pass. Each image
+# sends P3-P7's top 1,000 candidates each to one NMS: [2, 5,000] boxes.
+RETINA_CLS_SCALE = 4.0
+RETINA_CANDIDATES = 5000
+RETINA_DETECTIONS = 300
+# its trained gradients: both predictors, P6, an FPN lateral conv and a
+# conv of the last trunk stage
+RETINA_GRADS = ("head.classification_head.cls_logits.weight",
+                "head.regression_head.bbox_reg.weight",
+                "backbone.fpn.extra_blocks.p6.weight",
+                "backbone.fpn.inner_blocks.2.0.weight",
+                "backbone.body.layer4.1.conv2.weight")
 
 
 def emit(phase: str, **fields) -> None:
@@ -357,10 +381,12 @@ def peak_flops(t) -> float:
 
 def nms_work(args):
     """Bytes: boxes and valid read, keep written. Operations: the IoU test
-    of every pair of the upper triangle, in f32."""
+    of every pair of valid rows (an invalid row is tested against none),
+    in f32."""
     boxes, valid, _ = args
     b, n = valid.shape
-    pairs = b * n * (n - 1) / 2
+    v = valid.sum(1).double()
+    pairs = float((v * (v - 1) / 2).sum())
     return boxes.numel() * 4 + valid.numel() + valid.numel(), (
         pairs * NMS_OPS_PER_PAIR + 3 * b * n), PEAK_F32_FLOPS
 
@@ -599,6 +625,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     keypoint_rcnn_phases(kernels)
     torch.cuda.empty_cache()
+    rows += retinanet_phases(kernels)
+    torch.cuda.empty_cache()
     rows += resnet50_phases(kernels)
     torch.cuda.empty_cache()
     imagenet_e2e_phases()
@@ -701,15 +729,21 @@ def rowscan_phase(kernels, model, images, dets):
     return kernel_row("nms_rowscan", cases, launches["nms_rowscan"])
 
 
+def rpn_internals(model, canvas):
+    """The FPN maps and RPN head outputs of an R-CNN on ``canvas``."""
+    feats, objectness, deltas, _ = model.features_and_rpn(canvas)
+    return list(feats.values()), objectness, deltas
+
+
 def serve_phase(kernels, model, preset, transform, raw, dtype, calls,
-                request=None):
+                request=None, internals=rpn_internals):
     """A warm-up request that records the kernels' inputs, ``TIMED_FORWARDS``
     timed requests (ms per image: host clock around a request that ends in
     ``torch.cuda.synchronize()``, over the images), the launch counts of
-    those, one request through the plain versions, and the FPN maps and
-    RPN head outputs of the request's canvas. ``request`` is
-    ``detection_request.serve`` unless given (same arguments; its first
-    result the ``ImageList``)."""
+    those, one request through the plain versions, and ``internals(model,
+    canvas)`` of the request's canvas (the FPN maps and RPN head outputs
+    unless given). ``request`` is ``detection_request.serve`` unless given
+    (same arguments; its first result the ``ImageList``)."""
     import torch
 
     from vision_tpu_torch.tools.detection_request import serve
@@ -729,10 +763,9 @@ def serve_phase(kernels, model, preset, transform, raw, dtype, calls,
         launches = kernels.launches()
         with kernels.plain_versions():
             ref = request(model, preset, transform, raw, dtype)
-        feats, objectness, deltas, _ = model.features_and_rpn(
-            out[0].tensors.to(dtype))
+        inner = internals(model, out[0].tensors.to(dtype))
         torch.cuda.synchronize()
-    return out, ref, times, launches, (list(feats.values()), objectness, deltas)
+    return out, ref, times, launches, inner
 
 
 def faster_rcnn_image_phases(kernels, model):
@@ -824,7 +857,8 @@ def faster_rcnn_image_phases(kernels, model):
 
 def det_train_steps(batch, steps, first_step=None, timed=0,
                     name="fasterrcnn_resnet50_fpn", grads=DET_GRADS,
-                    dtype=None, setup=None, twin=None, model_kwargs=None):
+                    dtype=None, setup=None, twin=None, model_kwargs=None,
+                    after=None):
     """A fresh seeded detector ``name`` (R50-FPN,
     ``trainable_backbone_layers=3``, and ``model_kwargs`` for its builder;
     ``setup(model)`` called on it first, where given) and ``steps`` SGD
@@ -836,7 +870,9 @@ def det_train_steps(batch, steps, first_step=None, timed=0,
     step, and the timed steps' wall ms (host clock around a step whose loss
     is read back), and the peak memory allocated over the timed steps; with
     ``twin``, also ``twin(model, generator)``'s result from just before
-    each of the ``steps`` steps."""
+    each of the ``steps`` steps; with ``after``, ``after(model)``'s result
+    once the steps are done. A RetinaNet trains by the one-stage
+    convention (``one_stage=True``)."""
     import torch
 
     from vision_tpu_torch.models import get_model
@@ -848,7 +884,8 @@ def det_train_steps(batch, steps, first_step=None, timed=0,
     if setup is not None:
         setup(model)
     optimizer, scheduler = recipe_optimizer(model)
-    step = make_detection_train_step(model, optimizer, compute_dtype=dtype)
+    step = make_detection_train_step(model, optimizer, compute_dtype=dtype,
+                                     one_stage=one_stage(name))
     gen = torch.Generator(device=batch["image"].device).manual_seed(0)
     named = dict(model.named_parameters())
     out = {"losses": [], "ms": [], "lr": [],
@@ -877,10 +914,17 @@ def det_train_steps(batch, steps, first_step=None, timed=0,
         if not math.isfinite(loss):
             raise RuntimeError(f"{name} train: loss {loss} at step {i}")
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if after is not None:
+        out["after"] = after(model)
     return out
 
 
-def plain_twin_step(kernels, model, gen, batch, dtype, grads):
+def one_stage(name: str) -> bool:
+    """Whether detector ``name`` trains by the one-stage convention."""
+    return name.startswith("retinanet")
+
+
+def plain_twin_step(kernels, model, gen, batch, dtype, grads, name=""):
     """One train step through the plain versions from ``model``'s weights
     and ``gen``'s state, on copies of both (the two are left as they were):
     its losses and the gradients of ``grads``."""
@@ -891,7 +935,8 @@ def plain_twin_step(kernels, model, gen, batch, dtype, grads):
     twin = copy.deepcopy(model)
     params = [p for p in twin.parameters() if p.requires_grad]
     step = make_detection_train_step(twin, torch.optim.SGD(params, lr=0.0),
-                                     compute_dtype=dtype)
+                                     compute_dtype=dtype,
+                                     one_stage=one_stage(name))
     g = torch.Generator(device=gen.device)
     g.set_state(gen.get_state())
     with kernels.plain_versions():
@@ -905,7 +950,8 @@ def plain_twin_step(kernels, model, gen, batch, dtype, grads):
 
 def det_train_phase(kernels, phase, name="fasterrcnn_resnet50_fpn",
                     grads=DET_GRADS, num_classes=91, f32_first=None,
-                    prepare=None, require=(), model_kwargs=None, **extras):
+                    prepare=None, require=(), model_kwargs=None,
+                    evaluate=None, **extras):
     """A detector trained on the request's two images (batch 2, the 1344
     canvas, seeded gt boxes; with ``extras`` the gt masks or keypoints of
     ``train_batch``): ``DET_STEPS`` SGD steps through the kernels (the
@@ -938,8 +984,12 @@ def det_train_phase(kernels, phase, name="fasterrcnn_resnet50_fpn",
     mask targets. ``prepare(model, images)`` readies each fresh model (the
     deform model's offset predictors), outside the counted launches; the
     kernels of ``require`` must launch too (in the step's type).
-    ``model_kwargs`` go to the model's builder. Returns the recorded calls,
-    the launches and step 1's losses."""
+    ``model_kwargs`` go to the model's builder. A one-stage detector
+    (RetinaNet) runs no pooler: every loss is gated against the f32 step
+    (on the same anchors and gt), and its kernel is the NMS of
+    ``evaluate(model, batch, dtype)``, which the phase runs on the trained
+    model after its steps, inside the counted window. Returns the recorded
+    calls, the launches and step 1's losses."""
     import torch
 
     from vision_tpu_torch.models.detection import (
@@ -969,13 +1019,14 @@ def det_train_phase(kernels, phase, name="fasterrcnn_resnet50_fpn",
         kernels.reset()
 
     def twin(model, gen):
-        return plain_twin_step(kernels, model, gen, batch, dtype, grads)
+        return plain_twin_step(kernels, model, gen, batch, dtype, grads, name)
 
     run = det_train_steps(batch, DET_STEPS,
                           first_step=lambda: kernels.recording(calls),
                           timed=1 + TIMED_FORWARDS, name=name, grads=grads,
                           dtype=dtype, setup=setup, twin=twin,
-                          model_kwargs=model_kwargs)
+                          model_kwargs=model_kwargs,
+                          after=evaluate and (lambda m: evaluate(m, batch, dtype)))
     launches = kernels.launches()
     ref = {"losses": [t[0] for t in run["twin"]], "grads": run["twin"][0][1]}
     names = list(run["losses"][0])
@@ -986,14 +1037,14 @@ def det_train_phase(kernels, phase, name="fasterrcnn_resnet50_fpn",
     ms = statistics.median(run["ms"][1:])
     first_tol, grad_tol = (AMP_FIRST_LOSS_TOL, AMP_GRAD_TOL) if amp else (
         1e-4, 1e-3)
-    fields = {}
+    gated = names if one_stage(name) else list(AMP_VS_F32_GATED)
+    fields = {"evaluation": run["after"]} if evaluate else {}
     if amp:
         vs_f32 = {k: abs(run["losses"][0][k] - f32_first[k])
                   / max(abs(f32_first[k]), 1e-30) for k in names}
-        fields = dict(f32_first_losses=f32_first,
+        fields.update(f32_first_losses=f32_first,
                       first_loss_rel_err_vs_f32=vs_f32,
-                      vs_f32_tol=AMP_VS_F32_TOL,
-                      vs_f32_gated=list(AMP_VS_F32_GATED))
+                      vs_f32_tol=AMP_VS_F32_TOL, vs_f32_gated=gated)
     emit(phase, model=name, params=run["params"],
          trainable_params=run["trainable_params"],
          trainable_backbone_layers=3, input=list(batch["image"].shape),
@@ -1013,18 +1064,18 @@ def det_train_phase(kernels, phase, name="fasterrcnn_resnet50_fpn",
                                 for a in call if torch.is_tensor(a)) / 1e9,
          launches=launches, **fields)
     tag = "bf16" if amp else "f32"
-    require_launched(launches, ("nms", f"window_pool_{tag}",
-                                f"window_pool_backward_{tag}",
-                                f"roi_align_{tag}", f"roi_align_backward_{tag}",
-                                *(f"{n}_{tag}" for n in require)),
-                     phase)
+    poolers = () if one_stage(name) else (
+        f"window_pool_{tag}", f"window_pool_backward_{tag}", f"roi_align_{tag}",
+        f"roi_align_backward_{tag}")
+    require_launched(launches, ("nms", *poolers,
+                                *(f"{n}_{tag}" for n in require)), phase)
     if amp and (launches["window_pool_f32"]
                 or launches["window_pool_backward_f32"]
                 or launches["roi_align_backward_f32"]
                 or any(launches[f"{n}_f32"] for n in require)):
         raise RuntimeError(f"{phase} launched an f32 pooler or deform kernel: "
                            f"{launches}")
-    if amp and max(vs_f32[k] for k in AMP_VS_F32_GATED) > AMP_VS_F32_TOL:
+    if amp and max(vs_f32[k] for k in gated) > AMP_VS_F32_TOL:
         raise RuntimeError(f"{phase}: step 1's losses lie too far from the f32 "
                            f"step's: {vs_f32}")
     if (max(loss_rel[0].values()) > first_tol
@@ -1744,15 +1795,270 @@ def mask_rcnn_deform_v2_phases(kernels):
     return rows
 
 
-def check_mapped_boxes(boxes, raw) -> None:
-    """``postprocess_boxes`` gave each image [100, 4] finite f32 boxes."""
+def check_mapped_boxes(boxes, raw, per_image=100) -> None:
+    """``postprocess_boxes`` gave each image [per_image, 4] finite f32
+    boxes."""
     import torch
 
     for bx, r in zip(boxes, raw):
-        if tuple(bx.shape) != (100, 4) or bx.dtype != torch.float32 or not bool(
+        if tuple(bx.shape) != (per_image, 4) or bx.dtype != torch.float32 or not bool(
                 torch.isfinite(bx).all()):
             raise RuntimeError(f"boxes mapped to a {tuple(r.shape)} image: "
                                f"{tuple(bx.shape)} {bx.dtype}")
+
+
+def scaled_retinanet(name):
+    """RetinaNet ``name`` with seeded weights and ``cls_logits``' weight
+    scaled by ``RETINA_CLS_SCALE``, so that detections pass the score
+    threshold."""
+    import torch
+
+    from vision_tpu_torch.models import get_model
+
+    model = get_model(name, seed=0)
+    with torch.no_grad():
+        model.head.classification_head.cls_logits.weight.mul_(RETINA_CLS_SCALE)
+    return model
+
+
+def retina_internals(model, canvas):
+    """A RetinaNet's FPN maps and head outputs on ``canvas``."""
+    (cls_logits, bbox_reg, _), feats = model(canvas, return_features=True)
+    return list(feats.values()), cls_logits, bbox_reg
+
+
+def top_k_keys(x, k):
+    """``ops/_topk.py:top_k`` of f32 ``x [..., N]`` (N < 2**32, no NaN)
+    through one ``torch.topk`` of int64 keys: the value's bits, mapped to a
+    signed integer of the same order, above the index's complement, so that
+    every key is unique and a larger key is a larger value or, at an equal
+    value, a lower index (-0.0 ranks below 0.0, which a sort holds equal; a
+    sigmoid gives no -0.0)."""
+    import torch
+
+    low32 = (1 << 32) - 1
+    bits = x.contiguous().view(torch.int32).to(torch.int64)
+    ordered = torch.where(bits >= 0, bits, ~bits - (1 << 31))
+    idx = torch.arange(x.shape[-1], device=x.device, dtype=torch.int64)
+    top = torch.topk(ordered * (1 << 32) + (low32 - idx), k, dim=-1).values
+    indices = low32 - (top & low32)
+    return torch.gather(x, -1, indices), indices
+
+
+def topk_line(scores, k=1000) -> None:
+    """The per-level candidate selection at P3 (``scores [N, R, K]``, the
+    request's sigmoid scores): ``top_k_2d`` (the row-max decomposition the
+    postprocess takes), ``top_k_keys`` (one ``torch.topk`` over unique
+    int64 keys) and ``top_k`` (a stable sort of all the scores), the same
+    values and indices, timed in turns."""
+    import torch
+
+    from vision_tpu_torch.ops._topk import top_k, top_k_2d
+
+    flat = scores.flatten(1)
+    ways = {"top_k_2d": lambda: top_k_2d(scores, k),
+            "top_k_keys": lambda: top_k_keys(flat, k),
+            "top_k_sort": lambda: top_k(flat, k)}
+    outs = {n: fn() for n, fn in ways.items()}
+    ref = outs["top_k_sort"]
+    equal = {n: bool(torch.equal(o[0], ref[0]) and torch.equal(o[1], ref[1]))
+             for n, o in outs.items()}
+    ms = {n: cuda_ms(fn, reps=10) for n, fn in ways.items()}
+    dev = {n: device_ms(fn, launches=10) for n, fn in ways.items()}
+    emit("topk_retinanet", shape=list(scores.shape), k=k, equal=equal, ms=ms,
+         device_ms=dev, taken="top_k_2d")
+    if not all(equal.values()):
+        raise RuntimeError(f"topk_retinanet: the three top-k differ: {equal}")
+
+
+def retinanet_serve_phases(kernels, name, phases, weights):
+    """RetinaNet ``name`` (``scaled_retinanet``) served from the two raw
+    images through ``detection_request.serve_retinanet``, in f32
+    (``phases[0]``) and, where ``phases`` names a second, in bf16
+    (``phases[1]``), each against the same request through the plain
+    versions (``check_detections``, 300 rows an image); every request's
+    NMS takes [2, 5,000] candidates. The bf16 request's boxes and scores
+    are f32, its top 5 scores within 0.05 of the f32 request's and its FPN
+    maps and head outputs within ``AMP_VS_F32_TOL`` of theirs. Returns the
+    f32 request's recorded calls and each type's launches."""
+    import torch
+
+    from vision_tpu_torch.models.detection import GeneralizedRCNNTransform
+    from vision_tpu_torch.tools.detection_request import (
+        SEED,
+        raw_images,
+        serve_retinanet,
+    )
+
+    raw = raw_images()
+    preset = weights.COCO_V1.transforms()
+    transform = GeneralizedRCNNTransform()
+    model = scaled_retinanet(name)
+    params = sum(p.numel() for p in model.parameters())
+    launches_by, calls32 = {}, None
+    for dtype, phase in zip((torch.float32, torch.bfloat16), phases):
+        bf16 = dtype == torch.bfloat16
+        tag = "bf16" if bf16 else "f32"
+        model.to(dtype)
+        calls: dict = {}
+        (batch, dets, boxes), (_, ref, _), times, launches, inner = serve_phase(
+            kernels, model, preset, transform, raw, dtype, calls,
+            request=serve_retinanet, internals=retina_internals)
+        shapes = [list(c[0].shape) for c in calls["nms"]]
+        fields = {}
+        if bf16:
+            s16 = dets.scores.flatten().sort().values[-5:]
+            top5_err = float((s16 - s32).abs().max())
+            vs_f32 = {k: rel_errs(g, w) for k, g, w in zip(
+                ("fpn", "cls_logits", "bbox_reg"), inner, inner32)}
+            fields = dict(top5_scores_f32=s32.tolist(),
+                          top5_scores_bf16=s16.tolist(), top5_max_err=top5_err,
+                          top5_tol=0.05, rel_err_vs_f32=vs_f32,
+                          rel_err_vs_f32_tol=AMP_VS_F32_TOL,
+                          boxes_dtype=str(dets.boxes.dtype)[6:],
+                          scores_dtype=str(dets.scores.dtype)[6:])
+        emit(phase, model=name, params=params, dtype=str(dtype)[6:],
+             images=[list(r.shape) for r in raw], seed=SEED,
+             canvas=list(transform.fixed_size), batch=len(raw),
+             image_sizes=batch.image_sizes, cls_scale=RETINA_CLS_SCALE,
+             ms_per_img_median=statistics.median(times), ms_per_img_all=times,
+             requests=TIMED_FORWARDS, launches=launches, nms_boxes=shapes,
+             valid_per_image=dets.valid.sum(1).tolist(), **fields)
+        if params != weights.COCO_V1.meta["num_params"]:
+            raise RuntimeError(f"{phase}: {params} parameters, not torchvision's")
+        if batch.image_sizes != RESIZED:
+            raise RuntimeError(f"image sizes {batch.image_sizes}, expected {RESIZED}")
+        if shapes != [[len(raw), RETINA_CANDIDATES, 4]]:
+            raise RuntimeError(f"{phase}: NMS over {shapes}, expected "
+                               f"[{len(raw)}, {RETINA_CANDIDATES}, 4]")
+        require_launched(launches, ("nms",), phase)
+        check_detections(dets, ref, batch=len(raw), phase=phase,
+                         per_image=RETINA_DETECTIONS,
+                         score_tol=AMP_SCORE_TOL if bf16 else 1e-4,
+                         box_tol=AMP_BOX_TOL if bf16 else 1e-2)
+        check_mapped_boxes(boxes, raw, per_image=RETINA_DETECTIONS)
+        if bf16:
+            if dets.boxes.dtype != torch.float32 or dets.scores.dtype != torch.float32:
+                raise RuntimeError(f"{phase}: boxes or scores not f32")
+            if top5_err > 0.05:
+                raise RuntimeError(f"{phase}: the top 5 scores are not within "
+                                   "0.05 of the f32 request's")
+            if max(max(v) for v in vs_f32.values()) > AMP_VS_F32_TOL:
+                raise RuntimeError(f"{phase}: FPN maps or head outputs too far "
+                                   f"from the f32 request's: {vs_f32}")
+        else:
+            calls32 = calls
+            s32 = dets.scores.flatten().sort().values[-5:]
+            inner32 = inner
+            if phases[0] == "retinanet_images":
+                with torch.inference_mode():
+                    topk_line(torch.sigmoid(inner[1][0].float()))
+        launches_by[tag] = launches
+        del dets, ref, inner
+    del model, inner32
+    torch.cuda.empty_cache()
+    return calls32, launches_by
+
+
+def retinanet_train_hooks(kernels, phase, v2):
+    """``prepare`` and ``evaluate`` of a RetinaNet train phase. ``prepare``
+    keeps the fresh model's running statistics; ``evaluate`` checks that
+    the steps moved every one of a live batch norm's (v2: in the frozen
+    stages too) and none of a frozen one's (v1), then runs the trained
+    model's detections on the batch's canvas in the step's type through the
+    NMS kernel against the plain path, at a score threshold of 0: after
+    some steps at the warmup's learning rate no score of this seeded model
+    reaches 0.05, and at 0 each image's NMS takes all 5,000 candidates."""
+    import torch
+
+    from vision_tpu_torch.ops.misc import BatchNorm2d
+
+    kept = {}
+
+    def live(model):
+        return {f"{mn}.{bn}": b for mn, m in model.named_modules()
+                for bn, b in m.named_buffers(recurse=False) if "running" in bn
+                and isinstance(m, BatchNorm2d) == v2}
+
+    def prepare(model, images):
+        kept.update((n, b.clone()) for n, b in live(model).items())
+
+    def evaluate(model, batch, dtype):
+        moved = sum(not torch.equal(b, kept[n]) for n, b in live(model).items())
+        net = copy.deepcopy(model).to(dtype or torch.float32).eval()
+        net.score_thresh = 0.0
+        canvas = batch["image"].to(dtype or torch.float32)
+        size = tuple(canvas.shape[-2:])
+        with torch.inference_mode():
+            dets = net.postprocess_detections(*net(canvas), size)
+            with kernels.plain_versions():
+                ref = net.postprocess_detections(*net(canvas), size)
+        amp = dtype is not None
+        check_detections(dets, ref, batch=canvas.shape[0],
+                         per_image=RETINA_DETECTIONS,
+                         phase=f"{phase} (the trained model, score threshold 0)",
+                         score_tol=AMP_SCORE_TOL if amp else 1e-4,
+                         box_tol=AMP_BOX_TOL if amp else 1e-2)
+        want = len(kept) if v2 else 0
+        if moved != want:
+            raise RuntimeError(f"{phase}: {moved} of {len(kept)} running "
+                               f"statistics moved, expected {want}")
+        del net
+        return {"running_statistics": len(kept), "moved": moved,
+                "score_thresh": 0.0,
+                "valid_per_image": dets.valid.sum(1).tolist()}
+
+    return prepare, evaluate
+
+
+def retinanet_phases(kernels):
+    """RetinaNet R50-FPN v1 served in f32 and bf16 (``retinanet_images``,
+    ``retinanet_images_amp``) and trained in f32 and bf16
+    (``retinanet_train``, ``retinanet_train_amp``), v2 served in f32
+    (``retinanet_v2_images``) and trained in bf16
+    (``retinanet_v2_train_amp``, step 1 against one f32 step of the same
+    model); then the bitmask NMS kernel at the f32 request's cross-level
+    input against its plain version (row ``nms_retinanet``)."""
+    import torch
+
+    from vision_tpu_torch.models.detection import (
+        GeneralizedRCNNTransform,
+        RetinaNet_ResNet50_FPN_V2_Weights,
+        RetinaNet_ResNet50_FPN_Weights,
+    )
+    from vision_tpu_torch.tools.detection_request import raw_images, train_batch
+
+    v1, v2 = "retinanet_resnet50_fpn", "retinanet_resnet50_fpn_v2"
+    calls, launches_by = retinanet_serve_phases(
+        kernels, v1, ("retinanet_images", "retinanet_images_amp"),
+        RetinaNet_ResNet50_FPN_Weights)
+    cases = [kernel_case(kernels, "nms", args, "retinanet_images",
+                         valid_per_row=args[1].sum(1).tolist())
+             for args in calls["nms"]]
+    rows = [kernel_row(
+        "nms", cases, launches_by["f32"]["nms"], row_name="nms_retinanet",
+        path="retinanet_images (1344x1344, batch 2): one NMS an image over "
+             "P3-P7's 5,000 candidates, 91 labels apart by offsets")]
+    del calls
+
+    def train(phase, name, v2_model, f32_first=None):
+        prepare, evaluate = retinanet_train_hooks(kernels, phase, v2_model)
+        return det_train_phase(kernels, phase, name=name, grads=RETINA_GRADS,
+                               f32_first=f32_first, prepare=prepare,
+                               evaluate=evaluate)[2]
+
+    first = train("retinanet_train", v1, False)
+    train("retinanet_train_amp", v1, False, first)
+    retinanet_serve_phases(kernels, v2, ("retinanet_v2_images",),
+                           RetinaNet_ResNet50_FPN_V2_Weights)
+    with torch.no_grad():
+        batch = train_batch(RetinaNet_ResNet50_FPN_Weights.COCO_V1.transforms(),
+                            GeneralizedRCNNTransform(), raw_images())
+    first = det_train_steps(batch, 1, name=v2, grads=RETINA_GRADS)["losses"][0]
+    del batch
+    torch.cuda.empty_cache()
+    train("retinanet_v2_train_amp", v2, True, first)
+    return rows
 
 
 # name -> (source, the TPU kernel it replaces)
@@ -2507,14 +2813,14 @@ def matmul_stats_rows(kernels, calls, counts, calls16, counts16, launches):
 
 
 def check_detections(dets, ref, batch=1, score_tol=1e-4, box_tol=1e-2,
-                     phase="faster_rcnn") -> None:
+                     phase="faster_rcnn", per_image=100) -> None:
     import torch
 
     for t in dets:
         if not torch.isfinite(t.float()).all():
             raise RuntimeError("non-finite detections")
-    if (tuple(dets.boxes.shape) != (batch, 100, 4)
-            or tuple(dets.valid.shape) != (batch, 100)):
+    if (tuple(dets.boxes.shape) != (batch, per_image, 4)
+            or tuple(dets.valid.shape) != (batch, per_image)):
         raise RuntimeError(f"bad Detections shapes {tuple(dets.boxes.shape)}")
     valid = dets.valid
     n_valid = int(valid.sum())

@@ -29,6 +29,10 @@ rounded once) within one bf16 step of the plain version's f32 sum rounded
 to bf16, plus 1e-5 of the largest value; in both, bit-identical across
 calls on the same inputs.
 
+At RetinaNet's cross-level shape (2 images x 5,000 candidates, 91 labels
+moved apart by ``batched_nms_mask``'s offsets of up to ~1.2e5 px) the
+NMS mask is the CPU's plain version's, exactly.
+
 The deformable convolution's column kernel against its plain version: the
 same bits in f32 and in bf16 (a bf16 input is widened exactly, and the
 kernel, built with -fmad=false, rounds each product and sum as the plain
@@ -58,6 +62,7 @@ from vision_tpu_torch.ops._conv1x1_bn import (
     matmul_stats_wgmma_cuda,
 )
 from vision_tpu_torch.ops.nms import (
+    batched_nms_mask,
     nms_keep_sorted_cuda,
     nms_keep_sorted_plain,
     nms_keep_sorted_rowscan_cuda,
@@ -71,6 +76,10 @@ from vision_tpu_torch.ops.poolers import (
     window_pool_plain,
 )
 from vision_tpu_torch.models.detection import GeneralizedRCNNTransform
+from vision_tpu_torch.models.detection.retinanet import (
+    RetinaNet,
+    init_retinanet_weights,
+)
 from vision_tpu_torch.ops.deform_conv import (
     _corner_records_cuda,
     deform_conv2d,
@@ -358,6 +367,72 @@ def test_roi_align_bf16_kernel_at_pyramid_shapes(dev, size, k, sr):
                       for i in range(0, k, 100)])
     _bf16_step_close(got, want, 1e-5 * float(want.float().abs().max()),
                      steps=1 if sr == 2 else 2)
+
+
+def _retinanet_candidates(rng, b=2, n=5000, classes=91, canvas=1344):
+    """RetinaNet's postprocess input to its one NMS an image: 5 levels of
+    1,000 candidates, clustered (each of 600 objects gives several boxes
+    jittered around it, of one or two labels), clipped to the canvas, and
+    about a third below the score threshold."""
+    centres = rng.uniform(0, canvas, (b, 600, 2))
+    size = rng.uniform(16, 400, (b, 600, 2))
+    pick = rng.randint(0, 600, (b, n))
+    ctr = np.take_along_axis(centres, pick[..., None], 1)
+    wh = np.take_along_axis(size, pick[..., None], 1)
+    ctr = ctr + rng.randn(b, n, 2) * wh * 0.08
+    wh = wh * np.exp(rng.randn(b, n, 2) * 0.1)
+    boxes = np.clip(np.concatenate([ctr - wh / 2, ctr + wh / 2], -1), 0, canvas)
+    labels = (pick * 7 + rng.randint(0, 2, (b, n))) % classes
+    scores = rng.rand(b, n).astype(np.float32) * 0.15
+    return (torch.from_numpy(boxes.astype(np.float32)), torch.from_numpy(scores),
+            torch.from_numpy(labels), torch.from_numpy(scores > 0.05))
+
+
+def test_nms_kernel_at_retinanet_cross_level_shape(dev):
+    """``batched_nms_mask`` over [2, 5000] candidates with 91 labels: the
+    bitmask kernel's mask (one launch) equals the plain version's on the
+    CPU on the same boxes, offsets included."""
+    boxes, scores, labels, valid = _retinanet_candidates(np.random.RandomState(13))
+    assert float(labels.max()) * (float(boxes.max()) + 1) > 1e5
+    want = batched_nms_mask(boxes, scores, labels, 0.5, valid=valid)
+    before = nms_keep_sorted_cuda.launches
+    got = batched_nms_mask(boxes.to(dev), scores.to(dev), labels.to(dev), 0.5,
+                           valid=valid.to(dev))
+    torch.cuda.synchronize()
+    assert nms_keep_sorted_cuda.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+    kept = int(want.sum())
+    assert 0 < kept < int(valid.sum())  # some boxes suppressed
+
+
+def test_retinanet_forward_makes_no_host_synchronisation(dev):
+    """A RetinaNet forward and its postprocess (the per-level top-k, the
+    decode, one NMS an image through the bitmask kernel), v1 in f32 and in
+    bf16 and v2 in f32, wait for the card nowhere: fixed-size masks, no
+    ``.item()`` or boolean indexing (the anchors are cached by the first
+    call)."""
+    for v2, dtype in ((False, torch.float32), (False, torch.bfloat16),
+                      (True, torch.float32)):
+        model = RetinaNet(backbone_depth=18, v2=v2)
+        init_retinanet_weights(model, torch.Generator().manual_seed(0))
+        model = model.eval().to(dev, dtype)
+        images = torch.randn(2, 3, 256, 320, device=dev, dtype=dtype)
+
+        def detect():
+            return model.postprocess_detections(*model(images), (256, 320))
+
+        with torch.inference_mode():
+            detect()  # builds the kernels and the anchors outside the check
+            torch.cuda.synchronize()
+            before = nms_keep_sorted_cuda.launches
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                dets = detect()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+        assert nms_keep_sorted_cuda.launches == before + 1
+        assert dets.boxes.shape == (2, 300, 4) and dets.boxes.dtype == torch.float32
 
 
 def test_kernels_make_no_host_synchronisation(dev):

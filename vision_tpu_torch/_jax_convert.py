@@ -7,7 +7,12 @@ JAX): conv kernels HWIO -> OIHW, dense kernels IO -> OI, batch norm
 -> ``running_mean``, ``running_var``, the ``frozen`` collection -> the
 frozen-BN buffers, and the Faster R-CNN renames (FPN
 ``inner_blocks_{i}`` -> ``inner_blocks.{i}.0``, and ``fc6`` from the JAX
-HWC flatten of the pooled features to torch's CHW flatten).
+HWC flatten of the pooled features to torch's CHW flatten). flax
+``GroupNorm``'s ``scale`` is a ``weight`` as batch norm's is; RetinaNet's
+extra blocks, ``backbone/extra_blocks/p6`` beside the JAX FPN, go to
+torchvision's ``backbone.fpn.extra_blocks.p6``; its towers' names
+(``head.classification_head.conv.{i}.0``, ``.cls_logits``,
+``regression_head.bbox_reg``) are the port's as they stand.
 
 Transposed convolutions (the Mask R-CNN and Keypoint R-CNN predictors'
 ``conv5_mask`` and ``kps_score_lowres``): a flax ``nn.ConvTranspose``
@@ -47,6 +52,8 @@ def _torch_name(collection: str, path: Tuple[str, ...]) -> str:
     *mods, leaf = path
     base = ".".join(mods)
     base = re.sub(r"\b(inner_blocks|layer_blocks)_(\d+)", r"\1.\2.0", base)
+    # RetinaNet's P6 and P7 sit beside the JAX FPN, inside torchvision's
+    base = re.sub(r"^backbone\.extra_blocks\.", "backbone.fpn.extra_blocks.", base)
     if collection == "params":
         leaf = {"kernel": "weight", "scale": "weight"}.get(leaf, leaf)
     elif collection == "batch_stats":

@@ -19,6 +19,13 @@ from vision_tpu_torch.models.detection.mask_rcnn import (
     maskrcnn_resnet50_fpn,
     maskrcnn_resnet50_fpn_deform,
 )
+from vision_tpu_torch.models.detection.retinanet import (
+    RetinaNet,
+    RetinaNet_ResNet50_FPN_V2_Weights,
+    RetinaNet_ResNet50_FPN_Weights,
+    retinanet_resnet50_fpn,
+    retinanet_resnet50_fpn_v2,
+)
 from vision_tpu_torch.models.detection.roi_heads import (
     Detections,
     paste_masks_in_image,
@@ -41,6 +48,9 @@ __all__ = [
     "MaskDetections",
     "MaskRCNN",
     "MaskRCNN_ResNet50_FPN_Weights",
+    "RetinaNet",
+    "RetinaNet_ResNet50_FPN_V2_Weights",
+    "RetinaNet_ResNet50_FPN_Weights",
     "fasterrcnn_resnet50_fpn",
     "keypointrcnn_resnet50_fpn",
     "maskrcnn_resnet50_fpn",
@@ -48,4 +58,6 @@ __all__ = [
     "paste_masks_in_image",
     "resize_boxes",
     "resize_keypoints",
+    "retinanet_resnet50_fpn",
+    "retinanet_resnet50_fpn_v2",
 ]

@@ -1,22 +1,29 @@
-"""ResNet trunk with frozen batch norm + FPN, NCHW (counterpart of
-``vision_tpu/models/detection/backbone_utils.py``, the frozen-BN v1 path).
-Module names are torchvision's, so ``backbone.body.layer1.0.conv1.weight``
-and the like load from a torchvision checkpoint. ``deform_stages`` puts
-deformable 3x3 convolutions into the bottlenecks of the listed stages
+"""ResNet trunk + FPN, NCHW (counterpart of
+``vision_tpu/models/detection/backbone_utils.py``): the v1 trunk with
+frozen batch norm, or (``frozen_bn=False``, the v2 detectors) the
+classification blocks of ``models/resnet.py`` with live, trainable batch
+norm. Module names are torchvision's, so
+``backbone.body.layer1.0.conv1.weight`` and the like load from a
+torchvision checkpoint. ``deform_stages`` puts deformable 3x3
+convolutions into the bottlenecks of the listed stages
 (``DeformFrozenBottleneck``), as the JAX trunk does."""
 
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vision_tpu_torch.models import resnet
 from vision_tpu_torch.ops.deform_conv import DeformConv2d
-from vision_tpu_torch.ops.feature_pyramid_network import FeaturePyramidNetwork
-from vision_tpu_torch.ops.misc import FrozenBatchNorm2d
+from vision_tpu_torch.ops.feature_pyramid_network import (
+    ExtraFPNBlock,
+    FeaturePyramidNetwork,
+)
+from vision_tpu_torch.ops.misc import BatchNorm2d, FrozenBatchNorm2d
 
 __all__ = ["BackboneWithFPN", "DeformFrozenBottleneck", "FrozenBasicBlock",
            "FrozenBottleneck", "ResNetTrunk", "freeze_trunk_layers"]
@@ -113,22 +120,33 @@ class DeformFrozenBottleneck(FrozenBottleneck):
 
 _DEPTHS = {18: (FrozenBasicBlock, (2, 2, 2, 2)),
            50: (FrozenBottleneck, (3, 4, 6, 3))}
+# the live-BN (v2) trunk's blocks: the classification models' own
+_LIVE_BLOCKS = {FrozenBasicBlock: resnet.BasicBlock,
+                FrozenBottleneck: resnet.Bottleneck}
 
 
 class ResNetTrunk(nn.Module):
     """ResNet body without the classifier, returning the four stage outputs
     under the keys "0".."3". ``deform_stages`` lists 1-based stage indices
     (2..4 = C3..C5) whose bottlenecks are ``DeformFrozenBottleneck``s, with
-    ``deform_modulated`` (DCNv2)."""
+    ``deform_modulated`` (DCNv2). ``frozen_bn=False`` takes
+    ``models/resnet.py``'s ``BasicBlock`` / ``Bottleneck`` and a live
+    ``BatchNorm2d`` stem: batch statistics in training mode, updating the
+    running ones, which eval mode uses (the frozen-BN path only for
+    ``deform_stages``)."""
 
     def __init__(self, depth: int = 50, deform_stages: Sequence[int] = (),
-                 deform_modulated: bool = False):
+                 deform_modulated: bool = False, frozen_bn: bool = True):
         super().__init__()
         block, layers = _DEPTHS[depth]
         if deform_stages and block is not FrozenBottleneck:
             raise ValueError("deform_stages requires a Bottleneck trunk")
+        if deform_stages and not frozen_bn:
+            raise ValueError("deform_stages requires the frozen-BN trunk")
+        if not frozen_bn:
+            block = _LIVE_BLOCKS[block]
         self.conv1 = nn.Conv2d(3, 64, 7, 2, padding=3, bias=False)
-        self.bn1 = FrozenBatchNorm2d(64)
+        self.bn1 = FrozenBatchNorm2d(64) if frozen_bn else BatchNorm2d(64)
         cin = 64
         for i, (planes, blocks) in enumerate(zip((64, 128, 256, 512), layers)):
             stride = 1 if i == 0 else 2
@@ -156,28 +174,43 @@ class ResNetTrunk(nn.Module):
 
 
 class BackboneWithFPN(nn.Module):
-    """Trunk -> FPN over all four stages; children ``body`` and ``fpn`` as
-    in torchvision. Returns {"0", "1", "2", "3", "pool"} NCHW maps of
-    ``out_channels``. ``deform_stages`` and ``deform_modulated`` go to the
-    trunk."""
+    """Trunk -> FPN over the stages of ``returned_layers`` (1-based, 1..4 =
+    C2..C5), keyed "0", "1", ... in that order, then ``extra_blocks``
+    (``LastLevelMaxPool`` unless given); children ``body`` and ``fpn`` as in
+    torchvision. By default returns {"0", "1", "2", "3", "pool"} NCHW maps
+    of ``out_channels``. ``deform_stages``, ``deform_modulated`` and
+    ``frozen_bn`` go to the trunk."""
 
     def __init__(self, depth: int = 50, out_channels: int = 256,
                  deform_stages: Sequence[int] = (),
-                 deform_modulated: bool = False):
+                 deform_modulated: bool = False,
+                 returned_layers: Sequence[int] = (1, 2, 3, 4),
+                 extra_blocks: Optional[ExtraFPNBlock] = None,
+                 frozen_bn: bool = True):
         super().__init__()
-        self.body = ResNetTrunk(depth, deform_stages, deform_modulated)
-        self.fpn = FeaturePyramidNetwork(self.body.out_channels, out_channels)
+        self.body = ResNetTrunk(depth, deform_stages, deform_modulated,
+                                frozen_bn)
+        self.returned_layers = tuple(returned_layers)
+        self.fpn = FeaturePyramidNetwork(
+            [self.body.out_channels[i - 1] for i in self.returned_layers],
+            out_channels, extra_blocks)
         self.out_channels = out_channels
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        return self.fpn(self.body(x))
+        feats = self.body(x)
+        return self.fpn(OrderedDict(
+            (str(i), feats[str(layer - 1)])
+            for i, layer in enumerate(self.returned_layers)))
 
 
 def freeze_trunk_layers(trunk: ResNetTrunk, trainable_layers: int) -> None:
     """Train only the last ``trainable_layers`` (0-5) stages of ``trunk``
     in the order ``layer4, layer3, layer2, layer1, conv1``: the parameters
     of every other stage get ``requires_grad_(False)``. The frozen batch
-    norms hold no parameters."""
+    norms hold no parameters; a live one's weight and bias freeze with its
+    stage, and the stem's ``bn1`` with none, as the JAX recipe's update mask
+    has it. A live batch norm's running statistics are not parameters:
+    every stage updates them in training mode."""
     if not 0 <= trainable_layers <= len(_STAGE_ORDER):
         raise ValueError("trainable_layers must be in [0, 5], got "
                          f"{trainable_layers}")

@@ -266,23 +266,29 @@ def build_detector(
     device: Union[str, torch.device, None],
     seed: int,
     trainable_backbone_layers: Optional[int],
+    init=None,
+    upgrade=None,
     **kwargs,
 ) -> nn.Module:
     """A ResNet-50-FPN detector of class ``cls`` in eval mode, on ``device``
     (the card when None). Without ``weights`` the parameters are
-    torchvision's initialisation drawn from a CPU ``torch.Generator``
+    torchvision's initialisation (``init(model, generator)``,
+    ``init_weights`` unless given) drawn from a CPU ``torch.Generator``
     seeded with ``seed``, so every device gets the same numbers.
     ``trainable_backbone_layers`` (0-5) leaves only the last that many
     trunk stages trainable (``freeze_trunk_layers``); None trains all, as
-    the JAX recipe's default does. A checkpoint must hold every tensor of
-    the model but a deformable trunk's offset predictors, which start at
-    zero where it has none (a plain checkpoint in a deform model)."""
+    the JAX recipe's default does. A checkpoint goes through
+    ``upgrade`` (``_upgrade_state_dict`` unless given) and must hold every
+    tensor of the model but a deformable trunk's offset predictors, which
+    start at zero where it has none (a plain checkpoint in a deform
+    model)."""
     device = resolve_device(device)
     weights = weights_enum.verify(weights)
     model = cls(backbone_depth=50, **kwargs)
     if weights is not None:
         missing, unexpected = model.load_state_dict(
-            _upgrade_state_dict(weights.get_state_dict()), strict=False)
+            (upgrade or _upgrade_state_dict)(weights.get_state_dict()),
+            strict=False)
         if unexpected or any(".conv2_offset." not in k for k in missing):
             raise RuntimeError(f"checkpoint does not fit the model: missing "
                                f"{missing}, unexpected {unexpected}")
@@ -290,7 +296,7 @@ def build_detector(
             for k in missing:
                 model.get_parameter(k).zero_()
     else:
-        init_weights(model, torch.Generator().manual_seed(seed))
+        (init or init_weights)(model, torch.Generator().manual_seed(seed))
     if trainable_backbone_layers is not None:
         freeze_trunk_layers(model.backbone.body, trainable_backbone_layers)
     return model.eval().to(device)

@@ -14,7 +14,13 @@ from vision_tpu_torch.ops.boxes import (
     masks_to_boxes,
     remove_small_boxes,
 )
-from vision_tpu_torch.ops.misc import BatchNorm2d, FrozenBatchNorm2d
+from vision_tpu_torch.ops.losses import (
+    complete_box_iou_loss,
+    distance_box_iou_loss,
+    generalized_box_iou_loss,
+    sigmoid_focal_loss,
+)
+from vision_tpu_torch.ops.misc import BatchNorm2d, FrozenBatchNorm2d, GroupNorm
 from vision_tpu_torch.ops.nms import batched_nms, batched_nms_mask, nms, nms_mask
 from vision_tpu_torch.ops.poolers import MultiScaleRoIAlign
 from vision_tpu_torch.ops.roi_align import roi_align
@@ -23,6 +29,7 @@ __all__ = [
     "BatchNorm2d",
     "DeformConv2d",
     "FrozenBatchNorm2d",
+    "GroupNorm",
     "MultiScaleRoIAlign",
     "batched_nms",
     "batched_nms_mask",
@@ -32,13 +39,17 @@ __all__ = [
     "box_iou_rotated",
     "clip_boxes_to_image",
     "complete_box_iou",
+    "complete_box_iou_loss",
     "deform_conv2d",
     "distance_box_iou",
+    "distance_box_iou_loss",
     "generalized_box_iou",
+    "generalized_box_iou_loss",
     "masks_to_boxes",
     "matmul_stats",
     "nms",
     "nms_mask",
     "remove_small_boxes",
     "roi_align",
+    "sigmoid_focal_loss",
 ]

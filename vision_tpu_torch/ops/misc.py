@@ -1,7 +1,9 @@
-"""Batch norm modules: ``FrozenBatchNorm2d`` (counterpart of
-``vision_tpu/ops/misc.py``) and the live ``BatchNorm2d`` of the
-classification models (counterpart of ``flax.linen.BatchNorm`` as
-``vision_tpu/models/resnet.py`` configures it, and of its ``_BNAffine``)."""
+"""Normalisation modules: ``FrozenBatchNorm2d`` (counterpart of
+``vision_tpu/ops/misc.py``), the live ``BatchNorm2d`` of the
+classification models and the v2 detection trunk (counterpart of
+``flax.linen.BatchNorm`` as ``vision_tpu/models/resnet.py`` configures it,
+and of its ``_BNAffine``), and ``GroupNorm`` (counterpart of
+``flax.linen.GroupNorm``, in RetinaNet's v2 head)."""
 
 from __future__ import annotations
 
@@ -10,7 +12,8 @@ from typing import Tuple
 import torch
 from torch import nn
 
-__all__ = ["BatchNorm2d", "FrozenBatchNorm2d", "batch_mean_var"]
+__all__ = ["BatchNorm2d", "FrozenBatchNorm2d", "GroupNorm",
+           "batch_mean_var"]
 
 
 class FrozenBatchNorm2d(nn.Module):
@@ -106,3 +109,37 @@ class BatchNorm2d(nn.Module):
         out_dtype = torch.promote_types(
             x.dtype, torch.promote_types(self.weight.dtype, self.bias.dtype))
         return y.to(out_dtype)
+
+
+class GroupNorm(nn.Module):
+    """Group norm over NCHW input under ``torch.nn.GroupNorm``'s names
+    (``weight``, ``bias``) with the arithmetic of ``flax.linen.GroupNorm``:
+    each group's mean and variance over (C / G, H, W) in f32, the variance
+    as ``max(0, E[x^2] - E[x]^2)`` (``torch.nn.GroupNorm`` takes Welford's);
+    ``y = (x - mean) * (rsqrt(var + eps) * weight) + bias`` in f32, cast to
+    the promoted type of ``x``, ``weight`` and ``bias``."""
+
+    def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5):
+        super().__init__()
+        if num_channels % num_groups:
+            raise ValueError(f"{num_groups} groups do not divide "
+                             f"{num_channels} channels")
+        self.num_groups = num_groups
+        self.num_channels = num_channels
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_channels))
+        self.bias = nn.Parameter(torch.zeros(num_channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, c = x.shape[:2]
+        xf = x.float().reshape(n, self.num_groups, -1)
+        mean = xf.mean(-1)
+        var = ((xf * xf).mean(-1) - mean * mean).clamp(min=0.0)
+        size = c // self.num_groups  # the groups' statistics to channels
+        mean = mean.repeat_interleave(size, 1)[..., None]
+        mul = torch.rsqrt(var + self.eps).repeat_interleave(size, 1)
+        mul = (mul * self.weight.float())[..., None]
+        y = (xf.reshape(n, c, -1) - mean) * mul + self.bias.float()[:, None]
+        out_dtype = torch.promote_types(
+            x.dtype, torch.promote_types(self.weight.dtype, self.bias.dtype))
+        return y.reshape(x.shape).to(out_dtype)

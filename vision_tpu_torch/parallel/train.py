@@ -1,7 +1,7 @@
 """Train steps on one device: the classification step (counterpart of
 ``vision_tpu/parallel/train.py``: forward in training mode, cross-entropy
 with label smoothing or soft labels, backward, one optimizer update) and
-the two-stage detection step (counterpart of
+the detection step, two-stage or one-stage (counterpart of
 ``references/detection/engine.py:make_detection_train_step``, f32 or the
 bf16 amp step). The mesh, buffer donation and ``reduce_across_devices`` of
 the JAX package have no counterpart here yet.
@@ -89,8 +89,8 @@ def make_detection_train_step(
     model: nn.Module,
     optimizer: torch.optim.Optimizer,
     compute_dtype: Optional[torch.dtype] = None,
-) -> Callable[[Dict[str, torch.Tensor], torch.Generator],
-              Dict[str, torch.Tensor]]:
+    one_stage: bool = False,
+) -> Callable[..., Dict[str, torch.Tensor]]:
     """Build ``step(batch, generator) -> {"loss", "loss_objectness",
     "loss_rpn_box_reg", "loss_classifier", "loss_box_reg"}`` for a
     two-stage detector with ``compute_loss`` (Faster R-CNN, Mask R-CNN,
@@ -105,6 +105,12 @@ def make_detection_train_step(
     samplers draw from ``generator`` (on the model's device). The losses
     stay on the device: reading them is the caller's synchronisation.
 
+    ``one_stage=True`` is the JAX recipe's one-stage convention
+    (``engine.py:45-47``; RetinaNet): the forward first, then
+    ``compute_loss(*outputs, gt_boxes, gt_labels, gt_valid)``; the step
+    returns ``"loss"`` and the model's losses (``"classification"``,
+    ``"bbox_regression"``), and takes no generator.
+
     ``compute_dtype=torch.bfloat16`` is the JAX recipe's amp step
     (``references/detection/engine.py:24-37``): the parameters, the frozen
     batch-norm constants and the image are cast at the step boundary, while
@@ -112,8 +118,12 @@ def make_detection_train_step(
     arithmetic promotes to f32; the losses are summed in f32; the master
     parameters and the optimizer state stay f32 (the cast is
     differentiable, so the optimizer sees f32 gradients). The window pool
-    and RoIAlign take their bf16 kernels forward and backward."""
-    loss_of = _LossOf(model)
+    and RoIAlign take their bf16 kernels forward and backward. A live batch
+    norm (RetinaNet v2's trunk) keeps its running statistics f32 and
+    updates them in place at every step, in every stage, trainable or not
+    (``engine.py:49-55``: the recipe masks the updates of the parameters,
+    not of the statistics)."""
+    loss_of = _LossOf(model, one_stage)
     # the frozen batch-norm constants; no other buffer (a live batch norm's
     # running statistics stay f32, as in the JAX recipe)
     frozen = {f"{mod_name}.{name}"
@@ -122,7 +132,8 @@ def make_detection_train_step(
               for name, _ in mod.named_buffers(recurse=False)}
 
     def step(batch: Dict[str, torch.Tensor],
-             generator: torch.Generator) -> Dict[str, torch.Tensor]:
+             generator: Optional[torch.Generator] = None
+             ) -> Dict[str, torch.Tensor]:
         model.train()
         optimizer.zero_grad(set_to_none=True)
         extra = {f"gt_{k}": batch[k] for k in ("masks", "keypoints")
@@ -152,11 +163,16 @@ def make_detection_train_step(
 class _LossOf(nn.Module):
     """``model.compute_loss`` as a module's forward, so that
     ``torch.func.functional_call`` can swap the model's tensors for one
-    call."""
+    call; for a one-stage model, of the forward's outputs."""
 
-    def __init__(self, model: nn.Module):
+    def __init__(self, model: nn.Module, one_stage: bool = False):
         super().__init__()
         self.model = model
+        self.one_stage = one_stage
 
-    def forward(self, *args, **kwargs):
-        return self.model.compute_loss(*args, **kwargs)
+    def forward(self, images, boxes, labels, valid, generator, **kwargs):
+        if self.one_stage:
+            return self.model.compute_loss(*self.model(images), boxes, labels,
+                                           valid)
+        return self.model.compute_loss(images, boxes, labels, valid,
+                                       generator, **kwargs)

@@ -1,9 +1,11 @@
 """The served detection request that ``chip_smoke.py`` (phases
 ``faster_rcnn_images``, ``faster_rcnn_amp``, ``mask_rcnn_images``,
-``mask_rcnn_amp``, ``keypoint_rcnn_images``) and ``profile_faster_rcnn``
-(the ``request_*`` cells) drive: two seeded uint8 images of COCO's two
-most common sizes through the weights' preset, the transform, the model
-and ``postprocess_boxes``, and for Mask R-CNN ``paste_masks``; and the
+``mask_rcnn_amp``, ``keypoint_rcnn_images``, ``retinanet*_images*``) and
+``profile_faster_rcnn`` (the ``*request_*`` cells) drive: two seeded uint8
+images of COCO's two most common sizes through the weights' preset, the
+transform, the model and ``postprocess_boxes``, for Mask R-CNN
+``paste_masks``, for RetinaNet its ``postprocess_detections`` first
+(``serve_retinanet``); and the
 training batch of the same images, with gt masks and keypoints where the
 model takes them (phases ``*_train``, cells ``*train``); and the seeded
 offset predictors of a deformable trunk (``seed_offsets``).
@@ -48,6 +50,19 @@ def serve(model, preset, transform, raw, dtype=torch.float32):
     mapped boxes."""
     batch = transform([preset(r) for r in raw])
     dets = model(batch.tensors.to(dtype))
+    boxes = [transform.postprocess_boxes(dets.boxes[i], size, tuple(r.shape[-2:]))
+             for i, (r, size) in enumerate(zip(raw, batch.image_sizes))]
+    return batch, dets, boxes
+
+
+def serve_retinanet(model, preset, transform, raw, dtype=torch.float32):
+    """``serve`` for RetinaNet: the model's head outputs go through its
+    ``postprocess_detections`` at the canvas's size, then each image's
+    boxes are mapped back to its own size. The same results as ``serve``."""
+    batch = transform([preset(r) for r in raw])
+    canvas = batch.tensors.to(dtype)
+    dets = model.postprocess_detections(*model(canvas),
+                                        tuple(canvas.shape[-2:]))
     boxes = [transform.postprocess_boxes(dets.boxes[i], size, tuple(r.shape[-2:]))
              for i, (r, size) in enumerate(zip(raw, batch.image_sizes))]
     return batch, dets, boxes

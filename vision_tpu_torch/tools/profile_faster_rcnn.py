@@ -1,11 +1,13 @@
-"""Where the time of one Faster R-CNN, Mask R-CNN or Keypoint R-CNN
-ResNet-50-FPN request (or train step) goes, on the card.
+"""Where the time of one Faster R-CNN, Mask R-CNN, Keypoint R-CNN or
+RetinaNet ResNet-50-FPN request (or train step) goes, on the card.
 
     python -m vision_tpu_torch.tools.profile_faster_rcnn [--steps 3]
         [--cell 832 | request_f32 | request_bf16 | train | train_amp
          | mask_request_f32 | mask_request_bf16 | mask_train | mask_train_amp
          | keypoint_request_f32 | keypoint_train | deform_request_f32
-         | deform_request_bf16 | deform_train | deform_train_amp]
+         | deform_request_bf16 | deform_train | deform_train_amp
+         | retinanet_request_f32 | retinanet_request_bf16 | retinanet_train
+         | retinanet_train_amp]
 
 Same model and inputs as ``chip_smoke.py`` (seeded random weights with
 ``cls_score`` scaled x30, TF32 off). ``--cell 832``: one 832x832 f32 image
@@ -29,7 +31,12 @@ back; ``train_amp`` the same step with ``compute_dtype=torch.bfloat16``
 (``seed_offsets``, offsets of RMS ~1.5 px on the cell's canvas), as
 ``chip_smoke.py``'s ``mask_rcnn_deform_*`` phases drive it, and also
 print the device time of the deformable convolution's products
-(``torch.matmul``, the ``deform_conv2d.product`` ranges). Runs
+(``torch.matmul``, the ``deform_conv2d.product`` ranges); the
+``retinanet_*`` cells are the request and train cells for
+``retinanet_resnet50_fpn``, as ``chip_smoke.py``'s ``retinanet_images``,
+``retinanet_images_amp``, ``retinanet_train`` and ``retinanet_train_amp``
+drive it (``cls_logits``' weight scaled x4 when served; its postprocess
+through ``serve_retinanet``; trained by the one-stage convention). Runs
 ``--steps`` steps under ``torch.profiler``
 after two warm-up steps and prints JSON lines: per step the host wall
 time and the summed device kernel time (their ratio is the device's busy
@@ -60,6 +67,7 @@ from vision_tpu_torch.tools.detection_request import (
     recipe_optimizer,
     seed_offsets,
     serve,
+    serve_retinanet,
     train_batch,
 )
 
@@ -67,12 +75,14 @@ from vision_tpu_torch.tools.detection_request import (
 _MODELS = {"": ("fasterrcnn_resnet50_fpn", 91, {}),
            "mask_": ("maskrcnn_resnet50_fpn", 91, {"masks": True}),
            "keypoint_": ("keypointrcnn_resnet50_fpn", 2, {"keypoints": True}),
-           "deform_": ("maskrcnn_resnet50_fpn_deform", 91, {"masks": True})}
+           "deform_": ("maskrcnn_resnet50_fpn_deform", 91, {"masks": True}),
+           "retinanet_": ("retinanet_resnet50_fpn", 91, {})}
 _CELLS = ("832", "request_f32", "request_bf16", "train", "train_amp",
           "mask_request_f32", "mask_request_bf16", "mask_train",
           "mask_train_amp", "keypoint_request_f32", "keypoint_train",
           "deform_request_f32", "deform_request_bf16", "deform_train",
-          "deform_train_amp")
+          "deform_train_amp", "retinanet_request_f32", "retinanet_request_bf16",
+          "retinanet_train", "retinanet_train_amp")
 
 # kernel-name fragments -> group, first match wins
 _GROUPS = (
@@ -115,10 +125,14 @@ def _device_us(evt) -> float:
 
 def _scaled_model(name="fasterrcnn_resnet50_fpn"):
     """The served model as ``chip_smoke.py`` builds it: ``cls_score``
-    scaled x30 so that detections pass the score threshold."""
+    scaled x30 (RetinaNet's ``cls_logits`` x4) so that detections pass the
+    score threshold."""
     model = get_model(name, seed=0)
     with torch.no_grad():
-        model.roi_heads.box_predictor.cls_score.weight.mul_(30.0)
+        if name.startswith("retinanet"):
+            model.head.classification_head.cls_logits.weight.mul_(4.0)
+        else:
+            model.roi_heads.box_predictor.cls_score.weight.mul_(30.0)
     return model
 
 
@@ -133,8 +147,8 @@ def main() -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    prefix = next(p for p in ("mask_", "keypoint_", "deform_", "")
-                  if args.cell.startswith(p))
+    prefix = next(p for p in ("mask_", "keypoint_", "deform_", "retinanet_",
+                              "") if args.cell.startswith(p))
     name, classes, extras = _MODELS[prefix]
     training = "train" in args.cell
     if training:
@@ -142,7 +156,8 @@ def main() -> None:
         optimizer, scheduler = recipe_optimizer(model)
         train_step = make_detection_train_step(
             model, optimizer, compute_dtype=torch.bfloat16
-            if args.cell.endswith("_amp") else None)
+            if args.cell.endswith("_amp") else None,
+            one_stage=prefix == "retinanet_")
         with torch.no_grad():
             batch = train_batch(FasterRCNN_ResNet50_FPN_Weights.COCO_V1.transforms(),
                                 GeneralizedRCNNTransform(), raw_images(),
@@ -172,8 +187,10 @@ def main() -> None:
                 seed_offsets(model, transform([preset(r) for r in raw]).tensors)
         model.to(dtype)
 
+        request = serve_retinanet if prefix == "retinanet_" else serve
+
         def step():
-            _, dets, boxes = serve(model, preset, transform, raw, dtype)
+            _, dets, boxes = request(model, preset, transform, raw, dtype)
             if prefix in ("mask_", "deform_"):
                 paste_masks(dets, boxes, raw)
 
