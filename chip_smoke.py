@@ -51,6 +51,16 @@ off, seeded random weights:
   ``nms_retinanet``); each train phase ends with the trained model's
   detections through that kernel; the per-level top-k timed three ways
   (line ``topk_retinanet``);
+* ViT-B/16 (``vit_b_16``, BASELINE config 2; its head drawn from a seeded
+  normal, since torchvision's starts at zero): served at batch 64 in f32
+  and bf16 (the f32 logits of 4 images against the CPU, bf16 against f32);
+  the recipe's augmentation alone on 128 seeded uint8 256x256 frames
+  (RandomResizedCrop + flip, RandAugment, normalise, MixUp / CutMix), one
+  batch's card draws applied again on the CPU stage by stage, one more with
+  RandomErasing, the draws' frequencies; and trained at batch 128 behind
+  it (AdamW, warmup + cosine, clipping at 1, label smoothing, the EMA
+  update every step) in f32 and bf16 (``--amp``), step 1 held against the
+  CPU (f32) or the f32 step (amp). No kernel of the repo's is on this path;
 * ResNet-50 classification (1000 classes, a batch of 32 224x224 images):
   one eval batch, one batch of 8 uint8 375x500 images through the weights'
   ``ImageClassification`` preset against the CPU, then SGD steps of
@@ -626,6 +636,8 @@ def main() -> int:
     keypoint_rcnn_phases(kernels)
     torch.cuda.empty_cache()
     rows += retinanet_phases(kernels)
+    torch.cuda.empty_cache()
+    vit_phases(kernels)
     torch.cuda.empty_cache()
     rows += resnet50_phases(kernels)
     torch.cuda.empty_cache()
@@ -2059,6 +2071,328 @@ def retinanet_phases(kernels):
     torch.cuda.empty_cache()
     train("retinanet_v2_train_amp", v2, True, first)
     return rows
+
+
+VIT_PARAMS = 86_567_656
+VIT_CPU_BATCH = 4  # the images held against the CPU
+VIT_LOGITS_TOL = 1e-4  # f32 logits on the card against the CPU's, of the largest
+VIT_AMP_LOGITS_TOL = 2e-2  # bf16 logits against f32, of the largest
+VIT_TIMED = 5  # timed batches or steps after a warm-up, the median kept
+VIT_LOSS_TOL = 1e-4  # step 1 on the card against the CPU, relative
+VIT_GRAD_TOL = 1e-3  # a gradient against the CPU's, of its largest value
+VIT_AMP_LOSS_TOL = 5e-2  # amp step 1's loss against the f32 step's
+VIT_NORM_TOL = 1e-6  # normalise and mix stages against the CPU, absolute
+VIT_FREQ_BATCHES = 32  # batches of draws for the frequency checks
+VIT_CHOICE_DRAWS = 400  # MixUp / CutMix picks for the frequency check
+VIT_GRADS = ("conv_proj.weight", "class_token", "encoder.pos_embedding",
+             "encoder.layers.encoder_layer_0.self_attention.in_proj_weight",
+             "encoder.layers.encoder_layer_11.mlp.3.weight",
+             "encoder.ln.weight", "heads.head.weight")
+# RandAugment ops whose uint8 result is integer arithmetic; the others
+# (bilinear geometry, blends) may round one count apart
+VIT_EXACT_OPS = ("Identity", "Posterize", "Solarize", "AutoContrast",
+                 "Equalize")
+
+
+def host_ms(fn, reps: int = VIT_TIMED) -> tuple:
+    """(median ms, all ms) of ``fn()`` followed by a synchronisation, over
+    ``reps`` calls after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times), times
+
+
+def binomial_ok(count: int, n: int, p: float) -> bool:
+    return abs(count - n * p) <= 4.0 * math.sqrt(n * p * (1.0 - p))
+
+
+def vit_forward_phases() -> None:
+    """``vit_b16_forward`` / ``_amp``: ViT-B/16 at batch 64 of 224x224, f32
+    and bf16 (``bench.py:1124-1135``'s cell): ms a batch, img/s; the f32
+    logits of 4 images against the same model on the CPU, the bf16 logits
+    against the f32 ones."""
+    import torch
+
+    from vision_tpu_torch.models._api import resolve_device
+    from vision_tpu_torch.tools.vit_train import SERVE_BATCH, seeded_vit
+
+    model = seeded_vit()
+    cpu_model = seeded_vit(device="cpu")
+    params = sum(p.numel() for p in model.parameters())
+    x = torch.randn(SERVE_BATCH, 3, 224, 224,
+                    generator=torch.Generator().manual_seed(0))
+    x_card = x.to(resolve_device(None))
+    with torch.inference_mode():
+        logits = model(x_card)
+        want = cpu_model(x[:VIT_CPU_BATCH])
+        err = float((logits[:VIT_CPU_BATCH].cpu() - want).abs().max()
+                    / want.abs().max())
+        ms, ms_all = host_ms(lambda: model(x_card))
+        emit("vit_b16_forward", model="vit_b_16", params=params,
+             dtype="float32", batch=SERVE_BATCH, ms_per_batch=ms,
+             images_per_s=SERVE_BATCH / ms * 1e3, ms_all=ms_all,
+             logits_vs_cpu_rel_err=err, tol=VIT_LOGITS_TOL,
+             logits_std=float(logits.std()))
+        if params != VIT_PARAMS or not err <= VIT_LOGITS_TOL or not bool(
+                torch.isfinite(logits).all()):
+            raise RuntimeError("vit_b16_forward: wrong parameter count, or the "
+                               "logits are off the CPU's or not finite")
+        model16 = model.to(torch.bfloat16)
+        x16 = x_card.to(torch.bfloat16)
+        l16 = model16(x16).float()
+        err16 = float((l16 - logits).abs().max() / logits.abs().max())
+        ms, ms_all = host_ms(lambda: model16(x16))
+        emit("vit_b16_forward_amp", model="vit_b_16", dtype="bfloat16",
+             batch=SERVE_BATCH, ms_per_batch=ms,
+             images_per_s=SERVE_BATCH / ms * 1e3, ms_all=ms_all,
+             logits_vs_f32_rel_err=err16, tol=VIT_AMP_LOGITS_TOL)
+        if not err16 <= VIT_AMP_LOGITS_TOL:
+            raise RuntimeError("vit_b16_forward_amp: bf16 logits off the f32 ones")
+
+
+def vit_augment_check(aug, raw, gen, phase) -> dict:
+    """One batch through ``aug`` on the card, stage by stage, each stage
+    applied again on the CPU to the card's input of that stage with the
+    card's draws moved there: the crop within 1 count; each RandAugment
+    slot equal where its op is integer arithmetic, else within 1 count;
+    normalise (and erasing) and the mix within ``VIT_NORM_TOL``."""
+    import torch
+
+    from vision_tpu_torch.transforms import v2 as T
+
+    draws = aug.draw(raw["image"].shape, gen)
+    cpu = T.to_device(draws, "cpu")
+    crop = aug.crop.apply(raw["image"], draws["crop"])
+    crop_err = int((aug.crop.apply(raw["image"].cpu(), cpu["crop"]).int()
+                    - crop.cpu().int()).abs().max())
+    ra = aug.auto_augment
+    names = list(ra.magnitudes(crop.shape[-2:]))
+    exact = torch.tensor([n in VIT_EXACT_OPS for n in names])
+    x, ra_err = crop, {"exact": 0, "rounded": 0}
+    for s in range(ra.num_ops):
+        one = T.RandAugment(num_ops=1, magnitude=ra.magnitude,
+                            interpolation=ra.interpolation)
+        slot = {k: v[:, s:s + 1] for k, v in draws["auto_augment"].items()}
+        y = one.apply(x, slot)
+        y_cpu = one.apply(x.cpu(), T.to_device(slot, "cpu"))
+        diff = (y.cpu().int() - y_cpu.int()).abs().amax((1, 2, 3))
+        is_exact = exact[cpu["auto_augment"]["op"][:, s]]
+        for key, pick in (("exact", is_exact), ("rounded", ~is_exact)):
+            if pick.any():
+                ra_err[key] = max(ra_err[key], int(diff[pick].max()))
+        x = y
+    whole = ra.apply(crop, draws["auto_augment"])
+    post = aug.post.apply(x, draws["post"])
+    post_err = float((aug.post.apply(x.cpu(), cpu["post"]) - post.cpu()).abs().max())
+    mixed = aug.mix.apply((post, raw["label"]), draws["mix"])
+    mixed_cpu = aug.mix.apply((post.cpu(), raw["label"].cpu()), cpu["mix"])
+    mix_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(mixed, mixed_cpu))
+    out = aug.apply(raw, draws)
+    out_err = max(float((a - b).abs().max()) for a, b in zip(
+        (out["image"], out["label"]), mixed))
+    result = {"crop_max_abs_err": crop_err,
+              "randaugment_exact_ops_max_abs_err": ra_err["exact"],
+              "randaugment_rounded_ops_max_abs_err": ra_err["rounded"],
+              "randaugment_slots_equal_whole": bool(torch.equal(whole, x)),
+              "normalize_max_abs_err": post_err, "mix_max_abs_err": mix_err,
+              "pipeline_vs_stages_max_abs_err": out_err,
+              "mix_choice": int(draws["mix"]["choice"]),
+              "tol": {"crop": 1, "exact_ops": 0, "rounded_ops": 1,
+                      "normalize_mix": VIT_NORM_TOL}}
+    if (crop_err > 1 or ra_err["exact"] or ra_err["rounded"] > 1
+            or not result["randaugment_slots_equal_whole"]
+            or not post_err <= VIT_NORM_TOL or not mix_err <= VIT_NORM_TOL
+            or not out_err <= VIT_NORM_TOL
+            or not bool(torch.isfinite(out["image"]).all())):
+        raise RuntimeError(f"{phase}: the card's augmentation is off the CPU's: "
+                           f"{result}")
+    return result
+
+
+def vit_augment_phase() -> None:
+    """``vit_b16_augment``: the recipe's pipeline alone on 128 seeded uint8
+    256x256 frames (``bench.py:474-476``): img/s, the device ms of each
+    stage; one batch held against the CPU (``vit_augment_check``), one more
+    at ``random_erase=0.1`` (``bench.py:409``); the draws' frequencies over
+    ``VIT_FREQ_BATCHES`` batches (ops uniform over the 14, the flips, MixUp
+    against CutMix over ``VIT_CHOICE_DRAWS`` picks), each within a 4-sigma
+    binomial bound; the stages' device ms each one call queued behind a
+    spin kernel (``profile_vit_train.queued_ms``), the median of three."""
+    import torch
+
+    from vision_tpu_torch.models._api import resolve_device
+    from vision_tpu_torch.tools.profile_vit_train import queued_ms
+    from vision_tpu_torch.tools.vit_train import frames, recipe_augment
+
+    card = resolve_device(None)
+    raw = frames()
+    gen = torch.Generator(device=card).manual_seed(0)
+    aug = recipe_augment()
+    ms, ms_all = host_ms(lambda: aug(raw, gen))
+    n = raw["image"].shape[0]
+    draws = aug.draw(raw["image"].shape, gen)
+    crop = aug.crop.apply(raw["image"], draws["crop"])
+    ra = aug.auto_augment.apply(crop, draws["auto_augment"])
+    post = aug.post.apply(ra, draws["post"])
+    stages = {
+        "crop_flip": lambda: aug.crop.apply(raw["image"], draws["crop"]),
+        "randaugment": lambda: aug.auto_augment.apply(crop, draws["auto_augment"]),
+        "normalize": lambda: aug.post.apply(ra, draws["post"]),
+        "mixup_cutmix": lambda: aug.mix.apply((post, raw["label"]), draws["mix"]),
+    }
+    stages = {k: statistics.median(queued_ms(fn)[0] for _ in range(3))
+              for k, fn in stages.items()}
+    check = vit_augment_check(aug, raw, gen, "vit_b16_augment")
+    erase = recipe_augment(random_erase=0.1)
+    erase_check = vit_augment_check(erase, raw, gen, "vit_b16_augment")
+
+    ops = torch.zeros(14, dtype=torch.int64, device=card)
+    flips = torch.zeros((), dtype=torch.int64, device=card)
+    for _ in range(VIT_FREQ_BATCHES):
+        d = aug.draw(raw["image"].shape, gen)
+        ops += torch.bincount(d["auto_augment"]["op"].flatten(), minlength=14)
+        flips += d["crop"]["flip"].sum()
+    picks = sum(int(aug.mix.draw((n, 3, 224, 224), gen)["choice"])
+                for _ in range(VIT_CHOICE_DRAWS))
+    ops = ops.tolist()
+    op_draws = VIT_FREQ_BATCHES * n * aug.auto_augment.num_ops
+    flip_draws = VIT_FREQ_BATCHES * n
+    freq = {"op_counts": ops, "op_draws": op_draws, "flips": int(flips),
+            "flip_draws": flip_draws, "cutmix_picks": picks,
+            "mix_draws": VIT_CHOICE_DRAWS}
+    emit("vit_b16_augment", batch=n, frame=list(raw["image"].shape[1:]),
+         crop=224, images_per_s=n / ms * 1e3, ms_per_batch=ms, ms_all=ms_all,
+         stages_device_ms=stages, check=check, random_erase_0_1=erase_check,
+         frequencies=freq)
+    if not (all(binomial_ok(c, op_draws, 1 / 14) for c in ops)
+            and binomial_ok(int(flips), flip_draws, 0.5)
+            and binomial_ok(picks, VIT_CHOICE_DRAWS, 0.5)):
+        raise RuntimeError(f"vit_b16_augment: draw frequencies off: {freq}")
+
+
+def vit_step_check(model, batch, compute_dtype):
+    """One recipe step (clipping, AdamW) at batch ``VIT_CPU_BATCH`` from
+    ``model``'s weights on a copy of it: loss, the gradient norm and every
+    parameter's (clipped) gradient, on the card and, in f32, on the CPU."""
+    import torch
+
+    from vision_tpu_torch.models._api import resolve_device
+    from vision_tpu_torch.tools.vit_train import RecipeStep
+
+    out = {}
+    for device in ("card", "cpu"):
+        if device == "cpu" and compute_dtype is not None:
+            break
+        dev = resolve_device(None if device == "card" else device)
+        twin = copy.deepcopy(model).to(dev)
+        run = RecipeStep(twin, compute_dtype)
+        small = {k: v[:VIT_CPU_BATCH].to(dev) for k, v in batch.items()}
+        metrics = run.train_step(small)
+        out[device] = {"loss": float(metrics["loss"]),
+                       "grad_norm": float(metrics["grad_norm"]),
+                       "grads": {} if compute_dtype is not None else {
+                           n: p.grad.float().cpu()
+                           for n, p in twin.named_parameters()}}
+        del twin, run
+    return out
+
+
+def vit_train_phase(phase: str, compute_dtype, f32_loss=None) -> float:
+    """``vit_b16_train`` (f32) / ``vit_b16_train_amp`` (``--amp``): the
+    recipe's step at batch 128 from the seeded frames, augmentation,
+    clipping, AdamW, the schedule and the EMA update every step, timed
+    (ms/step with the loss read back, img/s, peak GB); step 1 at batch 4 on
+    one augmented batch held against the CPU (f32: loss ``VIT_LOSS_TOL``,
+    the gradient norm and every parameter's gradient, of its largest
+    value, ``VIT_GRAD_TOL``; ``VIT_GRADS`` printed) or against the f32 step
+    (amp: loss ``VIT_AMP_LOSS_TOL``). Returns step 1's loss."""
+    import torch
+
+    from vision_tpu_torch.models._api import resolve_device
+    from vision_tpu_torch.tools.vit_train import RecipeStep, frames, seeded_vit
+
+    model = seeded_vit()
+    raw = frames()
+    gen = torch.Generator(device=resolve_device(None)).manual_seed(1)
+    run = RecipeStep(model, compute_dtype)
+    with torch.no_grad():
+        batch = run.augment(raw, gen)
+    first = vit_step_check(model, batch, compute_dtype)
+    card = first["card"]
+    check = {"step1_loss": card["loss"], "step1_grad_norm": card["grad_norm"]}
+    ok = math.isfinite(card["loss"]) and card["grad_norm"] > 0
+    if compute_dtype is None:
+        cpu = first["cpu"]
+        # the key bias's gradient is round-off on both sides (every score of
+        # a query row moves alike; tests/test_torch_vit.py): left out
+        grad_err = {n: float((card["grads"][n] - g).abs().max() / g.abs().max())
+                    for n, g in cpu["grads"].items()
+                    if not n.endswith("in_proj_bias")}
+        worst = max(grad_err, key=grad_err.get)
+        check.update(
+            loss_vs_cpu_rel_err=abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+            grad_norm_vs_cpu_rel_err=abs(card["grad_norm"] - cpu["grad_norm"])
+            / cpu["grad_norm"],
+            grads_vs_cpu_rel_err={n: grad_err[n] for n in VIT_GRADS},
+            grads_vs_cpu_worst=[worst, grad_err[worst]],
+            grads_compared=len(grad_err), loss_tol=VIT_LOSS_TOL,
+            grad_tol=VIT_GRAD_TOL)
+        ok = ok and (check["loss_vs_cpu_rel_err"] <= VIT_LOSS_TOL
+                     and check["grad_norm_vs_cpu_rel_err"] <= VIT_GRAD_TOL
+                     and grad_err[worst] <= VIT_GRAD_TOL)
+    else:
+        check.update(loss_vs_f32_rel_err=abs(card["loss"] - f32_loss) / abs(f32_loss),
+                     loss_tol=VIT_AMP_LOSS_TOL)
+        ok = ok and check["loss_vs_f32_rel_err"] <= VIT_AMP_LOSS_TOL
+    del first
+
+    losses = []
+    for _ in range(2):  # warm-up
+        losses.append(float(run(raw, gen)["loss"]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(VIT_TIMED):
+        t = time.perf_counter()
+        losses.append(float(run(raw, gen)["loss"]))
+        times.append((time.perf_counter() - t) * 1e3)
+    ms = statistics.median(times)
+    n = raw["image"].shape[0]
+    emit(phase, model="vit_b_16",
+         dtype="float32" if compute_dtype is None else "bfloat16", batch=n,
+         ms_per_step=ms, images_per_s=n / ms * 1e3, ms_all=times,
+         peak_gb=torch.cuda.max_memory_allocated() / 1e9, losses=losses,
+         lr_last=run.optimizer.param_groups[0]["lr"],
+         ema_decay=run.ema.decay, **check)
+    ok = ok and all(math.isfinite(v) for v in losses)
+    if not ok:
+        raise RuntimeError(f"{phase}: step 1 off its reference, or a loss not "
+                           "finite")
+    del model, run
+    torch.cuda.empty_cache()
+    return card["loss"]
+
+
+def vit_phases(kernels) -> None:
+    """ViT-B/16 (BASELINE config 2), served and trained behind the recipe's
+    augmentation. No kernel of the repo's is on this path: the launch
+    counts, set to 0 before it, are printed after it."""
+    import torch
+
+    kernels.reset()
+    vit_forward_phases()
+    vit_augment_phase()
+    f32_loss = vit_train_phase("vit_b16_train", None)
+    vit_train_phase("vit_b16_train_amp", torch.bfloat16, f32_loss)
+    emit("vit_b16_launches", launches=kernels.launches())
 
 
 # name -> (source, the TPU kernel it replaces)

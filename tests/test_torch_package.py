@@ -55,7 +55,12 @@ def test_import_pulls_in_no_jax():
         "vision_tpu_torch.io.image, vision_tpu_torch.io.jpeg_device, "
         "vision_tpu_torch.io.prefetch, vision_tpu_torch.io._exif, "
         "vision_tpu_torch.tools.imagenet_e2e, "
-        "vision_tpu_torch.tools.profile_imagenet_e2e\n"
+        "vision_tpu_torch.tools.profile_imagenet_e2e, "
+        "vision_tpu_torch.models.vision_transformer, "
+        "vision_tpu_torch.ops.attention, vision_tpu_torch.parallel.recipe, "
+        "vision_tpu_torch.transforms.v2, "
+        "vision_tpu_torch.transforms.v2._batch_augment, "
+        "vision_tpu_torch.tools.profile_vit_train\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'vision_tpu', 'PIL')]\n"
         "print(bad)\n"
@@ -93,6 +98,8 @@ def test_default_device_raises_without_cuda(monkeypatch):
         vision_tpu_torch.io.decode_batch([b"\xff\xd8\xff"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         vision_tpu_torch.io.decode_batch([])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        get_model("vit_b_16")
 
 
 def test_cpu_tensors_take_the_plain_path():

@@ -12,7 +12,12 @@ HWC flatten of the pooled features to torch's CHW flatten). flax
 extra blocks, ``backbone/extra_blocks/p6`` beside the JAX FPN, go to
 torchvision's ``backbone.fpn.extra_blocks.p6``; its towers' names
 (``head.classification_head.conv.{i}.0``, ``.cls_logits``,
-``regression_head.bbox_reg``) are the port's as they stand.
+``regression_head.bbox_reg``) are the port's as they stand. ViT's flax
+names already hold dots (``encoder.layers.encoder_layer_{i}``, ``mlp.0``,
+``heads.head``) and join as they are; its top-level ``class_token`` and
+``encoder.pos_embedding`` carry across unchanged; its attention's ``in_proj``
+Dense (``[D, 3D]``, columns q, k, v) is torch's ``in_proj_weight`` (``[3D,
+D]``, the row blocks in the same order) and ``in_proj_bias``.
 
 Transposed convolutions (the Mask R-CNN and Keypoint R-CNN predictors'
 ``conv5_mask`` and ``kps_score_lowres``): a flax ``nn.ConvTranspose``
@@ -60,7 +65,10 @@ def _torch_name(collection: str, path: Tuple[str, ...]) -> str:
         leaf = {"mean": "running_mean", "var": "running_var"}[leaf]
     elif collection != "frozen":
         raise KeyError(f"cannot map collection {collection!r}")
-    return f"{base}.{leaf}"
+    name = f"{base}.{leaf}" if base else leaf
+    # ViT's packed attention projection: a flax Dense, torch's
+    # nn.MultiheadAttention parameters
+    return re.sub(r"\.in_proj\.(weight|bias)$", r".in_proj_\1", name)
 
 
 def _to_torch_layout(name: str, arr: np.ndarray, target: torch.Tensor,

@@ -1,6 +1,7 @@
 """Operators (counterpart of ``vision_tpu/ops``)."""
 
 from vision_tpu_torch.ops._conv1x1_bn import matmul_stats
+from vision_tpu_torch.ops.attention import scaled_dot_product_attention
 from vision_tpu_torch.ops.deform_conv import DeformConv2d, deform_conv2d
 from vision_tpu_torch.ops.boxes import (
     box_area,
@@ -51,5 +52,6 @@ __all__ = [
     "nms_mask",
     "remove_small_boxes",
     "roi_align",
+    "scaled_dot_product_attention",
     "sigmoid_focal_loss",
 ]

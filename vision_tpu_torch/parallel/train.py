@@ -42,6 +42,7 @@ def make_train_step(
     optimizer: torch.optim.Optimizer,
     label_smoothing: float = 0.0,
     compute_dtype: Optional[torch.dtype] = None,
+    clip_grad_norm: Optional[float] = None,
 ) -> Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]:
     """Build ``step(batch) -> {"loss", "accuracy"}`` for
     ``batch = {"image": [N, 3, H, W], "label": [N] or [N, C]}`` on the
@@ -57,7 +58,14 @@ def make_train_step(
     statistics stay f32. The cast is differentiable, so the optimizer sees
     f32 gradients; bf16 has f32's exponent range, so no loss scaling is
     needed. The loss is computed in f32 either way.
+
+    ``clip_grad_norm``: the gradients are scaled to at most that global
+    norm before the update (``torch.nn.utils.clip_grad_norm_``, the JAX
+    recipe's ``optax.clip_by_global_norm`` up to the 1e-6 torch adds to the
+    norm), and the step also returns ``"grad_norm"``, the norm before
+    clipping.
     """
+    params = [p for group in optimizer.param_groups for p in group["params"]]
 
     def step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         images, labels = batch["image"], batch["label"]
@@ -75,8 +83,11 @@ def make_train_step(
                 model, cast, (images.to(compute_dtype),))
         loss = cross_entropy_loss(logits, labels, label_smoothing)
         loss.backward()
-        optimizer.step()
         metrics = {"loss": loss.detach()}
+        if clip_grad_norm is not None:
+            metrics["grad_norm"] = torch.nn.utils.clip_grad_norm_(
+                params, clip_grad_norm)
+        optimizer.step()
         if labels.dim() == 1:
             hits = logits.detach().argmax(-1) == labels
             metrics["accuracy"] = hits.float().mean()
