@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Builds the eleven CUDA kernels of ``vision_tpu_torch`` from ``csrc/``
-(``nvcc``) and its JPEG codec (``csrc/jpeg_codec.cpp``, ``g++``, no
+Builds the thirteen CUDA kernel libraries of ``vision_tpu_torch`` from
+``csrc/`` (``nvcc``) and its JPEG codec (``csrc/jpeg_codec.cpp``, ``g++``, no
 library), all at once, and drives the port's main paths at full width, TF32
 off, seeded random weights:
 
@@ -61,6 +61,16 @@ off, seeded random weights:
   it (AdamW, warmup + cosine, clipping at 1, label smoothing, the EMA
   update every step) in f32 and bf16 (``--amp``), step 1 held against the
   CPU (f32) or the f32 step (amp). No kernel of the repo's is on this path;
+* the long-sequence ViTs, past the flash-attention gate (head dim 64 at
+  512 tokens and more), through the flash-attention kernels: ViT-L/16 at
+  512 px (1,025 tokens) served at batch 32 in f32 and bf16 (the f32
+  logits of one image against the CPU, bf16 against f32; the forward
+  kernel 24 launches a forward), and ViT-B/16 at 384 px (577 tokens)
+  trained by the recipe's step at batch 64 behind the augmentation
+  cropping to 384, in f32 and bf16 (forward, dK/dV and dQ kernels 12
+  launches a step each); each kernel held against its plain version at
+  the path's first call, its row beside PyTorch's fused attention on the
+  same inputs;
 * ResNet-50 classification (1000 classes, a batch of 32 224x224 images):
   one eval batch, one batch of 8 uint8 375x500 images through the weights'
   ``ImageClassification`` preset against the CPU, then SGD steps of
@@ -288,6 +298,7 @@ class Kernels:
         roi_align = importlib.import_module("vision_tpu_torch.ops.roi_align")
         conv1x1 = importlib.import_module("vision_tpu_torch.ops._conv1x1_bn")
         deform = importlib.import_module("vision_tpu_torch.ops.deform_conv")
+        attention = importlib.import_module("vision_tpu_torch.ops.attention")
 
         # name -> (module, wrapper attribute, plain version)
         self.table = {
@@ -308,6 +319,14 @@ class Kernels:
                             deform.deform_im2col_plain),
             "deform_conv_backward": (deform, "deform_conv_backward_cuda",
                                      deform.deform_conv_backward_plain),
+            "flash_attention": (attention, "flash_attention_forward_cuda",
+                                attention.flash_attention_plain),
+            "flash_attention_backward_dkv": (
+                attention, "flash_attention_dkv_cuda",
+                attention.flash_attention_dkv_plain),
+            "flash_attention_backward_dq": (
+                attention, "flash_attention_dq_cuda",
+                attention.flash_attention_dq_plain),
         }
         self.cuda = {n: getattr(m, a) for n, (m, a, _) in self.table.items()}
         self.plain = {n: p for n, (_, _, p) in self.table.items()}
@@ -324,11 +343,13 @@ class Kernels:
 
     def launches(self) -> dict:
         """Each wrapper's count, and the window pool's and RoIAlign's, the
-        deformable convolution's, and their backward kernels', split by
-        variant: ``<name>_f32`` and ``<name>_bf16``."""
+        deformable convolution's, the flash attention's, and their backward
+        kernels', split by variant: ``<name>_f32`` and ``<name>_bf16``."""
         out = {n: fn.launches for n, fn in self.counted.items()}
         for n in ("window_pool", "roi_align", "window_pool_backward",
-                  "roi_align_backward", "deform_conv", "deform_conv_backward"):
+                  "roi_align_backward", "deform_conv", "deform_conv_backward",
+                  "flash_attention", "flash_attention_backward_dkv",
+                  "flash_attention_backward_dq"):
             by = self.counted[n].launches_by_dtype
             out[f"{n}_f32"] = by.get("float32", 0)
             out[f"{n}_bf16"] = by.get("bfloat16", 0)
@@ -638,6 +659,8 @@ def main() -> int:
     rows += retinanet_phases(kernels)
     torch.cuda.empty_cache()
     vit_phases(kernels)
+    torch.cuda.empty_cache()
+    rows += vit_long_phases(kernels)
     torch.cuda.empty_cache()
     rows += resnet50_phases(kernels)
     torch.cuda.empty_cache()
@@ -2278,7 +2301,7 @@ def vit_augment_phase() -> None:
         raise RuntimeError(f"vit_b16_augment: draw frequencies off: {freq}")
 
 
-def vit_step_check(model, batch, compute_dtype):
+def vit_step_check(model, batch, compute_dtype, crop_size):
     """One recipe step (clipping, AdamW) at batch ``VIT_CPU_BATCH`` from
     ``model``'s weights on a copy of it: loss, the gradient norm and every
     parameter's (clipped) gradient, on the card and, in f32, on the CPU."""
@@ -2293,7 +2316,7 @@ def vit_step_check(model, batch, compute_dtype):
             break
         dev = resolve_device(None if device == "card" else device)
         twin = copy.deepcopy(model).to(dev)
-        run = RecipeStep(twin, compute_dtype)
+        run = RecipeStep(twin, compute_dtype, crop_size=crop_size)
         small = {k: v[:VIT_CPU_BATCH].to(dev) for k, v in batch.items()}
         metrics = run.train_step(small)
         out[device] = {"loss": float(metrics["loss"]),
@@ -2305,7 +2328,9 @@ def vit_step_check(model, batch, compute_dtype):
     return out
 
 
-def vit_train_phase(phase: str, compute_dtype, f32_loss=None) -> float:
+def vit_train_phase(phase: str, compute_dtype, f32_loss=None, size=224,
+                    batch_size=128, frame=256,
+                    first_step=contextlib.nullcontext) -> float:
     """``vit_b16_train`` (f32) / ``vit_b16_train_amp`` (``--amp``): the
     recipe's step at batch 128 from the seeded frames, augmentation,
     clipping, AdamW, the schedule and the EMA update every step, timed
@@ -2313,19 +2338,23 @@ def vit_train_phase(phase: str, compute_dtype, f32_loss=None) -> float:
     one augmented batch held against the CPU (f32: loss ``VIT_LOSS_TOL``,
     the gradient norm and every parameter's gradient, of its largest
     value, ``VIT_GRAD_TOL``; ``VIT_GRADS`` printed) or against the f32 step
-    (amp: loss ``VIT_AMP_LOSS_TOL``). Returns step 1's loss."""
+    (amp: loss ``VIT_AMP_LOSS_TOL``). Returns step 1's loss. ``size``,
+    ``batch_size`` and ``frame`` give another cell of ViT-B/16 (the model
+    at ``size`` px, cropped to it); the first step at ``batch_size`` runs
+    inside ``first_step()``."""
     import torch
 
     from vision_tpu_torch.models._api import resolve_device
     from vision_tpu_torch.tools.vit_train import RecipeStep, frames, seeded_vit
 
-    model = seeded_vit()
-    raw = frames()
+    model = seeded_vit(image_size=size)
+    raw = frames(batch_size, frame)
     gen = torch.Generator(device=resolve_device(None)).manual_seed(1)
-    run = RecipeStep(model, compute_dtype)
+    run = RecipeStep(model, compute_dtype, batch_size=batch_size,
+                     crop_size=size)
     with torch.no_grad():
         batch = run.augment(raw, gen)
-    first = vit_step_check(model, batch, compute_dtype)
+    first = vit_step_check(model, batch, compute_dtype, size)
     card = first["card"]
     check = {"step1_loss": card["loss"], "step1_grad_norm": card["grad_norm"]}
     ok = math.isfinite(card["loss"]) and card["grad_norm"] > 0
@@ -2355,8 +2384,9 @@ def vit_train_phase(phase: str, compute_dtype, f32_loss=None) -> float:
     del first
 
     losses = []
-    for _ in range(2):  # warm-up
+    with first_step():
         losses.append(float(run(raw, gen)["loss"]))
+    losses.append(float(run(raw, gen)["loss"]))  # warm-up, with the one above
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times = []
@@ -2366,7 +2396,7 @@ def vit_train_phase(phase: str, compute_dtype, f32_loss=None) -> float:
         times.append((time.perf_counter() - t) * 1e3)
     ms = statistics.median(times)
     n = raw["image"].shape[0]
-    emit(phase, model="vit_b_16",
+    emit(phase, model="vit_b_16", image_size=size,
          dtype="float32" if compute_dtype is None else "bfloat16", batch=n,
          ms_per_step=ms, images_per_s=n / ms * 1e3, ms_all=times,
          peak_gb=torch.cuda.max_memory_allocated() / 1e9, losses=losses,
@@ -2395,6 +2425,322 @@ def vit_phases(kernels) -> None:
     emit("vit_b16_launches", launches=kernels.launches())
 
 
+VIT_L_PARAMS = 305_174_504  # ViT_L_16_Weights.IMAGENET1K_SWAG_E2E_V1
+VIT_L_LAYERS = 24
+VIT_B_LAYERS = 12
+# bf16 logits against f32, of the largest: 24 layers, twice ViT-B/16's depth
+# (whose bf16 logits read 1.3e-2 from f32 at 224 px, PR 14)
+VIT_L_AMP_LOGITS_TOL = 5e-2
+EXP_PER_S = 3.9e12  # H100 SXM: 16 SFU results a clock an SM, 132 SMs, 1.83 GHz
+# of the largest plain value: (forward, backward); f32 sums in another
+# order and exp2 with log2 e folded into the scale; in bf16, p rounded
+# against another running maximum (tests/test_torch_flash_attention_cuda.py)
+FLASH_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2e-2, 2e-2)}
+FLASH_LSE_TOL = 1e-5  # of max(1, the largest |lse|), absolute
+
+
+def flash_work(name, q):
+    """(bytes, products, exponentials) of one call of flash kernel ``name``
+    on ``q``'s shape ``[B, H, S, D]``. Bytes: each input read once, each
+    output written once (the forward: q, k, v in, o and lse out; dk/dv: q,
+    k, v, do, lse, di in, dk, dv out; dq: the same in, dq out).
+    Operations: the products the function needs, 2 S^2 D a head each
+    (forward q k^T and p v; dk/dv q k^T, do v^T, p^T do, ds^T q; dq q k^T,
+    do v^T, ds k), and one exponential a score."""
+    b, h, s, d = q.shape
+    rows, e = b * h * s, q.element_size()
+    tensors, stats, products = {
+        "flash_attention": (4, 1, 2),
+        "flash_attention_backward_dkv": (6, 2, 4),
+        "flash_attention_backward_dq": (5, 2, 3),
+    }[name]
+    product = 2.0 * b * h * s * s * d
+    return (tensors * rows * d * e + stats * rows * 4, products * product,
+            float(b * h * s * s))
+
+
+def flash_bound(name, q) -> dict:
+    """The least time of one call: the larger of the bytes over the memory
+    rate and the operations, which are the larger of the products over the
+    peak of q's type and the exponentials over the SFUs' rate."""
+    nbytes, products, exps = flash_work(name, q)
+    t = {"bytes_bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+         "products_bound_ms": products / peak_flops(q) * 1e3,
+         "exp_bound_ms": exps / EXP_PER_S * 1e3}
+    ops = max(t["products_bound_ms"], t["exp_bound_ms"])
+    by_bytes = t["bytes_bound_ms"] >= ops
+    return dict(t, operations_bound_ms=ops,
+                bound_ms=t["bytes_bound_ms"] if by_bytes else ops,
+                bound_by="bytes" if by_bytes else "operations")
+
+
+@contextlib.contextmanager
+def first_calls(kernels, names, store):
+    """Keep a copy of the positional arguments of the first call of each
+    kernel in ``names`` (into ``store``); every call still runs and counts."""
+    import torch
+
+    def make(name):
+        fn = kernels.cuda[name]
+
+        def rec(*args):
+            if name not in store:
+                store[name] = [a.clone() if torch.is_tensor(a) else a
+                               for a in args]
+            return fn(*args)
+        return rec
+
+    try:
+        for n in names:
+            mod, attr, _ = kernels.table[n]
+            setattr(mod, attr, make(n))
+        yield
+    finally:
+        for n in names:
+            mod, attr, _ = kernels.table[n]
+            setattr(mod, attr, kernels.cuda[n])
+
+
+def path_layout(args):
+    """The recorded ``q, k, v`` (and ``do``) laid out as the ViT hands them
+    over: head views of one packed ``[B, S, 3 H D]`` projection, ``do`` a
+    head view of ``[B, S, H, D]``."""
+    import torch
+
+    q = args[0]
+    b, h, s, d = q.shape
+    packed = torch.empty(b, s, 3 * h * d, dtype=q.dtype, device=q.device)
+    views = [t.reshape(b, s, h, d).transpose(1, 2) for t in packed.chunk(3, -1)]
+    for view, t in zip(views, args[:3]):
+        view.copy_(t)
+    out = views + list(args[3:])
+    if len(args) > 4:  # the backward's do
+        do = torch.empty(b, s, h, d, dtype=q.dtype, device=q.device)
+        do = do.transpose(1, 2)
+        do.copy_(args[3])
+        out[3] = do
+    return out
+
+
+def flash_case(kernels, name, args, path) -> dict:
+    """One call of flash kernel ``name`` at a recorded call's inputs, laid
+    out as the path lays them: against its plain version on the card
+    (``FLASH_TOL`` of the largest plain value; the forward's ``lse`` within
+    ``FLASH_LSE_TOL``; the backward kernels the same bits on a second
+    call), timed (``ms`` the wrapper clock, ``device_ms`` behind a spin
+    kernel), beside its plain version's ms, its bound and PyTorch's fused
+    attention on the same inputs (``library_ms``, the forward; for the
+    backward kernels ``sdpa_backward_ms``, the whole backward of that call,
+    which computes dq, dk and dv together). Prints the case and returns
+    it."""
+    import torch
+    import torch.nn.functional as F
+
+    args = path_layout(args)
+    fn, plain = kernels.cuda[name], kernels.plain[name]
+    q, k, v = args[:3]
+    dtype = str(q.dtype)[6:]
+    forward = name == "flash_attention"
+    got, want = fn(*args), plain(*args)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    meta = {}
+    if forward:
+        lse_err = float((got[1] - want[1]).abs().max())
+        meta.update(lse_max_abs_err=lse_err, lse_tol=FLASH_LSE_TOL * max(
+            1.0, float(want[1].abs().max())))
+        got, want = got[:1], want[:1]
+    else:
+        again = fn(*args)
+        again = again if isinstance(again, tuple) else (again,)
+        meta["same_bits_twice"] = all(torch.equal(a, b)
+                                      for a, b in zip(got, again))
+        del again
+    torch.cuda.synchronize()
+    err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+    rel = max(float((g.float() - w.float()).abs().max() / w.float().abs().max())
+              for g, w in zip(got, want))
+    del got, want
+    tol = FLASH_TOL[dtype][0 if forward else 1]
+    ms = cuda_ms(lambda: fn(*args))
+    dev_ms = device_ms(lambda: fn(*args))
+    plain_ms = cuda_ms(lambda: plain(*args), reps=5, warmup=1)
+    scale = args[-1]
+    if forward:
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, scale=scale)
+    else:
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, scale=scale)
+
+        def library():
+            return torch.autograd.grad(out, leaves, args[3], retain_graph=True)
+    key = "library" if forward else "sdpa_backward"
+    meta.update({f"{key}_ms": cuda_ms(library),
+                 f"{key}_device_ms": device_ms(library)})
+    meta.setdefault("library_ms", None)
+    case = dict(kernel=name, path=path, dtype=dtype, shape=list(q.shape),
+                strides=[list(t.stride()) for t in args[:4] if torch.is_tensor(t)],
+                max_abs_err=err, max_rel_err=rel, tol=tol, ms=ms,
+                device_ms=dev_ms, plain_ms=plain_ms, **meta,
+                **flash_bound(name, q))
+    emit("kernel_case", **case)
+    if not rel <= tol or not meta.get("same_bits_twice", True) or (
+            forward and not meta["lse_max_abs_err"] <= meta["lse_tol"]):
+        raise RuntimeError(f"{name} ({path}) disagrees with its plain version "
+                           f"or with itself: {rel} > {tol}, {meta}")
+    return case
+
+
+def flash_row(case, launches, row_name) -> dict:
+    """The ``kernels`` line's row of a flash kernel at one path call."""
+    source, replaces = SOURCES[case["kernel"]]
+    keep = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "max_rel_err", "tol", "dtype", "path",
+            "shape", "bytes_bound_ms", "products_bound_ms", "exp_bound_ms",
+            "operations_bound_ms", "library_device_ms", "sdpa_backward_ms",
+            "sdpa_backward_device_ms", "same_bits_twice", "lse_max_abs_err")
+    return {"name": row_name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "calls": 1,
+            **{k: case[k] for k in keep if k in case}}
+
+
+def require_exactly(launches: dict, want: dict, path: str) -> None:
+    off = {n: (launches[n], c) for n, c in want.items() if launches[n] != c}
+    if off:
+        raise RuntimeError(f"kernel launches on the {path} path, "
+                           f"(counted, expected): {off}")
+
+
+def vit_l16_512_phases(kernels) -> list:
+    """``vit_l16_512_forward`` / ``_amp``: ViT-L/16 at 512 px
+    (``ViT_L_16_Weights.IMAGENET1K_SWAG_E2E_V1``'s shape, 1,025 tokens,
+    head dim 64: past the flash gate), seeded, served at batch 32 in f32 and
+    bf16: ms a batch, img/s; the f32 logits of one image against the same
+    model on the CPU (``VIT_LOGITS_TOL``), the bf16 logits against the f32
+    ones (``VIT_L_AMP_LOGITS_TOL``); the flash forward launched 24 times a
+    forward, in the phase's type. Then the forward kernel's rows at the
+    first call's inputs."""
+    import torch
+
+    from vision_tpu_torch.models._api import resolve_device
+    from vision_tpu_torch.tools.vit_train import SERVE_BATCH_512, seeded_vit
+
+    cpu_model = seeded_vit(device="cpu", name="vit_l_16", image_size=512)
+    params = sum(p.numel() for p in cpu_model.parameters())
+    x = torch.randn(SERVE_BATCH_512, 3, 512, 512,
+                    generator=torch.Generator().manual_seed(0))
+    with torch.inference_mode():
+        want = cpu_model(x[:1])
+    model = cpu_model.to(resolve_device(None))
+    del cpu_model
+    x_card = x.to(resolve_device(None))
+    forwards = 2 + VIT_TIMED  # the checked one, host_ms's warm-up, the timed
+    rows, logits = [], None
+    for phase, dtype in (("vit_l16_512_forward", torch.float32),
+                         ("vit_l16_512_forward_amp", torch.bfloat16)):
+        key = "f32" if dtype == torch.float32 else "bf16"
+        model = model.to(dtype)
+        xd = x_card.to(dtype)
+        calls = {}
+        kernels.reset()
+        with torch.inference_mode():
+            with first_calls(kernels, ["flash_attention"], calls):
+                out = model(xd).float()
+            ms, ms_all = host_ms(lambda: model(xd))
+        launches = kernels.launches()
+        require_exactly(launches, {f"flash_attention_{key}":
+                                   VIT_L_LAYERS * forwards}, phase)
+        fields = dict(model="vit_l_16", image_size=512, params=params,
+                      dtype=str(dtype)[6:], batch=SERVE_BATCH_512,
+                      ms_per_batch=ms, images_per_s=SERVE_BATCH_512 / ms * 1e3,
+                      ms_all=ms_all, flash_launches=launches["flash_attention"],
+                      flash_launches_per_forward=launches["flash_attention"]
+                      / forwards, logits_std=float(out.std()))
+        if dtype == torch.float32:
+            logits = out
+            err = float((out[:1].cpu() - want).abs().max() / want.abs().max())
+            fields.update(logits_vs_cpu_rel_err=err, tol=VIT_LOGITS_TOL)
+            ok = params == VIT_L_PARAMS and err <= VIT_LOGITS_TOL
+        else:
+            err = float((out - logits).abs().max() / logits.abs().max())
+            fields.update(logits_vs_f32_rel_err=err, tol=VIT_L_AMP_LOGITS_TOL)
+            ok = err <= VIT_L_AMP_LOGITS_TOL
+        emit(phase, **fields)
+        if not ok or not bool(torch.isfinite(out).all()):
+            raise RuntimeError(f"{phase}: wrong parameter count, or the logits "
+                               "are off their reference or not finite")
+        case = flash_case(kernels, "flash_attention", calls["flash_attention"],
+                          f"{phase} (batch {SERVE_BATCH_512})")
+        suffix = "" if dtype == torch.float32 else "_bf16"
+        rows.append(flash_row(case, launches[f"flash_attention_{key}"],
+                              "flash_attention_vit_l16_512" + suffix))
+        del calls, out
+    del model, x_card
+    torch.cuda.empty_cache()
+    return rows
+
+
+FLASH_NAMES = ("flash_attention", "flash_attention_backward_dkv",
+               "flash_attention_backward_dq")
+
+
+def vit_b16_384_phases(kernels) -> list:
+    """``vit_b16_384_train`` / ``_amp``: ViT-B/16 at 384 px
+    (``ViT_B_16_Weights.IMAGENET1K_SWAG_E2E_V1``'s shape, 577 tokens, head
+    dim 64: past the flash gate), trained by the recipe's step at batch 64
+    behind the augmentation cropping to 384 (``--train-crop-size``) from
+    448x448 frames, as ``vit_train_phase`` holds ViT-B/16 at 224 (step 1
+    against the CPU in f32, against the f32 step in amp); every flash kernel
+    launched 12 times a step (the checked step 1 and 7 steps at batch 64),
+    in the phase's type. Then the three kernels' rows at the first batch-64
+    step's calls."""
+    import torch
+
+    from vision_tpu_torch.tools.vit_train import (
+        CROP_384,
+        FRAME_384,
+        TRAIN_BATCH_384,
+    )
+
+    rows, f32_loss = [], None
+    for phase, dtype in (("vit_b16_384_train", None),
+                         ("vit_b16_384_train_amp", torch.bfloat16)):
+        key = "f32" if dtype is None else "bf16"
+        calls = {}
+        kernels.reset()
+        loss = vit_train_phase(
+            phase, dtype, f32_loss, size=CROP_384, batch_size=TRAIN_BATCH_384,
+            frame=FRAME_384,
+            first_step=lambda: first_calls(kernels, FLASH_NAMES, calls))
+        f32_loss = loss if dtype is None else f32_loss
+        launches = kernels.launches()
+        steps = 1 + 2 + VIT_TIMED
+        require_exactly(launches, {f"{n}_{key}": VIT_B_LAYERS * steps
+                                   for n in FLASH_NAMES}, phase)
+        emit(phase + "_launches", launches={n: launches[n] for n in FLASH_NAMES},
+             steps=steps)
+        suffix = "" if dtype is None else "_bf16"
+        path = f"{phase} (batch {TRAIN_BATCH_384})"
+        for name, row in (("flash_attention", "flash_attention_vit_b16_384"),
+                          ("flash_attention_backward_dkv",
+                           "flash_attention_backward_dkv"),
+                          ("flash_attention_backward_dq",
+                           "flash_attention_backward_dq")):
+            case = flash_case(kernels, name, calls[name], path)
+            rows.append(flash_row(case, launches[f"{name}_{key}"], row + suffix))
+        del calls
+        torch.cuda.empty_cache()
+    return rows
+
+
+def vit_long_phases(kernels) -> list:
+    """The long-sequence ViTs, through the flash-attention kernels: ViT-L/16
+    at 512 served, ViT-B/16 at 384 trained."""
+    rows = vit_l16_512_phases(kernels)
+    return rows + vit_b16_384_phases(kernels)
+
+
 # name -> (source, the TPU kernel it replaces)
 SOURCES = {
     "nms": ("vision_tpu_torch/csrc/nms.cu", "vision_tpu/ops/_pallas/nms.py:186"),
@@ -2414,6 +2760,16 @@ SOURCES = {
                     "vision_tpu/ops/deform_conv.py:88"),
     "deform_conv_backward": ("vision_tpu_torch/csrc/deform_conv_backward.cu",
                              "vision_tpu/ops/deform_conv.py:88"),
+    # JAX's library kernels, reached from vision_tpu/ops/attention.py:80
+    "flash_attention": (
+        "vision_tpu_torch/csrc/flash_attention.cu",
+        "jax/experimental/pallas/ops/tpu/flash_attention.py:758"),
+    "flash_attention_backward_dkv": (
+        "vision_tpu_torch/csrc/flash_attention_backward.cu",
+        "jax/experimental/pallas/ops/tpu/flash_attention.py:1121"),
+    "flash_attention_backward_dq": (
+        "vision_tpu_torch/csrc/flash_attention_backward.cu",
+        "jax/experimental/pallas/ops/tpu/flash_attention.py:1456"),
 }
 WORK = {"nms": nms_work, "nms_rowscan": nms_work, "window_pool": window_work,
         "roi_align": roi_work, "window_pool_backward": window_backward_work,

@@ -1,0 +1,136 @@
+"""The flash-attention branch of the port against the JAX package's on the
+CPU: ``flash_attention_plain`` and the two backward plain versions against
+``vision_tpu.ops.attention.scaled_dot_product_attention`` with the flash
+branch forced (``VISION_TPU_FLASH_ATTENTION=1``) and JAX's library kernels
+run in interpret mode (``pallas_call(..., interpret=True)``, patched for
+this file only), forward and ``jax.vjp``; the port's gate against JAX's
+``_flash_supported`` with the backend taken for a TPU; the routing of
+``scaled_dot_product_attention`` on CPU tensors.
+
+Tolerances, of the largest JAX value: f32 1e-5 (measured ~1e-6: sums in
+another order, the library's per-block renormalisation); bf16 1e-2
+(measured ~4e-3: one bf16 step at the largest output, since the library
+rounds ``p`` to bf16 against the running maximum of each 128-key block and
+the plain version against the row's maximum).
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas.ops.tpu import flash_attention as jflash
+
+from vision_tpu.ops import attention as jattention
+from vision_tpu_torch.ops import attention as A
+
+TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+SHAPES = [(2, 2, 577, 64), (1, 2, 300, 128)]
+
+
+@pytest.fixture(scope="module")
+def jax_flash():
+    """The JAX package's flash branch, forced, with the library's
+    ``pallas_call`` in interpret mode; undone after this file's tests."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("VISION_TPU_FLASH_ATTENTION", "1")
+        mp.setattr(jflash.pl, "pallas_call",
+                   functools.partial(jflash.pl.pallas_call, interpret=True))
+        yield jattention.scaled_dot_product_attention
+
+
+def _rel(got, want):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+@pytest.fixture(scope="module", params=[(s, dt) for s in SHAPES
+                                        for dt in ("float32", "bfloat16")],
+                ids=lambda p: f"{'x'.join(map(str, p[0]))}-{p[1]}")
+def case(request, jax_flash):
+    """Seeded q, k, v, do; JAX's flash output and ``vjp`` through its
+    dK/dV and dQ kernels, once per shape and type."""
+    shape, dt = request.param
+    rng = np.random.RandomState(0)
+    q, k, v, do = (rng.randn(*shape).astype(np.float32) for _ in range(4))
+    jq, jk, jv, jdo = (jnp.asarray(t, JDT[dt]) for t in (q, k, v, do))
+    out, vjp = jax.vjp(jax_flash, jq, jk, jv)
+    grads = vjp(jdo)
+    to_np = lambda t: np.asarray(t.astype(jnp.float32))  # noqa: E731
+    torch_in = [torch.from_numpy(t).to(TDT[dt]) for t in (q, k, v, do)]
+    return dt, torch_in, to_np(out), [to_np(g) for g in grads]
+
+
+def test_forward_plain_matches_the_jax_flash_branch(case):
+    dt, (q, k, v, _), want, _ = case
+    o, lse = A.flash_attention_plain(q, k, v)
+    assert o.dtype == TDT[dt] and lse.dtype == torch.float32
+    assert lse.shape == q.shape[:3]
+    assert _rel(o.float().numpy(), want) <= TOL[dt]
+
+
+def test_backward_plain_matches_jax_grad_through_the_flash_kernels(case):
+    dt, (q, k, v, do), _, want = case
+    o, lse = A.flash_attention_plain(q, k, v)
+    got = A.flash_attention_backward_plain(q, k, v, o, do, lse)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == TDT[dt] and g.shape == q.shape
+        assert _rel(g.float().numpy(), w) <= TOL[dt], name
+
+
+def test_lse_is_the_log_of_the_softmax_normaliser():
+    rng = np.random.RandomState(1)
+    q, k, v = (torch.from_numpy(rng.randn(1, 2, 40, 64)) for _ in range(3))
+    _, lse = A.flash_attention_plain(q, k, v)
+    s = q.double() @ k.double().transpose(-2, -1) / 8.0
+    np.testing.assert_allclose(lse.numpy(), torch.logsumexp(s, -1).numpy(),
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 128, 256])
+def test_gate_matches_jax_on_a_tpu(monkeypatch, d):
+    """Every (s, d) of a grid around the gate's edges, JAX's backend taken
+    for a TPU and its env override unset."""
+    monkeypatch.delenv("VISION_TPU_FLASH_ATTENTION", raising=False)
+    monkeypatch.setattr(jattention.jax, "default_backend", lambda: "tpu")
+    for s in (1, 17, 197, 256, 511, 512, 577, 1025, 1370):
+        want = jattention._flash_supported(np.zeros((1, 1, s, d), np.float32))
+        got = A._flash_supported(torch.empty(1, 1, s, d, device="meta"))
+        assert got == want, (s, d)
+
+
+def test_routing_on_the_cpu_takes_the_plain_versions():
+    counts = [A.flash_attention_forward_cuda.launches,
+              A.flash_attention_dkv_cuda.launches,
+              A.flash_attention_dq_cuda.launches]
+    rng = np.random.RandomState(2)
+    q, k, v, do = (torch.from_numpy(rng.randn(1, 2, 577, 64).astype(np.float32))
+                   for _ in range(4))
+    assert torch.equal(A.scaled_dot_product_attention(q, k, v),
+                       A.flash_attention_plain(q, k, v)[0])
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = A.scaled_dot_product_attention(*leaves)
+    grads = torch.autograd.grad(out, leaves, do)
+    o, lse = A.flash_attention_plain(q, k, v)
+    want = A.flash_attention_backward_plain(q, k, v, o, do, lse)
+    assert all(torch.equal(g, w) for g, w in zip(grads, want))
+    # below the gate: the einsum path's arithmetic
+    short = [t[:, :, :197] for t in (q, k, v)]
+    assert torch.equal(A.scaled_dot_product_attention(*short),
+                       A.attention_plain(*short))
+    assert counts == [A.flash_attention_forward_cuda.launches,
+                      A.flash_attention_dkv_cuda.launches,
+                      A.flash_attention_dq_cuda.launches]
+
+
+def test_a_head_dim_past_the_gate_without_kernels_raises():
+    """256 is a multiple of 128, so the gate says flash; no kernel is built
+    for it, on either device."""
+    q = torch.zeros(1, 1, 8, 256)
+    with pytest.raises(ValueError, match=r"\(64, 128\)"):
+        A.scaled_dot_product_attention(q, q, q)

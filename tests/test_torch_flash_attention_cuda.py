@@ -1,0 +1,197 @@
+"""The flash-attention kernels on the card (``csrc/flash_attention.cu``,
+``csrc/flash_attention_backward.cu``) against their plain versions on the
+same card tensors (TF32 off): the forward (``o`` and ``lse``), the dK/dV
+and the dQ kernels, at S = 1, 197, 577 and 1,025 (ragged against every
+tile), D = 64 and 128, f32 and bf16, at more heads than one grid holds
+and at strided views of a packed q, k, v projection; the backward kernels give the same bits on two calls;
+the forward and backward make no host synchronisation; an unsupported
+head dim is refused. Marked ``cuda``; every test skips where no CUDA
+device is present (decided inside the fixture). Run on a GPU host with:
+
+    python -m pytest tests/test_torch_flash_attention_cuda.py -m cuda --noconftest
+
+Tolerances, of the largest plain value: f32 1e-5 for ``o`` and 1e-4 for the
+gradients (sums of S terms of both signs, taken in another order; ``exp2``
+with log2 e folded into the scale); ``lse`` 1e-5 absolute; bf16 2e-2 (the
+kernel rounds ``p`` to bf16 against the running maximum of its key tile,
+the plain version against the row's maximum; each output is one bf16
+rounding of an f32 sum). A gradient's largest value is taken as at least
+1e-2 (the inputs are unit normals): at S = 1 the softmax is constant, and
+dq and dk are round-off on both sides.
+"""
+
+import pytest
+import torch
+
+from vision_tpu_torch.ops import attention as A
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
+GRAD_FLOOR = 1e-2
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("requires a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    return torch.device("cuda")
+
+
+def _rel(got, want, floor=0.0):
+    return float((got.float() - want.float()).abs().max()
+                 / max(float(want.float().abs().max()), floor))
+
+
+def _inputs(dev, dtype, s, d, b=2, h=3, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(b, h, s, d, generator=g).to(dev, dtype)
+            for _ in range(4)]
+
+
+def _check(q, k, v, do):
+    dtype = q.dtype
+    tol_o, tol_g = TOL[dtype]
+    o, lse = A.flash_attention_forward_cuda(q, k, v)
+    want_o, want_lse = A.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and o.shape == q.shape and lse.dtype == torch.float32
+    assert bool(torch.isfinite(o).all())
+    assert _rel(o, want_o) <= tol_o
+    assert float((lse - want_lse).abs().max()) <= 1e-5 * max(
+        1.0, float(want_lse.abs().max()))
+    di = A._di(want_o, do)
+    dk, dv = A.flash_attention_dkv_cuda(q, k, v, do, want_lse, di)
+    dq = A.flash_attention_dq_cuda(q, k, v, do, want_lse, di)
+    want_dk, want_dv = A.flash_attention_dkv_plain(q, k, v, do, want_lse, di)
+    want_dq = A.flash_attention_dq_plain(q, k, v, do, want_lse, di)
+    torch.cuda.synchronize()
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert got.dtype == dtype and got.shape == q.shape
+        assert _rel(got, want, GRAD_FLOOR) <= tol_g
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [1, 197, 577, 1025])
+def test_kernels_match_the_plain_versions(dev, s, d, dtype):
+    _check(*_inputs(dev, dtype, s, d))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_read_views_of_a_packed_projection(dev, dtype):
+    """ViT's layout: q, k, v are head views of one ``[B, S, 3 H D]``
+    projection (row stride 3 H D), read where they lie; ``do`` a transposed
+    view."""
+    b, s, h, d = 2, 577, 4, 64
+    g = torch.Generator().manual_seed(1)
+    qkv = torch.randn(b, s, 3 * h * d, generator=g).to(dev, dtype)
+    q, k, v = (t.reshape(b, s, h, d).transpose(1, 2) for t in qkv.chunk(3, -1))
+    do = torch.randn(b, s, h, d, generator=g).to(dev, dtype).transpose(1, 2)
+    for t in (q, k, v, do):
+        assert not t.is_contiguous() and A._readable(t) is t
+    _check(q, k, v, do)
+    o, _ = A.flash_attention_forward_cuda(q, k, v)
+    o2, _ = A.flash_attention_forward_cuda(*(t.contiguous() for t in (q, k, v)))
+    assert torch.equal(o, o2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_more_heads_than_one_grid_holds(dev, dtype):
+    """B H = 65,600 (batch x heads) passes the grid's 65,535 rows: the
+    kernels launch again for the rest."""
+    _check(*_inputs(dev, dtype, 9, 64, b=65_600, h=1, seed=5))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_gives_the_same_bits_twice(dev, dtype):
+    q, k, v, do = _inputs(dev, dtype, 1025, 64, b=1, h=4, seed=2)
+    _, lse = A.flash_attention_forward_cuda(q, k, v)
+    o = A.flash_attention_plain(q, k, v)[0]
+    di = A._di(o, do)
+    first = A.flash_attention_dkv_cuda(q, k, v, do, lse, di) + (
+        A.flash_attention_dq_cuda(q, k, v, do, lse, di),)
+    again = A.flash_attention_dkv_cuda(q, k, v, do, lse, di) + (
+        A.flash_attention_dq_cuda(q, k, v, do, lse, di),)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_through_the_gate_matches_the_plain_gradients(dev, dtype):
+    """``scaled_dot_product_attention`` past the gate: the kernels, each
+    counted once a call, against autograd of the plain forward."""
+    q, k, v, do = _inputs(dev, dtype, 577, 64, b=2, h=2, seed=3)
+    counts = [A.flash_attention_forward_cuda.launches,
+              A.flash_attention_dkv_cuda.launches,
+              A.flash_attention_dq_cuda.launches]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = A.scaled_dot_product_attention(*leaves)
+    grads = torch.autograd.grad(out, leaves, do)
+    assert [A.flash_attention_forward_cuda.launches - counts[0],
+            A.flash_attention_dkv_cuda.launches - counts[1],
+            A.flash_attention_dq_cuda.launches - counts[2]] == [1, 1, 1]
+    o, lse = A.flash_attention_plain(q, k, v)
+    want = A.flash_attention_backward_plain(q, k, v, o, do, lse)
+    tol_o, tol_g = TOL[dtype]
+    assert _rel(out.detach(), o) <= tol_o
+    for got, w in zip(grads, want):
+        assert _rel(got, w, GRAD_FLOOR) <= tol_g
+
+
+def test_forward_and_backward_make_no_host_synchronisation(dev):
+    q, k, v, do = _inputs(dev, torch.bfloat16, 577, 64, b=2, h=2, seed=4)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+
+    def step():
+        out = A.flash_attention(*leaves)
+        return torch.autograd.grad(out, leaves, do)
+
+    step()  # the libraries load outside the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        grads = step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+@pytest.mark.parametrize("d", [32, 80, 256])
+def test_an_unsupported_head_dim_is_refused(dev, d):
+    q, k, v, do = _inputs(dev, torch.bfloat16, 600, d, b=1, h=1)
+    with pytest.raises(ValueError, match=r"\(64, 128\)"):
+        A.flash_attention_forward_cuda(q, k, v)
+    with pytest.raises(ValueError, match=r"\(64, 128\)"):
+        A.flash_attention(q, k, v)
+    lse = torch.zeros(1, 1, 600, device=dev)
+    with pytest.raises(ValueError, match=r"\(64, 128\)"):
+        A.flash_attention_dkv_cuda(q, k, v, do, lse, lse)
+    with pytest.raises(ValueError, match=r"\(64, 128\)"):
+        A.flash_attention_dq_cuda(q, k, v, do, lse, lse)
+
+
+def test_vit_384_amp_step_makes_no_host_synchronisation(dev):
+    """A small ViT at 384 px (head dim 64, 577 tokens: past the gate)
+    through the whole recipe step in bf16, the augmentation cropping to
+    384: forward and backward through the flash kernels."""
+    from vision_tpu_torch.models import vision_transformer as tvit
+    from vision_tpu_torch.tools.vit_train import RecipeStep, frames
+
+    model = tvit.VisionTransformer(384, 16, 2, 2, 128, 256).to(dev)
+    run = RecipeStep(model, torch.bfloat16, batch_size=4, crop_size=384)
+    raw = frames(4, 448, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    run(raw, gen)  # optimizer state, cached tables
+    counts = A.flash_attention_dq_cuda.launches_by_dtype.get("bfloat16", 0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        metrics = run(raw, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.isfinite(metrics["loss"]) and metrics["grad_norm"] > 0
+    assert A.flash_attention_dq_cuda.launches_by_dtype["bfloat16"] == counts + 2

@@ -17,6 +17,12 @@ import vision_tpu_torch.io
 from vision_tpu_torch.models import get_model
 from vision_tpu_torch.models.detection import fasterrcnn_resnet50_fpn
 from vision_tpu_torch.ops._conv1x1_bn import matmul_stats, matmul_stats_cuda
+from vision_tpu_torch.ops.attention import (
+    flash_attention,
+    flash_attention_dkv_cuda,
+    flash_attention_dq_cuda,
+    flash_attention_forward_cuda,
+)
 from vision_tpu_torch.ops.nms import (
     nms_keep_sorted,
     nms_keep_sorted_cuda,
@@ -60,7 +66,8 @@ def test_import_pulls_in_no_jax():
         "vision_tpu_torch.ops.attention, vision_tpu_torch.parallel.recipe, "
         "vision_tpu_torch.transforms.v2, "
         "vision_tpu_torch.transforms.v2._batch_augment, "
-        "vision_tpu_torch.tools.profile_vit_train\n"
+        "vision_tpu_torch.tools.profile_vit_train, "
+        "vision_tpu_torch.tools.vit_train\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'vision_tpu', 'PIL')]\n"
         "print(bad)\n"
@@ -78,6 +85,8 @@ def test_no_source_imports_jax_or_vision_tpu():
     assert len(sources) > 10
     assert PKG / "transforms" / "v2" / "functional" / "_resample.py" in sources
     assert PKG / "io" / "_exif.py" in sources
+    assert PKG / "ops" / "attention.py" in sources
+    assert PKG / "tools" / "vit_train.py" in sources
     for src in sources:
         assert not pattern.search(src.read_text()), src
 
@@ -220,3 +229,34 @@ def test_backward_cuda_wrappers_refuse_what_they_do_not_take():
     with pytest.raises(ValueError, match="CUDA"):
         roi_align_backward_cuda(torch.zeros(1, 1, 2, 2).bfloat16(),
                                 torch.zeros(1, 5), (1, 1, 4, 4), 2)
+
+
+def test_flash_attention_is_exported():
+    assert vision_tpu_torch.ops.flash_attention is flash_attention
+    assert "flash_attention" in vision_tpu_torch.ops.__all__
+
+
+def test_flash_attention_on_cpu_tensors_takes_the_plain_path():
+    wrappers = (flash_attention_forward_cuda, flash_attention_dkv_cuda,
+                flash_attention_dq_cuda)
+    counts = [w.launches for w in wrappers]
+    q = torch.rand(1, 2, 512, 64, requires_grad=True)
+    out = flash_attention(q, q, q)
+    out.sum().backward()
+    assert out.shape == q.shape and q.grad.abs().sum() > 0
+    assert counts == [w.launches for w in wrappers]
+
+
+def test_flash_cuda_wrappers_refuse_what_they_do_not_take():
+    q = torch.zeros(1, 1, 4, 64)
+    lse = torch.zeros(1, 1, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_forward_cuda(q, q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_dkv_cuda(q, q, q, q, lse, lse)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_dq_cuda(q, q, q, q, lse, lse)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        flash_attention_forward_cuda(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        flash_attention_forward_cuda(q, q.bfloat16(), q)

@@ -93,6 +93,21 @@ _KERNELS: Dict[str, Tuple[str, List[str], Dict[str, list]]] = {
         {"vt_deform_scatter_keys": [_P] * 4 + [_I] * 15 + [_P],
          "vt_deform_backward": [_P] * 12 + [_I] * 15 + [_I] * 6 + [_I, _P]},
     ),
+    # no -fmad=false: these aim at a stated tolerance, not at the plain
+    # versions' bits (exp2 with log2 e folded into the scale rounds
+    # otherwise than torch.exp)
+    "flash_attention": (
+        "flash_attention.cu", [],
+        {"vt_flash_attention_forward": [_P] * 5 + [_I] * 4 + [_L] * 9
+         + [_F, _I, _P]},
+    ),
+    "flash_attention_backward": (
+        "flash_attention_backward.cu", [],
+        {"vt_flash_attention_dkv": [_P] * 8 + [_I] * 4 + [_L] * 12
+         + [_F, _I, _P],
+         "vt_flash_attention_dq": [_P] * 7 + [_I] * 4 + [_L] * 12
+         + [_F, _I, _P]},
+    ),
     "window_pool": (
         "window_pool.cu", [],
         {"vt_window_pool": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -1,7 +1,10 @@
 """Operators (counterpart of ``vision_tpu/ops``)."""
 
 from vision_tpu_torch.ops._conv1x1_bn import matmul_stats
-from vision_tpu_torch.ops.attention import scaled_dot_product_attention
+from vision_tpu_torch.ops.attention import (
+    flash_attention,
+    scaled_dot_product_attention,
+)
 from vision_tpu_torch.ops.deform_conv import DeformConv2d, deform_conv2d
 from vision_tpu_torch.ops.boxes import (
     box_area,
@@ -44,6 +47,7 @@ __all__ = [
     "deform_conv2d",
     "distance_box_iou",
     "distance_box_iou_loss",
+    "flash_attention",
     "generalized_box_iou",
     "generalized_box_iou_loss",
     "masks_to_boxes",

@@ -1,11 +1,21 @@
-"""Where the time of one ViT-B/16 recipe step goes, on the card.
+"""Where the time of one ViT recipe step, or one served batch, goes on the
+card.
 
     python -m vision_tpu_torch.tools.profile_vit_train \\
-        [--dtype bf16|f32] [--steps 3] [--trace PATH]
+        [--cell train224|train384|serve512] [--dtype bf16|f32] [--steps 3]
+        [--trace PATH]
 
-The cell of ``chip_smoke.py``'s ``vit_b16_train_amp`` / ``vit_b16_train``
-(``tools/vit_train.py``: ``seeded_vit``, the seeded 256x256 uint8 frames,
-``RecipeStep``; TF32 off). Prints JSON lines:
+The cells of ``chip_smoke.py`` (``tools/vit_train.py``: ``seeded_vit``, the
+seeded uint8 frames, ``RecipeStep``; TF32 off): ``train224`` is
+``vit_b16_train_amp`` / ``vit_b16_train`` (ViT-B/16, 256x256 frames, batch
+128); ``train384`` is ``vit_b16_384_train_amp`` / ``vit_b16_384_train``
+(ViT-B/16 at 384 px, 448x448 frames, batch 64); ``serve512`` is
+``vit_l16_512_forward_amp`` / ``vit_l16_512_forward`` (ViT-L/16 at 512 px,
+a batch of 32 images; its lines are ``forward_device_ms`` and
+``profile``). The device time of the flash-attention kernels is split into
+``flash forward``, ``flash backward dk, dv`` and ``flash backward dq``;
+PyTorch's own fused attention (below the gate) counts as ``attention``.
+A train cell prints JSON lines:
 
 * ``stages``: the device ms of each stage of a step, each queued behind a
   spin kernel so that the host's launch time stays outside its CUDA
@@ -37,7 +47,13 @@ from torch.profiler import ProfilerActivity, profile
 from vision_tpu_torch.parallel import VIT_B_16_RECIPE, cross_entropy_loss
 from vision_tpu_torch.tools.profile_faster_rcnn import _device_us
 from vision_tpu_torch.tools.vit_train import (
+    CROP,
+    CROP_384,
+    FRAME,
+    FRAME_384,
+    SERVE_BATCH_512,
     TRAIN_BATCH,
+    TRAIN_BATCH_384,
     RecipeStep,
     frames,
     seeded_vit,
@@ -45,8 +61,18 @@ from vision_tpu_torch.tools.vit_train import (
 
 SPIN_CYCLES = 60_000_000  # ~35 ms: longer than the host takes to queue a stage
 
+# cell -> (model, image size, batch, frame, train)
+CELLS = {
+    "train224": ("vit_b_16", CROP, TRAIN_BATCH, FRAME, True),
+    "train384": ("vit_b_16", CROP_384, TRAIN_BATCH_384, FRAME_384, True),
+    "serve512": ("vit_l_16", 512, SERVE_BATCH_512, None, False),
+}
+
 # kernel-name fragments -> group, first match wins
 _GROUPS = (
+    ("vt_flash_fwd", "flash forward"),
+    ("vt_flash_dkv", "flash backward dk, dv"),
+    ("vt_flash_dq", "flash backward dq"),
     ("flash", "attention"),
     ("fmha", "attention"),
     ("attention", "attention"),
@@ -156,8 +182,65 @@ def _top(prof, calls: int, k: int) -> list:
              "launches_per_call": e.count / calls} for e in top]
 
 
+def profile_steps(fn, steps: int, trace: str) -> tuple:
+    """``steps`` calls of ``fn`` (each ending in a host read) under
+    ``torch.profiler``: the wall ms of each, the summed device ms a call by
+    kernel group, the launches a call, and the profile."""
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            fn()
+            walls.append((time.perf_counter() - t0) * 1e3)
+    kernels = _kernels(prof)
+    groups = defaultdict(float)
+    for e in kernels:
+        groups[_group(e.key)] += _device_us(e) / 1e3 / steps
+    Path(trace).parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(trace)
+    return walls, groups, sum(e.count for e in kernels) / steps, prof
+
+
+def report(walls, groups, launches, prof, steps, batch, unit) -> None:
+    device_ms = sum(groups.values())
+    wall_ms = statistics.median(walls)
+    print(json.dumps({
+        f"wall_ms_per_{unit}": walls, f"device_ms_per_{unit}": device_ms,
+        "busy_share": device_ms / wall_ms,
+        "images_per_s": batch / wall_ms * 1e3,
+        f"kernel_launches_per_{unit}": launches,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }), flush=True)
+    print(json.dumps({"device_ms_by_group": dict(
+        sorted(groups.items(), key=lambda kv: -kv[1]))}), flush=True)
+    print(json.dumps({"top_kernels": _top(prof, steps, 15)}), flush=True)
+
+
+def serve_cell(name, size, batch, dtype, steps, trace) -> None:
+    """Batches of seeded images through the model in inference mode."""
+    model = seeded_vit(name=name, image_size=size)
+    x = torch.randn(batch, 3, size, size,
+                    generator=torch.Generator().manual_seed(0)).cuda()
+    if dtype is not None:
+        model, x = model.to(dtype), x.to(dtype)
+    with torch.inference_mode():
+        for _ in range(2):
+            model(x)
+        torch.cuda.synchronize()
+        ms = statistics.median(queued_ms(lambda: model(x))[0] for _ in range(3))
+        print(json.dumps({"device": torch.cuda.get_device_name(0), "model": name,
+                          "image_size": size, "batch": batch,
+                          "dtype": "f32" if dtype is None else "bf16",
+                          "forward_device_ms": ms}), flush=True)
+        walls, groups, launches, prof = profile_steps(
+            lambda: float(model(x)[0, 0]), steps, trace)
+    report(walls, groups, launches, prof, steps, batch, "batch")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--cell", choices=sorted(CELLS), default="train224")
     ap.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--trace", default="build/profile/vit_train_trace.json")
@@ -166,16 +249,20 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     compute_dtype = torch.bfloat16 if args.dtype == "bf16" else None
-    model = seeded_vit()
-    run = RecipeStep(model, compute_dtype)
-    raw = frames()
+    name, size, batch, frame, train = CELLS[args.cell]
+    if not train:
+        serve_cell(name, size, batch, compute_dtype, args.steps, args.trace)
+        return
+    model = seeded_vit(name=name, image_size=size)
+    run = RecipeStep(model, compute_dtype, batch_size=batch, crop_size=size)
+    raw = frames(batch, frame)
     gen = torch.Generator(device="cuda").manual_seed(0)
     for _ in range(2):
         run(raw, gen)
     torch.cuda.synchronize()
     stages = stage_ms(run, raw, gen, compute_dtype)
-    print(json.dumps({"device": torch.cuda.get_device_name(0), "model": "vit_b_16",
-                      "dtype": args.dtype, "batch": TRAIN_BATCH,
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "model": name,
+                      "image_size": size, "dtype": args.dtype, "batch": batch,
                       "stages_device_ms": stages,
                       "stages_sum_ms": sum(stages.values())}), flush=True)
 
@@ -188,31 +275,9 @@ def main() -> None:
         torch.cuda.synchronize()
     print(json.dumps({"randaugment_top_kernels": _top(prof, 1, 12)}), flush=True)
 
-    torch.cuda.reset_peak_memory_stats()
-    walls = []
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(args.steps):
-            t0 = time.perf_counter()
-            float(run(raw, gen)["loss"])
-            walls.append((time.perf_counter() - t0) * 1e3)
-    kernels = _kernels(prof)
-    groups = defaultdict(float)
-    for e in kernels:
-        groups[_group(e.key)] += _device_us(e) / 1e3 / args.steps
-    device_ms = sum(groups.values())
-    wall_ms = statistics.median(walls)
-    print(json.dumps({
-        "wall_ms_per_step": walls, "device_ms_per_step": device_ms,
-        "busy_share": device_ms / wall_ms,
-        "images_per_s": TRAIN_BATCH / wall_ms * 1e3,
-        "kernel_launches_per_step": sum(e.count for e in kernels) / args.steps,
-        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-    }), flush=True)
-    print(json.dumps({"device_ms_by_group": dict(
-        sorted(groups.items(), key=lambda kv: -kv[1]))}), flush=True)
-    print(json.dumps({"top_kernels": _top(prof, args.steps, 15)}), flush=True)
-    Path(args.trace).parent.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(args.trace)
+    walls, groups, launches, prof = profile_steps(
+        lambda: float(run(raw, gen)["loss"]), args.steps, args.trace)
+    report(walls, groups, launches, prof, args.steps, batch, "step")
 
 
 if __name__ == "__main__":
