@@ -70,7 +70,8 @@ off, seeded random weights:
   cropping to 384, in f32 and bf16 (forward, dK/dV and dQ kernels 12
   launches a step each); each kernel held against its plain version at
   the path's first call, its row beside PyTorch's fused attention on the
-  same inputs;
+  same inputs; the whole backward (``di``, dK/dV and dQ) timed beside the
+  fused attention's whole backward (``flash_backward_pair``);
 * ResNet-50 classification (1000 classes, a batch of 32 224x224 images):
   one eval batch, one batch of 8 uint8 375x500 images through the weights'
   ``ImageClassification`` preset against the CPU, then SGD steps of
@@ -2592,6 +2593,39 @@ def flash_case(kernels, name, args, path) -> dict:
     return case
 
 
+def flash_backward_pair(kernels, args, path) -> dict:
+    """The port's whole attention backward at a recorded dK/dV call (laid
+    out as the path lays it): the ``di`` reduction alone, then ``di``, the
+    dK/dV and the dQ kernels together, beside PyTorch's fused attention's
+    whole backward (dq, dk and dv in one call) on the same inputs; device
+    ms behind a spin kernel. Prints the line and returns it."""
+    import torch
+    import torch.nn.functional as F
+
+    from vision_tpu_torch.ops import attention
+
+    q, k, v, do, lse, _, scale = path_layout(args)
+    o = kernels.cuda["flash_attention"](q, k, v, scale)[0]
+    dkv = kernels.cuda["flash_attention_backward_dkv"]
+    dq = kernels.cuda["flash_attention_backward_dq"]
+
+    def pair():
+        di = attention._di(o, do)
+        return dkv(q, k, v, do, lse, di, scale), dq(q, k, v, do, lse, di, scale)
+
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, scale=scale)
+    line = dict(path=path, dtype=str(q.dtype)[6:], shape=list(q.shape),
+                di_device_ms=device_ms(lambda: attention._di(o, do)),
+                pair_with_di_device_ms=device_ms(pair),
+                sdpa_backward_device_ms=device_ms(lambda: torch.autograd.grad(
+                    out, leaves, do, retain_graph=True)))
+    line["factor_to_sdpa"] = (line["pair_with_di_device_ms"]
+                              / line["sdpa_backward_device_ms"])
+    emit("flash_backward_pair", **line)
+    return line
+
+
 def flash_row(case, launches, row_name) -> dict:
     """The ``kernels`` line's row of a flash kernel at one path call."""
     source, replaces = SOURCES[case["kernel"]]
@@ -2729,6 +2763,7 @@ def vit_b16_384_phases(kernels) -> list:
                            "flash_attention_backward_dq")):
             case = flash_case(kernels, name, calls[name], path)
             rows.append(flash_row(case, launches[f"{name}_{key}"], row + suffix))
+        flash_backward_pair(kernels, calls["flash_attention_backward_dkv"], path)
         del calls
         torch.cuda.empty_cache()
     return rows

@@ -5,7 +5,9 @@ branch forced (``VISION_TPU_FLASH_ATTENTION=1``) and JAX's library kernels
 run in interpret mode (``pallas_call(..., interpret=True)``, patched for
 this file only), forward and ``jax.vjp``; the port's gate against JAX's
 ``_flash_supported`` with the backend taken for a TPU; the routing of
-``scaled_dot_product_attention`` on CPU tensors.
+``scaled_dot_product_attention`` on CPU tensors, at head dims past 128
+too (256 and 384: the gate says flash, and the plain versions take any
+head dim, forward and, at 256, ``jax.vjp``).
 
 Tolerances, of the largest JAX value: f32 1e-5 (measured ~1e-6: sums in
 another order, the library's per-block renormalisation); bf16 1e-2
@@ -128,9 +130,52 @@ def test_routing_on_the_cpu_takes_the_plain_versions():
                       A.flash_attention_dq_cuda.launches]
 
 
-def test_a_head_dim_past_the_gate_without_kernels_raises():
-    """256 is a multiple of 128, so the gate says flash; no kernel is built
-    for it, on either device."""
-    q = torch.zeros(1, 1, 8, 256)
-    with pytest.raises(ValueError, match=r"\(64, 128\)"):
-        A.scaled_dot_product_attention(q, q, q)
+WIDE = [((1, 2, 40, 256), "float32"), ((1, 2, 40, 256), "bfloat16"),
+        ((1, 1, 40, 384), "float32")]
+
+
+def _wide(jax_flash, shape, dt, seed, grads):
+    """Seeded q, k, v, do as torch tensors of type ``dt``; JAX's flash
+    output, and with ``grads`` its ``vjp``, as f32 numpy arrays."""
+    rng = np.random.RandomState(seed)
+    arrays = [rng.randn(*shape).astype(np.float32) for _ in range(4)]
+    jq, jk, jv, jdo = (jnp.asarray(t, JDT[dt]) for t in arrays)
+    to_np = lambda t: np.asarray(t.astype(jnp.float32))  # noqa: E731
+    if grads:
+        out, vjp = jax.vjp(jax_flash, jq, jk, jv)
+        want_grads = [to_np(g) for g in vjp(jdo)]
+    else:
+        out, want_grads = jax_flash(jq, jk, jv), None
+    torch_in = [torch.from_numpy(t).to(TDT[dt]) for t in arrays]
+    return torch_in, to_np(out), want_grads
+
+
+@pytest.mark.parametrize("shape,dt", WIDE,
+                         ids=[f"d{s[-1]}-{dt}" for s, dt in WIDE])
+def test_a_head_dim_past_128_takes_the_plain_versions_on_the_cpu(
+        jax_flash, shape, dt):
+    """256 and 384 are multiples of 128: the gate says flash, and on CPU
+    tensors the plain versions take any head dim, as JAX's CPU path does
+    (no kernel is built for them; the card refuses them,
+    ``test_torch_flash_attention_cuda.py``)."""
+    (q, k, v, _), want, _ = _wide(jax_flash, shape, dt, 3, grads=False)
+    assert A._flash_supported(q)
+    out = A.scaled_dot_product_attention(q, k, v)
+    assert out.dtype == TDT[dt] and out.shape == q.shape
+    assert torch.equal(out, A.flash_attention_plain(q, k, v)[0])
+    assert _rel(out.float().numpy(), want) <= TOL[dt]
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_a_head_dim_past_128_has_jax_gradients_on_the_cpu(jax_flash, dt):
+    """``[1, 2, 40, 256]`` through autograd of the port's
+    ``scaled_dot_product_attention`` against ``jax.vjp`` through JAX's
+    dK/dV and dQ kernels in interpret mode."""
+    (q, k, v, do), _, want = _wide(jax_flash, (1, 2, 40, 256), dt, 4,
+                                   grads=True)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    grads = torch.autograd.grad(A.scaled_dot_product_attention(*leaves),
+                                leaves, do)
+    for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+        assert g.dtype == TDT[dt] and g.shape == q.shape
+        assert _rel(g.float().numpy(), w) <= TOL[dt], name

@@ -3,10 +3,14 @@
 same card tensors (TF32 off): the forward (``o`` and ``lse``), the dK/dV
 and the dQ kernels, at S = 1, 197, 577 and 1,025 (ragged against every
 tile), D = 64 and 128, f32 and bf16, at more heads than one grid holds
-and at strided views of a packed q, k, v projection; the backward kernels give the same bits on two calls;
-the forward and backward make no host synchronisation; an unsupported
-head dim is refused. Marked ``cuda``; every test skips where no CUDA
-device is present (decided inside the fixture). Run on a GPU host with:
+and at strided views of a packed q, k, v projection; the bf16 backward
+kernels (128-row work items, 64-row tiles, a narrow last tile) also at
+S = 63, 64, 65, 80, 81, 127, 128 and 129; the backward kernels give the
+same bits on two calls; rows past S are never read (views of longer
+buffers holding 1e4 there give the bits of contiguous copies); the
+forward and backward make no host synchronisation; an unsupported head
+dim is refused. Marked ``cuda``; every test skips where no CUDA device is
+present (decided inside the fixture). Run on a GPU host with:
 
     python -m pytest tests/test_torch_flash_attention_cuda.py -m cuda --noconftest
 
@@ -78,6 +82,55 @@ def _check(q, k, v, do):
 @pytest.mark.parametrize("s", [1, 197, 577, 1025])
 def test_kernels_match_the_plain_versions(dev, s, d, dtype):
     _check(*_inputs(dev, dtype, s, d))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 80, 81, 127, 128, 129, 577,
+                               1025])
+def test_bf16_backward_at_the_tile_edges(dev, s, d):
+    """The bf16 dK/dV and dQ kernels own 128 rows a work item and walk
+    64-row tiles, a last tile of at most 16 valid rows as 16: S on either
+    side of each (80 leaves 16 in the last tile, 81 leaves 17)."""
+    q, k, v, do = _inputs(dev, torch.bfloat16, s, d, seed=6)
+    want_o, lse = A.flash_attention_plain(q, k, v)
+    di = A._di(want_o, do)
+    dk, dv = A.flash_attention_dkv_cuda(q, k, v, do, lse, di)
+    dq = A.flash_attention_dq_cuda(q, k, v, do, lse, di)
+    want_dk, want_dv = A.flash_attention_dkv_plain(q, k, v, do, lse, di)
+    want_dq = A.flash_attention_dq_plain(q, k, v, do, lse, di)
+    torch.cuda.synchronize()
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert got.dtype == torch.bfloat16 and got.shape == q.shape
+        assert bool(torch.isfinite(got).all())
+        assert _rel(got, want, GRAD_FLOOR) <= TOL[torch.bfloat16][1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [65, 577])
+def test_rows_past_the_sequence_are_never_read(dev, s, dtype):
+    """q, k, v and do as ``[:, :, :S]`` views of longer buffers whose rows
+    past S hold 1e4: the kernels give the bits they give on contiguous
+    copies."""
+    b, h, d, extra = 2, 3, 64, 70
+    g = torch.Generator().manual_seed(7)
+    bufs = [torch.randn(b, h, s + extra, d, generator=g) for _ in range(4)]
+    for t in bufs:
+        t[:, :, s:] = 1e4
+    views = [t.to(dev, dtype)[:, :, :s] for t in bufs]
+    copies = [t.contiguous() for t in views]
+    assert all(A._readable(t) is t for t in views)
+    q, k, v, do = views
+    o, lse = A.flash_attention_forward_cuda(q, k, v)
+    o2, lse2 = A.flash_attention_forward_cuda(*copies[:3])
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    di = A._di(o, do)
+    got = A.flash_attention_dkv_cuda(q, k, v, do, lse, di) + (
+        A.flash_attention_dq_cuda(q, k, v, do, lse, di),)
+    want = A.flash_attention_dkv_cuda(*copies, lse, di) + (
+        A.flash_attention_dq_cuda(*copies, lse, di),)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, w) for a, w in zip(got, want))
+    assert all(bool(torch.isfinite(a).all()) for a in got)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

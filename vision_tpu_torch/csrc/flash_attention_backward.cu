@@ -23,298 +23,659 @@
 //
 // Design: no atomics, so the same inputs give the same bits on every call
 // (the repo's backward kernels keep to that). The dk/dv kernel gives a
-// block a tile of 64 keys and walks every query tile in order, summing dk
-// and dv in registers; the dq kernel gives a block a tile of query rows and
-// walks every key tile in order. Query rows past S get p = 0 in the dk/dv
-// kernel; keys past S get p = 0 in the dq kernel; rows past S are never
-// stored. The walked tiles are double-buffered by cp.async.
-// * bf16: 4 warps, 16 rows each; every product on mma.sync m16n8k16 (bf16
-//   operands, f32 sums), the operands by ldmatrix (.trans where the
-//   product contracts over the tile's rows); p and ds stay in registers and
-//   become the A operand of the next product, as in the forward. The dk/dv
-//   kernel walks 64 queries a step at D = 64, 32 at D = 128 (registers).
+// block's keys to it alone and walks every query tile in order, summing dk
+// and dv in registers; the dq kernel gives a block's query rows to it alone
+// and walks every key tile in order. Rows past S are never stored.
+// * bf16 (sm_90a; redesigned from a first mma.sync design): persistent
+//   blocks, as many as the card holds at once (one an SM), each walking
+//   work items of 128 rows of one (batch, head), with 384 threads: two
+//   consumer warpgroups of 64 rows each and a producer warpgroup, whose
+//   one working warp keeps the loads in flight and gives its registers to
+//   the consumers (setmaxnreg: 40 against 232). The item's own rows (k and
+//   v, or q and do) arrive once by TMA into one of two buffers, so the
+//   next item's load overlaps this one's walk; the walked tensors stream
+//   in 64-row tiles through a ring of TMA stages on mbarriers (4 at D = 64,
+//   2 at D = 128), released by each consumer warp when its products have
+//   read them. The tensor maps are 4-D over (D, S, H, B) with the views'
+//   own strides: rows past S load as zeros and a box never reaches into the
+//   next head. lse and di (S * 4 bytes a head, not a multiple of 16: no
+//   TMA) come by 4-byte cp.async into the stage (dk/dv) or the fixed
+//   buffer (dq), completing on the same mbarrier. Every product is
+//   wgmma.mma_async: s and dp (m64n64k16) with both operands from shared
+//   memory; p and ds become bf16 A fragments in registers (the
+//   accumulator layout is the A layout) for dv += p^T do, dk += ds^T q and
+//   dq += ds k, whose B (do, q or k) is read MN-major from the same tile.
+//   p = ex2.approx(fma(s, scale log2 e, -lse log2 e)); the mask (p = 0 past
+//   S) runs in the last tile only: there the zero-filled rows give s = 0
+//   and would add exp(-lse) terms. A last tile with at most 16 valid rows
+//   (S = 577 leaves 1) runs as 16 rows: s and dp on m64n16k16, the update
+//   one 16-deep step. Tried and not kept (PERF.md §6): the next tile's
+//   s and dp issued before this tile's update (ptxas serialises the
+//   products; slower); the two consumer warpgroups taking turns to issue
+//   (no faster); at D = 64 the fixed rows as register A fragments for s
+//   and dp (wrong after the first tile); two blocks an SM (the consumers'
+//   registers leave room for one).
 // * f32: the FP32 units, no TF32; a row (query or key) belongs to D / 16
 //   neighbouring threads holding 16 of its values each, dot products summed
 //   by shuffles, the walked rows read from shared memory as broadcast
-//   float4s.
+//   float4s, double-buffered by cp.async.
 
 #include "flash_common.cuh"
+#include "sm90_common.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 using flash::Args;
 
-constexpr int kTile = 64;  // keys a tile (dq kernel), keys a block (dk/dv)
+// ---- bf16 (sm_90a: wgmma, TMA) ---------------------------------------------
 
-// ---- bf16 -------------------------------------------------------------------
+namespace bwd {
+
+using flash::kLog2e;
+using sm90::make_desc;
+using sm90::mbar_arrive;
+using sm90::mbar_wait;
+
+constexpr int kFixed = 128;    // rows a work item owns: keys (dk/dv), queries (dq)
+constexpr int kStream = 64;    // rows a streamed tile: queries (dk/dv), keys (dq)
+constexpr int kThreads = 384;  // consumer warpgroups 0 and 1, producer 2
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;  // 128 x 40 + 256 x 232 <= 65,536
+constexpr int kRow = 128;           // bytes of a box row: 64 bf16
 
 template <int D>
-__host__ __device__ constexpr int dkv_rows() {  // queries a step (bf16 dk/dv)
-  return D == 64 ? 64 : 32;
+struct Layout {  // bytes from the 1024-aligned base of shared memory
+  static constexpr int kFixedBytes = kFixed * D * 2;    // one fixed tensor
+  static constexpr int kStreamBytes = kStream * D * 2;  // one streamed tensor
+  static constexpr int kStages = D == 64 ? 4 : 2;       // the streamed ring
+  // fixed tiles: 2 buffers x 2 tensors; the ring: stages x 2 tensors; row
+  // statistics (lse, di): a slot of 2 x kFixed floats a fixed buffer
+  // (dq) and a stage (dk/dv); the barriers
+  static constexpr int kRingAt = 4 * kFixedBytes;
+  static constexpr int kStatsAt = kRingAt + 2 * kStages * kStreamBytes;
+  static constexpr int kSlot = 2 * kFixed;  // floats
+  static constexpr int kBarsAt = kStatsAt + (2 + kStages) * kSlot * 4;
+  static constexpr int kBytes = kBarsAt + 8 * (4 + 2 * kStages) + 1024;
+};
+
+struct Params {
+  CUtensorMap fixed0, fixed1;    // k, v (dk/dv) or q, do (dq): kFixed-row boxes
+  CUtensorMap stream0, stream1;  // q, do (dk/dv) or k, v (dq): kStream-row boxes
+  const float* lse;              // [B, H, S]
+  const float* di;               // [B, H, S]
+  bf16* out0;                    // dk or dq, contiguous [B, H, S, D]
+  bf16* out1;                    // dv
+  long long items;               // B H blocks_per_head
+  int heads, seq, blocks_per_head;
+  float scale, scale_log2;
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
+// The barriers: fixed buffer b full (0, 1) and empty (2, 3); ring stage s
+// full (4 + s) and empty (4 + kStages + s).
 template <int D>
-constexpr int dkv_bf16_smem() {  // k, v; q, do double-buffered; lse, di x2
-  return (2 * kTile + 4 * dkv_rows<D>()) * (D + 8) *
-             static_cast<int>(sizeof(bf16)) +
-         4 * dkv_rows<D>() * static_cast<int>(sizeof(float));
-}
-
-template <int D>
-__global__ void __launch_bounds__(128) vt_flash_dkv_bf16(Args a) {
-  using namespace flash;
-  constexpr int BR = dkv_rows<D>(), P = D + 8, KT = kTile * P, QT = BR * P;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* const ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* const vs = ks + KT;
-  bf16* const qs = vs + KT;        // [2][QT]
-  bf16* const dos = qs + 2 * QT;   // [2][QT]
-  float* const stats = reinterpret_cast<float*>(dos + 2 * QT);  // [2][lse, di][BR]
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int k0 = blockIdx.x * kTile, bh = a.bh0 + blockIdx.y, seq = a.seq;
-  const bf16* const qg = head_ptr<bf16>(a.q, bh, a.heads);
-  const bf16* const kg = head_ptr<bf16>(a.k, bh, a.heads);
-  const bf16* const vg = head_ptr<bf16>(a.v, bh, a.heads);
-  const bf16* const dg = head_ptr<bf16>(a.dout, bh, a.heads);
-  const float* const lse_g = a.lse + (long long)bh * seq;
-  const float* const di_g = a.di + (long long)bh * seq;
-
-  auto load_queries = [&](int i, int buf) {
-    load_rows<bf16, BR, D, P, 128>(qs + buf * QT, qg, a.q.ss, i * BR, seq, tid);
-    load_rows<bf16, BR, D, P, 128>(dos + buf * QT, dg, a.dout.ss, i * BR, seq,
-                                   tid);
-    float* const st = stats + buf * 2 * BR;
-    if (tid < BR) {
-      load_stat(st + tid, lse_g, i * BR + tid, seq);
-    } else if (tid < 2 * BR) {
-      load_stat(st + tid, di_g, i * BR + tid - BR, seq);
-    }
-  };
-  load_rows<bf16, kTile, D, P, 128>(ks, kg, a.k.ss, k0, seq, tid);
-  load_rows<bf16, kTile, D, P, 128>(vs, vg, a.v.ss, k0, seq, tid);
-  load_queries(0, 0);
-  cp_async_commit();
-
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int t = 0; t < D / 8; ++t)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[t][e] = dv[t][e] = 0.f;
-
-  const int ntiles = (seq + BR - 1) / BR;
-  for (int i = 0; i < ntiles; ++i) {
-    if (i + 1 < ntiles) {
-      load_queries(i + 1, (i + 1) & 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* const qt = qs + (i & 1) * QT;
-    const bf16* const dt = dos + (i & 1) * QT;
-    const float* const lse_s = stats + (i & 1) * 2 * BR;
-    const float* const di_s = lse_s + BR;
-
-    // s^T = k q^T and dp^T = v do^T: this warp's 16 keys x BR queries
-    float s[BR / 8][4], dp[BR / 8][4];
-#pragma unroll
-    for (int n = 0; n < BR / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-      uint32_t ka[4], va[4];
-      load_a<P>(ka, ks, warp * 16, kc * 16, lane);
-      load_a<P>(va, vs, warp * 16, kc * 16, lane);
-#pragma unroll
-      for (int n2 = 0; n2 < BR / 16; ++n2) {
-        uint32_t b[4];
-        load_b_nk<P>(b, qt, n2 * 16, kc * 16, lane);
-        mma_bf16(s[2 * n2], ka, b[0], b[1]);
-        mma_bf16(s[2 * n2 + 1], ka, b[2], b[3]);
-        load_b_nk<P>(b, dt, n2 * 16, kc * 16, lane);
-        mma_bf16(dp[2 * n2], va, b[0], b[1]);
-        mma_bf16(dp[2 * n2 + 1], va, b[2], b[3]);
-      }
-    }
-    // p^T, and ds^T in place of dp^T
-#pragma unroll
-    for (int n = 0; n < BR / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n * 8 + (lane % 4) * 2 + (e & 1);
-        const float p =
-            i * BR + col < seq
-                ? exp2f(s[n][e] * a.scale_log2 - lse_s[col] * kLog2e)
-                : 0.f;
-        s[n][e] = p;
-        dp[n][e] = p * (dp[n][e] - di_s[col]) * a.scale;
-      }
-    }
-    // dv += p^T do, dk += ds^T q
-#pragma unroll
-    for (int kk = 0; kk < BR / 16; ++kk) {
-      uint32_t pa[4], da[4];
-      acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
-      acc_to_a(da, dp[2 * kk], dp[2 * kk + 1]);
-#pragma unroll
-      for (int d2 = 0; d2 < D / 16; ++d2) {
-        uint32_t b[4];
-        load_b_kn<P>(b, dt, kk * 16, d2 * 16, lane);
-        mma_bf16(dv[2 * d2], pa, b[0], b[1]);
-        mma_bf16(dv[2 * d2 + 1], pa, b[2], b[3]);
-        load_b_kn<P>(b, qt, kk * 16, d2 * 16, lane);
-        mma_bf16(dk[2 * d2], da, b[0], b[1]);
-        mma_bf16(dk[2 * d2 + 1], da, b[2], b[3]);
-      }
-    }
-    __syncthreads();
+struct Bars {
+  uint32_t base;
+  __device__ uint32_t fix_full(int b) const { return base + 8 * b; }
+  __device__ uint32_t fix_empty(int b) const { return base + 8 * (2 + b); }
+  __device__ uint32_t full(int s) const { return base + 8 * (4 + s); }
+  __device__ uint32_t empty(int s) const {
+    return base + 8 * (4 + Layout<D>::kStages + s);
   }
+};
 
-  bf16* const dkg = static_cast<bf16*>(a.out0) + (long long)bh * seq * D;
-  bf16* const dvg = static_cast<bf16*>(a.out1) + (long long)bh * seq * D;
+// D / 64 boxes of `rows` rows at dst, one per 64 columns, from map at
+// (row0, h, b); the bytes arrive on bar.
+template <int D>
+__device__ __forceinline__ void load_boxes(uint32_t dst, const CUtensorMap* map,
+                                           uint32_t bar, int rows, int row0,
+                                           int h, int b) {
+#pragma unroll
+  for (int x = 0; x < D / 64; ++x)
+    sm90::tma_load_4d(dst + x * rows * kRow, map, bar, 64 * x, row0, h, b);
+}
+
+// The offset of the 16-deep slice kk of a K-major operand (the depth is
+// the head dim) stored as boxes of `rows` rows.
+__device__ __forceinline__ uint32_t kmajor(int kk, int rows) {
+  return (kk / 4) * rows * kRow + 32 * (kk % 4);
+}
+
+// Accumulator element 4 j + e of an m64nN product is, in warp w of the
+// warpgroup, (row 16 w + g + 8 (e / 2), column 8 j + 2 t + e % 2), lane =
+// 4 g + t.
+
+// Stores one warpgroup's 64 x D f32 sums, rounded to bf16, as rows
+// row0 .. row0 + 63 of one head of a contiguous [S, D] output; rows at or
+// past seq are not stored.
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[D / 2],
+                                           int row0, int seq, int wq, int lane) {
+  const int g = lane / 4, t = lane % 4;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int key = k0 + warp * 16 + lane / 4 + 8 * r;
-    if (key < seq) {
-#pragma unroll
-      for (int t = 0; t < D / 8; ++t) {
-        const long long at = (long long)key * D + t * 8 + (lane % 4) * 2;
-        *reinterpret_cast<__nv_bfloat162*>(dkg + at) =
-            __floats2bfloat162_rn(dk[t][2 * r], dk[t][2 * r + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(dvg + at) =
-            __floats2bfloat162_rn(dv[t][2 * r], dv[t][2 * r + 1]);
-      }
-    }
-  }
-}
-
-template <int D>
-constexpr int dq_bf16_smem() {  // q, do; k, v double-buffered
-  return 6 * kTile * (D + 8) * static_cast<int>(sizeof(bf16));
-}
-
-template <int D>
-__global__ void __launch_bounds__(128) vt_flash_dq_bf16(Args a) {
-  using namespace flash;
-  constexpr int P = D + 8, TILE = kTile * P;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* const qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* const dos = qs + TILE;
-  bf16* const ks = dos + TILE;     // [2][TILE]
-  bf16* const vs = ks + 2 * TILE;  // [2][TILE]
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int q0 = blockIdx.x * kTile, bh = a.bh0 + blockIdx.y, seq = a.seq;
-  const bf16* const kg = head_ptr<bf16>(a.k, bh, a.heads);
-  const bf16* const vg = head_ptr<bf16>(a.v, bh, a.heads);
-  load_rows<bf16, kTile, D, P, 128>(qs, head_ptr<bf16>(a.q, bh, a.heads),
-                                    a.q.ss, q0, seq, tid);
-  load_rows<bf16, kTile, D, P, 128>(dos, head_ptr<bf16>(a.dout, bh, a.heads),
-                                    a.dout.ss, q0, seq, tid);
-  load_rows<bf16, kTile, D, P, 128>(ks, kg, a.k.ss, 0, seq, tid);
-  load_rows<bf16, kTile, D, P, 128>(vs, vg, a.v.ss, 0, seq, tid);
-  cp_async_commit();
-
-  float lse2[2], di[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + lane / 4 + 8 * r;
-    const long long at = (long long)bh * seq + row;
-    lse2[r] = row < seq ? a.lse[at] * kLog2e : 0.f;
-    di[r] = row < seq ? a.di[at] : 0.f;
-  }
-  float dq[D / 8][4];
-#pragma unroll
-  for (int t = 0; t < D / 8; ++t) dq[t][0] = dq[t][1] = dq[t][2] = dq[t][3] = 0.f;
-
-  const int ntiles = (seq + kTile - 1) / kTile;
-  for (int j = 0; j < ntiles; ++j) {
-    if (j + 1 < ntiles) {
-      const int nb = (j + 1) & 1;
-      load_rows<bf16, kTile, D, P, 128>(ks + nb * TILE, kg, a.k.ss,
-                                        (j + 1) * kTile, seq, tid);
-      load_rows<bf16, kTile, D, P, 128>(vs + nb * TILE, vg, a.v.ss,
-                                        (j + 1) * kTile, seq, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* const kt = ks + (j & 1) * TILE;
-    const bf16* const vt = vs + (j & 1) * TILE;
-
-    // s = q k^T and dp = do v^T: this warp's 16 rows x 64 keys
-    float s[kTile / 8][4], dp[kTile / 8][4];
-#pragma unroll
-    for (int n = 0; n < kTile / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-      uint32_t qa[4], da[4];
-      load_a<P>(qa, qs, warp * 16, kc * 16, lane);
-      load_a<P>(da, dos, warp * 16, kc * 16, lane);
-#pragma unroll
-      for (int n2 = 0; n2 < kTile / 16; ++n2) {
-        uint32_t b[4];
-        load_b_nk<P>(b, kt, n2 * 16, kc * 16, lane);
-        mma_bf16(s[2 * n2], qa, b[0], b[1]);
-        mma_bf16(s[2 * n2 + 1], qa, b[2], b[3]);
-        load_b_nk<P>(b, vt, n2 * 16, kc * 16, lane);
-        mma_bf16(dp[2 * n2], da, b[0], b[1]);
-        mma_bf16(dp[2 * n2 + 1], da, b[2], b[3]);
-      }
-    }
-    // ds in place of s
-    const int k0 = j * kTile;
-#pragma unroll
-    for (int n = 0; n < kTile / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + n * 8 + (lane % 4) * 2 + (e & 1);
-        const float p =
-            key < seq ? exp2f(s[n][e] * a.scale_log2 - lse2[e / 2]) : 0.f;
-        s[n][e] = p * (dp[n][e] - di[e / 2]) * a.scale;
-      }
-    }
-    // dq += ds k
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t sa[4];
-      acc_to_a(sa, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int d2 = 0; d2 < D / 16; ++d2) {
-        uint32_t b[4];
-        load_b_kn<P>(b, kt, kk * 16, d2 * 16, lane);
-        mma_bf16(dq[2 * d2], sa, b[0], b[1]);
-        mma_bf16(dq[2 * d2 + 1], sa, b[2], b[3]);
-      }
-    }
-    __syncthreads();
-  }
-
-  bf16* const dqg = static_cast<bf16*>(a.out0) + (long long)bh * seq * D;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + lane / 4 + 8 * r;
+    const int row = row0 + 16 * wq + g + 8 * r;
     if (row < seq) {
 #pragma unroll
-      for (int t = 0; t < D / 8; ++t) {
-        const long long at = (long long)row * D + t * 8 + (lane % 4) * 2;
-        *reinterpret_cast<__nv_bfloat162*>(dqg + at) =
-            __floats2bfloat162_rn(dq[t][2 * r], dq[t][2 * r + 1]);
-      }
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(out + (long long)row * D + 8 * j +
+                                           2 * t) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
     }
   }
 }
+
+template <int N>
+__device__ __forceinline__ void zero(float (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) a[i] = 0.f;
+}
+
+// p = exp(scale s - lse) from s (N columns) in place, given lse * log2 e
+// of this thread's columns (lse2[j]: columns 8 j + 2 t and + 1); zero at
+// columns at or past `valid`.
+template <int N>
+__device__ __forceinline__ void probs_by_column(float (&s)[N / 2],
+                                                const float2 (&lse2)[N / 8],
+                                                float sl2, int valid, int t) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const float2 l = lse2[j];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[4 * j + e] = ex2(fmaf(s[4 * j + e], sl2, -((e & 1) ? l.y : l.x)));
+  }
+  if (valid < N) {
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (8 * j + 2 * t + (e & 1) >= valid) s[4 * j + e] = 0.f;
+  }
+}
+
+// p = exp(scale s - lse) from s (N columns) in place, given lse * log2 e
+// of this thread's two rows; zero at columns at or past `valid`.
+template <int N>
+__device__ __forceinline__ void probs_by_row(float (&s)[N / 2],
+                                             const float (&lse2)[2], float sl2,
+                                             int valid, int t) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i)
+    s[i] = ex2(fmaf(s[i], sl2, -lse2[(i / 2) % 2]));
+  if (valid < N) {
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (8 * j + 2 * t + (e & 1) >= valid) s[4 * j + e] = 0.f;
+  }
+}
+
+// N / 16 bf16 A fragments (16-deep slices) from N / 2 f32 sums.
+template <int N>
+__device__ __forceinline__ void to_frags(uint32_t (&a)[N / 16][4],
+                                         const float (&c)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+    flash::acc_to_a(a[kk], c + 8 * kk, c + 8 * kk + 4);
+}
+
+template <int D>
+__device__ __forceinline__ void product_d(float (&d)[D / 2],
+                                          const uint32_t (&a)[4],
+                                          uint64_t db) {
+  if constexpr (D == 64) {
+    sm90::wgmma_rs_n64(d, a, db);
+  } else {
+    sm90::wgmma_rs_n128(d, a, db);
+  }
+}
+
+// s = a b^T or dp = a b^T over the head dim (one committed group): a
+// from the fixed tile at a_tile (kFixed-row boxes), b the first N rows of
+// the ring stage at b_tile (kStream-row boxes), both K-major.
+template <int D, int N>
+__device__ __forceinline__ void score_product(float (&d)[N / 2],
+                                              uint32_t a_tile, uint32_t b_tile) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint64_t da = make_desc(a_tile + kmajor(kk, kFixed), 16, 1024);
+    const uint64_t db = make_desc(b_tile + kmajor(kk, kStream), 16, 1024);
+    if constexpr (N == 64) {
+      sm90::wgmma_ss_n64(d, da, db, kk);
+    } else {
+      sm90::wgmma_ss_n16(d, da, db, kk);
+    }
+  }
+  sm90::wgmma_commit();
+}
+
+// d += a b over the first N rows of a ring tile (the depth of the product):
+// a the N / 16 fragments, b the tile at `tile` read MN-major; the caller
+// commits.
+template <int D, int N>
+__device__ __forceinline__ void update(float (&d)[D / 2],
+                                       uint32_t (&a)[N / 16][4], uint32_t tile) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+    product_d<D>(d, a[kk], make_desc(tile + 16 * kRow * kk, kStream * kRow, 1024));
+}
+
+// One ring tile of the dk/dv walk: its first N queries (64, or 16 when
+// the tile holds no more valid ones), s and dp in the given sums.
+template <int D, int N>
+__device__ __forceinline__ void dkv_tile(float (&s)[N / 2], float (&dp)[N / 2],
+                                         float (&dk)[D / 2], float (&dv)[D / 2],
+                                         uint32_t kt, uint32_t vt, uint32_t qt,
+                                         uint32_t dt, const float* st, int valid,
+                                         const Params& p, int t) {
+  sm90::fence_operand(s);
+  sm90::fence_operand(dp);
+  sm90::wgmma_fence();
+  score_product<D, N>(s, kt, qt);
+  score_product<D, N>(dp, vt, dt);
+  // lse times log2 e of this thread's columns 8 j + 2 t, + 1
+  float2 lse2[N / 8];
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const float2 l = reinterpret_cast<const float2*>(st)[4 * j + t];
+    lse2[j] = make_float2(l.x * kLog2e, l.y * kLog2e);
+  }
+  sm90::wgmma_wait<1>();
+  sm90::fence_operand(s);
+  probs_by_column<N>(s, lse2, p.scale_log2, valid, t);
+  sm90::wgmma_wait<0>();
+  sm90::fence_operand(dp);
+  const float2* const di2 = reinterpret_cast<const float2*>(st + kFixed);
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const float2 d = di2[4 * j + t];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      dp[4 * j + e] =
+          s[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? d.y : d.x)) * p.scale;
+  }
+  uint32_t pa[N / 16][4], da[N / 16][4];
+  to_frags<N>(pa, s);
+  to_frags<N>(da, dp);
+  sm90::fence_operand(dk);
+  sm90::fence_operand(dv);
+  sm90::fence_frags(pa);
+  sm90::fence_frags(da);
+  sm90::wgmma_fence();
+  update<D, N>(dv, pa, dt);
+  update<D, N>(dk, da, qt);
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  sm90::fence_operand(dk);
+  sm90::fence_operand(dv);
+  sm90::fence_frags(pa);
+  sm90::fence_frags(da);
+}
+
+// One ring tile of the dq walk: its first N keys (64, or 16 when the tile
+// holds no more valid ones), s and dp in the given sums.
+template <int D, int N>
+__device__ __forceinline__ void dq_tile(float (&s)[N / 2], float (&dp)[N / 2],
+                                        float (&dq)[D / 2], uint32_t qt,
+                                        uint32_t dt, uint32_t kt, uint32_t vt,
+                                        const float (&lse2)[2],
+                                        const float (&di)[2], int valid,
+                                        const Params& p, int t) {
+  sm90::fence_operand(s);
+  sm90::fence_operand(dp);
+  sm90::wgmma_fence();
+  score_product<D, N>(s, qt, kt);
+  score_product<D, N>(dp, dt, vt);
+  sm90::wgmma_wait<1>();
+  sm90::fence_operand(s);
+  probs_by_row<N>(s, lse2, p.scale_log2, valid, t);
+  sm90::wgmma_wait<0>();
+  sm90::fence_operand(dp);
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i)
+    dp[i] = s[i] * (dp[i] - di[(i / 2) % 2]) * p.scale;
+  uint32_t da[N / 16][4];
+  to_frags<N>(da, dp);
+  sm90::fence_operand(dq);
+  sm90::fence_frags(da);
+  sm90::wgmma_fence();
+  update<D, N>(dq, da, kt);
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  sm90::fence_operand(dq);
+  sm90::fence_frags(da);
+}
+
+// dk, dv. A work item is 128 keys of one (batch, head): consumer
+// warpgroup w owns keys 64 w .. 64 w + 63 of it, their k and v rows in
+// the fixed buffer, dk and dv in registers; q and do stream through the
+// ring in 64-query tiles with lse and di. Per tile:
+//   s^T = k q^T, dp^T = v do^T         (wgmma, both from shared memory)
+//   p^T = exp2(s^T scale log2 e - lse log2 e), zero past S (last tile)
+//   ds^T = p^T (dp^T - di) scale
+//   dv += bf16(p^T) do, dk += bf16(ds^T) q  (A from registers, do and q
+//                                            read MN-major)
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    vt_flash_dkv_bf16(const __grid_constant__ Params p) {
+  using L = Layout<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = sm90::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  float* const stats = reinterpret_cast<float*>(smem_raw + (base - raw) +
+                                                L::kStatsAt);
+  const Bars<D> bars{base + L::kBarsAt};
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32;
+  const int ntiles = (p.seq + kStream - 1) / kStream;
+
+  if (tid == 0) {
+    for (int b = 0; b < 2; ++b) {
+      sm90::mbar_init(bars.fix_full(b), 1);
+      sm90::mbar_init(bars.fix_empty(b), 8);
+    }
+    for (int s = 0; s < L::kStages; ++s) {
+      sm90::mbar_init(bars.full(s), 33);  // 32 lanes' stats + the TMA
+      sm90::mbar_init(bars.empty(s), 8);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer: one warp loads, the others leave
+    sm90::regs_dec<kProducerRegs>();
+    if (tid / 32 == 8) {
+      int n = 0, c = 0;
+      for (long long item = blockIdx.x; item < p.items;
+           item += gridDim.x, ++n) {
+        const int bh = (int)(item / p.blocks_per_head);
+        const int blk = (int)(item % p.blocks_per_head);
+        const int b = bh / p.heads, h = bh % p.heads;
+        const int buf = n & 1;
+        if (lane == 0) {
+          if (n >= 2) mbar_wait(bars.fix_empty(buf), ((n >> 1) - 1) & 1);
+          const uint32_t dst = base + buf * 2 * L::kFixedBytes;
+          sm90::mbar_expect_tx(bars.fix_full(buf), 2 * L::kFixedBytes);
+          load_boxes<D>(dst, &p.fixed0, bars.fix_full(buf), kFixed,
+                        blk * kFixed, h, b);
+          load_boxes<D>(dst + L::kFixedBytes, &p.fixed1, bars.fix_full(buf),
+                        kFixed, blk * kFixed, h, b);
+        }
+        const float* const lse = p.lse + (long long)bh * p.seq;
+        const float* const di = p.di + (long long)bh * p.seq;
+        for (int i = 0; i < ntiles; ++i, ++c) {
+          const int s = c % L::kStages;
+          if (c >= L::kStages) mbar_wait(bars.empty(s), ((c / L::kStages) - 1) & 1);
+          float* const st = stats + (2 + s) * L::kSlot;
+#pragma unroll
+          for (int r = lane; r < kStream; r += 32) {
+            const int q = i * kStream + r;
+            const bool ok = q < p.seq;
+            flash::cp_async_4(st + r, ok ? lse + q : lse, ok);
+            flash::cp_async_4(st + kFixed + r, ok ? di + q : di, ok);
+          }
+          sm90::mbar_arrive_cp_async(bars.full(s));
+          if (lane == 0) {
+            const uint32_t dst = base + L::kRingAt + s * 2 * L::kStreamBytes;
+            sm90::mbar_expect_tx(bars.full(s), 2 * L::kStreamBytes);
+            load_boxes<D>(dst, &p.stream0, bars.full(s), kStream, i * kStream,
+                          h, b);
+            load_boxes<D>(dst + L::kStreamBytes, &p.stream1, bars.full(s),
+                          kStream, i * kStream, h, b);
+          }
+        }
+      }
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+    }
+    return;
+  }
+
+  sm90::regs_inc<kConsumerRegs>();
+  const int wq = (tid / 32) % 4, t = lane % 4;
+  int n = 0, c = 0;
+  float sacc[32], dpacc[32], dk[D / 2], dv[D / 2];
+  zero(sacc);
+  zero(dpacc);
+  for (long long item = blockIdx.x; item < p.items; item += gridDim.x, ++n) {
+    const int bh = (int)(item / p.blocks_per_head);
+    const int blk = (int)(item % p.blocks_per_head);
+    const int buf = n & 1;
+    // this warpgroup's 64 keys: rows 64 wg .. of the fixed boxes
+    const uint32_t kt = base + buf * 2 * L::kFixedBytes + wg * 64 * kRow;
+    const uint32_t vt = kt + L::kFixedBytes;
+    zero(dk);
+    zero(dv);
+    mbar_wait(bars.fix_full(buf), (n >> 1) & 1);
+    for (int i = 0; i < ntiles; ++i, ++c) {
+      const int s = c % L::kStages;
+      const uint32_t qt = base + L::kRingAt + s * 2 * L::kStreamBytes;
+      const uint32_t dt = qt + L::kStreamBytes;
+      const float* const st = stats + (2 + s) * L::kSlot;
+      const int valid = p.seq - i * kStream;
+      mbar_wait(bars.full(s), (c / L::kStages) & 1);
+      if (valid > 16) {
+        dkv_tile<D, 64>(sacc, dpacc, dk, dv, kt, vt, qt, dt, st, valid, p, t);
+      } else {  // the last tile, at most 16 valid queries: a quarter of it
+        float s16[8], dp16[8];
+        zero(s16);
+        zero(dp16);
+        dkv_tile<D, 16>(s16, dp16, dk, dv, kt, vt, qt, dt, st, valid, p, t);
+      }
+      if (lane == 0) mbar_arrive(bars.empty(s));
+    }
+    if (lane == 0) mbar_arrive(bars.fix_empty(buf));
+    const long long head = (long long)bh * p.seq * D;
+    const int row0 = blk * kFixed + wg * 64;
+    store_rows<D>(p.out0 + head, dk, row0, p.seq, wq, lane);
+    store_rows<D>(p.out1 + head, dv, row0, p.seq, wq, lane);
+  }
+}
+
+// dq. A work item is 128 query rows of one (batch, head): consumer
+// warpgroup w owns rows 64 w .. 64 w + 63, their q and do rows in the fixed
+// buffer, lse and di in registers, dq in registers; k and v stream through
+// the ring in 64-key tiles. Per tile:
+//   s = q k^T, dp = do v^T              (wgmma, both from shared memory)
+//   p = exp2(s scale log2 e - lse log2 e), zero past S (last tile)
+//   ds = p (dp - di) scale
+//   dq += bf16(ds) k                     (A from registers, k MN-major)
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    vt_flash_dq_bf16(const __grid_constant__ Params p) {
+  using L = Layout<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = sm90::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  float* const stats = reinterpret_cast<float*>(smem_raw + (base - raw) +
+                                                L::kStatsAt);
+  const Bars<D> bars{base + L::kBarsAt};
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32;
+  const int ntiles = (p.seq + kStream - 1) / kStream;
+
+  if (tid == 0) {
+    for (int b = 0; b < 2; ++b) {
+      sm90::mbar_init(bars.fix_full(b), 33);  // 32 lanes' stats + the TMA
+      sm90::mbar_init(bars.fix_empty(b), 8);
+    }
+    for (int s = 0; s < L::kStages; ++s) {
+      sm90::mbar_init(bars.full(s), 1);
+      sm90::mbar_init(bars.empty(s), 8);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    sm90::regs_dec<kProducerRegs>();
+    if (tid / 32 == 8) {
+      int n = 0, c = 0;
+      for (long long item = blockIdx.x; item < p.items;
+           item += gridDim.x, ++n) {
+        const int bh = (int)(item / p.blocks_per_head);
+        const int blk = (int)(item % p.blocks_per_head);
+        const int b = bh / p.heads, h = bh % p.heads;
+        const int buf = n & 1;
+        if (n >= 2) mbar_wait(bars.fix_empty(buf), ((n >> 1) - 1) & 1);
+        const float* const lse = p.lse + (long long)bh * p.seq;
+        const float* const di = p.di + (long long)bh * p.seq;
+        float* const st = stats + buf * L::kSlot;
+#pragma unroll
+        for (int r = lane; r < kFixed; r += 32) {
+          const int q = blk * kFixed + r;
+          const bool ok = q < p.seq;
+          flash::cp_async_4(st + r, ok ? lse + q : lse, ok);
+          flash::cp_async_4(st + kFixed + r, ok ? di + q : di, ok);
+        }
+        sm90::mbar_arrive_cp_async(bars.fix_full(buf));
+        if (lane == 0) {
+          const uint32_t dst = base + buf * 2 * L::kFixedBytes;
+          sm90::mbar_expect_tx(bars.fix_full(buf), 2 * L::kFixedBytes);
+          load_boxes<D>(dst, &p.fixed0, bars.fix_full(buf), kFixed,
+                        blk * kFixed, h, b);
+          load_boxes<D>(dst + L::kFixedBytes, &p.fixed1, bars.fix_full(buf),
+                        kFixed, blk * kFixed, h, b);
+          for (int j = 0; j < ntiles; ++j, ++c) {
+            const int s = c % L::kStages;
+            if (c >= L::kStages)
+              mbar_wait(bars.empty(s), ((c / L::kStages) - 1) & 1);
+            const uint32_t dst2 = base + L::kRingAt + s * 2 * L::kStreamBytes;
+            sm90::mbar_expect_tx(bars.full(s), 2 * L::kStreamBytes);
+            load_boxes<D>(dst2, &p.stream0, bars.full(s), kStream, j * kStream,
+                          h, b);
+            load_boxes<D>(dst2 + L::kStreamBytes, &p.stream1, bars.full(s),
+                          kStream, j * kStream, h, b);
+          }
+        }
+      }
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+    }
+    return;
+  }
+
+  sm90::regs_inc<kConsumerRegs>();
+  const int wq = (tid / 32) % 4, g = lane / 4, t = lane % 4;
+  int n = 0, c = 0;
+  float sacc[32], dpacc[32], dq[D / 2];
+  zero(sacc);
+  zero(dpacc);
+  for (long long item = blockIdx.x; item < p.items; item += gridDim.x, ++n) {
+    const int bh = (int)(item / p.blocks_per_head);
+    const int blk = (int)(item % p.blocks_per_head);
+    const int buf = n & 1;
+    const uint32_t qt = base + buf * 2 * L::kFixedBytes + wg * 64 * kRow;
+    const uint32_t dt = qt + L::kFixedBytes;
+    zero(dq);
+    mbar_wait(bars.fix_full(buf), (n >> 1) & 1);
+    float lse2[2], di[2];
+    {
+      const float* const st = stats + buf * L::kSlot;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = wg * 64 + 16 * wq + g + 8 * r;
+        lse2[r] = st[row] * kLog2e;
+        di[r] = st[kFixed + row];
+      }
+    }
+    for (int j = 0; j < ntiles; ++j, ++c) {
+      const int s = c % L::kStages;
+      const uint32_t kt = base + L::kRingAt + s * 2 * L::kStreamBytes;
+      const uint32_t vt = kt + L::kStreamBytes;
+      const int valid = p.seq - j * kStream;
+      mbar_wait(bars.full(s), (c / L::kStages) & 1);
+      if (valid > 16) {
+        dq_tile<D, 64>(sacc, dpacc, dq, qt, dt, kt, vt, lse2, di, valid, p, t);
+      } else {  // the last tile, at most 16 valid keys: a quarter of it
+        float s16[8], dp16[8];
+        zero(s16);
+        zero(dp16);
+        dq_tile<D, 16>(s16, dp16, dq, qt, dt, kt, vt, lse2, di, valid, p, t);
+      }
+      if (lane == 0) mbar_arrive(bars.empty(s));
+    }
+    if (lane == 0) mbar_arrive(bars.fix_empty(buf));
+    store_rows<D>(p.out0 + (long long)bh * p.seq * D, dq,
+                  blk * kFixed + wg * 64, p.seq, wq, lane);
+  }
+}
+
+// Launches kernel<D> over min(items, the blocks the card holds at once)
+// persistent blocks.
+template <int D, bool kDkv>
+cudaError_t launch(Params& p, int bh, cudaStream_t stream) {
+  auto kernel = kDkv ? vt_flash_dkv_bf16<D> : vt_flash_dq_bf16<D>;
+  constexpr int smem = Layout<D>::kBytes;
+  static int resident[64] = {};  // blocks the device holds, once a device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (!resident[dev]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, smem);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorLaunchOutOfResources;
+    resident[dev] = per_sm * sms;
+  }
+  p.blocks_per_head = (p.seq + kFixed - 1) / kFixed;
+  p.items = (long long)bh * p.blocks_per_head;
+  const int grid =
+      p.items < resident[dev] ? (int)p.items : resident[dev];
+  kernel<<<grid, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// The bf16 call of either kernel: its tensor maps, then the launch. -1 when
+// the driver refuses a map.
+template <bool kDkv>
+int run(const void* q, const void* k, const void* v, const void* dout,
+        const void* lse, const void* di, void* out0, void* out1, int batch,
+        int heads, int seq, int d, const long long* st, float scale,
+        cudaStream_t stream) {
+  Params p{};
+  const void* fixed[2] = {kDkv ? k : q, kDkv ? v : dout};
+  const void* streamed[2] = {kDkv ? q : k, kDkv ? dout : v};
+  const long long* fs[2] = {kDkv ? st + 3 : st, kDkv ? st + 6 : st + 9};
+  const long long* ss[2] = {kDkv ? st : st + 3, kDkv ? st + 9 : st + 6};
+  CUtensorMap* fm[2] = {&p.fixed0, &p.fixed1};
+  CUtensorMap* sm[2] = {&p.stream0, &p.stream1};
+  for (int i = 0; i < 2; ++i) {
+    if (!sm90::make_map_bhsd(fm[i], fixed[i], batch, heads, seq, d, fs[i][0],
+                             fs[i][1], fs[i][2], kFixed) ||
+        !sm90::make_map_bhsd(sm[i], streamed[i], batch, heads, seq, d,
+                             ss[i][0], ss[i][1], ss[i][2], kStream))
+      return -1;
+  }
+  p.lse = static_cast<const float*>(lse);
+  p.di = static_cast<const float*>(di);
+  p.out0 = static_cast<bf16*>(out0);
+  p.out1 = static_cast<bf16*>(out1);
+  p.heads = heads;
+  p.seq = seq;
+  p.scale = scale;
+  p.scale_log2 = scale * kLog2e;
+  const int bh = batch * heads;
+  return d == 64 ? (int)launch<64, kDkv>(p, bh, stream)
+                 : (int)launch<128, kDkv>(p, bh, stream);
+}
+
+}  // namespace bwd
 
 // ---- f32 --------------------------------------------------------------------
 
+constexpr int kTile = 64;  // rows of a walked tile
 constexpr int kC = 4;  // float4 chunks of a row a thread: D / 16 threads a row
 
 template <int D>
@@ -502,14 +863,10 @@ extern "C" int vt_flash_attention_dkv(
     return cudaErrorInvalidValue;
   a.out0 = dk;
   a.out1 = dv;
+  if (bf16)
+    return bwd::run<true>(q, k, v, dout, lse, di, dk, dv, batch, heads, seq, d,
+                          st, scale, stream);
   using flash::launch_heads;
-  if (bf16) {
-    const int tiles = (seq + kTile - 1) / kTile;
-    return d == 64 ? launch_heads(vt_flash_dkv_bf16<64>, dkv_bf16_smem<64>(),
-                                  tiles, bh, 128, a, stream)
-                   : launch_heads(vt_flash_dkv_bf16<128>, dkv_bf16_smem<128>(),
-                                  tiles, bh, 128, a, stream);
-  }
   const int rows = 256 / (d / (4 * kC));
   const int tiles = (seq + rows - 1) / rows;
   return d == 64 ? launch_heads(vt_flash_dkv_f32<64>, f32_smem<64>(), tiles, bh,
@@ -533,14 +890,10 @@ extern "C" int vt_flash_attention_dq(
   if (!fill(a, q, k, v, dout, lse, di, heads, seq, d, st, scale))
     return cudaErrorInvalidValue;
   a.out0 = dq;
+  if (bf16)
+    return bwd::run<false>(q, k, v, dout, lse, di, dq, nullptr, batch, heads,
+                           seq, d, st, scale, stream);
   using flash::launch_heads;
-  if (bf16) {
-    const int tiles = (seq + kTile - 1) / kTile;
-    return d == 64 ? launch_heads(vt_flash_dq_bf16<64>, dq_bf16_smem<64>(), tiles,
-                                  bh, 128, a, stream)
-                   : launch_heads(vt_flash_dq_bf16<128>, dq_bf16_smem<128>(),
-                                  tiles, bh, 128, a, stream);
-  }
   const int rows = 256 / (d / (4 * kC));
   const int tiles = (seq + rows - 1) / rows;
   return d == 64 ? launch_heads(vt_flash_dq_f32<64>, f32_smem<64>(), tiles, bh,

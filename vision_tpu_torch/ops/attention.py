@@ -175,12 +175,14 @@ def _check(name: str, *tensors: torch.Tensor) -> None:
 
 def _readable(t: torch.Tensor) -> torch.Tensor:
     """``t`` as the kernels read it: unit stride in the head dim, rows of 16
-    bytes at 16-byte addresses, batch, head and row strides any multiple
-    of those 16 bytes (a view of the packed q, k, v projection passes as it
-    lies); otherwise a contiguous copy."""
+    bytes at 16-byte addresses, batch, head and row strides any positive
+    multiple of those 16 bytes where the dimension is longer than 1 (a view
+    of the packed q, k, v projection passes as it lies; the bf16 backward
+    kernels' tensor maps take no other); otherwise a contiguous copy."""
     per16 = 16 // t.element_size()
     ok = (t.stride(3) == 1 and t.data_ptr() % 16 == 0
-          and all(st % per16 == 0 for st in t.stride()[:3]))
+          and all(st % per16 == 0 and (st > 0 or n == 1)
+                  for st, n in zip(t.stride()[:3], t.shape[:3])))
     return t if ok else t.contiguous()
 
 
@@ -303,12 +305,10 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None) -> torch.Tensor:
     """``softmax(q k^T * scale) v`` through the flash kernels (the plain
-    versions on the CPU): ``q, k, v [B, H, S, D]``, f32 or bf16, D in
-    ``FLASH_HEAD_DIMS`` (another raises). Differentiable in all three;
-    where no gradient is wanted, nothing is saved for one."""
-    if q.shape[-1] not in FLASH_HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {q.shape[-1]} is not one "
-                         f"the kernels are built for, {FLASH_HEAD_DIMS}")
+    versions on the CPU): ``q, k, v [B, H, S, D]``, f32 or bf16. On the
+    card D is one of ``FLASH_HEAD_DIMS`` (the kernels raise on another);
+    the plain versions take any D, as JAX's CPU path does. Differentiable
+    in all three; where no gradient is wanted, nothing is saved for one."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashAttention.apply(q, k, v, scale)
     return _forward(q, k, v, scale)[0]

@@ -8,9 +8,10 @@ inputs that ``chip_smoke.py``'s paths give them.
 ``OTHER_DIR`` holds some of ``nms.cu``, ``roi_align.cu``, ``nms_rowscan.cu``,
 ``window_pool.cu``, ``window_pool_backward.cu``, ``roi_align_backward.cu``,
 ``deform_conv.cu`` and ``deform_conv_backward.cu`` (these two with their
-``deform_sample.cuh``; for example the files of an earlier commit,
-unpacked with ``git archive``); each kernel whose source is there is
-compared. They are built with the package's own ``nvcc`` flags into
+``deform_sample.cuh``) and ``flash_attention_backward.cu`` (with the
+headers it includes: ``flash_common.cuh``, and ``sm90_common.cuh`` where
+it uses it); for example the files of an earlier commit, unpacked with
+``git archive``. Each kernel whose source is there is compared. They are built with the package's own ``nvcc`` flags into
 ``OTHER_DIR/build``. The forward kernels keep the package's C entry
 points; a backward source may also have the f32-only entry points without
 the ``bf16`` flag (and, for RoIAlign, without the scratch function) that
@@ -56,7 +57,18 @@ the largest value, the bf16 input's gradient within a bf16 step of it);
 each version's device time, its wrapper's work included, is taken in
 turns, and the backward's is split by kernel (keys, record pass, sort,
 input sum, offsets, other). Then a line sums each request's and each
-step's calls for both versions. One JSON line per call, then the card's
+step's calls for both versions.
+
+The flash-attention backward's inputs: ViT-B/16 at 384 px
+(``tools/vit_train.py``: ``seeded_vit``, ``RecipeStep`` at batch 64 from
+the 448x448 frames, ``chip_smoke.py``'s ``vit_b16_384_train*`` cells)
+takes one recipe step in f32 and one in amp, recording the arguments of
+the 12 dK/dV calls of each, laid out as they lie (the head views of the
+packed projection); the dQ kernel takes the same arguments. Each call's
+outputs agree (f32 bit for bit; bf16 within 2e-2 of the other version's
+largest value) and each version's device time, the package's wrappers
+around it, is taken in turns for the dK/dV and the dQ kernel alone, and a
+line a path sums the step's calls. One JSON line per call, then the card's
 name and power limit. Needs a CUDA device and ``nvcc``.
 """
 
@@ -83,9 +95,11 @@ CLS_SCALE = 30.0
 SIZE = 832
 KERNELS = ("nms", "roi_align", "nms_rowscan", "window_pool",
            "window_pool_backward", "roi_align_backward", "deform_conv",
-           "deform_conv_backward")
+           "deform_conv_backward", "flash_attention_backward")
 BACKWARD = ("window_pool_backward", "roi_align_backward")
 DEFORM = ("deform_conv", "deform_conv_backward")
+FLASH = ("flash_attention_backward",)
+FLASH_BF16_TOL = 2e-2  # of the largest value: p and ds rounded otherwise
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the deformable convolution's first entry points: a channels-last input
 # and no tile plan; keys without records, int64 ranges
@@ -568,6 +582,122 @@ def record_deform_inputs() -> dict:
     return calls
 
 
+def laid_copies(tensors):
+    """Copies of ``tensors`` on new storage, laid out as they lie: tensors
+    that share a storage (the head views of one projection) share one copy
+    of it, at their own offsets and strides."""
+    copies, out = {}, []
+    for t in tensors:
+        if not torch.is_tensor(t):
+            out.append(t)
+            continue
+        storage = t.untyped_storage()
+        key = (storage.data_ptr(), t.dtype)
+        if key not in copies:
+            whole = torch.empty(0, dtype=t.dtype, device=t.device)
+            whole.set_(storage)
+            copies[key] = whole.clone()
+        out.append(copies[key].as_strided(t.shape, t.stride(),
+                                          t.storage_offset()))
+    return tuple(out)
+
+
+def record_flash_inputs() -> dict:
+    """The arguments of the 12 dK/dV calls in one ViT-B/16 384 recipe step
+    at batch 64 in f32 and one in amp (``chip_smoke.py``'s model, frames
+    and step), laid out as they lie, each tagged with its path."""
+    from vision_tpu_torch.tools.vit_train import (
+        CROP_384,
+        FRAME_384,
+        TRAIN_BATCH_384,
+        RecipeStep,
+        frames,
+        seeded_vit,
+    )
+
+    attention = _attention()
+    wrapper = attention.flash_attention_dkv_cuda
+    calls, where = [], {"tag": ""}
+
+    def rec(*args):
+        calls.append((where["tag"], laid_copies(args)))
+        return wrapper(*args)
+
+    raw = frames(TRAIN_BATCH_384, FRAME_384)
+    attention.flash_attention_dkv_cuda = rec
+    try:
+        for dtype in (None, torch.bfloat16):
+            model = seeded_vit(image_size=CROP_384)
+            run = RecipeStep(model, dtype, batch_size=TRAIN_BATCH_384,
+                             crop_size=CROP_384)
+            where["tag"] = "train384 " + ("bf16" if dtype else "float32")
+            run(raw, torch.Generator(device="cuda").manual_seed(0))
+            torch.cuda.synchronize()
+            del model, run
+            torch.cuda.empty_cache()
+    finally:
+        attention.flash_attention_dkv_cuda = wrapper
+    return {"flash_attention_backward": calls}
+
+
+def _attention():
+    return importlib.import_module("vision_tpu_torch.ops.attention")
+
+
+def flash_dkv(lib, *args):
+    """``flash_attention_dkv_cuda``'s work on ``lib``'s kernel."""
+    with _library("flash_attention_backward", lib):
+        return _attention().flash_attention_dkv_cuda(*args)
+
+
+def flash_dq(lib, *args):
+    """``flash_attention_dq_cuda``'s work on ``lib``'s kernel."""
+    with _library("flash_attention_backward", lib):
+        return _attention().flash_attention_dq_cuda(*args)
+
+
+def compare_flash(ours, theirs, calls) -> bool:
+    """One line per recorded call and kernel (agreement, device ms in
+    turns), then one a path and kernel summing its calls. Returns whether
+    every call agreed."""
+    totals = defaultdict(lambda: defaultdict(float))
+    ok_all = True
+    for where, args in calls:
+        for kernel, run in (("dkv", flash_dkv), ("dq", flash_dq)):
+            got, want = run(ours, *args), run(theirs, *args)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            torch.cuda.synchronize()
+            bf16 = args[0].dtype == torch.bfloat16
+            err = max(float((a.float() - b.float()).abs().max()
+                            / b.float().abs().max().clamp(min=1e-30))
+                      for a, b in zip(got, want))
+            ok = (err <= FLASH_BF16_TOL if bf16 else
+                  all(torch.equal(a, b) for a, b in zip(got, want)))
+            del got, want
+            turns = [device_ms(lambda lib=lib: run(lib, *args))
+                     for lib in (ours, theirs, theirs, ours)]
+            line = {"kernel": f"flash_attention_backward_{kernel}",
+                    "path": where, "dtype": str(args[0].dtype)[6:],
+                    "shape": list(args[0].shape),
+                    "strides": [list(t.stride()) for t in args[:4]],
+                    "device_ms": (turns[0] + turns[3]) / 2,
+                    "other_device_ms": (turns[1] + turns[2]) / 2,
+                    "turns_ms": turns, "max_rel_err": err,
+                    "tol": FLASH_BF16_TOL if bf16 else 0.0, "agree": ok}
+            line["factor"] = line["other_device_ms"] / line["device_ms"]
+            t = totals[(line["kernel"], where)]
+            t["calls"] += 1
+            t["device_ms"] += line["device_ms"]
+            t["other_device_ms"] += line["other_device_ms"]
+            print(json.dumps(line), flush=True)
+            ok_all &= ok
+    for (kernel, where), t in totals.items():
+        print(json.dumps({"kernel": kernel, "path": where, "summed_over_calls": {
+            **t, "factor": t["other_device_ms"] / t["device_ms"]}}), flush=True)
+    return ok_all
+
+
 def deform_split(split: dict) -> dict:
     """A deformable backward's device ms by pass: keys, record pass, sort
     (and the ranges' search), input sum, offsets (with the splits' sum),
@@ -658,17 +788,22 @@ def main() -> int:
         return 2
     libs = {n: (_kernels.load(n), build_other(n, other)) for n in names}
     calls = {}
-    if any(n not in BACKWARD + DEFORM for n in names):
+    if any(n not in BACKWARD + DEFORM + FLASH for n in names):
         calls.update({n: [("forward", a) for a in c]
                       for n, c in record_inputs().items()})
     if any(n in BACKWARD for n in names):
         calls.update(record_backward_inputs())
     if any(n in DEFORM for n in names):
         calls.update(record_deform_inputs())
+    if any(n in FLASH for n in names):
+        calls.update(record_flash_inputs())
     failed = False
     for name in names:
-        run = RUNNERS[name]
         ours, theirs = libs[name]
+        if name in FLASH:
+            failed |= not compare_flash(ours, theirs, calls[name])
+            continue
+        run = RUNNERS[name]
         if name in DEFORM:
             failed |= not compare_deform(name, ours, theirs, calls[name])
             continue

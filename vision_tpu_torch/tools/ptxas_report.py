@@ -1,7 +1,9 @@
 """Registers, shared memory and spills of every CUDA kernel of the package,
 as ``ptxas`` reports them: each ``csrc/*.cu`` is compiled once more with the
 package's own flags plus ``-Xptxas -v`` (all sources in parallel, into a
-temporary directory), and one line per kernel entry is printed.
+temporary directory), and one line per kernel entry is printed, with its
+spills and any warning of ``ptxas`` about its ``wgmma`` products (serialised
+products, for one).
 
     python -m vision_tpu_torch.tools.ptxas_report [kernel ...]
 
@@ -50,6 +52,8 @@ def main() -> int:
                 elif "Used" in line and "registers" in line:
                     print(f"{entry}: {line.split(':', 1)[1].strip()}")
                 elif "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
+                    print(f"{entry}: {line.strip()}")
+                elif "wgmma" in line or "Performance" in line:
                     print(f"{entry}: {line.strip()}")
     return 1 if failed else 0
 
