@@ -131,6 +131,7 @@ CLS_SCALE = 30.0
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12  # H100 SXM, FP32 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores
+PEAK_TF32_FLOPS = 495e12  # H100 SXM, dense TF32 on the tensor cores
 BATCH = 32  # ResNet-50 phases: [BATCH, 3, 224, 224]
 LR = 0.1  # SGD, momentum 0.9, weight decay 1e-4
 # The first step's loss, logits and statistics are held to 1e-3 and 1e-4.
@@ -411,6 +412,22 @@ def peak_flops(t) -> float:
     return PEAK_BF16_FLOPS if t.dtype == torch.bfloat16 else PEAK_F32_FLOPS
 
 
+def product_peak(t):
+    """``(rate, by)``: the card's peak rate of matrix-product operations on
+    ``t``'s element type. bf16 on the tensor cores (``"bf16"``); f32 the
+    faster of the FP32 units (``"fp32_units"``) and the tensor cores taking
+    each product as three TF32 products at f32 accuracy (``"3xtf32"``,
+    495 / 3 TFLOP/s). Elementwise and gather work stays at
+    :func:`peak_flops`."""
+    import torch
+
+    if t.dtype == torch.bfloat16:
+        return PEAK_BF16_FLOPS, "bf16"
+    tf32 = PEAK_TF32_FLOPS / 3
+    return (tf32, "3xtf32") if tf32 > PEAK_F32_FLOPS else (
+        PEAK_F32_FLOPS, "fp32_units")
+
+
 def nms_work(args):
     """Bytes: boxes and valid read, keep written. Operations: the IoU test
     of every pair of valid rows (an invalid row is tested against none),
@@ -425,7 +442,8 @@ def nms_work(args):
 
 def matmul_work(args):
     """Bytes: x, w (and scale, shift) read once, y, s1, s2 written once.
-    Operations: 2*M*K*N, against the peak of the operands' type."""
+    Operations: 2*M*K*N, against the peak of a product on the operands'
+    type (:func:`product_peak`)."""
     import torch
 
     x, w = args[:2]
@@ -434,7 +452,7 @@ def matmul_work(args):
     nbytes = (m * k + k * n + m * n) * x.element_size() + 2 * n * 4
     if matmul_key(args)[2]:
         nbytes += 2 * k * 4
-    return nbytes, 2.0 * m * k * n, peak_flops(x)
+    return nbytes, 2.0 * m * k * n, product_peak(x)[0]
 
 
 def window_work(args):
@@ -2463,10 +2481,14 @@ def flash_work(name, q):
 def flash_bound(name, q) -> dict:
     """The least time of one call: the larger of the bytes over the memory
     rate and the operations, which are the larger of the products over the
-    peak of q's type and the exponentials over the SFUs' rate."""
+    peak of a product on q's type (``products_by``, :func:`product_peak`:
+    in f32, three TF32 products on the tensor cores) and the exponentials
+    over the SFUs' rate."""
     nbytes, products, exps = flash_work(name, q)
+    rate, products_by = product_peak(q)
     t = {"bytes_bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
-         "products_bound_ms": products / peak_flops(q) * 1e3,
+         "products_bound_ms": products / rate * 1e3,
+         "products_by": products_by,
          "exp_bound_ms": exps / EXP_PER_S * 1e3}
     ops = max(t["products_bound_ms"], t["exp_bound_ms"])
     by_bytes = t["bytes_bound_ms"] >= ops
@@ -2631,7 +2653,8 @@ def flash_row(case, launches, row_name) -> dict:
     source, replaces = SOURCES[case["kernel"]]
     keep = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "max_rel_err", "tol", "dtype", "path",
-            "shape", "bytes_bound_ms", "products_bound_ms", "exp_bound_ms",
+            "shape", "bytes_bound_ms", "products_bound_ms", "products_by",
+            "exp_bound_ms",
             "operations_bound_ms", "library_device_ms", "sdpa_backward_ms",
             "sdpa_backward_device_ms", "same_bits_twice", "lse_max_abs_err")
     return {"name": row_name, "route": "cuda", "source": source,
@@ -3476,7 +3499,7 @@ def matmul_stats_rows(kernels, calls, counts, calls16, counts16, launches):
                  s2_rel_err=rel[2], s_tol=1e-4, same_bits_twice=same,
                  general_y_rel_err=rel_g[0], general_s1_rel_err=rel_g[1],
                  general_s2_rel_err=rel_g[2], **t, bound_ms=b_ms,
-                 bound_by=b_by)
+                 bound_by=b_by, products_by=product_peak(x)[1])
             if rel[0] > y_tol or max(rel[1:]) > 1e-4:
                 raise RuntimeError(f"matmul_stats_{name} {key} disagrees with "
                                    f"its plain version: {rel}")
@@ -3518,9 +3541,11 @@ def matmul_stats_rows(kernels, calls, counts, calls16, counts16, launches):
 
     general_f32 = dict(f32, ms=f32["general_ms"],
                        device_ms=f32["general_device_ms"])
+    f32_by = product_peak(torch.empty(0))[1]
     return [
         row("matmul_stats_fma", "matmul_stats_fma.cu", f32, launches["fma"],
-            worst["fma"], dtype="float32", general_ms=f32["general_ms"],
+            worst["fma"], dtype="float32", products_by=f32_by,
+            general_ms=f32["general_ms"],
             general_device_ms=f32["general_device_ms"],
             distinct_cases=len(calls["matmul_stats"])),
         row("matmul_stats_wgmma", "matmul_stats_wgmma.cu", bf16,
@@ -3531,6 +3556,7 @@ def matmul_stats_rows(kernels, calls, counts, calls16, counts16, launches):
         # the guarded kernel, at the f32 cases (its bf16 times beside them)
         row("matmul_stats", "matmul_stats.cu", general_f32,
             launches["general"], worst["general_f32"], dtype="float32",
+            products_by=f32_by,
             max_abs_err_bf16=worst["general_bf16"],
             ms_bf16=bf16["general_ms"], device_ms_bf16=bf16["general_device_ms"],
             plain_ms_bf16=bf16["plain_ms"], bound_ms_bf16=bf16["bound_ms"]),

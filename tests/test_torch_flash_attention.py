@@ -7,7 +7,9 @@ this file only), forward and ``jax.vjp``; the port's gate against JAX's
 ``_flash_supported`` with the backend taken for a TPU; the routing of
 ``scaled_dot_product_attention`` on CPU tensors, at head dims past 128
 too (256 and 384: the gate says flash, and the plain versions take any
-head dim, forward and, at 256, ``jax.vjp``).
+head dim, forward and, at 256, ``jax.vjp``); the f32 backward kernels'
+arithmetic, every product as three TF32 products, emulated in torch and
+held against ``jax.vjp`` at the f32 tolerance.
 
 Tolerances, of the largest JAX value: f32 1e-5 (measured ~1e-6: sums in
 another order, the library's per-block renormalisation); bf16 1e-2
@@ -179,3 +181,61 @@ def test_a_head_dim_past_128_has_jax_gradients_on_the_cpu(jax_flash, dt):
     for name, g, w in zip(("dq", "dk", "dv"), grads, want):
         assert g.dtype == TDT[dt] and g.shape == q.shape
         assert _rel(g.float().numpy(), w) <= TOL[dt], name
+
+
+def _tf32(x):
+    """f32 rounded to tf32 (10 mantissa bits), to nearest with ties away
+    from zero, on the int32 view (``cvt.rna.tf32.f32``'s rounding, which the
+    kernels do on the bits)."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_truncated(x):
+    """f32 with its low 13 bits dropped: how the tensor core reads a tf32
+    operand that holds more bits."""
+    return (x.view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """``a @ b`` as the f32 backward kernels take it on the tensor cores:
+    ``x = hi + lo``, ``hi = tf32(x)``, ``lo = x - hi`` (read truncated to
+    tf32), and ``a_hi b_lo + a_lo b_hi + a_hi b_hi`` summed in f32."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32_truncated(a - a_hi), _tf32_truncated(b - b_hi)
+    return a_hi @ b_lo + a_lo @ b_hi + a_hi @ b_hi
+
+
+def _mm_tf32(a, b):
+    """``a @ b`` as one TF32 product (the operands rounded once)."""
+    return _tf32(a) @ _tf32(b)
+
+
+def _backward_emulated(mm, q, k, v, do, lse, di, scale):
+    """``(dq, dk, dv)`` in the f32 dK/dV and dQ kernels' arithmetic, every
+    product taken by ``mm``: ``p = exp(scale q k^T - lse)``, ``dv = p^T
+    do``, ``ds = p (do v^T - di) scale``, ``dk = ds^T q``, ``dq = ds k``."""
+    p = torch.exp(mm(q, k.transpose(-2, -1)) * scale - lse[..., None])
+    dv = mm(p.transpose(-2, -1), do)
+    ds = p * (mm(do, v.transpose(-2, -1)) - di[..., None]) * scale
+    return mm(ds, k), mm(ds.transpose(-2, -1), q), dv
+
+
+@pytest.mark.parametrize("case", [(s, "float32") for s in SHAPES],
+                         indirect=True,
+                         ids=[f"{'x'.join(map(str, s))}-float32"
+                              for s in SHAPES])
+def test_3xtf32_backward_arithmetic_matches_jax_grad(case):
+    """The f32 kernels' products as three TF32 products stay within the
+    f32 tolerance of ``jax.vjp`` through JAX's dK/dV and dQ kernels; the
+    same arithmetic with one TF32 product a product does not, so the check
+    tells the two apart."""
+    dt, (q, k, v, do), _, want = case
+    o, lse = A.flash_attention_plain(q, k, v)
+    di = A._di(o, do)
+    scale = 1.0 / q.shape[-1] ** 0.5
+    got = _backward_emulated(_mm_3xtf32, q, k, v, do, lse, di, scale)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.float32 and g.shape == q.shape
+        assert _rel(g.numpy(), w) <= TOL[dt], name
+    one = _backward_emulated(_mm_tf32, q, k, v, do, lse, di, scale)
+    assert min(_rel(g.numpy(), w) for g, w in zip(one, want)) > TOL[dt]

@@ -5,18 +5,22 @@ and the dQ kernels, at S = 1, 197, 577 and 1,025 (ragged against every
 tile), D = 64 and 128, f32 and bf16, at more heads than one grid holds
 and at strided views of a packed q, k, v projection; the bf16 backward
 kernels (128-row work items, 64-row tiles, a narrow last tile) also at
-S = 63, 64, 65, 80, 81, 127, 128 and 129; the backward kernels give the
-same bits on two calls; rows past S are never read (views of longer
-buffers holding 1e4 there give the bits of contiguous copies); the
-forward and backward make no host synchronisation; an unsupported head
-dim is refused. Marked ``cuda``; every test skips where no CUDA device is
-present (decided inside the fixture). Run on a GPU host with:
+S = 63, 64, 65, 80, 81, 127, 128 and 129, and the f32 backward kernels
+(3xTF32 products; 64 fixed rows a block, 16 a warp, walked tiles of 32
+rows, 16 at D = 128) at S = 1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 127,
+128 and 129; the backward kernels give the same bits on two calls; rows
+past S are never read (views of longer buffers holding 1e4 there give the
+bits of contiguous copies); the forward and backward make no host
+synchronisation; an unsupported head dim is refused. Marked ``cuda``;
+every test skips where no CUDA device is present (decided inside the
+fixture). Run on a GPU host with:
 
     python -m pytest tests/test_torch_flash_attention_cuda.py -m cuda --noconftest
 
 Tolerances, of the largest plain value: f32 1e-5 for ``o`` and 1e-4 for the
 gradients (sums of S terms of both signs, taken in another order; ``exp2``
-with log2 e folded into the scale); ``lse`` 1e-5 absolute; bf16 2e-2 (the
+with log2 e folded into the scale; the f32 backward's products as three
+TF32 products, ~2^-21 of each); ``lse`` 1e-5 absolute; bf16 2e-2 (the
 kernel rounds ``p`` to bf16 against the running maximum of its key tile,
 the plain version against the row's maximum; each output is one bf16
 rounding of an f32 sum). A gradient's largest value is taken as at least
@@ -84,14 +88,10 @@ def test_kernels_match_the_plain_versions(dev, s, d, dtype):
     _check(*_inputs(dev, dtype, s, d))
 
 
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("s", [1, 63, 64, 65, 80, 81, 127, 128, 129, 577,
-                               1025])
-def test_bf16_backward_at_the_tile_edges(dev, s, d):
-    """The bf16 dK/dV and dQ kernels own 128 rows a work item and walk
-    64-row tiles, a last tile of at most 16 valid rows as 16: S on either
-    side of each (80 leaves 16 in the last tile, 81 leaves 17)."""
-    q, k, v, do = _inputs(dev, torch.bfloat16, s, d, seed=6)
+def _check_backward(dev, dtype, s, d, seed):
+    """The dK/dV and dQ kernels against their plain versions at one shape:
+    finite, within the type's gradient tolerance."""
+    q, k, v, do = _inputs(dev, dtype, s, d, seed=seed)
     want_o, lse = A.flash_attention_plain(q, k, v)
     di = A._di(want_o, do)
     dk, dv = A.flash_attention_dkv_cuda(q, k, v, do, lse, di)
@@ -100,9 +100,30 @@ def test_bf16_backward_at_the_tile_edges(dev, s, d):
     want_dq = A.flash_attention_dq_plain(q, k, v, do, lse, di)
     torch.cuda.synchronize()
     for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
-        assert got.dtype == torch.bfloat16 and got.shape == q.shape
+        assert got.dtype == dtype and got.shape == q.shape
         assert bool(torch.isfinite(got).all())
-        assert _rel(got, want, GRAD_FLOOR) <= TOL[torch.bfloat16][1]
+        assert _rel(got, want, GRAD_FLOOR) <= TOL[dtype][1]
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 80, 81, 127, 128, 129, 577,
+                               1025])
+def test_bf16_backward_at_the_tile_edges(dev, s, d):
+    """The bf16 dK/dV and dQ kernels own 128 rows a work item and walk
+    64-row tiles, a last tile of at most 16 valid rows as 16: S on either
+    side of each (80 leaves 16 in the last tile, 81 leaves 17)."""
+    _check_backward(dev, torch.bfloat16, s, d, seed=6)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 127,
+                               128, 129])
+def test_f32_backward_at_the_tile_edges(dev, s, d):
+    """The f32 dK/dV and dQ kernels give a block 64 fixed rows, a warp 16
+    of them, and walk 32-row tiles (16 at d = 128): S on either side of
+    each edge. Every product is three TF32 products, held to the plain f32
+    versions (TF32 off) at the f32 tolerance."""
+    _check_backward(dev, torch.float32, s, d, seed=8)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -18,8 +18,10 @@
 //
 // What bounds them on an H100: the products, 8 B H S^2 D operations for
 // dk, dv (q k^T, do v^T, p^T do, ds^T q) and 6 B H S^2 D for dq (q k^T,
-// do v^T, ds k), at 989 TFLOP/s in bf16 or 67 in f32, and one exponential a
-// score in each at ~3.9e12 a second. The bytes are far below.
+// do v^T, ds k), at 989 TFLOP/s in bf16 and, in f32, three TF32 products
+// each at 495 (165 TFLOP/s of f32-accurate products, against 67 on the
+// FP32 units), and one exponential a score in each at ~3.9e12 a second.
+// The bytes are far below.
 //
 // Design: no atomics, so the same inputs give the same bits on every call
 // (the repo's backward kernels keep to that). The dk/dv kernel gives a
@@ -55,10 +57,35 @@
 //   (no faster); at D = 64 the fixed rows as register A fragments for s
 //   and dp (wrong after the first tile); two blocks an SM (the consumers'
 //   registers leave room for one).
-// * f32: the FP32 units, no TF32; a row (query or key) belongs to D / 16
-//   neighbouring threads holding 16 of its values each, dot products summed
-//   by shuffles, the walked rows read from shared memory as broadcast
-//   float4s, double-buffered by cp.async.
+// * f32 (redesigned from a first design on the FP32 units, a row on D / 16
+//   threads): every product on the tensor cores as three TF32 products,
+//   mma.sync m16n8k8 a_hi b_lo + a_lo b_hi + a_hi b_hi into f32 sums
+//   (flash_common.cuh: hi rounded to tf32 on the bits, lo = x - hi read
+//   truncated by the tensor core), whatever
+//   torch.backends.cuda.matmul.allow_tf32 says: ~2^-21 of each product, f32
+//   accuracy, held to the plain f32 versions at 1e-4 of the largest
+//   gradient (one TF32 product alone reads 5e-4 to 1e-3 in a CPU
+//   emulation). What bounds them now: the three passes, on mma.sync, whose
+//   TF32 rate on this card is ~300-320 TFLOP/s (tools/tf32_probe.py; 495
+//   is wgmma's),
+//   and the instructions around them: each walked element is split into hi
+//   and lo as its fragment is read (an add, a mask and a subtraction), and
+//   the exponentials. A block of 4 warps owns 64 fixed rows (keys in dk/dv,
+//   queries in dq), 16 a warp (one m16 slice); those rows arrive once,
+//   split into hi and lo arrays in shared memory. The walked tensors (q and
+//   do with lse and di, or k and v) stream in tiles of 32 rows (16 at D =
+//   128, for registers) double-buffered by cp.async; lse and di of dq's
+//   own rows sit in registers. Shared rows have a pitch of D + 4 floats, so
+//   every fragment read is free of bank conflicts (score products' B: bank
+//   4g + t; updates' B: 8t + g). The fragment permutation: p and ds become
+//   the update's A operand in place, a thread's accumulator columns 2t and
+//   2t + 1 taken as depth slots t and t + 4; the update's B then reads rows
+//   2t and 2t + 1 of each 8-deep slice (load_b_kn_tf32) in place of rows t
+//   and t + 4. The sums: the tensor core truncates each sum it returns, so
+//   the score products keep their small passes in sums of their own and dp
+//   - di restarts its big sum every second step (scores); exp2 runs once a
+//   score; p = 0 past S. 105 KB of shared memory a block at D = 64 (two
+//   blocks an SM), 169 KB at D = 128 (one).
 
 #include "flash_common.cuh"
 #include "sm90_common.cuh"
@@ -673,63 +700,186 @@ int run(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace bwd
 
-// ---- f32 --------------------------------------------------------------------
+// ---- f32 (3xTF32 on mma.sync) ----------------------------------------------
 
-constexpr int kTile = 64;  // rows of a walked tile
-constexpr int kC = 4;  // float4 chunks of a row a thread: D / 16 threads a row
+namespace f32 {
+
+constexpr int kRows = 64;  // fixed rows a block: 4 warps of 16 (one m16 each)
+constexpr int kThreads = 128;
 
 template <int D>
-constexpr int f32_smem() {  // two walked [64][D + 4] tiles double-buffered
-  return 4 * kTile * (D + 4) * static_cast<int>(sizeof(float)) +
-         4 * kTile * static_cast<int>(sizeof(float));
+__host__ __device__ constexpr int walk_rows() {  // rows of a walked tile
+  return D == 64 ? 32 : 16;                      // (registers at D = 128)
+}
+
+// the fixed rows of two tensors split into hi and lo [4][kRows][D + 4];
+// the walked tiles of two tensors double-buffered [4][W][D + 4]; dk/dv
+// also lse and di [2][2][W]
+template <int D, bool kDkv>
+constexpr int smem_bytes() {
+  return (4 * kRows * (D + 4) + 4 * walk_rows<D>() * (D + 4) +
+          (kDkv ? 4 * walk_rows<D>() : 0)) *
+         static_cast<int>(sizeof(float));
+}
+
+// Rows row0 .. row0 + kRows - 1 of one head ([S, D], row stride ss) split
+// into tf32 hi and lo [kRows][P]; rows at or past seq are zeros.
+template <int D, int P>
+__device__ __forceinline__ void load_split(float* hi, float* lo,
+                                           const float* g, long long ss,
+                                           int row0, int seq, int tid) {
+  constexpr int kPer = D / 4;  // float4 chunks a row
+#pragma unroll 4
+  for (int c = tid; c < kRows * kPer; c += kThreads) {
+    const int r = c / kPer, col = (c % kPer) * 4;
+    const float4 x =
+        row0 + r < seq
+            ? *reinterpret_cast<const float4*>(g + (row0 + r) * ss + col)
+            : make_float4(0.f, 0.f, 0.f, 0.f);
+    uint4 h, l;
+    flash::split_tf32(x.x, h.x, l.x);
+    flash::split_tf32(x.y, h.y, l.y);
+    flash::split_tf32(x.z, h.z, l.z);
+    flash::split_tf32(x.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(hi + r * P + col) = h;
+    *reinterpret_cast<uint4*>(lo + r * P + col) = l;
+  }
+}
+
+// This warp's 16 fixed rows (split in shared memory) against the W walked
+// rows of a tile, over depth D: s (+)= a walk_s^T and dp (+)= c walk_d^T.
+// Each product is three passes, a_hi b_lo + a_lo b_hi into a small sum
+// (s_lo, dp_lo) and a_hi b_hi into a big one. The tensor core truncates
+// the sums it returns, which biases a long chain into one sum by up to half
+// an f32 step a link; dp - di (dp summed from -di) is a difference of two
+// near-equal sums where attention is near-uniform (one key gives exactly
+// 0), so dp's big sum restarts from zero every second 8-deep step and is
+// added to dp in f32 (to nearest). At one key, where dq and dk are round-off
+// alone, they then read 7.3e-7 from the plain version's at most, against
+// 2.0e-6 with every pass in one sum (the tests allow 1e-6).
+template <int D, int W, int P>
+__device__ __forceinline__ void scores(float (*s)[4], float (*s_lo)[4],
+                                       float (*dp)[4], float (*dp_lo)[4],
+                                       const float* a_hi, const float* a_lo,
+                                       const float* c_hi, const float* c_lo,
+                                       const float* walk_s,
+                                       const float* walk_d, int r0,
+                                       int lane) {
+  using namespace flash;
+  static_assert(D % 16 == 0, "dp's big sum restarts every second step");
+  constexpr int kUnroll = D == 64 ? 8 : 4;  // at D = 128, no spills
+  float t[W / 8][4];
+#pragma unroll kUnroll
+  for (int kc = 0; kc < D / 8; ++kc) {
+    uint32_t ah[4], al[4], ch[4], cl[4];
+    load_a_tf32<P>(ah, a_hi, r0, kc * 8, lane);
+    load_a_tf32<P>(al, a_lo, r0, kc * 8, lane);
+    load_a_tf32<P>(ch, c_hi, r0, kc * 8, lane);
+    load_a_tf32<P>(cl, c_lo, r0, kc * 8, lane);
+#pragma unroll
+    for (int n = 0; n < W / 8; ++n) {
+      uint32_t bh[2], bl[2];
+      load_b_nk_tf32<P>(bh, bl, walk_s, n * 8, kc * 8, lane);
+      mma_tf32(s_lo[n], ah, bl[0], bl[1]);
+      mma_tf32(s_lo[n], al, bh[0], bh[1]);
+      mma_tf32(s[n], ah, bh[0], bh[1]);
+      load_b_nk_tf32<P>(bh, bl, walk_d, n * 8, kc * 8, lane);
+      mma_tf32(dp_lo[n], ch, bl[0], bl[1]);
+      mma_tf32(dp_lo[n], cl, bh[0], bh[1]);
+      if (kc % 2 == 0) t[n][0] = t[n][1] = t[n][2] = t[n][3] = 0.f;
+      mma_tf32(t[n], ch, bh[0], bh[1]);
+      if (kc % 2 == 1) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[n][e] += t[n][e];
+      }
+    }
+  }
+}
+
+// out[16 x D] += a[16 x W] walk[W x D]: a (p or ds, this warp's sums) as
+// the A operand in place (acc_to_a_tf32), walk's rows read as B
+// (load_b_kn_tf32)
+template <int D, int W, int P>
+__device__ __forceinline__ void update(float (*out)[4], const float (*a)[4],
+                                       const float* walk, int lane) {
+  using namespace flash;
+#pragma unroll
+  for (int kc = 0; kc < W / 8; ++kc) {
+    uint32_t ah[4], al[4];
+    acc_to_a_tf32(ah, al, a[kc]);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      uint32_t bh[2], bl[2];
+      load_b_kn_tf32<P>(bh, bl, walk, kc * 8, n * 8, lane);
+      mma_3xtf32(out[n], ah, al, bh, bl);
+    }
+  }
+}
+
+// this warp's 16 rows (r0 + g, r0 + g + 8) of a [*, D] f32 output, from
+// sums over D / 8 column tiles; rows at or past seq are not stored
+template <int D>
+__device__ __forceinline__ void store_rows(float* out, const float (*c)[4],
+                                           int row0, int seq, int lane) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + lane / 4 + 8 * r;
+    if (row < seq) {
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<float2*>(out + (long long)row * D + n * 8 +
+                                   2 * (lane % 4)) =
+            make_float2(c[n][2 * r], c[n][2 * r + 1]);
+    }
+  }
 }
 
 template <int D>
-__global__ void __launch_bounds__(256) vt_flash_dkv_f32(Args a) {
+__global__ void __launch_bounds__(kThreads) vt_flash_dkv_f32(Args a) {
   using namespace flash;
-  constexpr int TPR = D / (4 * kC), ROWS = 256 / TPR, P = D + 4;
-  constexpr int TILE = kTile * P;
+  constexpr int W = walk_rows<D>(), P = D + 4, FIX = kRows * P, WALK = W * P;
   extern __shared__ float4 smem4[];
-  float* const qs = reinterpret_cast<float*>(smem4);  // [2][TILE]
-  float* const dos = qs + 2 * TILE;                    // [2][TILE]
-  float* const stats = dos + 2 * TILE;                 // [2][lse, di][64]
+  float* const k_hi = reinterpret_cast<float*>(smem4);  // [kRows][P] each
+  float* const k_lo = k_hi + FIX;
+  float* const v_hi = k_lo + FIX;
+  float* const v_lo = v_hi + FIX;
+  float* const qs = v_lo + FIX;         // [2][WALK]
+  float* const dos = qs + 2 * WALK;     // [2][WALK]
+  float* const stats = dos + 2 * WALK;  // [2][lse, di][W]
 
-  const int tid = threadIdx.x, part = tid % TPR;
-  const int key = blockIdx.x * ROWS + tid / TPR;
-  const int bh = a.bh0 + blockIdx.y, seq = a.seq;
+  const int tid = threadIdx.x, lane = tid % 32, r0 = (tid / 32) * 16;
+  const int k0 = blockIdx.x * kRows, bh = a.bh0 + blockIdx.y, seq = a.seq;
   const float* const qg = head_ptr<float>(a.q, bh, a.heads);
   const float* const dg = head_ptr<float>(a.dout, bh, a.heads);
   const float* const lse_g = a.lse + (long long)bh * seq;
   const float* const di_g = a.di + (long long)bh * seq;
 
   auto load_queries = [&](int i, int buf) {
-    load_rows<float, kTile, D, P, 256>(qs + buf * TILE, qg, a.q.ss,
-                                       i * kTile, seq, tid);
-    load_rows<float, kTile, D, P, 256>(dos + buf * TILE, dg, a.dout.ss,
-                                       i * kTile, seq, tid);
-    float* const st = stats + buf * 2 * kTile;
-    if (tid < kTile) {
-      load_stat(st + tid, lse_g, i * kTile + tid, seq);
-    } else if (tid < 2 * kTile) {
-      load_stat(st + tid, di_g, i * kTile + tid - kTile, seq);
+    load_rows<float, W, D, P, kThreads>(qs + buf * WALK, qg, a.q.ss, i * W,
+                                        seq, tid);
+    load_rows<float, W, D, P, kThreads>(dos + buf * WALK, dg, a.dout.ss, i * W,
+                                        seq, tid);
+    float* const st = stats + buf * 2 * W;
+    if (tid < W) {
+      load_stat(st + tid, lse_g, i * W + tid, seq);
+    } else if (tid < 2 * W) {
+      load_stat(st + tid, di_g, i * W + tid - W, seq);
     }
   };
   load_queries(0, 0);
   cp_async_commit();
+  load_split<D, P>(k_hi, k_lo, head_ptr<float>(a.k, bh, a.heads), a.k.ss, k0,
+                   seq, tid);
+  load_split<D, P>(v_hi, v_lo, head_ptr<float>(a.v, bh, a.heads), a.v.ss, k0,
+                   seq, tid);
 
-  const bool valid = key < seq;
-  float4 k[kC], v[kC], dk[kC], dv[kC];
-  load_part<TPR, kC>(k, valid ? head_ptr<float>(a.k, bh, a.heads) + key * a.k.ss
-                      : static_cast<const float*>(a.k.ptr),
-             part, valid);
-  load_part<TPR, kC>(v, valid ? head_ptr<float>(a.v, bh, a.heads) + key * a.v.ss
-                      : static_cast<const float*>(a.v.ptr),
-             part, valid);
+  float dk[D / 8][4], dv[D / 8][4];
 #pragma unroll
-  for (int i = 0; i < kC; ++i)
-    dk[i] = dv[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
 
-  const int ntiles = (seq + kTile - 1) / kTile;
+  const int ntiles = (seq + W - 1) / W;
   for (int i = 0; i < ntiles; ++i) {
     if (i + 1 < ntiles) {
       load_queries(i + 1, (i + 1) & 1);
@@ -739,95 +889,137 @@ __global__ void __launch_bounds__(256) vt_flash_dkv_f32(Args a) {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const float* const qt = qs + (i & 1) * TILE;
-    const float* const dt = dos + (i & 1) * TILE;
-    const float* const lse_s = stats + (i & 1) * 2 * kTile;
-    const float* const di_s = lse_s + kTile;
-    const int nvalid = min(kTile, seq - i * kTile);
-#pragma unroll 2
-    for (int u = 0; u < nvalid; ++u) {
-      const float* const qrow = qt + u * P;
-      const float* const drow = dt + u * P;
-      const float s = group_sum<TPR>(dot_part<TPR, kC>(k, qrow, part));
-      const float dp = group_sum<TPR>(dot_part<TPR, kC>(v, drow, part));
-      const float p = exp2f(s * a.scale_log2 - lse_s[u] * kLog2e);
-      axpy_part<TPR, kC>(dv, p, drow, part);
-      axpy_part<TPR, kC>(dk, p * (dp - di_s[u]) * a.scale, qrow, part);
-    }
+    const float* const qt = qs + (i & 1) * WALK;
+    const float* const dt = dos + (i & 1) * WALK;
+    const float* const lse_s = stats + (i & 1) * 2 * W;
+    const float* const di_s = lse_s + W;
+
+    // this warp's 16 keys x W queries: p^T = exp(scale k q^T - lse), 0 for
+    // queries past S; ds^T = p^T (v do^T - di) scale
+    float p[W / 8][4], p_lo[W / 8][4], ds[W / 8][4], ds_lo[W / 8][4];
+#pragma unroll
+    for (int n = 0; n < W / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[n][e] = p_lo[n][e] = ds_lo[n][e] = 0.f;
+        ds[n][e] = -di_s[n * 8 + (lane % 4) * 2 + (e & 1)];
+      }
+    scores<D, W, P>(p, p_lo, ds, ds_lo, k_hi, k_lo, v_hi, v_lo, qt, dt, r0,
+                    lane);
+#pragma unroll
+    for (int n = 0; n < W / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = n * 8 + (lane % 4) * 2 + (e & 1);
+        p[n][e] = i * W + col < seq ? exp2f((p[n][e] + p_lo[n][e]) * a.scale_log2 -
+                                            lse_s[col] * kLog2e)
+                                    : 0.f;
+        ds[n][e] = p[n][e] * (ds[n][e] + ds_lo[n][e]) * a.scale;
+      }
+    update<D, W, P>(dv, p, dt, lane);   // dv += p^T do
+    update<D, W, P>(dk, ds, qt, lane);  // dk += ds^T q
     __syncthreads();
   }
 
-  if (valid) {
-    const long long at = ((long long)bh * seq + key) * D;
-    store_part<TPR, kC>(static_cast<float*>(a.out0) + at, dk, 1.f, part);
-    store_part<TPR, kC>(static_cast<float*>(a.out1) + at, dv, 1.f, part);
-  }
+  const long long head = (long long)bh * seq * D;
+  store_rows<D>(static_cast<float*>(a.out0) + head, dk, k0 + r0, seq, lane);
+  store_rows<D>(static_cast<float*>(a.out1) + head, dv, k0 + r0, seq, lane);
 }
 
 template <int D>
-__global__ void __launch_bounds__(256) vt_flash_dq_f32(Args a) {
+__global__ void __launch_bounds__(kThreads) vt_flash_dq_f32(Args a) {
   using namespace flash;
-  constexpr int TPR = D / (4 * kC), ROWS = 256 / TPR, P = D + 4;
-  constexpr int TILE = kTile * P;
+  constexpr int W = walk_rows<D>(), P = D + 4, FIX = kRows * P, WALK = W * P;
   extern __shared__ float4 smem4[];
-  float* const ks = reinterpret_cast<float*>(smem4);  // [2][TILE]
-  float* const vs = ks + 2 * TILE;                     // [2][TILE]
+  float* const q_hi = reinterpret_cast<float*>(smem4);  // [kRows][P] each
+  float* const q_lo = q_hi + FIX;
+  float* const d_hi = q_lo + FIX;
+  float* const d_lo = d_hi + FIX;
+  float* const ks = d_lo + FIX;     // [2][WALK]
+  float* const vs = ks + 2 * WALK;  // [2][WALK]
 
-  const int tid = threadIdx.x, part = tid % TPR;
-  const int row = blockIdx.x * ROWS + tid / TPR;
-  const int bh = a.bh0 + blockIdx.y, seq = a.seq;
+  const int tid = threadIdx.x, lane = tid % 32, r0 = (tid / 32) * 16;
+  const int q0 = blockIdx.x * kRows, bh = a.bh0 + blockIdx.y, seq = a.seq;
   const float* const kg = head_ptr<float>(a.k, bh, a.heads);
   const float* const vg = head_ptr<float>(a.v, bh, a.heads);
-  load_rows<float, kTile, D, P, 256>(ks, kg, a.k.ss, 0, seq, tid);
-  load_rows<float, kTile, D, P, 256>(vs, vg, a.v.ss, 0, seq, tid);
+  load_rows<float, W, D, P, kThreads>(ks, kg, a.k.ss, 0, seq, tid);
+  load_rows<float, W, D, P, kThreads>(vs, vg, a.v.ss, 0, seq, tid);
   cp_async_commit();
+  load_split<D, P>(q_hi, q_lo, head_ptr<float>(a.q, bh, a.heads), a.q.ss, q0,
+                   seq, tid);
+  load_split<D, P>(d_hi, d_lo, head_ptr<float>(a.dout, bh, a.heads),
+                   a.dout.ss, q0, seq, tid);
 
-  const bool valid = row < seq;
-  float4 q[kC], dout[kC], dq[kC];
-  load_part<TPR, kC>(q, valid ? head_ptr<float>(a.q, bh, a.heads) + row * a.q.ss
-                      : static_cast<const float*>(a.q.ptr),
-             part, valid);
-  load_part<TPR, kC>(dout, valid ? head_ptr<float>(a.dout, bh, a.heads) +
-                               row * a.dout.ss
-                         : static_cast<const float*>(a.dout.ptr),
-             part, valid);
+  float lse2[2], di[2];
 #pragma unroll
-  for (int i = 0; i < kC; ++i) dq[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  const long long at = (long long)bh * seq + row;
-  const float lse2 = valid ? a.lse[at] * kLog2e : 0.f;
-  const float di = valid ? a.di[at] : 0.f;
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + lane / 4 + 8 * r;
+    const long long at = (long long)bh * seq + row;
+    lse2[r] = row < seq ? a.lse[at] * kLog2e : 0.f;
+    di[r] = row < seq ? a.di[at] : 0.f;
+  }
+  float dq[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
 
-  const int ntiles = (seq + kTile - 1) / kTile;
+  const int ntiles = (seq + W - 1) / W;
   for (int j = 0; j < ntiles; ++j) {
     if (j + 1 < ntiles) {
       const int nb = (j + 1) & 1;
-      load_rows<float, kTile, D, P, 256>(ks + nb * TILE, kg, a.k.ss,
-                                         (j + 1) * kTile, seq, tid);
-      load_rows<float, kTile, D, P, 256>(vs + nb * TILE, vg, a.v.ss,
-                                         (j + 1) * kTile, seq, tid);
+      load_rows<float, W, D, P, kThreads>(ks + nb * WALK, kg, a.k.ss,
+                                          (j + 1) * W, seq, tid);
+      load_rows<float, W, D, P, kThreads>(vs + nb * WALK, vg, a.v.ss,
+                                          (j + 1) * W, seq, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const float* const kt = ks + (j & 1) * TILE;
-    const float* const vt = vs + (j & 1) * TILE;
-    const int nvalid = min(kTile, seq - j * kTile);
-#pragma unroll 2
-    for (int u = 0; u < nvalid; ++u) {
-      const float* const krow = kt + u * P;
-      const float s = group_sum<TPR>(dot_part<TPR, kC>(q, krow, part));
-      const float dp = group_sum<TPR>(dot_part<TPR, kC>(dout, vt + u * P, part));
-      const float p = exp2f(s * a.scale_log2 - lse2);
-      axpy_part<TPR, kC>(dq, p * (dp - di) * a.scale, krow, part);
-    }
+    const float* const kt = ks + (j & 1) * WALK;
+    const float* const vt = vs + (j & 1) * WALK;
+
+    // this warp's 16 rows x W keys: p = exp(scale q k^T - lse), 0 for keys
+    // past S; ds = p (do v^T - di) scale
+    float p[W / 8][4], p_lo[W / 8][4], ds[W / 8][4], ds_lo[W / 8][4];
+#pragma unroll
+    for (int n = 0; n < W / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[n][e] = p_lo[n][e] = ds_lo[n][e] = 0.f;
+        ds[n][e] = -di[e / 2];
+      }
+    scores<D, W, P>(p, p_lo, ds, ds_lo, q_hi, q_lo, d_hi, d_lo, kt, vt, r0,
+                    lane);
+#pragma unroll
+    for (int n = 0; n < W / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = j * W + n * 8 + (lane % 4) * 2 + (e & 1);
+        p[n][e] = key < seq ? exp2f((p[n][e] + p_lo[n][e]) * a.scale_log2 -
+                                    lse2[e / 2])
+                            : 0.f;
+        ds[n][e] = p[n][e] * (ds[n][e] + ds_lo[n][e]) * a.scale;
+      }
+    update<D, W, P>(dq, ds, kt, lane);  // dq += ds k
     __syncthreads();
   }
 
-  if (valid)
-    store_part<TPR, kC>(static_cast<float*>(a.out0) + at * D, dq, 1.f, part);
+  store_rows<D>(static_cast<float*>(a.out0) + (long long)bh * seq * D, dq,
+                q0 + r0, seq, lane);
 }
+
+template <int D, bool kDkv>
+cudaError_t launch(const Args& a, int bh, cudaStream_t stream) {
+  const int tiles = (a.seq + kRows - 1) / kRows;
+  if (kDkv)
+    return flash::launch_heads(vt_flash_dkv_f32<D>, smem_bytes<D, true>(),
+                               tiles, bh, kThreads, a, stream);
+  return flash::launch_heads(vt_flash_dq_f32<D>, smem_bytes<D, false>(), tiles,
+                             bh, kThreads, a, stream);
+}
+
+}  // namespace f32
 
 bool fill(Args& a, const void* q, const void* k, const void* v,
           const void* dout, const void* lse, const void* di, int heads,
@@ -866,13 +1058,8 @@ extern "C" int vt_flash_attention_dkv(
   if (bf16)
     return bwd::run<true>(q, k, v, dout, lse, di, dk, dv, batch, heads, seq, d,
                           st, scale, stream);
-  using flash::launch_heads;
-  const int rows = 256 / (d / (4 * kC));
-  const int tiles = (seq + rows - 1) / rows;
-  return d == 64 ? launch_heads(vt_flash_dkv_f32<64>, f32_smem<64>(), tiles, bh,
-                                256, a, stream)
-                 : launch_heads(vt_flash_dkv_f32<128>, f32_smem<128>(), tiles,
-                                bh, 256, a, stream);
+  return d == 64 ? f32::launch<64, true>(a, bh, stream)
+                 : f32::launch<128, true>(a, bh, stream);
 }
 
 extern "C" int vt_flash_attention_dq(
@@ -893,11 +1080,6 @@ extern "C" int vt_flash_attention_dq(
   if (bf16)
     return bwd::run<false>(q, k, v, dout, lse, di, dq, nullptr, batch, heads,
                            seq, d, st, scale, stream);
-  using flash::launch_heads;
-  const int rows = 256 / (d / (4 * kC));
-  const int tiles = (seq + rows - 1) / rows;
-  return d == 64 ? launch_heads(vt_flash_dq_f32<64>, f32_smem<64>(), tiles, bh,
-                                256, a, stream)
-                 : launch_heads(vt_flash_dq_f32<128>, f32_smem<128>(), tiles,
-                                bh, 256, a, stream);
+  return d == 64 ? f32::launch<64, false>(a, bh, stream)
+                 : f32::launch<128, false>(a, bh, stream);
 }

@@ -1,7 +1,8 @@
 // Pieces shared by the flash-attention kernels (flash_attention.cu and
 // flash_attention_backward.cu): the tile loads by cp.async, the bf16 tensor
 // core product (mma.sync m16n8k16, f32 sums) with its ldmatrix operand
-// loads, and the arguments of a call.
+// loads, the f32 product as three TF32 products (mma.sync m16n8k8), and
+// the arguments of a call.
 //
 // Layout: q, k, v, do are [B, H, S, D] read through their batch, head and
 // row strides (elements; the head dim has unit stride); o, dq, dk, dv are
@@ -171,9 +172,99 @@ __device__ __forceinline__ void acc_to_a(uint32_t* a, const float* c_lo,
   a[3] = pack_bf16(c_hi[2], c_hi[3]);
 }
 
+// ---- TF32 tensor-core pieces: f32 products as three TF32 products -----------
+//
+// x = hi + lo: hi is x rounded to tf32 (10 mantissa bits; to nearest, ties
+// away, as cvt.rna.tf32.f32 rounds, but on the bits: two integer
+// operations, where ptxas expands the cvt into several), lo = x - hi in f32. An
+// mma.sync on tf32 operands ignores their low 13 bits (measured on the
+// H100), so lo enters truncated to tf32 with no operation. a b ~ a_hi b_lo
+// + a_lo b_hi + a_hi b_hi in f32 sums (CUTLASS's OpMultiplyAddFastF32,
+// "3xTF32"): the dropped a_lo b_lo and the truncation of lo leave ~2^-21 of
+// each product. The tensor core truncates each sum it returns (rounds
+// toward zero; measured), so a long chain of products into one sum
+// carries a bias of up to half an f32 step a product; where that matters
+// the caller sums short chains from zero and adds them in f32 itself.
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// c[16x8] += a[16x8] * b[8x8], tf32 operands, f32 sums. Fragments (lane =
+// 4 g + t): a0 (row g, k t), a1 (row g+8, k t), a2 (row g, k t+4), a3 (row
+// g+8, k t+4); b0 (k t, col g), b1 (k t+4, col g); c0, c1 (row g, cols 2t,
+// 2t+1), c2, c3 (row g+8).
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b at f32 accuracy: the two small terms first, then hi hi
+__device__ __forceinline__ void mma_3xtf32(float* c, const uint32_t* a_hi,
+                                           const uint32_t* a_lo,
+                                           const uint32_t* b_hi,
+                                           const uint32_t* b_lo) {
+  mma_tf32(c, a_hi, b_lo[0], b_lo[1]);
+  mma_tf32(c, a_lo, b_hi[0], b_hi[1]);
+  mma_tf32(c, a_hi, b_hi[0], b_hi[1]);
+}
+
+// The A fragment of rows r0..r0+15, depth k0..k0+7 of a [rows][PITCH]
+// array that already holds tf32 values (one of a hi / lo pair).
+template <int PITCH>
+__device__ __forceinline__ void load_a_tf32(uint32_t* a, const float* s,
+                                            int r0, int k0, int lane) {
+  const float* const p = s + (r0 + lane / 4) * PITCH + k0 + lane % 4;
+  a[0] = __float_as_uint(p[0]);
+  a[1] = __float_as_uint(p[8 * PITCH]);
+  a[2] = __float_as_uint(p[4]);
+  a[3] = __float_as_uint(p[8 * PITCH + 4]);
+}
+
+// The B fragment, split, of an f32 tile stored [n][k] (B = tile^T: the
+// walked rows of s = q k^T): n rows n0..n0+7, depth k0..k0+7.
+template <int PITCH>
+__device__ __forceinline__ void load_b_nk_tf32(uint32_t* hi, uint32_t* lo,
+                                               const float* s, int n0, int k0,
+                                               int lane) {
+  const float* const p = s + (n0 + lane / 4) * PITCH + k0 + lane % 4;
+  split_tf32(p[0], hi[0], lo[0]);
+  split_tf32(p[4], hi[1], lo[1]);
+}
+
+// The B fragment, split, of an f32 tile stored [k][n] (B = tile: do, q or
+// k in the updates), depth rows k0..k0+7, n columns n0..n0+7, with depth
+// slots t and t + 4 taken as rows 2t and 2t + 1: the order in which
+// acc_to_a_tf32 turns an accumulator's columns into depth slots.
+template <int PITCH>
+__device__ __forceinline__ void load_b_kn_tf32(uint32_t* hi, uint32_t* lo,
+                                               const float* s, int k0, int n0,
+                                               int lane) {
+  const float* const p = s + (k0 + 2 * (lane % 4)) * PITCH + n0 + lane / 4;
+  split_tf32(p[0], hi[0], lo[0]);
+  split_tf32(p[PITCH], hi[1], lo[1]);
+}
+
+// The A fragment, split, of a 16x8 f32 sum (P or dS as the left operand of
+// the next product), with no shuffle: a thread holds the sum's columns 2t
+// and 2t + 1, taken as depth slots t and t + 4 (load_b_kn_tf32 reads B's
+// rows in that order). Not the bf16 acc_to_a layout.
+__device__ __forceinline__ void acc_to_a_tf32(uint32_t* hi, uint32_t* lo,
+                                              const float* c) {
+  split_tf32(c[0], hi[0], lo[0]);  // (g, slot t) = (g, col 2t)
+  split_tf32(c[2], hi[1], lo[1]);  // (g+8, slot t)
+  split_tf32(c[1], hi[2], lo[2]);  // (g, slot t+4) = (g, col 2t+1)
+  split_tf32(c[3], hi[3], lo[3]);  // (g+8, slot t+4)
+}
+
 // ---- f32 pieces ----------------------------------------------------------------
 
-// The f32 kernels give a row (query or key) to TPR = D / (4 C) neighbouring
+// The f32 forward gives a row (query) to TPR = D / (4 C) neighbouring
 // threads; thread part p of a row holds the C float4 chunks c = TPR i + p,
 // i < C, of the head dim, so that the TPR threads read neighbouring 16-byte
 // words of a shared row.

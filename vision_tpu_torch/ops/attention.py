@@ -28,7 +28,11 @@ block); the saved row statistic is ``lse = m + log(l)`` in f32 (the
 library saves ``m`` and ``l``), and the backward recomputes
 ``p = exp(s - lse)``. In bf16 the probabilities ``p`` are rounded to bf16
 against another running maximum than the library's, so the two part by
-bf16 roundings of ``p``.
+bf16 roundings of ``p``. The f32 backward kernels take every product on the
+tensor cores as three TF32 products (``x = hi + lo``, ``a_hi b_lo + a_lo
+b_hi + a_hi b_hi`` summed in f32), whatever
+``torch.backends.cuda.matmul.allow_tf32`` says: f32 accuracy, held to the
+plain f32 versions at 1e-4 of the largest gradient on the card.
 """
 
 from __future__ import annotations
@@ -244,8 +248,9 @@ def flash_attention_dkv_cuda(q, k, v, do, lse, di,
     """The dK/dV kernel of ``csrc/flash_attention_backward.cu`` (same
     contract as :func:`flash_attention_dkv_plain`): ``(dk, dv)``,
     contiguous. A block owns a key tile and sums over every query in
-    order: no atomics, the same bits on every call. No host
-    synchronisation."""
+    order: no atomics, the same bits on every call. In f32 each product is
+    three TF32 tensor-core products at f32 accuracy, whatever
+    ``allow_tf32`` says. No host synchronisation."""
     q, k, v, do, lse, di = _backward_args("flash_attention_dkv_cuda", q, k, v,
                                           do, lse, di)
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -261,8 +266,9 @@ def flash_attention_dq_cuda(q, k, v, do, lse, di,
                             scale: Optional[float] = None):
     """The dQ kernel of ``csrc/flash_attention_backward.cu`` (same contract
     as :func:`flash_attention_dq_plain`): ``dq``, contiguous. A block owns
-    a query tile and sums over every key in order: no atomics. No host
-    synchronisation."""
+    a query tile and sums over every key in order: no atomics. In f32 each
+    product is three TF32 tensor-core products at f32 accuracy, whatever
+    ``allow_tf32`` says. No host synchronisation."""
     q, k, v, do, lse, di = _backward_args("flash_attention_dq_cuda", q, k, v,
                                           do, lse, di)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
