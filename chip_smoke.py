@@ -2549,9 +2549,9 @@ def flash_case(kernels, name, args, path) -> dict:
     """One call of flash kernel ``name`` at a recorded call's inputs, laid
     out as the path lays them: against its plain version on the card
     (``FLASH_TOL`` of the largest plain value; the forward's ``lse`` within
-    ``FLASH_LSE_TOL``; the backward kernels the same bits on a second
-    call), timed (``ms`` the wrapper clock, ``device_ms`` behind a spin
-    kernel), beside its plain version's ms, its bound and PyTorch's fused
+    ``FLASH_LSE_TOL``; every kernel the same bits on a second call),
+    timed (``ms`` the wrapper clock, ``device_ms`` behind a spin kernel),
+    beside its plain version's ms, its bound and PyTorch's fused
     attention on the same inputs (``library_ms``, the forward; for the
     backward kernels ``sdpa_backward_ms``, the whole backward of that call,
     which computes dq, dk and dv together). Prints the case and returns
@@ -2572,13 +2572,12 @@ def flash_case(kernels, name, args, path) -> dict:
         lse_err = float((got[1] - want[1]).abs().max())
         meta.update(lse_max_abs_err=lse_err, lse_tol=FLASH_LSE_TOL * max(
             1.0, float(want[1].abs().max())))
+    again = fn(*args)
+    again = again if isinstance(again, tuple) else (again,)
+    meta["same_bits_twice"] = all(torch.equal(a, b) for a, b in zip(got, again))
+    del again
+    if forward:
         got, want = got[:1], want[:1]
-    else:
-        again = fn(*args)
-        again = again if isinstance(again, tuple) else (again,)
-        meta["same_bits_twice"] = all(torch.equal(a, b)
-                                      for a, b in zip(got, again))
-        del again
     torch.cuda.synchronize()
     err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
     rel = max(float((g.float() - w.float()).abs().max() / w.float().abs().max())
@@ -2608,7 +2607,7 @@ def flash_case(kernels, name, args, path) -> dict:
                 device_ms=dev_ms, plain_ms=plain_ms, **meta,
                 **flash_bound(name, q))
     emit("kernel_case", **case)
-    if not rel <= tol or not meta.get("same_bits_twice", True) or (
+    if not rel <= tol or not meta["same_bits_twice"] or (
             forward and not meta["lse_max_abs_err"] <= meta["lse_tol"]):
         raise RuntimeError(f"{name} ({path}) disagrees with its plain version "
                            f"or with itself: {rel} > {tol}, {meta}")
@@ -2648,6 +2647,17 @@ def flash_backward_pair(kernels, args, path) -> dict:
     return line
 
 
+# the PR that redesigned each flash kernel, by (kernel, type)
+FLASH_REDESIGNED = {
+    ("flash_attention", "float32"): "PR 18",
+    ("flash_attention", "bfloat16"): "PR 18",
+    ("flash_attention_backward_dkv", "float32"): "PR 17",
+    ("flash_attention_backward_dkv", "bfloat16"): "PR 16",
+    ("flash_attention_backward_dq", "float32"): "PR 17",
+    ("flash_attention_backward_dq", "bfloat16"): "PR 16",
+}
+
+
 def flash_row(case, launches, row_name) -> dict:
     """The ``kernels`` line's row of a flash kernel at one path call."""
     source, replaces = SOURCES[case["kernel"]]
@@ -2659,6 +2669,7 @@ def flash_row(case, launches, row_name) -> dict:
             "sdpa_backward_device_ms", "same_bits_twice", "lse_max_abs_err")
     return {"name": row_name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "calls": 1,
+            "redesigned": FLASH_REDESIGNED[case["kernel"], case["dtype"]],
             **{k: case[k] for k in keep if k in case}}
 
 

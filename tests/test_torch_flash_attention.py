@@ -9,7 +9,9 @@ this file only), forward and ``jax.vjp``; the port's gate against JAX's
 too (256 and 384: the gate says flash, and the plain versions take any
 head dim, forward and, at 256, ``jax.vjp``); the f32 backward kernels'
 arithmetic, every product as three TF32 products, emulated in torch and
-held against ``jax.vjp`` at the f32 tolerance.
+held against ``jax.vjp`` at the f32 tolerance; the f32 forward kernel's
+arithmetic, its two products as three TF32 products, emulated the same way
+and held against JAX's flash output and the plain version's ``lse``.
 
 Tolerances, of the largest JAX value: f32 1e-5 (measured ~1e-6: sums in
 another order, the library's per-block renormalisation); bf16 1e-2
@@ -239,3 +241,35 @@ def test_3xtf32_backward_arithmetic_matches_jax_grad(case):
         assert _rel(g.numpy(), w) <= TOL[dt], name
     one = _backward_emulated(_mm_tf32, q, k, v, do, lse, di, scale)
     assert min(_rel(g.numpy(), w) for g, w in zip(one, want)) > TOL[dt]
+
+
+def _forward_emulated(mm, q, k, v, scale):
+    """``(o, lse)`` in the f32 forward kernel's arithmetic, both products
+    taken by ``mm``: ``s = scale q k^T``, ``p = exp(s - m)``, ``o = p v /
+    l``, ``lse = m + log(l)``."""
+    s = mm(q, k.transpose(-2, -1)) * scale
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    return mm(p, v) / l, (m + torch.log(l)).squeeze(-1)
+
+
+@pytest.mark.parametrize("case", [(s, "float32") for s in SHAPES],
+                         indirect=True,
+                         ids=[f"{'x'.join(map(str, s))}-float32"
+                              for s in SHAPES])
+def test_3xtf32_forward_arithmetic_matches_jax_flash(case):
+    """The f32 forward kernel's products as three TF32 products stay within
+    the f32 tolerance of JAX's flash output, and its ``lse`` within 1e-5 of
+    the plain version's; one TF32 product a product misses both, so the
+    check tells the two apart."""
+    dt, (q, k, v, _), want, _ = case
+    _, want_lse = A.flash_attention_plain(q, k, v)
+    scale = 1.0 / q.shape[-1] ** 0.5
+    o, lse = _forward_emulated(_mm_3xtf32, q, k, v, scale)
+    assert o.dtype == torch.float32 and o.shape == q.shape
+    assert _rel(o.numpy(), want) <= TOL[dt]
+    assert float((lse - want_lse).abs().max()) <= 1e-5
+    o, lse = _forward_emulated(_mm_tf32, q, k, v, scale)
+    assert _rel(o.numpy(), want) > TOL[dt]
+    assert float((lse - want_lse).abs().max()) > 1e-5

@@ -8,7 +8,12 @@ kernels (128-row work items, 64-row tiles, a narrow last tile) also at
 S = 63, 64, 65, 80, 81, 127, 128 and 129, and the f32 backward kernels
 (3xTF32 products; 64 fixed rows a block, 16 a warp, walked tiles of 32
 rows, 16 at D = 128) at S = 1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 127,
-128 and 129; the backward kernels give the same bits on two calls; rows
+128 and 129; the forward (bf16: 128- or 192-row work items on persistent
+blocks, 128-key tiles, a narrow last tile as 80, 64 or 16 keys; f32: 64
+rows a block, 32-key tiles, 16 at D = 128) at S = 1, 15, 16, 17, 31, 32, 33, 63,
+64, 65, 127, 128, 129, 191, 192, 193, 577 and 1,025, and at more work
+items than the card holds blocks at once; the forward and the backward
+kernels give the same bits on two calls; rows
 past S are never read (views of longer buffers holding 1e4 there give the
 bits of contiguous copies); the forward and backward make no host
 synchronisation; an unsupported head dim is refused. Marked ``cuda``;
@@ -212,6 +217,52 @@ def test_autograd_through_the_gate_matches_the_plain_gradients(dev, dtype):
     assert _rel(out.detach(), o) <= tol_o
     for got, w in zip(grads, want):
         assert _rel(got, w, GRAD_FLOOR) <= tol_g
+
+
+def _check_forward(q, k, v):
+    """The forward kernel against its plain version: finite, ``o`` within
+    the type's tolerance, ``lse`` within 1e-5 of max(1, its largest)."""
+    o, lse = A.flash_attention_forward_cuda(q, k, v)
+    want_o, want_lse = A.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert o.dtype == q.dtype and o.shape == q.shape
+    assert lse.dtype == torch.float32 and lse.shape == q.shape[:3]
+    assert bool(torch.isfinite(o).all()) and bool(torch.isfinite(lse).all())
+    assert _rel(o, want_o) <= TOL[q.dtype][0]
+    assert float((lse - want_lse).abs().max()) <= 1e-5 * max(
+        1.0, float(want_lse.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 127,
+                               128, 129, 191, 192, 193, 577, 1025])
+def test_forward_at_the_tile_edges(dev, s, d, dtype):
+    """The bf16 forward owns 64 query rows a warpgroup, two or three
+    warpgroups a work item (three at d = 64 where they leave no more of
+    them without a row than two: S = 129, 191, 192 and 1,025 take three,
+    65, 193 and 577 two), and walks 128-key tiles, a last tile as 80, 64
+    or 16 keys when those cover its valid ones; the f32 forward owns 64
+    rows a block (16 a warp) and walks 32-key tiles (16 at d = 128): S on
+    either side of each edge."""
+    _check_forward(*_inputs(dev, dtype, s, d, seed=9)[:3])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_with_more_work_items_than_blocks(dev, dtype):
+    """4 x 32 heads of 300 rows: 256 bf16 work items of 192 rows, more than
+    the persistent blocks the card holds at once (one an SM), so each block
+    walks several and reuses its q buffers."""
+    _check_forward(*_inputs(dev, dtype, 300, 64, b=4, h=32, seed=10)[:3])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [577, 1025])
+def test_forward_gives_the_same_bits_twice(dev, s, dtype):
+    q, k, v = _inputs(dev, dtype, s, 64, b=2, h=8, seed=11)[:3]
+    o, lse = A.flash_attention_forward_cuda(q, k, v)
+    o2, lse2 = A.flash_attention_forward_cuda(q, k, v)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
 def test_forward_and_backward_make_no_host_synchronisation(dev):

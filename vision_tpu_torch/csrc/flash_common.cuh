@@ -1,8 +1,8 @@
 // Pieces shared by the flash-attention kernels (flash_attention.cu and
-// flash_attention_backward.cu): the tile loads by cp.async, the bf16 tensor
-// core product (mma.sync m16n8k16, f32 sums) with its ldmatrix operand
-// loads, the f32 product as three TF32 products (mma.sync m16n8k8), and
-// the arguments of a call.
+// flash_attention_backward.cu): the tile loads by cp.async, the bf16 A
+// fragment of a product from an f32 sum, the f32 product as three TF32
+// products (mma.sync m16n8k8) with its operand loads, the arguments of a
+// call and the launch over heads.
 //
 // Layout: q, k, v, do are [B, H, S, D] read through their batch, head and
 // row strides (elements; the head dim has unit stride); o, dq, dk, dv are
@@ -99,71 +99,18 @@ __device__ __forceinline__ void load_stat(float* dst, const float* g, int idx,
   cp_async_4(dst, ok ? g + idx : g, ok);
 }
 
-// ---- bf16 tensor-core pieces ------------------------------------------------
+// ---- bf16 pieces -------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// c[16x8] += a[16x16] * b[16x8], bf16 operands, f32 sums. Fragments
-// (lane = 4 g + t): a0 (row g, k 2t..2t+1), a1 (row g+8), a2 (row g, k
-// 2t+8..), a3 (row g+8, k 2t+8..); b0 (k 2t..2t+1, col g), b1 (k 2t+8..);
-// c0, c1 (row g, cols 2t, 2t+1), c2, c3 (row g+8).
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// The A fragment of rows r0..r0+15, columns c0..c0+15 of a [rows][PITCH]
-// bf16 tile.
-template <int PITCH>
-__device__ __forceinline__ void load_a(uint32_t* a, const __nv_bfloat16* s,
-                                       int r0, int c0, int lane) {
-  ldmatrix_x4(a, s + (r0 + lane % 16) * PITCH + c0 + (lane / 16) * 8);
-}
-
-// B fragments of two n-tiles from a tile stored [n][k] (B = tile^T: the
-// keys of q k^T): n rows n0..n0+15, k columns k0..k0+15. b[0], b[1] are
-// n-tile n0's b0, b1; b[2], b[3] n-tile n0+8's.
-template <int PITCH>
-__device__ __forceinline__ void load_b_nk(uint32_t* b, const __nv_bfloat16* s,
-                                          int n0, int k0, int lane) {
-  ldmatrix_x4(b, s + (n0 + (lane / 16) * 8 + lane % 8) * PITCH + k0 +
-                     ((lane / 8) % 2) * 8);
-}
-
-// B fragments of two n-tiles from a tile stored [k][n] (B = tile: v in
-// p v): k rows k0..k0+15, n columns n0..n0+15.
-template <int PITCH>
-__device__ __forceinline__ void load_b_kn(uint32_t* b, const __nv_bfloat16* s,
-                                          int k0, int n0, int lane) {
-  ldmatrix_x4_trans(b, s + (k0 + ((lane / 8) % 2) * 8 + lane % 8) * PITCH +
-                           n0 + (lane / 16) * 8);
-}
-
 // The A fragment of a 16x16 block from two 16x8 f32 sums (the columns of
 // c_lo, then c_hi), rounded to bf16: P or dS as the left operand of the
-// next product.
+// next product (the register A layout of mma.sync m16n8k16 and, a warp's
+// 16 rows, of wgmma). Fragments (lane = 4 g + t): a0 (row g, k 2t..2t+1),
+// a1 (row g+8), a2 (row g, k 2t+8..), a3 (row g+8, k 2t+8..).
 __device__ __forceinline__ void acc_to_a(uint32_t* a, const float* c_lo,
                                          const float* c_hi) {
   a[0] = pack_bf16(c_lo[0], c_lo[1]);
@@ -260,69 +207,6 @@ __device__ __forceinline__ void acc_to_a_tf32(uint32_t* hi, uint32_t* lo,
   split_tf32(c[2], hi[1], lo[1]);  // (g+8, slot t)
   split_tf32(c[1], hi[2], lo[2]);  // (g, slot t+4) = (g, col 2t+1)
   split_tf32(c[3], hi[3], lo[3]);  // (g+8, slot t+4)
-}
-
-// ---- f32 pieces ----------------------------------------------------------------
-
-// The f32 forward gives a row (query) to TPR = D / (4 C) neighbouring
-// threads; thread part p of a row holds the C float4 chunks c = TPR i + p,
-// i < C, of the head dim, so that the TPR threads read neighbouring 16-byte
-// words of a shared row.
-template <int TPR>
-__device__ __forceinline__ float group_sum(float x) {
-#pragma unroll
-  for (int off = 1; off < TPR; off *= 2) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-template <int TPR, int C>
-__device__ __forceinline__ float dot_part(const float4* a, const float* row,
-                                          int part) {
-  float acc = 0.f;
-#pragma unroll
-  for (int i = 0; i < C; ++i) {
-    const float4 b =
-        *reinterpret_cast<const float4*>(row + 4 * (TPR * i + part));
-    acc = fmaf(a[i].x, b.x, acc);
-    acc = fmaf(a[i].y, b.y, acc);
-    acc = fmaf(a[i].z, b.z, acc);
-    acc = fmaf(a[i].w, b.w, acc);
-  }
-  return acc;
-}
-
-// acc[i] += w * row's chunks
-template <int TPR, int C>
-__device__ __forceinline__ void axpy_part(float4* acc, float w,
-                                          const float* row, int part) {
-#pragma unroll
-  for (int i = 0; i < C; ++i) {
-    const float4 b =
-        *reinterpret_cast<const float4*>(row + 4 * (TPR * i + part));
-    acc[i].x = fmaf(w, b.x, acc[i].x);
-    acc[i].y = fmaf(w, b.y, acc[i].y);
-    acc[i].z = fmaf(w, b.z, acc[i].z);
-    acc[i].w = fmaf(w, b.w, acc[i].w);
-  }
-}
-
-// this thread's chunks of a global row (zeros when !valid)
-template <int TPR, int C>
-__device__ __forceinline__ void load_part(float4* r, const float* row,
-                                          int part, bool valid) {
-#pragma unroll
-  for (int i = 0; i < C; ++i)
-    r[i] = valid ? *reinterpret_cast<const float4*>(row + 4 * (TPR * i + part))
-                 : make_float4(0.f, 0.f, 0.f, 0.f);
-}
-
-template <int TPR, int C>
-__device__ __forceinline__ void store_part(float* row, const float4* r,
-                                           float mul, int part) {
-#pragma unroll
-  for (int i = 0; i < C; ++i)
-    *reinterpret_cast<float4*>(row + 4 * (TPR * i + part)) =
-        make_float4(r[i].x * mul, r[i].y * mul, r[i].z * mul, r[i].w * mul);
 }
 
 constexpr int kMaxGridY = 65535;

@@ -28,11 +28,13 @@ block); the saved row statistic is ``lse = m + log(l)`` in f32 (the
 library saves ``m`` and ``l``), and the backward recomputes
 ``p = exp(s - lse)``. In bf16 the probabilities ``p`` are rounded to bf16
 against another running maximum than the library's, so the two part by
-bf16 roundings of ``p``. The f32 backward kernels take every product on the
-tensor cores as three TF32 products (``x = hi + lo``, ``a_hi b_lo + a_lo
-b_hi + a_hi b_hi`` summed in f32), whatever
+bf16 roundings of ``p``. The f32 kernels, forward and backward, take every
+product on the tensor cores as three TF32 products (``x = hi + lo``,
+``a_hi b_lo + a_lo b_hi + a_hi b_hi`` summed in f32), whatever
 ``torch.backends.cuda.matmul.allow_tf32`` says: f32 accuracy, held to the
-plain f32 versions at 1e-4 of the largest gradient on the card.
+plain f32 versions on the card at 1e-5 of the largest output and 1e-5 on
+``lse`` (forward) and at 1e-4 of the largest gradient (backward). The bf16
+kernels take theirs on ``wgmma`` with operands arriving by TMA.
 """
 
 from __future__ import annotations
@@ -201,8 +203,12 @@ def flash_attention_forward_cuda(q: torch.Tensor, k: torch.Tensor,
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel of ``csrc/flash_attention.cu`` (same contract as
     :func:`flash_attention_plain`). ``q``, ``k`` and ``v`` are read through
-    their strides (``_readable``); ``o`` is contiguous. No host
-    synchronisation."""
+    their strides (``_readable``); ``o`` is contiguous. A block owns its
+    query rows and walks every key in order: no atomics, the same bits on
+    every call. In f32 each product is three TF32 tensor-core products at
+    f32 accuracy, whatever ``allow_tf32`` says; in bf16 the products run on
+    ``wgmma``, k and v arriving by TMA (a tensor map the driver refuses
+    raises). No host synchronisation."""
     _check("flash_attention_forward_cuda", q, k, v)
     q, k, v = (_readable(t) for t in (q, k, v))
     b, h, s, d = q.shape

@@ -1,22 +1,28 @@
-"""Time another version of the NMS, RoIAlign and window-pool kernels, of
-the two pooler backward kernels and of the deformable convolution's two
-libraries, against the package's own, in one process on one card, on the
-inputs that ``chip_smoke.py``'s paths give them.
+"""Time other versions of the NMS, RoIAlign and window-pool kernels, of
+the two pooler backward kernels, of the deformable convolution's two
+libraries and of the flash-attention forward and backward, against the
+package's own, in one process on one card, on the inputs that
+``chip_smoke.py``'s paths give them.
 
-    python -m vision_tpu_torch.tools.compare_kernel_versions OTHER_DIR
+    python -m vision_tpu_torch.tools.compare_kernel_versions OTHER_DIR [OTHER_DIR ...]
 
-``OTHER_DIR`` holds some of ``nms.cu``, ``roi_align.cu``, ``nms_rowscan.cu``,
-``window_pool.cu``, ``window_pool_backward.cu``, ``roi_align_backward.cu``,
-``deform_conv.cu`` and ``deform_conv_backward.cu`` (these two with their
-``deform_sample.cuh``) and ``flash_attention_backward.cu`` (with the
-headers it includes: ``flash_common.cuh``, and ``sm90_common.cuh`` where
-it uses it); for example the files of an earlier commit, unpacked with
-``git archive``. Each kernel whose source is there is compared. They are built with the package's own ``nvcc`` flags into
-``OTHER_DIR/build``. The forward kernels keep the package's C entry
-points; a backward source may also have the f32-only entry points without
-the ``bf16`` flag (and, for RoIAlign, without the scratch function) that
-the backward kernels had before their bf16 variants, told apart by the
-source's own text. A deformable-convolution source may have the first
+``OTHER_DIR`` holds some of ``nms.cu``, ``roi_align.cu``,
+``nms_rowscan.cu``, ``window_pool.cu``, ``window_pool_backward.cu``,
+``roi_align_backward.cu``, ``deform_conv.cu`` and
+``deform_conv_backward.cu`` (these two with their ``deform_sample.cuh``)
+and ``flash_attention.cu`` and ``flash_attention_backward.cu`` (with the
+headers they include: ``flash_common.cuh``, and ``sm90_common.cuh``
+where they use it); for example the files of an earlier commit, unpacked
+with ``git archive``. Each kernel whose source is there is compared.
+They are built with the package's own ``nvcc`` flags into
+``OTHER_DIR/build``, all in parallel. Several directories are compared
+in turn with the package's kernels on the same recorded inputs, each
+after a line ``{"other_dir": ...}``. The forward kernels keep the
+package's C entry points; a backward source may also have the f32-only
+entry points without the ``bf16`` flag (and, for RoIAlign, without the
+scratch function) that the backward kernels had before their bf16
+variants, told apart by the source's own text.
+A deformable-convolution source may have the first
 design's entry points (a channels-last input, no tile plan; keys without
 records), also told apart by its text: it then runs with that design's
 wrapper work (the input's channels-last copy; the keys, the sort and the
@@ -59,23 +65,32 @@ turns, and the backward's is split by kernel (keys, record pass, sort,
 input sum, offsets, other). Then a line sums each request's and each
 step's calls for both versions.
 
-The flash-attention backward's inputs: ViT-B/16 at 384 px
-(``tools/vit_train.py``: ``seeded_vit``, ``RecipeStep`` at batch 64 from
-the 448x448 frames, ``chip_smoke.py``'s ``vit_b16_384_train*`` cells)
-takes one recipe step in f32 and one in amp, recording the arguments of
-the 12 dK/dV calls of each, laid out as they lie (the head views of the
-packed projection); the dQ kernel takes the same arguments. Each call's
+The flash-attention inputs: ViT-B/16 at 384 px (``tools/vit_train.py``:
+``seeded_vit``, ``RecipeStep`` at batch 64 from the 448x448 frames,
+``chip_smoke.py``'s ``vit_b16_384_train*`` cells) takes one recipe step in
+f32 and one in amp, recording the arguments of the 12 forward and the 12
+dK/dV calls of each, laid out as they lie (the head views of the packed
+projection); the dQ kernel takes the dK/dV calls' arguments. For the
+forward, ViT-L/16 at 512 px (``chip_smoke.py``'s ``vit_l16_512_forward*``
+cells: seeded, one batch of 32 seeded images) serves one batch in f32 and
+one in bf16, recording its 24 forward calls each. Each forward call's two
+outputs agree (``o`` within ``FLASH_FWD_TOL`` of the other version's
+largest value, ``lse`` within 1e-5 of max(1, its largest)), ``same_bits``
+says whether they are equal bit for bit, each version's device time is
+taken in turns, and a line a path sums the calls. Each backward call's
 outputs agree (f32 within 1e-4 of the other version's largest value: two
 f32 designs sum in other orders, the FP32 units or three TF32 products;
 bf16 within 2e-2), ``same_bits`` says whether they are equal bit for bit,
 and each version's device time, the package's wrappers
 around it, is taken in turns for the dK/dV and the dQ kernel alone, and a
-line a path sums the step's calls. Then the f32 round-off where the
-gradients of q and k vanish: dq, dk, dv at S = 1 (one key: dq and dk are
-0 in exact arithmetic) and at S = 2 and 16, ``[2, 3, S, D]`` unit normals
-over ``ROUND_OFF_SEEDS`` seeds, each version against the plain version in
-the card tests' measure (the largest difference over max(the largest
-plain value, 1e-2)); a line a shape. One JSON line per call, then the
+line a path sums the step's calls. Then the f32 round-off at a few keys,
+``[2, 3, S, D]`` unit normals at S = 1 (one key), 2 and 16 over
+``ROUND_OFF_SEEDS`` seeds, each version against the plain version: the
+forward's ``o`` (the largest difference over the largest plain value) and
+``lse`` (the largest difference), and where the gradients of q and k
+vanish (at S = 1 dq and dk are 0 in exact arithmetic) dq, dk, dv in the
+card tests' measure (the largest difference over max(the largest plain
+value, 1e-2)); a line a shape and kernel. One JSON line per call, then the
 card's name and power limit. Needs a CUDA device and ``nvcc``.
 """
 
@@ -90,6 +105,7 @@ import re
 import subprocess
 import sys
 from collections import defaultdict
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -102,12 +118,16 @@ CLS_SCALE = 30.0
 SIZE = 832
 KERNELS = ("nms", "roi_align", "nms_rowscan", "window_pool",
            "window_pool_backward", "roi_align_backward", "deform_conv",
-           "deform_conv_backward", "flash_attention_backward")
+           "deform_conv_backward", "flash_attention", "flash_attention_backward")
 BACKWARD = ("window_pool_backward", "roi_align_backward")
 DEFORM = ("deform_conv", "deform_conv_backward")
-FLASH = ("flash_attention_backward",)
+FLASH = ("flash_attention", "flash_attention_backward")
 FLASH_BF16_TOL = 2e-2  # of the largest value: p and ds rounded otherwise
 FLASH_F32_TOL = 1e-4  # of the largest value: sums in other orders
+# the forward's o, of the largest value (chip_smoke.py's FLASH_TOL); lse
+# within FLASH_LSE_TOL of max(1, its largest)
+FLASH_FWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+FLASH_LSE_TOL = 1e-5
 ROUND_OFF_SEEDS = 20
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the deformable convolution's first entry points: a channels-last input
@@ -611,13 +631,17 @@ def laid_copies(tensors):
     return tuple(out)
 
 
-def record_flash_inputs() -> dict:
-    """The arguments of the 12 dK/dV calls in one ViT-B/16 384 recipe step
-    at batch 64 in f32 and one in amp (``chip_smoke.py``'s model, frames
-    and step), laid out as they lie, each tagged with its path."""
+def record_flash_inputs(names) -> dict:
+    """The arguments of the 12 forward and the 12 dK/dV calls in one
+    ViT-B/16 384 recipe step at batch 64 in f32 and one in amp
+    (``chip_smoke.py``'s model, frames and step) and, where the forward is
+    compared, of the 24 forward calls of one ViT-L/16 512 batch of 32 in
+    f32 and one in bf16, laid out as they lie, each tagged with its path;
+    keyed by the sources in ``names``."""
     from vision_tpu_torch.tools.vit_train import (
         CROP_384,
         FRAME_384,
+        SERVE_BATCH_512,
         TRAIN_BATCH_384,
         RecipeStep,
         frames,
@@ -625,16 +649,23 @@ def record_flash_inputs() -> dict:
     )
 
     attention = _attention()
-    wrapper = attention.flash_attention_dkv_cuda
-    calls, where = [], {"tag": ""}
+    slots = {"flash_attention": "flash_attention_forward_cuda",
+             "flash_attention_backward": "flash_attention_dkv_cuda"}
+    wrappers = {n: getattr(attention, attr) for n, attr in slots.items()}
+    calls = {n: [] for n in slots}
+    where = {"tag": ""}
 
-    def rec(*args):
-        calls.append((where["tag"], laid_copies(args)))
-        return wrapper(*args)
+    def recorder(name):
+        def rec(*args):
+            if name in names:
+                calls[name].append((where["tag"], laid_copies(args)))
+            return wrappers[name](*args)
+        return rec
 
-    raw = frames(TRAIN_BATCH_384, FRAME_384)
-    attention.flash_attention_dkv_cuda = rec
+    for n, attr in slots.items():
+        setattr(attention, attr, recorder(n))
     try:
+        raw = frames(TRAIN_BATCH_384, FRAME_384)
         for dtype in (None, torch.bfloat16):
             model = seeded_vit(image_size=CROP_384)
             run = RecipeStep(model, dtype, batch_size=TRAIN_BATCH_384,
@@ -644,13 +675,32 @@ def record_flash_inputs() -> dict:
             torch.cuda.synchronize()
             del model, run
             torch.cuda.empty_cache()
+        if "flash_attention" in names:
+            model = seeded_vit(name="vit_l_16", image_size=512)
+            x = torch.randn(SERVE_BATCH_512, 3, 512, 512,
+                            generator=torch.Generator().manual_seed(0)).cuda()
+            for dtype in (torch.float32, torch.bfloat16):
+                where["tag"] = f"serve512 {str(dtype)[6:]}"
+                model.to(dtype)
+                with torch.inference_mode():
+                    model(x.to(dtype))
+                torch.cuda.synchronize()
+            del model, x
+            torch.cuda.empty_cache()
     finally:
-        attention.flash_attention_dkv_cuda = wrapper
-    return {"flash_attention_backward": calls}
+        for n, attr in slots.items():
+            setattr(attention, attr, wrappers[n])
+    return {n: c for n, c in calls.items() if n in names}
 
 
 def _attention():
     return importlib.import_module("vision_tpu_torch.ops.attention")
+
+
+def flash_forward(lib, *args):
+    """``flash_attention_forward_cuda``'s work on ``lib``'s kernel."""
+    with _library("flash_attention", lib):
+        return _attention().flash_attention_forward_cuda(*args)
 
 
 def flash_dkv(lib, *args):
@@ -665,10 +715,90 @@ def flash_dq(lib, *args):
         return _attention().flash_attention_dq_cuda(*args)
 
 
+def _flash_line(kernel, where, args, run, ours, theirs, totals, **meta):
+    """Device ms of ``run`` on both libraries in turns (package, other,
+    other, package), printed with ``meta`` and added to ``totals``."""
+    turns = [device_ms(lambda lib=lib: run(lib, *args))
+             for lib in (ours, theirs, theirs, ours)]
+    line = {"kernel": kernel, "path": where, "dtype": str(args[0].dtype)[6:],
+            "shape": list(args[0].shape),
+            "strides": [list(t.stride()) for t in args if torch.is_tensor(t)
+                        and t.dim() == 4],
+            "device_ms": (turns[0] + turns[3]) / 2,
+            "other_device_ms": (turns[1] + turns[2]) / 2,
+            "turns_ms": turns, **meta}
+    line["factor"] = line["other_device_ms"] / line["device_ms"]
+    t = totals[(kernel, where)]
+    t["calls"] += 1
+    t["device_ms"] += line["device_ms"]
+    t["other_device_ms"] += line["other_device_ms"]
+    print(json.dumps(line), flush=True)
+
+
+def _print_totals(totals) -> None:
+    for (kernel, where), t in totals.items():
+        print(json.dumps({"kernel": kernel, "path": where, "summed_over_calls": {
+            **t, "factor": t["other_device_ms"] / t["device_ms"]}}), flush=True)
+
+
+def compare_flash_forward(ours, theirs, calls) -> bool:
+    """One line per recorded forward call (agreement of o and lse, device
+    ms in turns), then one a path summing its calls, then the f32
+    round-off sweep. Returns whether every call agreed."""
+    totals = defaultdict(lambda: defaultdict(float))
+    ok_all = True
+    for where, args in calls:
+        (o, lse), (o2, lse2) = flash_forward(ours, *args), flash_forward(
+            theirs, *args)
+        torch.cuda.synchronize()
+        err = float((o.float() - o2.float()).abs().max()
+                    / o2.float().abs().max().clamp(min=1e-30))
+        lse_err = float((lse - lse2).abs().max())
+        lse_tol = FLASH_LSE_TOL * max(1.0, float(lse2.abs().max()))
+        tol = FLASH_FWD_TOL[args[0].dtype]
+        ok = err <= tol and lse_err <= lse_tol
+        same = bool(torch.equal(o, o2) and torch.equal(lse, lse2))
+        del o, lse, o2, lse2
+        _flash_line("flash_attention", where, args, flash_forward, ours,
+                    theirs, totals, max_rel_err=err, tol=tol,
+                    lse_max_abs_err=lse_err, lse_tol=lse_tol, same_bits=same,
+                    agree=ok)
+        ok_all &= ok
+    _print_totals(totals)
+    flash_forward_round_off(ours, theirs)
+    return ok_all
+
+
+def flash_forward_round_off(ours, theirs) -> None:
+    """The two versions' f32 o and lse against the plain version at one key
+    and at a few, over ``ROUND_OFF_SEEDS`` seeds (the module's docstring);
+    one line a shape: the worst and median over the seeds and how many
+    exceed the card tests' 1e-5."""
+    attention = _attention()
+    for s, d in ((1, 64), (1, 128), (2, 64), (16, 64)):
+        errs = {tag: {"o": [], "lse": []} for tag in ("device", "other")}
+        for seed in range(ROUND_OFF_SEEDS):
+            g = torch.Generator().manual_seed(seed)
+            q, k, v = (torch.randn(2, 3, s, d, generator=g).cuda()
+                       for _ in range(3))
+            want_o, want_lse = attention.flash_attention_plain(q, k, v)
+            for tag, lib in (("device", ours), ("other", theirs)):
+                o, lse = flash_forward(lib, q, k, v)
+                errs[tag]["o"].append(float((o - want_o).abs().max())
+                                      / float(want_o.abs().max()))
+                errs[tag]["lse"].append(float((lse - want_lse).abs().max()))
+        print(json.dumps({"kernel": "flash_attention", "round_off": {
+            "s": s, "d": d, "seeds": ROUND_OFF_SEEDS, **{
+                tag: {k: {"max": max(v), "median": sorted(v)[len(v) // 2],
+                          "over_1e-5": sum(x > 1e-5 for x in v)}
+                      for k, v in e.items()}
+                for tag, e in errs.items()}}}), flush=True)
+
+
 def compare_flash(ours, theirs, calls) -> bool:
-    """One line per recorded call and kernel (agreement, device ms in
-    turns), then one a path and kernel summing its calls. Returns whether
-    every call agreed."""
+    """One line per recorded call and backward kernel (agreement, device ms
+    in turns), then one a path and kernel summing its calls, then the f32
+    round-off sweep. Returns whether every call agreed."""
     totals = defaultdict(lambda: defaultdict(float))
     ok_all = True
     for where, args in calls:
@@ -685,26 +815,11 @@ def compare_flash(ours, theirs, calls) -> bool:
             ok = err <= tol
             same = all(torch.equal(a, b) for a, b in zip(got, want))
             del got, want
-            turns = [device_ms(lambda lib=lib: run(lib, *args))
-                     for lib in (ours, theirs, theirs, ours)]
-            line = {"kernel": f"flash_attention_backward_{kernel}",
-                    "path": where, "dtype": str(args[0].dtype)[6:],
-                    "shape": list(args[0].shape),
-                    "strides": [list(t.stride()) for t in args[:4]],
-                    "device_ms": (turns[0] + turns[3]) / 2,
-                    "other_device_ms": (turns[1] + turns[2]) / 2,
-                    "turns_ms": turns, "max_rel_err": err, "tol": tol,
-                    "same_bits": same, "agree": ok}
-            line["factor"] = line["other_device_ms"] / line["device_ms"]
-            t = totals[(line["kernel"], where)]
-            t["calls"] += 1
-            t["device_ms"] += line["device_ms"]
-            t["other_device_ms"] += line["other_device_ms"]
-            print(json.dumps(line), flush=True)
+            _flash_line(f"flash_attention_backward_{kernel}", where, args, run,
+                        ours, theirs, totals, max_rel_err=err, tol=tol,
+                        same_bits=same, agree=ok)
             ok_all &= ok
-    for (kernel, where), t in totals.items():
-        print(json.dumps({"kernel": kernel, "path": where, "summed_over_calls": {
-            **t, "factor": t["other_device_ms"] / t["device_ms"]}}), flush=True)
+    _print_totals(totals)
     flash_round_off(ours, theirs)
     return ok_all
 
@@ -815,33 +930,17 @@ def compare_deform(name: str, ours, theirs, calls) -> bool:
     return ok_all
 
 
-def main() -> int:
-    if len(sys.argv) != 2 or not torch.cuda.is_available():
-        print(__doc__, file=sys.stderr)
-        return 2
-    other = Path(sys.argv[1]).resolve()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    names = [n for n in KERNELS if (other / _kernels._KERNELS[n][0]).exists()]
-    if not names:
-        print(f"no kernel source in {other}", file=sys.stderr)
-        return 2
-    libs = {n: (_kernels.load(n), build_other(n, other)) for n in names}
-    calls = {}
-    if any(n not in BACKWARD + DEFORM + FLASH for n in names):
-        calls.update({n: [("forward", a) for a in c]
-                      for n, c in record_inputs().items()})
-    if any(n in BACKWARD for n in names):
-        calls.update(record_backward_inputs())
-    if any(n in DEFORM for n in names):
-        calls.update(record_deform_inputs())
-    if any(n in FLASH for n in names):
-        calls.update(record_flash_inputs())
+def compare_dir(names, our_libs, their_libs, calls) -> bool:
+    """Every kernel in ``names`` against the other version in
+    ``their_libs``, on the recorded ``calls``; one JSON line per call.
+    Returns whether every call agreed."""
     failed = False
     for name in names:
-        ours, theirs = libs[name]
+        ours, theirs = our_libs[name], their_libs[name]
         if name in FLASH:
-            failed |= not compare_flash(ours, theirs, calls[name])
+            compare = (compare_flash_forward if name == "flash_attention"
+                       else compare_flash)
+            failed |= not compare(ours, theirs, calls[name])
             continue
         run = RUNNERS[name]
         if name in DEFORM:
@@ -895,6 +994,43 @@ def main() -> int:
                 "turns_ms": turns, "max_err": err, "agree": ok, **extra}),
                 flush=True)
             failed |= not ok
+    return not failed
+
+
+def main() -> int:
+    if len(sys.argv) < 2 or not torch.cuda.is_available():
+        print(__doc__, file=sys.stderr)
+        return 2
+    others = [Path(a).resolve() for a in sys.argv[1:]]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    by_dir = {o: [n for n in KERNELS if (o / _kernels._KERNELS[n][0]).exists()]
+              for o in others}
+    empty = [str(o) for o, ns in by_dir.items() if not ns]
+    if empty:
+        print(f"no kernel source in {empty}", file=sys.stderr)
+        return 2
+    names = [n for n in KERNELS if any(n in ns for ns in by_dir.values())]
+    ours = {n: _kernels.load(n) for n in names}
+    pairs = [(o, n) for o, ns in by_dir.items() for n in ns]
+    with ThreadPoolExecutor(len(pairs)) as pool:
+        built = dict(zip(pairs, pool.map(lambda p: build_other(p[1], p[0]),
+                                         pairs)))
+    calls = {}
+    if any(n not in BACKWARD + DEFORM + FLASH for n in names):
+        calls.update({n: [("forward", a) for a in c]
+                      for n, c in record_inputs().items()})
+    if any(n in BACKWARD for n in names):
+        calls.update(record_backward_inputs())
+    if any(n in DEFORM for n in names):
+        calls.update(record_deform_inputs())
+    if any(n in FLASH for n in names):
+        calls.update(record_flash_inputs(names))
+    failed = False
+    for other, dir_names in by_dir.items():
+        print(json.dumps({"other_dir": str(other)}), flush=True)
+        failed |= not compare_dir(dir_names, ours, {n: built[other, n]
+                                                    for n in dir_names}, calls)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
