@@ -34,6 +34,19 @@ off, seeded random weights:
   (``keypointrcnn_resnet50_fpn``) served in f32 and trained with gt
   keypoints, in f32 and in bf16: the window pool, its backward and RoIAlign at the 14x14 head
   shapes, and RoIAlign at the one-channel 28x28 mask targets;
+* the v2 detectors, ``fasterrcnn_resnet50_fpn_v2`` and
+  ``maskrcnn_resnet50_fpn_v2`` (live batch norm in the trunk and the box
+  head, an FPN with batch norm, two RPN convs, v2's mask head with batch
+  norm), served from the same two images in f32 and bf16 and trained in
+  f32 and bf16, each step 1 in lockstep with the plain twin, the trunk's
+  and box head's running statistics required to move and the FPN's and
+  mask head's to stay: the NMS, window-pool and RoIAlign kernels and both
+  backward kernels (rows ``*_v2``);
+* ``ops_rest``: ``roi_pool``, ``ps_roi_align``, ``ps_roi_pool``,
+  ``drop_block2d`` and ``stochastic_depth`` (torch composites, no kernel of
+  the repo's) at R-FCN's, Fast R-CNN's and a ResNet stage's sizes against
+  the same calls on CPU tensors, forward and gradient, device ms beside a
+  bytes bound;
 * the deform-trunk Mask R-CNN (``maskrcnn_resnet50_fpn_deform``, deformable
   3x3s in C3-C5, 13 a forward) served from the same two images in f32 and
   in bf16 and trained in f32 and in bf16, with its offset predictors drawn
@@ -233,6 +246,55 @@ RETINA_GRADS = ("head.classification_head.cls_logits.weight",
                 "backbone.fpn.extra_blocks.p6.weight",
                 "backbone.fpn.inner_blocks.2.0.weight",
                 "backbone.body.layer4.1.conv2.weight")
+# The v2 detectors (fasterrcnn_resnet50_fpn_v2, maskrcnn_resnet50_fpn_v2):
+# torchvision's parameter counts, and the trained gradients held against
+# the plain twin's: the box head's fc and last norm, the RPN head's second
+# conv, an FPN smoothing norm, a last-stage conv (and the mask head's first
+# conv and last norm)
+FASTER_V2_PARAMS = 43_712_278
+# v2's box head ends in batch norm, ReLU and an fc of 1,024: at the seeded
+# init its class scores already spread over (0.4, 1) on a 320 canvas on
+# the CPU (x30 would saturate most at 1.0), so cls_score is left as drawn
+V2_CLS_SCALE = 1.0
+# bf16 boxes of the v2 request against the plain bf16 path: AMP_BOX_TOL plus
+# 2**-7 of the box's extent. A pooled value one bf16 step away passes four
+# bf16 convs and the fc of v2's head, and a box regression output rounded
+# the other way moves an edge by a share of the box's extent, not by a
+# fixed length: on an H100 80GB HBM3 at 700 W the v2 bf16 request's rows
+# read up to 4.09 px, on boxes some 1,000 px tall (under 0.4% of the
+# extent; one bf16 step is 2**-8 of a value), with the scores within 9.1e-6
+V2_AMP_BOX_REL = 2.0 ** -7
+MASK_V2_PARAMS = 46_359_409
+V2_GRADS = ("roi_heads.box_head.5.weight", "roi_heads.box_head.3.1.weight",
+            "rpn.head.conv.1.0.weight", "backbone.fpn.layer_blocks.0.1.weight",
+            "backbone.body.layer4.2.conv3.weight")
+V2_MASK_GRADS = V2_GRADS + ("roi_heads.mask_head.0.0.weight",
+                            "roi_heads.mask_head.3.1.weight")
+# Their step-1 gradients against the plain twin's by relative Frobenius
+# norm (1e-3 f32, 5e-2 amp, as v1's by largest element): the batch norms in
+# training mode (trunk, box head) make single elements ill-conditioned. The
+# f32 step (H100 80GB HBM3, 700 W) whose losses agreed within 5e-7 read,
+# by largest element, 1.6e-3 at the box head's fc and 3.7e-3 at a
+# last-stage conv (v1: 1e-7 to 5e-6), as the CPU test of the v2 models
+# finds for either library's f32 gradients against f64
+# (tests/test_torch_rcnn_v2.py)
+V2_GRAD_NORM = "fro"
+# Below the box head's training-mode batch norm, whose backward subtracts
+# per-channel sums that nearly cancel, the f32 pooler gradient's round-off
+# (same card) moved the FPN smoothing norm's gradient by 6.2e-4 and a last-stage
+# conv's by 1.3e-3 (Frobenius; the box head's 1.0e-4 and 1.1e-4): those two
+# are held at 1e-2 in f32
+V2_GRAD_TOLS = {"backbone.fpn.layer_blocks.0.1.weight": 1e-2,
+                "backbone.body.layer4.2.conv3.weight": 1e-2}
+# the v2 batch norms whose running statistics a train step moves (trunk,
+# box head) and leaves (the FPN's, always on its running statistics; the
+# mask head's, which the loss runs on its running statistics)
+V2_MOVING = ("backbone.body.", "roi_heads.box_head.")
+V2_FIXED = ("backbone.fpn.", "roi_heads.mask_head.")
+# ops_rest: each op without a pallas_call counterpart on the card against
+# the same call on CPU tensors, forward and gradient, within this share of
+# the largest CPU value
+OPS_REST_TOL = 1e-5
 
 
 def emit(phase: str, **fields) -> None:
@@ -669,6 +731,13 @@ def main() -> int:
     rows += mask_rcnn_image_phases(kernels)
     rows += mask_rcnn_train_phase(kernels)
     torch.cuda.empty_cache()
+    rows += faster_rcnn_v2_image_phases(kernels)
+    rows += mask_rcnn_v2_image_phases(kernels)
+    torch.cuda.empty_cache()
+    rows += rcnn_v2_train_phases(kernels)
+    torch.cuda.empty_cache()
+    ops_rest_phase()
+    torch.cuda.empty_cache()
     rows += mask_rcnn_deform_phases(kernels)
     torch.cuda.empty_cache()
     rows += mask_rcnn_deform_v2_phases(kernels)
@@ -1005,7 +1074,8 @@ def plain_twin_step(kernels, model, gen, batch, dtype, grads, name=""):
 def det_train_phase(kernels, phase, name="fasterrcnn_resnet50_fpn",
                     grads=DET_GRADS, num_classes=91, f32_first=None,
                     prepare=None, require=(), model_kwargs=None,
-                    evaluate=None, **extras):
+                    evaluate=None, grad_norm="max", grad_tols=None,
+                    **extras):
     """A detector trained on the request's two images (batch 2, the 1344
     canvas, seeded gt boxes; with ``extras`` the gt masks or keypoints of
     ``train_batch``): ``DET_STEPS`` SGD steps through the kernels (the
@@ -1042,7 +1112,10 @@ def det_train_phase(kernels, phase, name="fasterrcnn_resnet50_fpn",
     (RetinaNet) runs no pooler: every loss is gated against the f32 step
     (on the same anchors and gt), and its kernel is the NMS of
     ``evaluate(model, batch, dtype)``, which the phase runs on the trained
-    model after its steps, inside the counted window. Returns the recorded
+    model after its steps, inside the counted window. ``grad_norm="fro"``
+    gates each gradient by its relative Frobenius norm, not its largest
+    element (the v2 detectors: ``V2_GRAD_NORM``); ``grad_tols`` raises
+    the named gradients' tolerances (``V2_GRAD_TOLS``). Returns the recorded
     calls, the launches and step 1's losses."""
     import torch
 
@@ -1088,9 +1161,12 @@ def det_train_phase(kernels, phase, name="fasterrcnn_resnet50_fpn",
                 for a, b in zip(run["losses"], ref["losses"])]
     grad_rel = {n: rel_errs([run["grads"][n]], [ref["grads"][n]])[0]
                 for n in grads}
+    grad_fro = {n: fro_errs(run["grads"][n], ref["grads"][n]) for n in grads}
+    gated_grads = grad_fro if grad_norm == "fro" else grad_rel
     ms = statistics.median(run["ms"][1:])
     first_tol, grad_tol = (AMP_FIRST_LOSS_TOL, AMP_GRAD_TOL) if amp else (
         1e-4, 1e-3)
+    tols = {n: max(grad_tol, (grad_tols or {}).get(n, 0.0)) for n in grads}
     gated = names if one_stage(name) else list(AMP_VS_F32_GATED)
     fields = {"evaluation": run["after"]} if evaluate else {}
     if amp:
@@ -1109,7 +1185,8 @@ def det_train_phase(kernels, phase, name="fasterrcnn_resnet50_fpn",
                    "warmup from 1e-3 over 1000 steps", lr_per_step=run["lr"],
          steps_compared=DET_STEPS, losses=run["losses"][:DET_STEPS],
          plain_losses=ref["losses"], loss_rel_err=loss_rel,
-         loss_tol=first_tol, grad_rel_err=grad_rel, grad_tol=grad_tol,
+         loss_tol=first_tol, grad_rel_err=grad_rel, grad_fro_rel_err=grad_fro,
+         grad_gate=grad_norm, grad_tol=grad_tol, grad_tols=tols,
          ms_per_step_median=ms,
          images_per_s=len(raw) / ms * 1e3, ms_all=run["ms"],
          timed_steps=TIMED_FORWARDS, peak_memory_gb=run["peak_gb"],
@@ -1134,7 +1211,7 @@ def det_train_phase(kernels, phase, name="fasterrcnn_resnet50_fpn",
                            f"step's: {vs_f32}")
     if (max(loss_rel[0].values()) > first_tol
             or max(r["loss"] for r in loss_rel[1:]) > first_tol
-            or max(grad_rel.values()) > grad_tol):
+            or any(gated_grads[n] > tols[n] for n in grads)):
         raise RuntimeError(f"{phase}: the kernel train path disagrees with "
                            "the plain path")
     first, last = run["losses"][0]["loss"], run["losses"][DET_STEPS - 1]["loss"]
@@ -1187,9 +1264,9 @@ def serve_masks(model, preset, transform, raw, dtype):
     return batch, dets, boxes, paste_masks(dets, boxes, raw)
 
 
-def scaled_detector(name, **model_kwargs):
+def scaled_detector(name, cls_scale=CLS_SCALE, **model_kwargs):
     """Detector ``name`` (``model_kwargs`` to its builder) with seeded
-    weights and ``cls_score`` scaled by ``CLS_SCALE``, so that detections
+    weights and ``cls_score`` scaled by ``cls_scale``, so that detections
     pass the score threshold."""
     import torch
 
@@ -1197,7 +1274,7 @@ def scaled_detector(name, **model_kwargs):
 
     model = get_model(name, seed=0, **model_kwargs)
     with torch.no_grad():
-        model.roi_heads.box_predictor.cls_score.weight.mul_(CLS_SCALE)
+        model.roi_heads.box_predictor.cls_score.weight.mul_(cls_scale)
     return model
 
 
@@ -1237,7 +1314,8 @@ def mask_rcnn_image_phases(kernels):
 
 
 def serve_mask_phases(kernels, name, phases, num_params=None, prepare=None,
-                      require=(), model_kwargs=None):
+                      require=(), model_kwargs=None, cls_scale=CLS_SCALE,
+                      box_rel_tol=0.0):
     """A Mask R-CNN ``name`` (``model_kwargs`` to its builder) served from
     the two raw images, in f32 (``phases[0]``) and, where ``phases`` names
     a second, in bf16 (``phases[1]``): the request of
@@ -1251,7 +1329,9 @@ def serve_mask_phases(kernels, name, phases, num_params=None, prepare=None,
     masks of the whole plain request are printed beside them).
     ``prepare(model, canvas)`` readies the f32 model on the request's
     canvas first; the kernels of ``require`` must launch too. The model
-    has ``num_params`` parameters (the published Mask R-CNN's when None).
+    has ``num_params`` parameters (the published Mask R-CNN's when None),
+    its ``cls_score`` scaled by ``cls_scale``; ``box_rel_tol`` goes to
+    ``check_detections`` in bf16.
     Returns the recorded calls of each type and the launches."""
     import torch
 
@@ -1264,7 +1344,7 @@ def serve_mask_phases(kernels, name, phases, num_params=None, prepare=None,
     raw = raw_images()
     preset = MaskRCNN_ResNet50_FPN_Weights.COCO_V1.transforms()
     transform = GeneralizedRCNNTransform()
-    model = scaled_detector(name, **(model_kwargs or {}))
+    model = scaled_detector(name, cls_scale, **(model_kwargs or {}))
     if prepare is not None:
         with torch.no_grad():
             prepare(model, transform([preset(r) for r in raw]).tensors)
@@ -1285,7 +1365,8 @@ def serve_mask_phases(kernels, name, phases, num_params=None, prepare=None,
         tag = "bf16" if bf16 else "f32"
         check_detections(dets, ref, batch=len(raw), phase=phase,
                          score_tol=AMP_SCORE_TOL if bf16 else 1e-4,
-                         box_tol=AMP_BOX_TOL if bf16 else 1e-2)
+                         box_tol=AMP_BOX_TOL if bf16 else 1e-2,
+                         box_rel_tol=box_rel_tol if bf16 else 0.0)
         valid = dets.valid
         tol = MASK_TOL
         # the mask branch through the plain versions on this request's own
@@ -1380,6 +1461,291 @@ def mask_rcnn_train_phase(kernels):
         grads=MASK_GRADS, f32_first=first, masks=True)
     return rows + backward_rows(kernels, calls, launches,
                                 "mask_rcnn_train_amp", 14, "_14x14_bf16")
+
+
+def faster_rcnn_v2_image_phases(kernels):
+    """``fasterrcnn_resnet50_fpn_v2`` served from the two raw images in f32
+    (``faster_rcnn_v2_images``) and bf16 (``faster_rcnn_v2_amp``), each
+    against the same request through the plain versions at the v1 phases'
+    tolerances; then the NMS, window-pool and RoIAlign kernels against
+    their plain versions at the requests' inputs (rows ``*_v2``,
+    ``*_v2_bf16``)."""
+    import torch
+
+    from vision_tpu_torch.models.detection import (
+        FasterRCNN_ResNet50_FPN_V2_Weights,
+        GeneralizedRCNNTransform,
+    )
+    from vision_tpu_torch.tools.detection_request import raw_images
+
+    raw = raw_images()
+    preset = FasterRCNN_ResNet50_FPN_V2_Weights.COCO_V1.transforms()
+    transform = GeneralizedRCNNTransform()
+    model = scaled_detector("fasterrcnn_resnet50_fpn_v2", V2_CLS_SCALE)
+    params = sum(p.numel() for p in model.parameters())
+    if params != FASTER_V2_PARAMS:
+        raise RuntimeError(f"fasterrcnn_resnet50_fpn_v2: {params} parameters")
+    rows = []
+    for dtype, phase in ((torch.float32, "faster_rcnn_v2_images"),
+                         (torch.bfloat16, "faster_rcnn_v2_amp")):
+        bf16 = dtype == torch.bfloat16
+        tag = "bf16" if bf16 else "f32"
+        model.to(dtype)
+        calls: dict = {}
+        (batch, dets, boxes), (_, ref, _), times, launches, _ = serve_phase(
+            kernels, model, preset, transform, raw, dtype, calls)
+        emit(phase, model="fasterrcnn_resnet50_fpn_v2", params=params,
+             dtype=str(dtype)[6:], images=[list(r.shape) for r in raw],
+             canvas=list(transform.fixed_size), image_sizes=batch.image_sizes,
+             ms_per_img_median=statistics.median(times), ms_per_img_all=times,
+             requests=TIMED_FORWARDS, launches=launches)
+        require_launched(launches, ("nms", f"window_pool_{tag}",
+                                    f"roi_align_{tag}"), phase)
+        if bf16 and (launches["window_pool_f32"] or launches["roi_align_f32"]):
+            raise RuntimeError(f"{phase} launched an f32 pooler kernel: "
+                               f"{launches}")
+        check_detections(dets, ref, batch=len(raw), phase=phase,
+                         score_tol=AMP_SCORE_TOL if bf16 else 1e-4,
+                         box_tol=AMP_BOX_TOL if bf16 else 1e-2,
+                         box_rel_tol=V2_AMP_BOX_REL if bf16 else 0.0)
+        check_mapped_boxes(boxes, raw)
+        for name in ("nms", "window_pool", "roi_align"):
+            cases = [kernel_case(kernels, name, args, phase)
+                     for args in calls[name]]
+            rows.append(kernel_row(
+                name, cases,
+                launches[name if name == "nms" else f"{name}_{tag}"],
+                row_name=f"{name}_v2" + ("_bf16" if bf16 else ""),
+                dtype=cases[0]["dtype"], path=f"{phase} (1344x1344, batch 2)"))
+    del model
+    torch.cuda.empty_cache()
+    return rows
+
+
+def mask_rcnn_v2_image_phases(kernels):
+    """``maskrcnn_resnet50_fpn_v2`` served from the two raw images in f32
+    and bf16 (``serve_mask_phases``), then the window pool and the dense
+    fallback's RoIAlign at 14x14 against their plain versions at the
+    requests' inputs."""
+    import torch
+
+    calls, launches_by = serve_mask_phases(
+        kernels, "maskrcnn_resnet50_fpn_v2",
+        ("mask_rcnn_v2_images", "mask_rcnn_v2_amp"), num_params=MASK_V2_PARAMS,
+        cls_scale=V2_CLS_SCALE, box_rel_tol=V2_AMP_BOX_REL)
+    rows = []
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for name in ("window_pool", "roi_align"):
+            cases = [kernel_case(kernels, name, args, f"mask_rcnn_v2 ({tag}, 14x14)")
+                     for args in at_size(calls[dtype], name, 14)]
+            rows.append(kernel_row(
+                name, cases, launches_by[tag][f"{name}_{tag}"],
+                row_name=f"{name}_14x14_v2" + ("_bf16" if tag == "bf16" else ""),
+                dtype=str(dtype)[6:],
+                path=f"mask_rcnn_v2_{'amp' if tag == 'bf16' else 'images'} "
+                     "(1344x1344, batch 2; the mask pooler)"))
+    return rows
+
+
+def v2_statistics(phase):
+    """``prepare`` and ``evaluate`` hooks of ``det_train_phase`` for a v2
+    detector: the first keeps the fresh model's running statistics, the
+    second, after the steps, requires every one of ``V2_MOVING`` to have
+    moved and every one of ``V2_FIXED`` (the FPN's, and a mask head's) to
+    be as it was, and returns the counts."""
+    from vision_tpu_torch.ops.misc import BatchNorm2d
+
+    before = {}
+
+    def stats(model):
+        return {f"{mn}.{bn}": b.detach().clone()
+                for mn, m in model.named_modules() if isinstance(m, BatchNorm2d)
+                for bn, b in m.named_buffers(recurse=False) if "running" in bn}
+
+    def prepare(model, images):
+        before.update(stats(model))
+
+    def evaluate(model, batch, dtype):
+        import torch
+
+        after = stats(model)
+        moved = {n for n, v in after.items() if not torch.equal(v, before[n])}
+        wrong = sorted(n for n in after if (n in moved) != n.startswith(V2_MOVING))
+        out = {"running_statistics": len(after), "moved": len(moved),
+               "moved_by_group": {g: sum(n.startswith(g) for n in moved)
+                                  for g in V2_MOVING + V2_FIXED},
+               "wrong": wrong[:10]}
+        if wrong or not all(any(n.startswith(g) for n in after)
+                            for g in V2_MOVING + V2_FIXED[:1]):
+            raise RuntimeError(f"{phase}: running statistics broke the v2 "
+                               f"rules: {out}")
+        return out
+
+    return prepare, evaluate
+
+
+def rcnn_v2_train_phases(kernels):
+    """Both v2 detectors trained at batch 2 (``det_train_phase``: step 1 in
+    lockstep with the plain twin, then timed), in f32 and amp, the
+    trunk's and the box head's running statistics required to move and the
+    FPN's and the mask head's to stay (``v2_statistics``); then the two
+    backward kernels against their plain versions at the recorded inputs
+    (rows ``*_v2``, ``*_14x14_v2`` and their ``_bf16``)."""
+    rows = []
+    for name, phase, grads, extras, size, suffix in (
+            ("fasterrcnn_resnet50_fpn_v2", "faster_rcnn_v2_train", V2_GRADS,
+             {}, 7, "_v2"),
+            ("maskrcnn_resnet50_fpn_v2", "mask_rcnn_v2_train", V2_MASK_GRADS,
+             {"masks": True}, 14, "_14x14_v2")):
+        first = None
+        for amp in (False, True):
+            tag = phase + ("_amp" if amp else "")
+            prepare, evaluate = v2_statistics(tag)
+            calls, launches, losses = det_train_phase(
+                kernels, tag, name=name, grads=grads, f32_first=first,
+                prepare=prepare, evaluate=evaluate, grad_norm=V2_GRAD_NORM,
+                grad_tols=V2_GRAD_TOLS, **extras)
+            rows += backward_rows(kernels, calls, launches, tag, size,
+                                  suffix + ("_bf16" if amp else ""))
+            del calls
+            first = losses
+    return rows
+
+
+def ops_rest_inputs(generator):
+    """The realistic inputs of ``ops_rest_phase``, on the CPU: R-FCN's COCO
+    head (an 800x1344 image at stride 16, 81 classes x 7 x 7 score maps,
+    300 RoIs), Fast R-CNN's VGG-16 head (2 images, 512 channels, 128 RoIs
+    an image) and a ResNet stage's activations ([32, 256, 56, 56])."""
+    import torch
+
+    def rois(n, images):
+        side = torch.exp(torch.empty(n, 2).uniform_(math.log(32), math.log(512),
+                                                    generator=generator))
+        xy = torch.rand(n, 2, generator=generator) * (torch.tensor([1344.0, 800.0])
+                                                      - side).clamp(min=0)
+        b = torch.arange(images).repeat_interleave(n // images).float()
+        return torch.cat([b[:, None], xy, xy + side], 1)
+
+    return {
+        "rfcn": (torch.randn(1, 81 * 7 * 7, 50, 84, generator=generator),
+                 rois(300, 1)),
+        "vgg": (torch.randn(2, 512, 50, 84, generator=generator), rois(256, 2)),
+        "stage": torch.randn(32, 256, 56, 56, generator=generator),
+    }
+
+
+def ops_rest_phase(dev="cuda") -> list:
+    """``roi_pool``, ``ps_roi_align``, ``ps_roi_pool``, ``drop_block2d`` and
+    ``stochastic_depth`` (torch composites; the JAX package has no
+    ``pallas_call`` for them) on the card at realistic sizes, each against
+    the same call on CPU tensors (the random ones handed the card's draws),
+    forward and input gradient within ``OPS_REST_TOL`` of the largest CPU
+    value; the card's gradient twice for the same bits; host
+    synchronisations counted (PyTorch's sync debug mode); the device time
+    of the forward and of the backward (``device_ms``) beside each one's
+    bytes bound (inputs read once, output written once), and the CUDA
+    kernels each launches (``torch.profiler``). Returns one line a op."""
+    import warnings
+
+    import torch
+
+    from vision_tpu_torch import ops
+    from vision_tpu_torch.ops.drop_block import drop_block_seeds
+    from vision_tpu_torch.ops.stochastic_depth import stochastic_depth_keep
+
+    gen = torch.Generator().manual_seed(19)
+    inputs = ops_rest_inputs(gen)
+    dev = torch.device(dev)
+    cuda_gen = torch.Generator(device=dev).manual_seed(19)
+    stage = inputs["stage"]
+    seeds = drop_block_seeds(stage.shape, 0.1, 7, cuda_gen, dev)
+    keep = stochastic_depth_keep(stage.shape, 0.1, "row", cuda_gen, dev)
+    cases = {
+        "ps_roi_align": (lambda x, r, d: ops.ps_roi_align(x, r, 7, 1 / 16, 2),
+                         *inputs["rfcn"], "R-FCN COCO head: [1, 3969, 50, 84], "
+                         "300 RoIs, 7x7, scale 1/16, sr 2"),
+        "ps_roi_pool": (lambda x, r, d: ops.ps_roi_pool(x, r, 7, 1 / 16),
+                        *inputs["rfcn"], "R-FCN COCO head: [1, 3969, 50, 84], "
+                        "300 RoIs, 7x7, scale 1/16"),
+        "roi_pool": (lambda x, r, d: ops.roi_pool(x, r, 7, 1 / 16),
+                     *inputs["vgg"], "Fast R-CNN VGG-16 head: [2, 512, 50, 84], "
+                     "128 RoIs an image, 7x7, scale 1/16"),
+        "drop_block2d": (lambda x, r, d: ops.drop_block2d(
+            x, 0.1, 7, seeds=seeds.to(d)), stage, None,
+            "p 0.1, block 7 on [32, 256, 56, 56] (seeds drawn on the card)"),
+        "stochastic_depth": (lambda x, r, d: ops.stochastic_depth(
+            x, 0.1, "row", keep=keep.to(d)), stage, None,
+            "row, p 0.1 on [32, 256, 56, 56] (keep drawn on the card)"),
+    }
+    lines = []
+    for name, (fn, x, r, shape) in cases.items():
+        xc = x.detach().clone().requires_grad_()
+        out_cpu = fn(xc, r, "cpu")
+        cot = torch.randn(out_cpu.shape, generator=gen)
+        out_cpu.backward(cot)
+        xd = x.to(dev, copy=True).requires_grad_()
+        rd = r.to(dev) if r is not None else None
+        cot_d = cot.to(dev)
+        out = fn(xd, rd, dev)
+        out.backward(cot_d)
+        grad1 = xd.grad.clone()
+        xd.grad = None
+        fn(xd, rd, dev).backward(cot_d)
+        same_bits = bool(torch.equal(grad1, xd.grad))
+        scale = float(out_cpu.abs().max())
+        gscale = float(xc.grad.abs().max())
+        err = float((out.detach().cpu() - out_cpu.detach()).abs().max()) / scale
+        gerr = float((grad1.cpu() - xc.grad).abs().max()) / gscale
+        xd.grad = None
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn(xd.detach(), rd, dev)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = sum("called a synchronizing" in str(w.message) for w in caught)
+        with torch.no_grad():
+            fwd_ms = device_ms(lambda: fn(xd, rd, dev))
+
+        def fwd_bwd():
+            xd.grad = None
+            fn(xd, rd, dev).backward(cot_d)
+
+        step_ms = device_ms(fwd_bwd, launches=10)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            with torch.no_grad():
+                fn(xd, rd, dev)
+            torch.cuda.synchronize()
+        fwd_kernels = sum(e.device_type == torch.autograd.DeviceType.CUDA
+                          for e in prof.events())
+        nbytes = x.numel() * 4 + out.numel() * 4 + (
+            r.numel() * 4 if r is not None else 0)
+        grad_bytes = out.numel() * 4 + x.numel() * 4 + (
+            r.numel() * 4 if r is not None else 0)
+        fwd_bound = nbytes / PEAK_BYTES_PER_S * 1e3
+        bwd_bound = grad_bytes / PEAK_BYTES_PER_S * 1e3
+        line = dict(op=name, shape=shape, dtype="float32",
+                    max_rel_err=err, grad_max_rel_err=gerr, tol=OPS_REST_TOL,
+                    grad_same_bits_twice=same_bits, host_syncs=syncs,
+                    device_ms=fwd_ms, bound_ms=fwd_bound, bound_by="bytes",
+                    over_bound=fwd_ms / fwd_bound,
+                    backward_device_ms=step_ms - fwd_ms, backward_bound_ms=bwd_bound,
+                    backward_over_bound=(step_ms - fwd_ms) / bwd_bound,
+                    forward_backward_device_ms=step_ms,
+                    forward_kernel_launches=fwd_kernels)
+        emit("ops_rest", **line)
+        if not (err <= OPS_REST_TOL and gerr <= OPS_REST_TOL):
+            raise RuntimeError(f"ops_rest: {name} on the card disagrees with "
+                               f"the CPU: {err}, {gerr}")
+        if not bool(torch.isfinite(out).all()):
+            raise RuntimeError(f"ops_rest: {name} gave non-finite values")
+        lines.append(line)
+        del xc, xd, out, out_cpu, grad1
+        torch.cuda.empty_cache()
+    return lines
 
 
 def keypoint_check(dets, ref, maps, ref_maps, phase) -> dict:
@@ -3439,6 +3805,12 @@ def general_kernel_phase(kernels, batch, first_loss) -> int:
     return launches["matmul_stats_general"]
 
 
+def fro_errs(got, want) -> float:
+    """``|got - want| / |want|`` in the Frobenius norm, in f64."""
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm().clamp(min=1e-300))
+
+
 def rel_errs(got, want):
     return [float((g.float() - w.float()).abs().max()
                   / w.float().abs().max().clamp(min=1e-30))
@@ -3575,7 +3947,11 @@ def matmul_stats_rows(kernels, calls, counts, calls16, counts16, launches):
 
 
 def check_detections(dets, ref, batch=1, score_tol=1e-4, box_tol=1e-2,
-                     phase="faster_rcnn", per_image=100) -> None:
+                     phase="faster_rcnn", per_image=100,
+                     box_rel_tol=0.0) -> None:
+    """``dets`` against ``ref`` row by row: the same valid rows and labels,
+    scores within ``score_tol``, each box coordinate within ``box_tol``
+    plus ``box_rel_tol`` of the reference box's extent along its axis."""
     import torch
 
     for t in dets:
@@ -3590,10 +3966,18 @@ def check_detections(dets, ref, batch=1, score_tol=1e-4, box_tol=1e-2,
     label_ok = bool(torch.equal(dets.labels[valid], ref.labels[valid]))
     score_err = float((dets.scores[valid] - ref.scores[valid]).abs().max()) if n_valid else 0.0
     box_err = float((dets.boxes[valid] - ref.boxes[valid]).abs().max()) if n_valid else 0.0
+    fields = {}
+    if box_rel_tol and n_valid:
+        rb = ref.boxes[valid].float()
+        extent = (rb[:, 2:] - rb[:, :2]).repeat(1, 2)  # w, h, w, h
+        allowed = box_tol + box_rel_tol * extent
+        ratio = float(((dets.boxes[valid].float() - rb).abs() / allowed).max())
+        fields = dict(box_rel_tol=box_rel_tol, max_box_err_over_allowed=ratio)
+        box_err, box_tol = ratio, 1.0
     emit("detections_vs_plain", path=phase, valid=n_valid,
          valid_per_image=valid.sum(1).tolist(), same_valid=same_valid,
          labels_equal=label_ok, max_score_err=score_err, score_tol=score_tol,
-         max_box_err=box_err, box_tol=box_tol)
+         max_box_err=box_err, box_tol=box_tol, **fields)
     if int(valid.sum(1).min()) == 0:
         raise RuntimeError("an image without valid detections: the comparison "
                            "is vacuous")

@@ -2,12 +2,15 @@
 
 The inverse of ``vision_tpu/_torch_convert.py`` for the modules of the
 port, working on nested dicts of numpy arrays (so this module needs no
-JAX): conv kernels HWIO -> OIHW, dense kernels IO -> OI, batch norm
+JAX): conv kernels HWIO -> OIHW (3-D: DHWIO -> OIDHW), dense kernels IO -> OI, batch norm
 ``scale`` -> ``weight``, the ``batch_stats`` collection (``mean``, ``var``)
 -> ``running_mean``, ``running_var``, the ``frozen`` collection -> the
 frozen-BN buffers, and the Faster R-CNN renames (FPN
-``inner_blocks_{i}`` -> ``inner_blocks.{i}.0``, and ``fc6`` from the JAX
-HWC flatten of the pooled features to torch's CHW flatten). flax
+``inner_blocks_{i}`` -> ``inner_blocks.{i}.0``, v2's ``inner_norm_{i}``
+-> ``inner_blocks.{i}.1`` and ``layer_norm_{i}`` -> ``layer_blocks.{i}.1``,
+and ``fc6``, or v2's ``box_head.5``, from the JAX HWC flatten of the
+pooled features to torch's CHW flatten). A port module with a
+``jax_names`` dict (``ops.misc.MLP``) renames its children by it. flax
 ``GroupNorm``'s ``scale`` is a ``weight`` as batch norm's is; RetinaNet's
 extra blocks, ``backbone/extra_blocks/p6`` beside the JAX FPN, go to
 torchvision's ``backbone.fpn.extra_blocks.p6``; its towers' names
@@ -57,6 +60,8 @@ def _torch_name(collection: str, path: Tuple[str, ...]) -> str:
     *mods, leaf = path
     base = ".".join(mods)
     base = re.sub(r"\b(inner_blocks|layer_blocks)_(\d+)", r"\1.\2.0", base)
+    # the v2 FPN's norms: the second child of torchvision's block
+    base = re.sub(r"\b(inner|layer)_norm_(\d+)", r"\1_blocks.\2.1", base)
     # RetinaNet's P6 and P7 sit beside the JAX FPN, inside torchvision's
     base = re.sub(r"^backbone\.extra_blocks\.", "backbone.fpn.extra_blocks.", base)
     if collection == "params":
@@ -78,9 +83,11 @@ def _to_torch_layout(name: str, arr: np.ndarray, target: torch.Tensor,
         arr = arr.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]  # -> (in, out, kh, kw)
     elif arr.ndim == 4:  # HWIO -> OIHW
         arr = arr.transpose(3, 2, 0, 1)
+    elif arr.ndim == 5:  # DHWIO -> OIDHW
+        arr = arr.transpose(4, 3, 0, 1, 2)
     elif arr.ndim == 2:  # IO -> OI
         arr = arr.T
-        if name.endswith("box_head.fc6.weight"):
+        if name.endswith(("box_head.fc6.weight", "box_head.5.weight")):
             ph, pw = module.roi_heads.box_roi_pool.output_size
             out, flat = arr.shape
             arr = arr.reshape(out, ph, pw, flat // (ph * pw)).transpose(0, 3, 1, 2)
@@ -100,10 +107,18 @@ def load_jax_variables(module: nn.Module, variables: Mapping[str, Any]) -> None:
     none in JAX and are left alone)."""
     targets = dict(module.named_parameters())
     targets.update(module.named_buffers())
+    renames = {f"{prefix}." if prefix else "": m.jax_names
+               for prefix, m in module.named_modules()
+               if isinstance(getattr(m, "jax_names", None), dict)}
     loaded = set()
     for collection, tree in variables.items():
         for path, value in _leaves(tree):
             name = _torch_name(collection, path)
+            for prefix, names in renames.items():
+                head, _, rest = name[len(prefix):].partition(".")
+                if name.startswith(prefix) and head in names:
+                    name = f"{prefix}{names[head]}.{rest}"
+                    break
             if name not in targets:
                 raise KeyError(f"{collection}/{'/'.join(path)} -> {name}: no "
                                "such parameter or buffer")

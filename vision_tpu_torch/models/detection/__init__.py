@@ -2,8 +2,10 @@
 
 from vision_tpu_torch.models.detection.faster_rcnn import (
     FasterRCNN,
+    FasterRCNN_ResNet50_FPN_V2_Weights,
     FasterRCNN_ResNet50_FPN_Weights,
     fasterrcnn_resnet50_fpn,
+    fasterrcnn_resnet50_fpn_v2,
 )
 from vision_tpu_torch.models.detection.image_list import ImageList
 from vision_tpu_torch.models.detection.keypoint_rcnn import (
@@ -15,9 +17,11 @@ from vision_tpu_torch.models.detection.keypoint_rcnn import (
 from vision_tpu_torch.models.detection.mask_rcnn import (
     MaskDetections,
     MaskRCNN,
+    MaskRCNN_ResNet50_FPN_V2_Weights,
     MaskRCNN_ResNet50_FPN_Weights,
     maskrcnn_resnet50_fpn,
     maskrcnn_resnet50_fpn_deform,
+    maskrcnn_resnet50_fpn_v2,
 )
 from vision_tpu_torch.models.detection.retinanet import (
     RetinaNet,
@@ -39,6 +43,7 @@ from vision_tpu_torch.models.detection.transform import (
 __all__ = [
     "Detections",
     "FasterRCNN",
+    "FasterRCNN_ResNet50_FPN_V2_Weights",
     "FasterRCNN_ResNet50_FPN_Weights",
     "GeneralizedRCNNTransform",
     "ImageList",
@@ -47,14 +52,17 @@ __all__ = [
     "KeypointRCNN_ResNet50_FPN_Weights",
     "MaskDetections",
     "MaskRCNN",
+    "MaskRCNN_ResNet50_FPN_V2_Weights",
     "MaskRCNN_ResNet50_FPN_Weights",
     "RetinaNet",
     "RetinaNet_ResNet50_FPN_V2_Weights",
     "RetinaNet_ResNet50_FPN_Weights",
     "fasterrcnn_resnet50_fpn",
+    "fasterrcnn_resnet50_fpn_v2",
     "keypointrcnn_resnet50_fpn",
     "maskrcnn_resnet50_fpn",
     "maskrcnn_resnet50_fpn_deform",
+    "maskrcnn_resnet50_fpn_v2",
     "paste_masks_in_image",
     "resize_boxes",
     "resize_keypoints",

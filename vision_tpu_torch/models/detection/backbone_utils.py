@@ -11,7 +11,7 @@ convolutions into the bottlenecks of the listed stages
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -179,21 +179,23 @@ class BackboneWithFPN(nn.Module):
     (``LastLevelMaxPool`` unless given); children ``body`` and ``fpn`` as in
     torchvision. By default returns {"0", "1", "2", "3", "pool"} NCHW maps
     of ``out_channels``. ``deform_stages``, ``deform_modulated`` and
-    ``frozen_bn`` go to the trunk."""
+    ``frozen_bn`` go to the trunk, ``norm_layer`` to the FPN (the v2
+    detectors')."""
 
     def __init__(self, depth: int = 50, out_channels: int = 256,
                  deform_stages: Sequence[int] = (),
                  deform_modulated: bool = False,
                  returned_layers: Sequence[int] = (1, 2, 3, 4),
                  extra_blocks: Optional[ExtraFPNBlock] = None,
-                 frozen_bn: bool = True):
+                 frozen_bn: bool = True,
+                 norm_layer: Optional[Callable[..., nn.Module]] = None):
         super().__init__()
         self.body = ResNetTrunk(depth, deform_stages, deform_modulated,
                                 frozen_bn)
         self.returned_layers = tuple(returned_layers)
         self.fpn = FeaturePyramidNetwork(
             [self.body.out_channels[i - 1] for i in self.returned_layers],
-            out_channels, extra_blocks)
+            out_channels, extra_blocks, norm_layer)
         self.out_channels = out_channels
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:

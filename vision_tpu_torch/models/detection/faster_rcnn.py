@@ -1,5 +1,6 @@
 """Faster R-CNN ResNet-FPN inference and training loss (counterpart of
-``vision_tpu/models/detection/faster_rcnn.py``, the v1 ResNet variant).
+``vision_tpu/models/detection/faster_rcnn.py``, the ResNet variants, v1
+and v2).
 
 Backbone -> FPN -> RPN head -> fixed-size ``filter_proposals`` (top-k +
 per-level NMS) -> windowed ``MultiScaleRoIAlign`` -> box head ->
@@ -16,6 +17,15 @@ backward pass runs the window pool's and RoIAlign's backward kernels on
 the card (``parallel.train.make_detection_train_step`` wraps it in an
 optimizer step).
 
+v2 (``FasterRCNN(v2=True)``, ``fasterrcnn_resnet50_fpn_v2``): the trunk's
+batch norm is live (``models/resnet.py``'s blocks: batch statistics in
+training mode, updating the running ones), the FPN's convolutions are
+bias-free, each followed by a batch norm that always normalises by its
+running statistics (the JAX model's ``use_running_average=True``, in
+training too), the RPN head has two 3x3 convs, and the box head is
+``FastRCNNConvFCHead`` (four conv + batch norm + ReLU, then one fc), whose
+batch norm follows the training mode as the trunk's does.
+
 Amp (bf16) eval is the JAX package's switch: ``model.to(torch.bfloat16)``
 and a bf16 canvas. The trunk, the FPN, the heads and the pooled features
 run in bf16 (the pooler's kernels take bf16); anchors, box decoding, NMS
@@ -24,6 +34,7 @@ and the final softmax run in f32, so boxes and scores come out f32.
 
 from __future__ import annotations
 
+import functools
 import math
 import re
 from typing import Dict, Optional, Sequence, Union
@@ -44,33 +55,39 @@ from vision_tpu_torch.models.detection.backbone_utils import (
 )
 from vision_tpu_torch.models.detection.roi_heads import (
     Detections,
+    FastRCNNConvFCHead,
     FastRCNNPredictor,
     RoIHeads,
     TwoMLPHead,
 )
 from vision_tpu_torch.models.detection.rpn import RegionProposalNetwork, RPNHead
 from vision_tpu_torch.ops.deform_conv import DeformConv2d
+from vision_tpu_torch.ops.misc import BatchNorm2d
 from vision_tpu_torch.ops.poolers import MultiScaleRoIAlign
 from vision_tpu_torch.transforms._presets import ObjectDetection
 
 __all__ = [
     "FasterRCNN",
     "build_detector",
+    "FasterRCNN_ResNet50_FPN_V2_Weights",
     "FasterRCNN_ResNet50_FPN_Weights",
     "fasterrcnn_resnet50_fpn",
+    "fasterrcnn_resnet50_fpn_v2",
     "init_weights",
 ]
 
 _FEATMAPS = ["0", "1", "2", "3"]
 # the modules whose convolutions torchvision initialises He-normal (fan out)
-_HE_NORMAL = ("backbone.body", "roi_heads.mask_", "roi_heads.keypoint_")
+_HE_NORMAL = ("backbone.body", "roi_heads.box_head", "roi_heads.mask_",
+              "roi_heads.keypoint_")
 
 
 class FasterRCNN(nn.Module):
-    """Faster R-CNN with a frozen-BN ResNet-FPN backbone. Module and
-    state-dict names are torchvision's. ``deform_stages`` (1-based trunk
-    stages, (2, 3, 4) = C3-C5) and ``deform_modulated`` make those stages'
-    3x3 convolutions deformable (``DeformFrozenBottleneck``)."""
+    """Faster R-CNN with a ResNet-FPN backbone, frozen-BN (v1) or, with
+    ``v2``, the v2 model of the module docstring. Module and state-dict
+    names are torchvision's. ``deform_stages`` (1-based trunk stages, (2,
+    3, 4) = C3-C5) and ``deform_modulated`` make those stages' 3x3
+    convolutions deformable (``DeformFrozenBottleneck``; v1 only)."""
 
     def __init__(
         self,
@@ -85,16 +102,25 @@ class FasterRCNN(nn.Module):
         box_detections_per_img: int = 100,
         deform_stages: Sequence[int] = (),
         deform_modulated: bool = False,
+        v2: bool = False,
     ):
         super().__init__()
-        self.backbone = BackboneWithFPN(backbone_depth, out_channels=256,
-                                        deform_stages=tuple(deform_stages),
-                                        deform_modulated=deform_modulated)
+        if deform_stages and v2:
+            raise ValueError("deform_stages is only supported on the "
+                             "frozen-BN v1 trunk")
+        self.v2 = v2
+        self.backbone = BackboneWithFPN(
+            backbone_depth, out_channels=256,
+            deform_stages=tuple(deform_stages),
+            deform_modulated=deform_modulated, frozen_bn=not v2,
+            norm_layer=(functools.partial(BatchNorm2d, use_running_average=True)
+                        if v2 else None))
         sizes = ((32,), (64,), (128,), (256,), (512,))
         anchor_generator = AnchorGenerator(sizes, ((0.5, 1.0, 2.0),) * 5)
         self.rpn = RegionProposalNetwork(
             anchor_generator,
-            RPNHead(256, anchor_generator.num_anchors_per_location()[0]),
+            RPNHead(256, anchor_generator.num_anchors_per_location()[0],
+                    conv_depth=2 if v2 else 1),
             pre_nms_top_n=rpn_pre_nms_top_n,
             post_nms_top_n=rpn_post_nms_top_n,
             nms_thresh=rpn_nms_thresh,
@@ -103,7 +129,7 @@ class FasterRCNN(nn.Module):
         pool = MultiScaleRoIAlign(_FEATMAPS, 7, 2)
         self.roi_heads = RoIHeads(
             pool,
-            TwoMLPHead(256 * 7 * 7, 1024),
+            FastRCNNConvFCHead() if v2 else TwoMLPHead(256 * 7 * 7, 1024),
             FastRCNNPredictor(1024, num_classes),
             score_thresh=box_score_thresh,
             nms_thresh=box_nms_thresh,
@@ -197,9 +223,9 @@ class FasterRCNN(nn.Module):
 def init_weights(model: FasterRCNN, generator: torch.Generator) -> None:
     """torchvision's initialisation, drawn from ``generator``: the trunk's
     convs, and the mask and keypoint heads' (transposed ones included),
-    He-normal (fan out), the FPN's He-uniform (a=1), the RPN head's N(0,
-    0.01), all with zero bias; the linear layers PyTorch's default uniform.
-    Frozen-BN buffers keep their identity values. A deformable trunk's
+    He-normal (fan out), as are v2's box head's, the FPN's He-uniform (a=1),
+    the RPN head's N(0, 0.01), all with zero bias; the linear layers
+    PyTorch's default uniform. Batch norms keep their identity values. A deformable trunk's
     offset predictors (``conv2_offset``) are zero, weight and bias, as the
     JAX package's are, and draw nothing, so that its other parameters are
     the plain model's of the same seed; its deformable ``conv2`` is drawn as
@@ -238,13 +264,27 @@ class FasterRCNN_ResNet50_FPN_Weights(WeightsEnum):
     DEFAULT = COCO_V1
 
 
+class FasterRCNN_ResNet50_FPN_V2_Weights(WeightsEnum):
+    COCO_V1 = Weights(
+        url="https://download.pytorch.org/models/"
+        "fasterrcnn_resnet50_fpn_v2_coco-dd69338a.pth",
+        transforms=ObjectDetection,
+        meta={"num_params": 43712278,
+              "_metrics": {"COCO-val2017": {"box_map": 46.7}}},
+    )
+    DEFAULT = COCO_V1
+
+
 def _upgrade_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Checkpoints written before torchvision wrapped the RPN and FPN convs
     in ``Conv2dNormActivation`` name them without the inner ``.0``. A
     norm-free (v1) mask head that torchvision saved as a ``Sequential`` of
     ``Conv2dNormActivation`` (``mask_head.{i}.0``) goes back to the
     ``mask_fcn{i+1}`` names of the published checkpoints and of the JAX
-    package (its ``_frcnn_hooks``)."""
+    package (its ``_frcnn_hooks``). The v2 names (``rpn.head.conv.{i}.0``,
+    ``box_head.{i}.0`` / ``.1``, ``box_head.5``, ``mask_head.{i}.0`` /
+    ``.1``, the FPN's ``inner_blocks.{i}.1``) are the port's as they
+    stand."""
     v1_mask = not any(re.match(r"^roi_heads\.mask_head\.\d+\.1\.", k) for k in sd)
     out = {}
     for k, v in sd.items():
@@ -314,3 +354,19 @@ def fasterrcnn_resnet50_fpn(
     """Faster R-CNN ResNet-50-FPN (``build_detector``)."""
     return build_detector(FasterRCNN, weights, FasterRCNN_ResNet50_FPN_Weights,
                           device, seed, trainable_backbone_layers, **kwargs)
+
+
+@register_model()
+def fasterrcnn_resnet50_fpn_v2(
+    *,
+    weights: Optional[Union[FasterRCNN_ResNet50_FPN_V2_Weights, Weights, str]] = None,
+    device: Union[str, torch.device, None] = None,
+    seed: int = 0,
+    trainable_backbone_layers: Optional[int] = None,
+    **kwargs,
+) -> FasterRCNN:
+    """Faster R-CNN ResNet-50-FPN v2 (``FasterRCNN(v2=True)``,
+    ``build_detector``)."""
+    return build_detector(FasterRCNN, weights,
+                          FasterRCNN_ResNet50_FPN_V2_Weights, device, seed,
+                          trainable_backbone_layers, v2=True, **kwargs)

@@ -1,6 +1,6 @@
-"""Mask R-CNN ResNet-50-FPN, v1 (counterpart of
+"""Mask R-CNN ResNet-50-FPN, v1 and v2 (counterpart of
 ``vision_tpu/models/detection/mask_rcnn.py``): Faster R-CNN and a mask
-branch.
+branch. v2's mask head has batch norm (``MaskRCNNHeads(use_norm=True)``).
 
 Eval: the detections of the box path, then every one of their
 ``detections_per_img`` rows an image (the padding rows too, whose boxes
@@ -36,8 +36,9 @@ from vision_tpu_torch.models.detection.roi_heads import (
 from vision_tpu_torch.ops.poolers import MultiScaleRoIAlign
 from vision_tpu_torch.transforms._presets import ObjectDetection
 
-__all__ = ["MaskDetections", "MaskRCNN", "MaskRCNN_ResNet50_FPN_Weights",
-           "maskrcnn_resnet50_fpn", "maskrcnn_resnet50_fpn_deform"]
+__all__ = ["MaskDetections", "MaskRCNN", "MaskRCNN_ResNet50_FPN_V2_Weights",
+           "MaskRCNN_ResNet50_FPN_Weights", "maskrcnn_resnet50_fpn",
+           "maskrcnn_resnet50_fpn_deform", "maskrcnn_resnet50_fpn_v2"]
 
 
 class MaskDetections(NamedTuple):
@@ -53,14 +54,15 @@ class MaskDetections(NamedTuple):
 
 class MaskRCNN(FasterRCNN):
     """Faster R-CNN with ``roi_heads.mask_roi_pool`` (14x14, sampling ratio
-    2), ``roi_heads.mask_head`` (four convs of 256) and
-    ``roi_heads.mask_predictor``."""
+    2), ``roi_heads.mask_head`` (four convs of 256, with batch norm in v2)
+    and ``roi_heads.mask_predictor``."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         num_classes = self.roi_heads.box_predictor.cls_score.out_features
         self.roi_heads.mask_roi_pool = MultiScaleRoIAlign(_FEATMAPS, 14, 2)
-        self.roi_heads.mask_head = MaskRCNNHeads(256, 4, 256)
+        self.roi_heads.mask_head = MaskRCNNHeads(256, 4, 256,
+                                                 use_norm=self.v2)
         self.roi_heads.mask_predictor = MaskRCNNPredictor(256, 256, num_classes)
 
     def _mask_logits(self, feats, boxes, image_size) -> torch.Tensor:
@@ -97,7 +99,13 @@ class MaskRCNN(FasterRCNN):
             return_internals=True)
         if gt_masks is not None:
             feats, sampled, image_size = internals
-            logits = self._mask_logits(feats, sampled.boxes, image_size)
+            head = self.roi_heads.mask_head
+            training = head.training
+            head.eval()  # v2: the running statistics, as in the JAX loss
+            try:
+                logits = self._mask_logits(feats, sampled.boxes, image_size)
+            finally:
+                head.train(training)
             losses["loss_mask"] = maskrcnn_loss(logits, sampled, gt_masks)
         return (losses, internals) if return_internals else losses
 
@@ -125,6 +133,33 @@ def maskrcnn_resnet50_fpn(
     """Mask R-CNN ResNet-50-FPN v1 (``faster_rcnn.build_detector``)."""
     return build_detector(MaskRCNN, weights, MaskRCNN_ResNet50_FPN_Weights,
                           device, seed, trainable_backbone_layers, **kwargs)
+
+
+class MaskRCNN_ResNet50_FPN_V2_Weights(WeightsEnum):
+    COCO_V1 = Weights(
+        url="https://download.pytorch.org/models/"
+        "maskrcnn_resnet50_fpn_v2_coco-73cbd019.pth",
+        transforms=ObjectDetection,
+        meta={"num_params": 46359409,
+              "_metrics": {"COCO-val2017": {"box_map": 47.4, "mask_map": 41.8}}},
+    )
+    DEFAULT = COCO_V1
+
+
+@register_model()
+def maskrcnn_resnet50_fpn_v2(
+    *,
+    weights: Optional[Union[MaskRCNN_ResNet50_FPN_V2_Weights, Weights, str]] = None,
+    device: Union[str, torch.device, None] = None,
+    seed: int = 0,
+    trainable_backbone_layers: Optional[int] = None,
+    **kwargs,
+) -> MaskRCNN:
+    """Mask R-CNN ResNet-50-FPN v2 (``MaskRCNN(v2=True)``,
+    ``faster_rcnn.build_detector``)."""
+    return build_detector(MaskRCNN, weights, MaskRCNN_ResNet50_FPN_V2_Weights,
+                          device, seed, trainable_backbone_layers, v2=True,
+                          **kwargs)
 
 
 @register_model()

@@ -1,11 +1,12 @@
 """RoI heads (counterpart of ``vision_tpu/models/detection/roi_heads.py``):
-the box branch (``TwoMLPHead``, ``FastRCNNPredictor``,
+the box branch (``TwoMLPHead``, v2's ``FastRCNNConvFCHead``,
+``FastRCNNPredictor``,
 ``postprocess_detections`` with fixed-size results, and for training
 ``select_training_samples``, a fixed budget of sampled proposals an image,
-and ``fastrcnn_loss``); the mask branch (``MaskRCNNHeads`` v1,
-``MaskRCNNPredictor``, ``maskrcnn_loss``, ``paste_masks_in_image``); and
-the keypoint branch (``KeypointRCNNHeads``, ``KeypointRCNNPredictor``,
-``keypointrcnn_loss``). The v2 mask head with batch norm waits.
+and ``fastrcnn_loss``); the mask branch (``MaskRCNNHeads``, v1 and v2 with
+batch norm, ``MaskRCNNPredictor``, ``maskrcnn_loss``,
+``paste_masks_in_image``); and the keypoint branch (``KeypointRCNNHeads``,
+``KeypointRCNNPredictor``, ``keypointrcnn_loss``).
 
 The mask targets are pooled from the gt masks by ``roi_align`` (the CUDA
 kernel on the card, at one channel); the heads are convolutions, and
@@ -31,12 +32,13 @@ from vision_tpu_torch.models.detection._utils import (
 )
 from vision_tpu_torch.ops._topk import top_k
 from vision_tpu_torch.ops.boxes import box_iou
+from vision_tpu_torch.ops.misc import BatchNorm2d, Conv2dNormActivation
 from vision_tpu_torch.ops.nms import batched_nms_mask
 from vision_tpu_torch.ops.poolers import MultiScaleRoIAlign
 from vision_tpu_torch.ops.roi_align import roi_align
 from vision_tpu_torch.transforms.v2.functional._resample import resize_2d
 
-__all__ = ["Detections", "FastRCNNPredictor", "KeypointRCNNHeads",
+__all__ = ["Detections", "FastRCNNConvFCHead", "FastRCNNPredictor", "KeypointRCNNHeads",
            "KeypointRCNNPredictor", "MaskRCNNHeads", "MaskRCNNPredictor",
            "RoIHeads", "SampledProposals", "TwoMLPHead", "keypointrcnn_loss",
            "maskrcnn_loss", "paste_masks_in_image"]
@@ -81,6 +83,28 @@ class TwoMLPHead(nn.Module):
         return F.relu(self.fc7(F.relu(self.fc6(x))))
 
 
+class FastRCNNConvFCHead(nn.Sequential):
+    """v2 box head: four bias-free 3x3 convs of 256, each with its batch
+    norm (the port's ``BatchNorm2d``: batch statistics in training mode)
+    and a ReLU (children ``{i}.0``, ``{i}.1``), then the pooled ``[K, 256,
+    7, 7]`` flattened in CHW order (``4``) and the fc ``5`` of
+    ``representation_size`` with a ReLU. The JAX head flattens HWC: the
+    converters reorder ``5.weight``."""
+
+    def __init__(self, input_size=(256, 7, 7), conv_layers=(256, 256, 256, 256),
+                 representation_size: int = 1024):
+        channels, height, width = input_size
+        blocks = []
+        for c in conv_layers:
+            blocks.append(Conv2dNormActivation(channels, c, 3,
+                                               norm_layer=BatchNorm2d))
+            channels = c
+        super().__init__(*blocks, nn.Flatten(),
+                         nn.Linear(channels * height * width,
+                                   representation_size),
+                         nn.ReLU(inplace=True))
+
+
 class FastRCNNPredictor(nn.Module):
     def __init__(self, in_channels: int, num_classes: int):
         super().__init__()
@@ -92,18 +116,27 @@ class FastRCNNPredictor(nn.Module):
 
 
 class MaskRCNNHeads(nn.Module):
-    """v1 mask head: ``layers`` 3x3 convolutions of ``features`` channels
-    named ``mask_fcn1..``, each followed by a ReLU, no norm."""
+    """Mask head: ``layers`` 3x3 convolutions of ``features`` channels, each
+    followed by a ReLU. v1: biased, no norm, named ``mask_fcn1..``; v2
+    (``use_norm``): bias-free, each with its batch norm (the port's
+    ``BatchNorm2d``), named ``{i}.0`` and ``{i}.1``."""
 
-    def __init__(self, in_channels: int, layers: int = 4, features: int = 256):
+    def __init__(self, in_channels: int, layers: int = 4, features: int = 256,
+                 use_norm: bool = False):
         super().__init__()
         for i in range(layers):
-            self.add_module(f"mask_fcn{i + 1}", nn.Conv2d(
-                in_channels if i == 0 else features, features, 3, padding=1))
+            cin = in_channels if i == 0 else features
+            if use_norm:
+                self.add_module(str(i), Conv2dNormActivation(
+                    cin, features, 3, norm_layer=BatchNorm2d))
+            else:
+                self.add_module(f"mask_fcn{i + 1}",
+                                nn.Conv2d(cin, features, 3, padding=1))
+        self.use_norm = use_norm
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for conv in self.children():
-            x = F.relu(conv(x))
+        for block in self.children():
+            x = block(x) if self.use_norm else F.relu(block(x))
         return x
 
 

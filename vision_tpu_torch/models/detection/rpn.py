@@ -21,6 +21,7 @@ from vision_tpu_torch.models.detection._utils import (
 from vision_tpu_torch.models.detection.anchor_utils import AnchorGenerator
 from vision_tpu_torch.ops._topk import top_k
 from vision_tpu_torch.ops.boxes import box_iou
+from vision_tpu_torch.ops.misc import Conv2dNormActivation
 from vision_tpu_torch.ops.nms import nms_mask
 
 __all__ = ["Proposals", "RPNHead", "RegionProposalNetwork"]
@@ -33,19 +34,20 @@ class Proposals(NamedTuple):
 
 
 class RPNHead(nn.Module):
-    """Shared 3x3 conv + ReLU, then 1x1 objectness and box-delta convs.
-    Names as torchvision's (``conv.0.0``, ``cls_logits``, ``bbox_pred``).
+    """``conv_depth`` shared 3x3 conv + ReLU layers (one in v1, two in the
+    v2 detectors), then 1x1 objectness and box-delta convs. Names as
+    torchvision's (``conv.{i}.0``, ``cls_logits``, ``bbox_pred``).
 
     Returns per level ``objectness [N, H*W*A]`` and ``deltas
     [N, H*W*A, 4]`` flattened in ``(h, w, a)`` order, the order of the
     anchors."""
 
-    def __init__(self, in_channels: int, num_anchors: int):
+    def __init__(self, in_channels: int, num_anchors: int,
+                 conv_depth: int = 1):
         super().__init__()
-        self.conv = nn.Sequential(
-            nn.Sequential(nn.Conv2d(in_channels, in_channels, 3, padding=1),
-                          nn.ReLU(inplace=True))
-        )
+        self.conv = nn.Sequential(*(
+            Conv2dNormActivation(in_channels, in_channels, 3, norm_layer=None)
+            for _ in range(conv_depth)))
         self.cls_logits = nn.Conv2d(in_channels, num_anchors, 1)
         self.bbox_pred = nn.Conv2d(in_channels, num_anchors * 4, 1)
         self.num_anchors = num_anchors

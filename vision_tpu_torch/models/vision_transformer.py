@@ -34,6 +34,7 @@ from vision_tpu_torch.models._api import (
     resolve_device,
 )
 from vision_tpu_torch.ops.attention import scaled_dot_product_attention
+from vision_tpu_torch.ops.misc import dropout as _dropout
 from vision_tpu_torch.transforms._presets import ImageClassification
 from vision_tpu_torch.transforms.v2.functional._resample import resize_2d
 
@@ -53,18 +54,6 @@ __all__ = [
     "vit_l_16",
     "vit_l_32",
 ]
-
-
-def _dropout(x: torch.Tensor, p: float, training: bool,
-             generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Inverted dropout whose mask comes from ``generator``."""
-    if not training or p == 0.0:
-        return x
-    if generator is None:
-        raise ValueError("dropout in training needs a generator: "
-                         "forward(x, generator=...)")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
-    return x * keep.to(x.dtype) / (1.0 - p)
 
 
 class SelfAttention(nn.Module):

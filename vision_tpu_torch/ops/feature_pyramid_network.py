@@ -3,16 +3,21 @@
 top-down nearest upsampling, 3x3 smoothing, and an extra block on top:
 ``LastLevelMaxPool`` (the R-CNN family's "pool" level) or
 ``LastLevelP6P7`` (RetinaNet's P6 and P7). Module names are torchvision's
-(``inner_blocks.{i}.0``, ``layer_blocks.{i}.0``, ``extra_blocks.p6``)."""
+(``inner_blocks.{i}.0``, ``layer_blocks.{i}.0``, ``extra_blocks.p6``; with
+a ``norm_layer``, the v2 detectors', bias-free convolutions each followed
+by its norm, ``inner_blocks.{i}.1`` and ``layer_blocks.{i}.1``, the JAX
+package's ``inner_norm_{i}`` and ``layer_norm_{i}``)."""
 
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from vision_tpu_torch.ops.misc import Conv2dNormActivation
 
 __all__ = ["ExtraFPNBlock", "FeaturePyramidNetwork", "LastLevelMaxPool",
            "LastLevelP6P7"]
@@ -56,16 +61,22 @@ class LastLevelP6P7(ExtraFPNBlock):
 class FeaturePyramidNetwork(nn.Module):
     """Takes an ordered dict of NCHW features, highest resolution first,
     and returns a dict with the same keys plus the extra block's
-    (``LastLevelMaxPool`` unless given)."""
+    (``LastLevelMaxPool`` unless given). ``norm_layer(out_channels)``, when
+    given, follows each 1x1 and 3x3 convolution, which then has no
+    bias."""
 
     def __init__(self, in_channels_list: List[int], out_channels: int,
-                 extra_blocks: Optional[ExtraFPNBlock] = None):
+                 extra_blocks: Optional[ExtraFPNBlock] = None,
+                 norm_layer: Optional[Callable[..., nn.Module]] = None):
         super().__init__()
         self.inner_blocks = nn.ModuleList(
-            nn.Sequential(nn.Conv2d(c, out_channels, 1)) for c in in_channels_list
+            Conv2dNormActivation(c, out_channels, 1, padding=0,
+                                 norm_layer=norm_layer, activation_layer=None)
+            for c in in_channels_list
         )
         self.layer_blocks = nn.ModuleList(
-            nn.Sequential(nn.Conv2d(out_channels, out_channels, 3, padding=1))
+            Conv2dNormActivation(out_channels, out_channels, 3,
+                                 norm_layer=norm_layer, activation_layer=None)
             for _ in in_channels_list
         )
         self.extra_blocks = (LastLevelMaxPool() if extra_blocks is None

@@ -1,19 +1,23 @@
-"""Normalisation modules: ``FrozenBatchNorm2d`` (counterpart of
-``vision_tpu/ops/misc.py``), the live ``BatchNorm2d`` of the
-classification models and the v2 detection trunk (counterpart of
-``flax.linen.BatchNorm`` as ``vision_tpu/models/resnet.py`` configures it,
-and of its ``_BNAffine``), and ``GroupNorm`` (counterpart of
-``flax.linen.GroupNorm``, in RetinaNet's v2 head)."""
+"""Normalisation and building-block modules (counterpart of
+``vision_tpu/ops/misc.py``): ``FrozenBatchNorm2d``; the live
+``BatchNorm2d`` of the classification models, the v2 detectors' trunk,
+FPN and heads (counterpart of ``flax.linen.BatchNorm`` as the JAX package
+configures it, and of its ``_BNAffine``) and ``BatchNorm3d``; ``GroupNorm``
+(counterpart of ``flax.linen.GroupNorm``, in RetinaNet's v2 head); and
+torchvision's ``Conv2dNormActivation``, ``Conv3dNormActivation``,
+``SqueezeExcitation``, ``MLP`` and ``Permute``, under torchvision's module
+and state-dict names. Input NCHW (NCDHW for the 3-D modules)."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
-__all__ = ["BatchNorm2d", "FrozenBatchNorm2d", "GroupNorm",
-           "batch_mean_var"]
+__all__ = ["MLP", "BatchNorm2d", "BatchNorm3d", "Conv2dNormActivation",
+           "Conv3dNormActivation", "FrozenBatchNorm2d", "GroupNorm", "Permute",
+           "SqueezeExcitation", "batch_mean_var", "dropout"]
 
 
 class FrozenBatchNorm2d(nn.Module):
@@ -38,17 +42,19 @@ class FrozenBatchNorm2d(nn.Module):
 
 
 def batch_mean_var(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-channel mean and biased variance of NCHW ``x`` over N, H, W, in
-    f32, the variance as ``max(0, E[x^2] - E[x]^2)`` (flax's
-    ``use_fast_variance``)."""
+    """Per-channel mean and biased variance of ``x`` (channels on dim 1:
+    NC, NCHW, NCDHW) over every other dim, in f32, the variance as
+    ``max(0, E[x^2] - E[x]^2)`` (flax's ``use_fast_variance``)."""
     xf = x.float()
-    mean = xf.mean((0, 2, 3))
-    var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_(min=0.0)
+    dims = (0, *range(2, x.ndim))
+    mean = xf.mean(dims)
+    var = ((xf * xf).mean(dims) - mean * mean).clamp_(min=0.0)
     return mean, var
 
 
 class BatchNorm2d(nn.Module):
-    """Batch norm over NCHW input under ``torch.nn.BatchNorm2d``'s names
+    """Batch norm over NCHW input (any input with its channels on dim 1)
+    under ``torch.nn.BatchNorm2d``'s names
     (``weight``, ``bias``, ``running_mean``, ``running_var``,
     ``num_batches_tracked``) with the arithmetic of ``flax.linen.BatchNorm``,
     which the JAX package uses and the port is held against:
@@ -63,14 +69,19 @@ class BatchNorm2d(nn.Module):
 
     ``momentum`` follows torch's convention: 0.1 here is flax's 0.9.
     The running statistics are updated in place, outside autograd.
+    ``use_running_average=True`` normalises by the running statistics in
+    training mode too and never updates them (flax's
+    ``use_running_average=True``: the JAX v2 detectors' FPN norm); its
+    weight and bias still train.
     """
 
     def __init__(self, num_features: int, eps: float = 1e-5,
-                 momentum: float = 0.1):
+                 momentum: float = 0.1, use_running_average: bool = False):
         super().__init__()
         self.num_features = num_features
         self.eps = eps
         self.momentum = momentum
+        self.use_running_average = use_running_average
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -98,14 +109,15 @@ class BatchNorm2d(nn.Module):
         return inv, self.bias.float() - mean * inv
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
+        if self.training and not self.use_running_average:
             mean, var = batch_mean_var(x)
             self._track(mean, var)
         else:
             mean, var = self.running_mean, self.running_var
+        shape = (1, -1) + (1,) * (x.ndim - 2)  # per channel, broadcast
         mul = torch.rsqrt(var + self.eps) * self.weight.float()
-        y = (x.float() - mean[None, :, None, None]) * mul[None, :, None, None]
-        y = y + self.bias.float()[None, :, None, None]
+        y = (x.float() - mean.view(shape)) * mul.view(shape)
+        y = y + self.bias.float().view(shape)
         out_dtype = torch.promote_types(
             x.dtype, torch.promote_types(self.weight.dtype, self.bias.dtype))
         return y.to(out_dtype)
@@ -143,3 +155,165 @@ class GroupNorm(nn.Module):
         out_dtype = torch.promote_types(
             x.dtype, torch.promote_types(self.weight.dtype, self.bias.dtype))
         return y.reshape(x.shape).to(out_dtype)
+
+
+class BatchNorm3d(BatchNorm2d):
+    """``BatchNorm2d`` over NCDHW input (``torch.nn.BatchNorm3d``'s
+    place)."""
+
+
+def dropout(x: torch.Tensor, p: float, training: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout whose mask comes from ``generator``."""
+    if not training or p == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training needs a generator: "
+                         "forward(x, generator=...)")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return x * keep.to(x.dtype) / (1.0 - p)
+
+
+def _ntuple(v, n: int) -> Tuple[int, ...]:
+    return (v,) * n if isinstance(v, int) else tuple(v)
+
+
+class _ConvNormActivation(nn.Sequential):
+    """A convolution, a norm and an activation as torchvision's
+    ``Conv2dNormActivation`` builds them: children ``0`` (the convolution,
+    biased only where there is no norm unless ``bias`` says otherwise),
+    ``1`` (``norm_layer(out_channels)``, when given) and the activation
+    (``activation_layer(inplace=inplace)``, or with no argument where
+    ``inplace`` is None). ``padding=None`` keeps the size at stride 1:
+    ``(kernel_size - 1) // 2 * dilation`` a side."""
+
+    def __init__(self, conv: Callable[..., nn.Module], dims: int,
+                 in_channels: int, out_channels: int, kernel_size=3,
+                 stride=1, padding=None, groups: int = 1,
+                 norm_layer: Optional[Callable[..., nn.Module]] = None,
+                 activation_layer: Optional[Callable[..., nn.Module]] = nn.ReLU,
+                 dilation=1, inplace: Optional[bool] = True,
+                 bias: Optional[bool] = None):
+        ks, dil = _ntuple(kernel_size, dims), _ntuple(dilation, dims)
+        if padding is None:
+            padding = tuple((k - 1) // 2 * d for k, d in zip(ks, dil))
+        if bias is None:
+            bias = norm_layer is None
+        layers: List[nn.Module] = [conv(
+            in_channels, out_channels, ks, stride, padding, dilation=dil,
+            groups=groups, bias=bias)]
+        if norm_layer is not None:
+            layers.append(norm_layer(out_channels))
+        if activation_layer is not None:
+            layers.append(activation_layer() if inplace is None
+                          else activation_layer(inplace=inplace))
+        super().__init__(*layers)
+        self.out_channels = out_channels
+
+
+class Conv2dNormActivation(_ConvNormActivation):
+    """Conv2d, norm (the port's ``BatchNorm2d`` by default, flax's
+    arithmetic), activation (``nn.ReLU``): torchvision's module and names
+    (``0.weight``, ``1.running_mean``, ...), the JAX package's
+    ``Conv2dNormActivation``. Input NCHW."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size=3,
+                 stride=1, padding=None, groups: int = 1,
+                 norm_layer: Optional[Callable[..., nn.Module]] = BatchNorm2d,
+                 activation_layer: Optional[Callable[..., nn.Module]] = nn.ReLU,
+                 dilation=1, inplace: Optional[bool] = True,
+                 bias: Optional[bool] = None):
+        super().__init__(nn.Conv2d, 2, in_channels, out_channels, kernel_size,
+                         stride, padding, groups, norm_layer, activation_layer,
+                         dilation, inplace, bias)
+
+
+class Conv3dNormActivation(_ConvNormActivation):
+    """The 3-D ``Conv2dNormActivation`` (norm ``BatchNorm3d``), input
+    NCDHW. The JAX module pads for ``dilation`` but leaves its
+    convolution undilated; this one dilates it, as torchvision's does (the
+    two agree at ``dilation=1``)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size=3,
+                 stride=1, padding=None, groups: int = 1,
+                 norm_layer: Optional[Callable[..., nn.Module]] = BatchNorm3d,
+                 activation_layer: Optional[Callable[..., nn.Module]] = nn.ReLU,
+                 dilation=1, inplace: Optional[bool] = True,
+                 bias: Optional[bool] = None):
+        super().__init__(nn.Conv3d, 3, in_channels, out_channels, kernel_size,
+                         stride, padding, groups, norm_layer, activation_layer,
+                         dilation, inplace, bias)
+
+
+class SqueezeExcitation(nn.Module):
+    """Squeeze-and-excitation: the spatial mean of NCHW ``x``, 1x1
+    convolutions ``fc1`` and ``fc2`` with ``activation`` between them and
+    ``scale_activation`` after, and ``x`` scaled by the result per
+    channel."""
+
+    def __init__(self, input_channels: int, squeeze_channels: int,
+                 activation: Callable[..., nn.Module] = nn.ReLU,
+                 scale_activation: Callable[..., nn.Module] = nn.Sigmoid):
+        super().__init__()
+        self.fc1 = nn.Conv2d(input_channels, squeeze_channels, 1)
+        self.fc2 = nn.Conv2d(squeeze_channels, input_channels, 1)
+        self.activation = activation()
+        self.scale_activation = scale_activation()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        scale = x.mean((-2, -1), keepdim=True)
+        scale = self.scale_activation(self.fc2(self.activation(self.fc1(scale))))
+        return x * scale
+
+
+class MLP(nn.Sequential):
+    """Linear layers over the last dim, torchvision's ``MLP`` and names:
+    for each hidden size but the last, ``Linear``, ``norm_layer(size)``
+    (when given), the activation and a dropout; then the last ``Linear``
+    and a dropout. The dropouts draw from ``forward(x, generator=g)`` in
+    training mode (``dropout`` > 0). ``jax_names`` maps the JAX module's
+    child names (``"0"``, ``"2"``, ``"4"``, ... for the Dense layers,
+    ``"norm{i}"`` for the norms) to these, for ``load_jax_variables``."""
+
+    def __init__(self, in_channels: int, hidden_channels: Sequence[int],
+                 norm_layer: Optional[Callable[..., nn.Module]] = None,
+                 activation_layer: Optional[Callable[..., nn.Module]] = nn.ReLU,
+                 inplace: Optional[bool] = None, bias: bool = True,
+                 dropout: float = 0.0):
+        layers: List[nn.Module] = []
+        self_jax: Dict[str, str] = {}
+        prev = in_channels
+        for i, hidden in enumerate(hidden_channels):
+            self_jax[str(2 * i)] = str(len(layers))
+            layers.append(nn.Linear(prev, hidden, bias=bias))
+            if i < len(hidden_channels) - 1:
+                if norm_layer is not None:
+                    self_jax[f"norm{i}"] = str(len(layers))
+                    layers.append(norm_layer(hidden))
+                if activation_layer is not None:
+                    layers.append(activation_layer() if inplace is None
+                                  else activation_layer(inplace=inplace))
+            layers.append(nn.Dropout(dropout))
+            prev = hidden
+        super().__init__(*layers)
+        self.jax_names = self_jax
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        for layer in self:
+            if isinstance(layer, nn.Dropout):
+                x = dropout(x, layer.p, self.training, generator)
+            else:
+                x = layer(x)
+        return x
+
+
+class Permute(nn.Module):
+    """``torch.permute`` of the input by ``dims``, as a module."""
+
+    def __init__(self, dims: Sequence[int]):
+        super().__init__()
+        self.dims = list(dims)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.permute(x, self.dims)
