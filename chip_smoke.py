@@ -102,7 +102,17 @@ off, seeded random weights:
   ``prefetch_to_device`` queue, from the Huffman pass alone with the rest
   of the decode on the card (coefficient limit 5), and from decoded frames
   already on the card; ResNet-18 in f32 through its weights' preset
-  (BASELINE config 1). Each first batch is held against the CPU.
+  (BASELINE config 1). Each first batch is held against the CPU;
+* the classification zoo (``tools/zoo.py``, the JAX bench's zoo cells,
+  seeded weights, batch norms calibrated on one seeded batch):
+  EfficientNet-V2-S at 384 px (batch 32), ConvNeXt-T and Swin-T at 224 px
+  (batch 64) served in f32 and bf16 (the f32 logits of 2 images against
+  the CPU, bf16 against f32, TFLOP/s from the cell's GMACs) and trained
+  by SGD at batch 32 in f32 and bf16 (step 1 with no stochastic layer
+  against the CPU, the default stochastic depth and dropout drawn from a
+  CUDA generator, the same seed giving the same loss twice); then every
+  other builder of the fifteen families once at its eval size, one a
+  family against the CPU. No kernel of the repo's is on these paths.
 
 Every kernel is held against its plain PyTorch version on the card at the
 inputs the model gave it, and each path's result against a run of the same
@@ -753,8 +763,12 @@ def main() -> int:
     rows += resnet50_phases(kernels)
     torch.cuda.empty_cache()
     imagenet_e2e_phases()
+    torch.cuda.empty_cache()
+    t_zoo = time.perf_counter()
+    zoo_phases(kernels)
+    zoo_s = time.perf_counter() - t_zoo
     emit("done", build_s=build_s, phases_s=time.perf_counter() - t_phases,
-         total_s=time.perf_counter() - t0)
+         zoo_s=zoo_s, total_s=time.perf_counter() - t0)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
@@ -3984,6 +3998,254 @@ def check_detections(dets, ref, batch=1, score_tol=1e-4, box_tol=1e-2,
     if not (same_valid and label_ok and score_err <= score_tol
             and box_err <= box_tol):
         raise RuntimeError(f"{phase}: kernel path disagrees with the plain path")
+
+
+ZOO_PARAMS = {"efficientnet_v2_s": 21_458_488, "convnext_tiny": 28_589_128,
+              "swin_t": 28_288_354}  # each default weights' num_params
+ZOO_CPU_IMAGES = 2  # the images held against the CPU
+ZOO_LOGITS_TOL = 1e-4  # f32 logits on the card against the CPU's, of the largest
+ZOO_AMP_LOGITS_TOL = 2e-2  # bf16 logits against f32, of the largest
+ZOO_CPU_BATCH = 4  # the f32 step held against the CPU
+ZOO_LOSS_TOL = 1e-4  # step 1's loss on the card against the CPU, relative
+ZOO_GRAD_TOL = 1e-3  # all gradients together, by relative Frobenius norm
+ZOO_AMP_LOSS_TOL = 5e-2  # amp step 1's loss against the f32 step's
+ZOO_STEPS = 3  # timed steps after the first
+ZOO_SEED = 7  # the CUDA generator's seed for the stochastic layers
+# no stochastic layer: the f32 step held against the CPU
+ZOO_QUIET = {"efficientnet_v2_s": {"stochastic_depth_prob": 0.0, "dropout": 0.0},
+             "convnext_tiny": {"stochastic_depth_prob": 0.0},
+             "swin_t": {"stochastic_depth_prob": 0.0}}
+ZOO_SWEEP_BATCH = 8
+ZOO_SWEEP_CPU_TOL = 1e-4  # one image on the card against the CPU, of the largest
+# one builder a family held against the CPU (tests/test_models_golden.py's
+# families, and the others)
+ZOO_SWEEP_CPU = ("mobilenet_v3_small", "efficientnet_b0", "shufflenet_v2_x0_5",
+                 "squeezenet1_1", "densenet121", "regnet_y_400mf", "alexnet",
+                 "vgg11_bn", "googlenet", "inception_v3", "mnasnet0_5",
+                 "mobilenet_v2", "maxvit_t")
+ZOO_FAMILIES = ("efficientnet", "convnext", "swin_transformer", "mobilenetv2",
+                "mobilenetv3", "mnasnet", "regnet", "maxvit", "shufflenetv2",
+                "squeezenet", "alexnet", "vgg", "densenet", "googlenet",
+                "inception")
+
+
+def rel_err(got, want) -> float:
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def zoo_forward_phases() -> None:
+    """``zoo_forward`` / ``_amp``: the JAX bench's zoo cells
+    (``bench.py:_bench_zoo_fwd``) served at full width in f32 and bf16 (the
+    batch norms' statistics kept f32, ``tools/zoo.py:to_bf16``):
+    ms a batch and img/s (median of 5 after a warm-up), the f32 logits of 2
+    images against the same model on the CPU, the bf16 logits against the
+    f32 ones, the achieved TFLOP/s from the cell's GMACs beside the card's
+    dense peak for the type."""
+    import torch
+
+    from vision_tpu_torch.tools import zoo
+
+    device = torch.cuda.get_device_name(0)
+    for name, (size, batch, _) in zoo.CELLS.items():
+        model = zoo.seeded_model(name, size)
+        params = sum(p.numel() for p in model.parameters())
+        cpu_model = copy.deepcopy(model).cpu()
+        x = zoo.images(batch, size)
+        flops = 2 * zoo.gmacs(name) * 1e9 * batch
+        with torch.inference_mode():
+            logits = model(x)
+            err = rel_err(logits[:ZOO_CPU_IMAGES],
+                          cpu_model(x[:ZOO_CPU_IMAGES].cpu()))
+            del cpu_model
+            ms, ms_all = host_ms(lambda: model(x))
+            emit("zoo_forward", model=name, device=device, params=params,
+                 dtype="float32", batch=batch, image_size=size,
+                 ms_per_batch=ms, images_per_s=batch / ms * 1e3, ms_all=ms_all,
+                 logits_vs_cpu_rel_err=err, tol=ZOO_LOGITS_TOL,
+                 tflops=flops / ms / 1e9, peak_tflops=PEAK_F32_FLOPS / 1e12,
+                 logits_std=float(logits.std()))
+            if params != ZOO_PARAMS[name] or not err <= ZOO_LOGITS_TOL or not \
+                    bool(torch.isfinite(logits).all()):
+                raise RuntimeError(f"zoo_forward {name}: wrong parameter "
+                                   "count, or logits off the CPU's or not "
+                                   "finite")
+            model16, x16 = zoo.to_bf16(model), x.to(torch.bfloat16)
+            err16 = rel_err(model16(x16).float(), logits)
+            ms, ms_all = host_ms(lambda: model16(x16))
+            emit("zoo_forward_amp", model=name, device=device,
+                 dtype="bfloat16", batch=batch, image_size=size,
+                 ms_per_batch=ms, images_per_s=batch / ms * 1e3, ms_all=ms_all,
+                 logits_vs_f32_rel_err=err16, tol=ZOO_AMP_LOGITS_TOL,
+                 tflops=flops / ms / 1e9, peak_tflops=PEAK_BF16_FLOPS / 1e12)
+            if not err16 <= ZOO_AMP_LOGITS_TOL:
+                raise RuntimeError(f"zoo_forward_amp {name}: bf16 logits off "
+                                   "the f32 ones")
+        del model, model16, x, x16, logits
+        torch.cuda.empty_cache()
+
+
+def zoo_step_against_cpu(name: str, size: int) -> dict:
+    """Step 1 of the f32 SGD step with no stochastic layer, at batch
+    ``ZOO_CPU_BATCH``, on the card and on the CPU from the same weights:
+    the losses and every gradient."""
+    import torch
+
+    from vision_tpu_torch.tools import zoo
+
+    model = zoo.seeded_model(name, size, **ZOO_QUIET[name])
+    out = {}
+    for where, twin in (("card", model), ("cpu", copy.deepcopy(model).cpu())):
+        dev = next(twin.parameters()).device
+        batch = zoo.batch_of(ZOO_CPU_BATCH, size, 1, dev)
+        loss = float(zoo.sgd_step(twin)(batch)["loss"])
+        grads = torch.cat([p.grad.double().cpu().ravel()
+                           for p in twin.parameters()])
+        out[where] = (loss, grads)
+        del twin
+    (loss, grads), (want, want_grads) = out["card"], out["cpu"]
+    return {"loss_vs_cpu_rel_err": abs(loss - want) / abs(want),
+            "grads_vs_cpu_frobenius_rel_err": float(
+                (grads - want_grads).norm() / want_grads.norm()),
+            "loss_tol": ZOO_LOSS_TOL, "grad_tol": ZOO_GRAD_TOL}
+
+
+def zoo_timed_steps(step, batch, gen) -> tuple:
+    """``ZOO_STEPS`` steps after the first (which the caller ran): their
+    wall ms, each with the loss read back, and the losses."""
+    import torch
+
+    torch.cuda.synchronize()
+    times, losses = [], []
+    for _ in range(ZOO_STEPS):
+        t = time.perf_counter()
+        losses.append(float(step(batch, gen)["loss"]))
+        times.append((time.perf_counter() - t) * 1e3)
+    return times, losses
+
+
+def zoo_train_phases() -> None:
+    """``zoo_train`` / ``_amp``: the same three models trained by SGD at
+    batch 32 at their sizes. f32: step 1 with no stochastic layer held
+    against the CPU (at batch 4: the loss ``ZOO_LOSS_TOL``, all gradients
+    ``ZOO_GRAD_TOL`` by relative Frobenius norm); then the default
+    stochastic depth and dropout, drawn from a CUDA generator: the same
+    seed gives the same step-1 loss twice; 3 timed steps (ms/step, img/s,
+    peak GB). amp: the same from the same weights and seed in bf16, its
+    step-1 loss within ``ZOO_AMP_LOSS_TOL`` of the f32 one."""
+    import torch
+
+    from vision_tpu_torch.models._api import resolve_device
+    from vision_tpu_torch.tools import zoo
+
+    device = torch.cuda.get_device_name(0)
+    card = resolve_device(None)
+    for name, (size, _, _) in zoo.CELLS.items():
+        check = zoo_step_against_cpu(name, size)
+        torch.cuda.empty_cache()
+        batch = zoo.batch_of(zoo.TRAIN_BATCH, size, 2)
+        f32_loss = None
+        for phase, dtype in (("zoo_train", None),
+                             ("zoo_train_amp", torch.bfloat16)):
+            model = zoo.seeded_model(name, size)
+            twin = copy.deepcopy(model) if dtype is None else None
+            torch.cuda.reset_peak_memory_stats()
+            step = zoo.sgd_step(model, dtype)
+            gen = torch.Generator(device=card).manual_seed(ZOO_SEED)
+            loss1 = float(step(batch, gen)["loss"])
+            times, losses = zoo_timed_steps(step, batch, gen)
+            ms = statistics.median(times)
+            fields = dict(model=name, device=device, image_size=size,
+                          dtype="float32" if dtype is None else "bfloat16",
+                          batch=zoo.TRAIN_BATCH, ms_per_step=ms,
+                          images_per_s=zoo.TRAIN_BATCH / ms * 1e3,
+                          ms_all=times, step1_loss=loss1, losses=losses,
+                          peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+            ok = all(math.isfinite(v) for v in [loss1] + losses)
+            if dtype is None:
+                again = float(zoo.sgd_step(twin)(batch, torch.Generator(
+                    device=card).manual_seed(ZOO_SEED))["loss"])
+                fields.update(check, step1_loss_same_seed_again=again)
+                ok = ok and again == loss1 and (
+                    check["loss_vs_cpu_rel_err"] <= ZOO_LOSS_TOL
+                    and check["grads_vs_cpu_frobenius_rel_err"] <= ZOO_GRAD_TOL)
+                f32_loss = loss1
+            else:
+                err = abs(loss1 - f32_loss) / abs(f32_loss)
+                fields.update(loss_vs_f32_rel_err=err, loss_tol=ZOO_AMP_LOSS_TOL)
+                ok = ok and err <= ZOO_AMP_LOSS_TOL
+            emit(phase, **fields)
+            if not ok:
+                raise RuntimeError(f"{phase} {name}: step 1 off its reference, "
+                                   "not the same for the same seed, or a loss "
+                                   "not finite")
+            del model, twin, step
+            torch.cuda.empty_cache()
+
+
+def zoo_sweep_phase() -> None:
+    """``zoo_sweep``: every other builder of the fifteen families, built on
+    the card at full width (its parameter count its meta's), its batch
+    norms calibrated, a batch of 8 at its eval size in f32: finite logits;
+    one builder a family (``ZOO_SWEEP_CPU``) held against the CPU on one
+    image. Each model is freed before the next."""
+    import torch
+
+    from vision_tpu_torch.models import get_model_weights, list_models
+    from vision_tpu_torch.models._api import _MODELS
+    from vision_tpu_torch.models._utils import eval_size
+    from vision_tpu_torch.tools import zoo
+
+    device = torch.cuda.get_device_name(0)
+    names = [n for n in list_models() if n not in zoo.CELLS and
+             _MODELS[n].__module__.rsplit(".", 1)[1] in ZOO_FAMILIES]
+    failed = []
+    for name in names:
+        t0 = time.perf_counter()
+        weights = get_model_weights(name).DEFAULT
+        size = eval_size(weights)
+        model = zoo.seeded_model(name, size)
+        params = sum(p.numel() for p in model.parameters())
+        x = zoo.images(ZOO_SWEEP_BATCH, size, 3)
+        with torch.inference_mode():
+            logits = model(x)
+            fields = dict(model=name, device=device, image_size=size,
+                          batch=ZOO_SWEEP_BATCH, params=params,
+                          finite=bool(torch.isfinite(logits).all()),
+                          shape=list(logits.shape))
+            ok = (params == weights.meta["num_params"] and fields["finite"]
+                  and fields["shape"] == [ZOO_SWEEP_BATCH, 1000])
+            if name in ZOO_SWEEP_CPU:
+                cpu_model = copy.deepcopy(model).cpu()
+                err = rel_err(logits[:1], cpu_model(x[:1].cpu()))
+                fields.update(logits_vs_cpu_rel_err=err, tol=ZOO_SWEEP_CPU_TOL)
+                ok = ok and err <= ZOO_SWEEP_CPU_TOL
+                del cpu_model
+        emit("zoo_sweep", seconds=time.perf_counter() - t0, ok=ok, **fields)
+        if not ok:
+            failed.append(name)
+        del model, x, logits
+        torch.cuda.empty_cache()
+    if failed:
+        raise RuntimeError(f"zoo_sweep: wrong parameter count, logits not "
+                           f"finite or off the CPU's: {failed}")
+    emit("zoo_sweep_done", builders=len(names))
+
+
+def zoo_phases(kernels) -> None:
+    """The classification zoo: the JAX bench's three zoo cells served and
+    trained, then every other builder of the families once. No kernel of
+    the repo's is on these paths: the launch counts, set to 0 before them,
+    are printed after them and must still read 0."""
+    kernels.reset()
+    zoo_forward_phases()
+    zoo_train_phases()
+    zoo_sweep_phase()
+    launches = kernels.launches()
+    emit("zoo_launches", launches=launches)
+    if any(launches.values()):
+        raise RuntimeError(f"zoo: kernels launched on a path that has none: "
+                           f"{launches}")
 
 
 def kernel_phases(kernels, calls, launches):

@@ -8,8 +8,14 @@ JAX): conv kernels HWIO -> OIHW (3-D: DHWIO -> OIDHW), dense kernels IO -> OI, b
 frozen-BN buffers, and the Faster R-CNN renames (FPN
 ``inner_blocks_{i}`` -> ``inner_blocks.{i}.0``, v2's ``inner_norm_{i}``
 -> ``inner_blocks.{i}.1`` and ``layer_norm_{i}`` -> ``layer_blocks.{i}.1``,
-and ``fc6``, or v2's ``box_head.5``, from the JAX HWC flatten of the
-pooled features to torch's CHW flatten). A port module with a
+and a Linear whose JAX counterpart reads an HWC flatten where the port
+flattens CHW, reordered: a parent module names such children in its
+``jax_hwc_inputs``, child name -> ``(h, w)`` of the map: Faster R-CNN's
+``box_head.fc6`` or v2's ``box_head.5``, AlexNet's ``classifier.1``, VGG's
+``classifier.0``, GoogLeNet's ``aux{1,2}.fc1``). ConvNeXt's ``layer_scale``
+(``(dim,)`` in JAX) takes torchvision's ``(dim, 1, 1)``; the 2-D
+``relative_position_bias_table`` of Swin and MaxViT is not a Dense kernel
+and keeps its ``[offsets, heads]`` layout. A port module with a
 ``jax_names`` dict (``ops.misc.MLP``) renames its children by it. flax
 ``GroupNorm``'s ``scale`` is a ``weight`` as batch norm's is; RetinaNet's
 extra blocks, ``backbone/extra_blocks/p6`` beside the JAX FPN, go to
@@ -38,13 +44,13 @@ symmetric).
 from __future__ import annotations
 
 import re
-from typing import Any, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["load_jax_variables"]
+__all__ = ["jax_placements", "load_jax_variables"]
 
 
 def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
@@ -76,6 +82,16 @@ def _torch_name(collection: str, path: Tuple[str, ...]) -> str:
     return re.sub(r"\.in_proj\.(weight|bias)$", r".in_proj_\1", name)
 
 
+def _hwc_input(module: nn.Module, name: str):
+    """``(h, w)`` of the map that the Linear owning ``name`` flattens,
+    where the JAX model flattens it HWC: its parent declares it in a
+    ``jax_hwc_inputs`` dict, child name -> ``(h, w)``."""
+    path = name.rsplit(".", 1)[0]
+    parent, _, child = path.rpartition(".")
+    owner = module.get_submodule(parent) if parent else module
+    return getattr(owner, "jax_hwc_inputs", {}).get(child)
+
+
 def _to_torch_layout(name: str, arr: np.ndarray, target: torch.Tensor,
                      module: nn.Module) -> np.ndarray:
     if arr.ndim == 4 and isinstance(
@@ -85,32 +101,37 @@ def _to_torch_layout(name: str, arr: np.ndarray, target: torch.Tensor,
         arr = arr.transpose(3, 2, 0, 1)
     elif arr.ndim == 5:  # DHWIO -> OIDHW
         arr = arr.transpose(4, 3, 0, 1, 2)
-    elif arr.ndim == 2:  # IO -> OI
-        arr = arr.T
-        if name.endswith(("box_head.fc6.weight", "box_head.5.weight")):
-            ph, pw = module.roi_heads.box_roi_pool.output_size
-            out, flat = arr.shape
-            arr = arr.reshape(out, ph, pw, flat // (ph * pw)).transpose(0, 3, 1, 2)
-            arr = arr.reshape(out, flat)
+    elif arr.ndim == 2 and not name.endswith("relative_position_bias_table"):
+        hw = _hwc_input(module, name)
+        if hw is None:
+            arr = arr.T  # IO -> OI
+        else:  # IO over the JAX HWC flatten -> OI over torch's CHW flatten
+            (ph, pw), (flat, out) = hw, arr.shape
+            arr = arr.reshape(ph, pw, flat // (ph * pw), out)
+            arr = arr.transpose(3, 2, 0, 1).reshape(out, flat)
+    elif arr.ndim == 1 and target.ndim == 3 and name.endswith("layer_scale"):
+        arr = arr.reshape(target.shape)  # ConvNeXt's (dim,) -> (dim, 1, 1)
     if tuple(arr.shape) != tuple(target.shape):
         raise ValueError(f"{name}: JAX shape {arr.shape} vs torch "
                          f"{tuple(target.shape)}")
     return arr
 
 
-@torch.no_grad()
-def load_jax_variables(module: nn.Module, variables: Mapping[str, Any]) -> None:
-    """Copy every leaf of ``variables`` (``{"params": ..., "batch_stats":
-    ..., "frozen": ...}`` as nested dicts of arrays) into ``module``'s
-    parameters and buffers. Raises unless every leaf has a target and every
-    tensor of the module a source (``num_batches_tracked`` counters have
-    none in JAX and are left alone)."""
+def jax_placements(module: nn.Module, variables: Mapping[str, Any]
+                   ) -> Dict[str, np.ndarray]:
+    """Every leaf of ``variables`` (``{"params": ..., "batch_stats": ...,
+    "frozen": ...}`` as nested dicts of arrays) under the name of its
+    parameter or buffer in ``module``, in that tensor's layout and shape.
+    Raises unless every leaf has a target of its shape and every tensor of
+    the module a source (``num_batches_tracked`` counters have none in JAX
+    and are left out). Only shapes are read from ``module``: it may lie
+    on the meta device."""
     targets = dict(module.named_parameters())
     targets.update(module.named_buffers())
     renames = {f"{prefix}." if prefix else "": m.jax_names
                for prefix, m in module.named_modules()
                if isinstance(getattr(m, "jax_names", None), dict)}
-    loaded = set()
+    placed: Dict[str, np.ndarray] = {}
     for collection, tree in variables.items():
         for path, value in _leaves(tree):
             name = _torch_name(collection, path)
@@ -122,10 +143,20 @@ def load_jax_variables(module: nn.Module, variables: Mapping[str, Any]) -> None:
             if name not in targets:
                 raise KeyError(f"{collection}/{'/'.join(path)} -> {name}: no "
                                "such parameter or buffer")
-            arr = _to_torch_layout(name, np.asarray(value), targets[name], module)
-            targets[name].copy_(torch.as_tensor(np.array(arr)))
-            loaded.add(name)
-    missing = sorted(n for n in set(targets) - loaded
+            placed[name] = _to_torch_layout(name, np.asarray(value),
+                                            targets[name], module)
+    missing = sorted(n for n in set(targets) - set(placed)
                      if not n.endswith("num_batches_tracked"))
     if missing:
         raise KeyError(f"not in the JAX variables ({len(missing)}): {missing[:10]}")
+    return placed
+
+
+@torch.no_grad()
+def load_jax_variables(module: nn.Module, variables: Mapping[str, Any]) -> None:
+    """Copy every leaf of ``variables`` into ``module``'s parameters and
+    buffers, as ``jax_placements`` places them (and raises as it does)."""
+    targets = dict(module.named_parameters())
+    targets.update(module.named_buffers())
+    for name, arr in jax_placements(module, variables).items():
+        targets[name].copy_(torch.as_tensor(np.array(arr)))

@@ -1,7 +1,49 @@
-"""Models (counterpart of ``vision_tpu/models``)."""
+"""Models (counterpart of ``vision_tpu/models``): the classification
+families, ``detection`` and ``feature_extraction``."""
 
-from vision_tpu_torch.models import detection, resnet, vision_transformer
-from vision_tpu_torch.models._api import get_model, list_models
+import importlib
+
+from vision_tpu_torch.models import (
+    alexnet,
+    convnext,
+    densenet,
+    detection,
+    efficientnet,
+    feature_extraction,
+    googlenet,
+    inception,
+    maxvit,
+    mnasnet,
+    mobilenetv2,
+    mobilenetv3,
+    regnet,
+    resnet,
+    shufflenetv2,
+    squeezenet,
+    swin_transformer,
+    vgg,
+    vision_transformer,
+)
+from vision_tpu_torch.models._api import get_model, get_model_weights, list_models
+from vision_tpu_torch.models.alexnet import *  # noqa: F401,F403
+from vision_tpu_torch.models.convnext import *  # noqa: F401,F403
+from vision_tpu_torch.models.densenet import *  # noqa: F401,F403
+from vision_tpu_torch.models.efficientnet import *  # noqa: F401,F403
+from vision_tpu_torch.models.googlenet import *  # noqa: F401,F403
+from vision_tpu_torch.models.inception import *  # noqa: F401,F403
+from vision_tpu_torch.models.maxvit import *  # noqa: F401,F403
+from vision_tpu_torch.models.mnasnet import *  # noqa: F401,F403
+from vision_tpu_torch.models.mobilenetv2 import *  # noqa: F401,F403
+from vision_tpu_torch.models.mobilenetv3 import *  # noqa: F401,F403
+from vision_tpu_torch.models.regnet import *  # noqa: F401,F403
+from vision_tpu_torch.models.shufflenetv2 import *  # noqa: F401,F403
+from vision_tpu_torch.models.squeezenet import *  # noqa: F401,F403
+from vision_tpu_torch.models.swin_transformer import *  # noqa: F401,F403
+from vision_tpu_torch.models.vgg import *  # noqa: F401,F403
+from vision_tpu_torch.models.feature_extraction import (
+    create_feature_extractor,
+    get_graph_node_names,
+)
 from vision_tpu_torch.models.resnet import (
     ResNet,
     ResNet18_Weights,
@@ -59,6 +101,7 @@ __all__ = [
     "VisionTransformer",
     "detection",
     "get_model",
+    "get_model_weights",
     "list_models",
     "resnet",
     "resnet18",
@@ -77,4 +120,28 @@ __all__ = [
     "vit_l_32",
     "wide_resnet50_2",
     "wide_resnet101_2",
+    "create_feature_extractor",
+    "get_graph_node_names",
+    "convnext",
+    "densenet",
+    "efficientnet",
+    "inception",
+    "maxvit",
+    "mnasnet",
+    "mobilenetv2",
+    "mobilenetv3",
+    "regnet",
+    "shufflenetv2",
+    "squeezenet",
+    "swin_transformer",
+    "vgg",
+    "feature_extraction",
 ]
+
+# the families' classes, weights and builders (each module's ``__all__``;
+# the builders ``alexnet`` and ``googlenet`` shadow their modules here)
+__all__ += [name for family in (
+    "alexnet", "convnext", "densenet", "efficientnet", "googlenet",
+    "inception", "maxvit", "mnasnet", "mobilenetv2", "mobilenetv3", "regnet",
+    "shufflenetv2", "squeezenet", "swin_transformer", "vgg")
+    for name in importlib.import_module(f"{__name__}.{family}").__all__]

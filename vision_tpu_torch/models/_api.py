@@ -1,12 +1,15 @@
 """Model registry and weights (counterpart of ``vision_tpu/models/_api.py``,
-minimal): ``register_model`` / ``get_model`` / ``list_models``, and
-``Weights`` that load from a local file only."""
+minimal): ``register_model`` / ``get_model`` / ``get_model_weights`` /
+``list_models``, and ``Weights`` that load from a local file only."""
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+import importlib
+import inspect
 import os
+import re
 from typing import Any, Callable, Dict, List, Optional, Union
 
 import torch
@@ -15,6 +18,7 @@ __all__ = [
     "Weights",
     "WeightsEnum",
     "get_model",
+    "get_model_weights",
     "list_models",
     "register_model",
     "resolve_device",
@@ -88,6 +92,17 @@ def register_model(name: str = None):
 
 def get_model(name: str, **config: Any):
     return _MODELS[name.lower()](**config)
+
+
+def get_model_weights(name: str) -> type:
+    """The weights enum of the builder ``name`` (the one its ``weights``
+    parameter is annotated with)."""
+    fn = _MODELS[name.lower()]
+    ann = str(inspect.signature(fn).parameters["weights"].annotation)
+    found = re.search(r"\w+_Weights", ann)
+    if found is None:
+        raise ValueError(f"{name}: no weights enum in {ann!r}")
+    return getattr(importlib.import_module(fn.__module__), found.group())
 
 
 def list_models() -> List[str]:

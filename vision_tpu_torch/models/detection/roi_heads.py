@@ -71,12 +71,15 @@ class SampledProposals(NamedTuple):
 
 
 class TwoMLPHead(nn.Module):
-    """Flatten the pooled ``[K, C, 7, 7]`` in CHW order, then fc6, fc7."""
+    """Flatten the pooled ``[K, C, 7, 7]`` in CHW order, then fc6, fc7.
+    The JAX head flattens HWC: ``jax_hwc_inputs`` has the converters
+    reorder ``fc6.weight``."""
 
     def __init__(self, in_channels: int, representation_size: int = 1024):
         super().__init__()
         self.fc6 = nn.Linear(in_channels, representation_size)
         self.fc7 = nn.Linear(representation_size, representation_size)
+        self.jax_hwc_inputs = {"fc6": (7, 7)}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.flatten(1)
@@ -89,7 +92,7 @@ class FastRCNNConvFCHead(nn.Sequential):
     and a ReLU (children ``{i}.0``, ``{i}.1``), then the pooled ``[K, 256,
     7, 7]`` flattened in CHW order (``4``) and the fc ``5`` of
     ``representation_size`` with a ReLU. The JAX head flattens HWC: the
-    converters reorder ``5.weight``."""
+    converters reorder ``5.weight`` (``jax_hwc_inputs``)."""
 
     def __init__(self, input_size=(256, 7, 7), conv_layers=(256, 256, 256, 256),
                  representation_size: int = 1024):
@@ -103,6 +106,7 @@ class FastRCNNConvFCHead(nn.Sequential):
                          nn.Linear(channels * height * width,
                                    representation_size),
                          nn.ReLU(inplace=True))
+        self.jax_hwc_inputs = {"5": (height, width)}
 
 
 class FastRCNNPredictor(nn.Module):

@@ -43,14 +43,19 @@ def make_train_step(
     label_smoothing: float = 0.0,
     compute_dtype: Optional[torch.dtype] = None,
     clip_grad_norm: Optional[float] = None,
-) -> Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]:
-    """Build ``step(batch) -> {"loss", "accuracy"}`` for
+) -> Callable[..., Dict[str, torch.Tensor]]:
+    """Build ``step(batch, generator=None) -> {"loss", "accuracy"}`` for
     ``batch = {"image": [N, 3, H, W], "label": [N] or [N, C]}`` on the
-    model's device. The step puts the model in training mode, and updates
-    its parameters (through ``optimizer``, which holds them) and its batch
-    norm running statistics in place. ``accuracy`` is reported for integer
-    labels only. The metrics stay on the device: reading them is the
-    caller's synchronisation.
+    model's device. ``generator`` (a ``torch.Generator`` on the model's
+    device) is handed to ``model(images, generator=generator)``, where the
+    model's dropout and stochastic depth draw from it, as the JAX step
+    hands its ``"dropout"`` key to the model; with None the model is called
+    as ``model(images)`` and must draw nothing in training mode (a model
+    with stochastic depth or dropout raises). The step puts the model in
+    training mode, and updates its parameters (through ``optimizer``, which
+    holds them) and its batch norm running statistics in place.
+    ``accuracy`` is reported for integer labels only. The metrics stay on
+    the device: reading them is the caller's synchronisation.
 
     ``compute_dtype=torch.bfloat16`` runs the forward and the backward pass
     in bf16: the parameters and the images are cast at the step boundary,
@@ -67,12 +72,15 @@ def make_train_step(
     """
     params = [p for group in optimizer.param_groups for p in group["params"]]
 
-    def step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def step(batch: Dict[str, torch.Tensor],
+             generator: Optional[torch.Generator] = None
+             ) -> Dict[str, torch.Tensor]:
         images, labels = batch["image"], batch["label"]
         model.train()
         optimizer.zero_grad(set_to_none=True)
+        kwargs = {} if generator is None else {"generator": generator}
         if compute_dtype is None:
-            logits = model(images)
+            logits = model(images, **kwargs)
         else:
             # buffers are not replaced: the running statistics stay f32
             cast = {
@@ -80,7 +88,7 @@ def make_train_step(
                 for name, p in model.named_parameters()
             }
             logits = torch.func.functional_call(
-                model, cast, (images.to(compute_dtype),))
+                model, cast, (images.to(compute_dtype),), kwargs)
         loss = cross_entropy_loss(logits, labels, label_smoothing)
         loss.backward()
         metrics = {"loss": loss.detach()}
