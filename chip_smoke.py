@@ -109,10 +109,23 @@ off, seeded random weights:
   (batch 64) served in f32 and bf16 (the f32 logits of 2 images against
   the CPU, bf16 against f32, TFLOP/s from the cell's GMACs) and trained
   by SGD at batch 32 in f32 and bf16 (step 1 with no stochastic layer
-  against the CPU, the default stochastic depth and dropout drawn from a
+  against the CPU, whose step takes each ReLU to the card's side, the
+  default stochastic depth and dropout drawn from a
   CUDA generator, the same seed giving the same loss twice); then every
   other builder of the fifteen families once at its eval size, one a
-  family against the CPU. No kernel of the repo's is on these paths.
+  family against the CPU. No kernel of the repo's is on these paths;
+* segmentation, optical flow and video (``tools/dense.py``, the JAX
+  bench's last four zoo cells): DeepLabV3-ResNet-50 at 520x520 (batch 4),
+  RAFT-large on 512x512 pairs (batch 2, 12 flow updates), MViT-V2-S and
+  Swin3D-T on 16x224x224 clips (batch 4) served in f32 and bf16 (one
+  sample's f32 output against the CPU, bf16 against f32, TFLOP/s from the
+  cell's GMACs, the busy share and the kernels a forward); DeepLabV3
+  trained at the JAX recipe's 480x480 crops, batch 8, in f32 and bf16
+  (step 1 without dropout against the CPU at 240x240, batch 8, as the
+  zoo's) and RAFT-large at 368x496,
+  batch 2, in f32 (step 1 against the CPU on 256x320 pairs); then every
+  other builder of the three once, one a kind against the CPU. No kernel
+  of the repo's is on these paths.
 
 Every kernel is held against its plain PyTorch version on the card at the
 inputs the model gave it, and each path's result against a run of the same
@@ -767,8 +780,12 @@ def main() -> int:
     t_zoo = time.perf_counter()
     zoo_phases(kernels)
     zoo_s = time.perf_counter() - t_zoo
+    torch.cuda.empty_cache()
+    t_dense = time.perf_counter()
+    dense_phases(kernels)
+    dense_s = time.perf_counter() - t_dense
     emit("done", build_s=build_s, phases_s=time.perf_counter() - t_phases,
-         zoo_s=zoo_s, total_s=time.perf_counter() - t0)
+         zoo_s=zoo_s, dense_s=dense_s, total_s=time.perf_counter() - t0)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
@@ -4000,14 +4017,15 @@ def check_detections(dets, ref, batch=1, score_tol=1e-4, box_tol=1e-2,
         raise RuntimeError(f"{phase}: kernel path disagrees with the plain path")
 
 
-ZOO_PARAMS = {"efficientnet_v2_s": 21_458_488, "convnext_tiny": 28_589_128,
-              "swin_t": 28_288_354}  # each default weights' num_params
 ZOO_CPU_IMAGES = 2  # the images held against the CPU
 ZOO_LOGITS_TOL = 1e-4  # f32 logits on the card against the CPU's, of the largest
 ZOO_AMP_LOGITS_TOL = 2e-2  # bf16 logits against f32, of the largest
 ZOO_CPU_BATCH = 4  # the f32 step held against the CPU
 ZOO_LOSS_TOL = 1e-4  # step 1's loss on the card against the CPU, relative
 ZOO_GRAD_TOL = 1e-3  # all gradients together, by relative Frobenius norm
+# step 1's ReLU inputs on the other side of 0 on the CPU than on the card
+# (the CPU's step takes the card's sides: tools/zoo.py:step_against_cpu)
+ZOO_RELU_SWITCHED_TOL = 1e-4
 ZOO_AMP_LOSS_TOL = 5e-2  # amp step 1's loss against the f32 step's
 ZOO_STEPS = 3  # timed steps after the first
 ZOO_SEED = 7  # the CUDA generator's seed for the stochastic layers
@@ -4034,6 +4052,13 @@ def rel_err(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
 
+def num_params(name: str) -> int:
+    """The default weights' parameter count (JAX's meta)."""
+    from vision_tpu_torch.models import get_model_weights
+
+    return get_model_weights(name).DEFAULT.meta["num_params"]
+
+
 def zoo_forward_phases() -> None:
     """``zoo_forward`` / ``_amp``: the JAX bench's zoo cells
     (``bench.py:_bench_zoo_fwd``) served at full width in f32 and bf16 (the
@@ -4047,7 +4072,7 @@ def zoo_forward_phases() -> None:
     from vision_tpu_torch.tools import zoo
 
     device = torch.cuda.get_device_name(0)
-    for name, (size, batch, _) in zoo.CELLS.items():
+    for name, (size, batch) in zoo.CELLS.items():
         model = zoo.seeded_model(name, size)
         params = sum(p.numel() for p in model.parameters())
         cpu_model = copy.deepcopy(model).cpu()
@@ -4065,7 +4090,7 @@ def zoo_forward_phases() -> None:
                  logits_vs_cpu_rel_err=err, tol=ZOO_LOGITS_TOL,
                  tflops=flops / ms / 1e9, peak_tflops=PEAK_F32_FLOPS / 1e12,
                  logits_std=float(logits.std()))
-            if params != ZOO_PARAMS[name] or not err <= ZOO_LOGITS_TOL or not \
+            if params != num_params(name) or not err <= ZOO_LOGITS_TOL or not \
                     bool(torch.isfinite(logits).all()):
                 raise RuntimeError(f"zoo_forward {name}: wrong parameter "
                                    "count, or logits off the CPU's or not "
@@ -4085,50 +4110,41 @@ def zoo_forward_phases() -> None:
         torch.cuda.empty_cache()
 
 
-def zoo_step_against_cpu(name: str, size: int) -> dict:
-    """Step 1 of the f32 SGD step with no stochastic layer, at batch
-    ``ZOO_CPU_BATCH``, on the card and on the CPU from the same weights:
-    the losses and every gradient."""
-    import torch
-
+def step_check(make, step_of, batch_of) -> dict:
+    """``tools/zoo.py:step_against_cpu`` with its tolerances: step 1's loss
+    ``ZOO_LOSS_TOL``, all gradients ``ZOO_GRAD_TOL`` by relative Frobenius
+    norm, the CPU's ReLU inputs on the other side of 0 from the card's at
+    most ``ZOO_RELU_SWITCHED_TOL`` of them; ``ok`` if all hold."""
     from vision_tpu_torch.tools import zoo
 
-    model = zoo.seeded_model(name, size, **ZOO_QUIET[name])
-    out = {}
-    for where, twin in (("card", model), ("cpu", copy.deepcopy(model).cpu())):
-        dev = next(twin.parameters()).device
-        batch = zoo.batch_of(ZOO_CPU_BATCH, size, 1, dev)
-        loss = float(zoo.sgd_step(twin)(batch)["loss"])
-        grads = torch.cat([p.grad.double().cpu().ravel()
-                           for p in twin.parameters()])
-        out[where] = (loss, grads)
-        del twin
-    (loss, grads), (want, want_grads) = out["card"], out["cpu"]
-    return {"loss_vs_cpu_rel_err": abs(loss - want) / abs(want),
-            "grads_vs_cpu_frobenius_rel_err": float(
-                (grads - want_grads).norm() / want_grads.norm()),
-            "loss_tol": ZOO_LOSS_TOL, "grad_tol": ZOO_GRAD_TOL}
+    check = zoo.step_against_cpu(make, step_of, batch_of)
+    check.update(loss_tol=ZOO_LOSS_TOL, grad_tol=ZOO_GRAD_TOL,
+                 relu_switched_tol=ZOO_RELU_SWITCHED_TOL)
+    check["ok"] = (check["loss_vs_cpu_rel_err"] <= ZOO_LOSS_TOL
+                   and check["grads_vs_cpu_frobenius_rel_err"] <= ZOO_GRAD_TOL
+                   and check["relu_switched_share"] <= ZOO_RELU_SWITCHED_TOL)
+    return check
 
 
-def zoo_timed_steps(step, batch, gen) -> tuple:
-    """``ZOO_STEPS`` steps after the first (which the caller ran): their
-    wall ms, each with the loss read back, and the losses."""
+def timed_steps(call) -> tuple:
+    """Step 1 (``call()``, a loss), then ``ZOO_STEPS`` steps: step 1's
+    loss, the steps' wall ms (each with its loss read back) and losses."""
     import torch
 
+    loss1 = float(call())
     torch.cuda.synchronize()
     times, losses = [], []
     for _ in range(ZOO_STEPS):
         t = time.perf_counter()
-        losses.append(float(step(batch, gen)["loss"]))
+        losses.append(float(call()))
         times.append((time.perf_counter() - t) * 1e3)
-    return times, losses
+    return loss1, times, losses
 
 
 def zoo_train_phases() -> None:
     """``zoo_train`` / ``_amp``: the same three models trained by SGD at
     batch 32 at their sizes. f32: step 1 with no stochastic layer held
-    against the CPU (at batch 4: the loss ``ZOO_LOSS_TOL``, all gradients
-    ``ZOO_GRAD_TOL`` by relative Frobenius norm); then the default
+    against the CPU (at batch 4, ``step_check``); then the default
     stochastic depth and dropout, drawn from a CUDA generator: the same
     seed gives the same step-1 loss twice; 3 timed steps (ms/step, img/s,
     peak GB). amp: the same from the same weights and seed in bf16, its
@@ -4140,8 +4156,10 @@ def zoo_train_phases() -> None:
 
     device = torch.cuda.get_device_name(0)
     card = resolve_device(None)
-    for name, (size, _, _) in zoo.CELLS.items():
-        check = zoo_step_against_cpu(name, size)
+    for name, (size, _) in zoo.CELLS.items():
+        check = step_check(
+            lambda: zoo.seeded_model(name, size, **ZOO_QUIET[name]),
+            zoo.sgd_step, lambda dev: zoo.batch_of(ZOO_CPU_BATCH, size, 1, dev))
         torch.cuda.empty_cache()
         batch = zoo.batch_of(zoo.TRAIN_BATCH, size, 2)
         f32_loss = None
@@ -4152,8 +4170,8 @@ def zoo_train_phases() -> None:
             torch.cuda.reset_peak_memory_stats()
             step = zoo.sgd_step(model, dtype)
             gen = torch.Generator(device=card).manual_seed(ZOO_SEED)
-            loss1 = float(step(batch, gen)["loss"])
-            times, losses = zoo_timed_steps(step, batch, gen)
+            loss1, times, losses = timed_steps(
+                lambda: step(batch, gen)["loss"])
             ms = statistics.median(times)
             fields = dict(model=name, device=device, image_size=size,
                           dtype="float32" if dtype is None else "bfloat16",
@@ -4166,9 +4184,7 @@ def zoo_train_phases() -> None:
                 again = float(zoo.sgd_step(twin)(batch, torch.Generator(
                     device=card).manual_seed(ZOO_SEED))["loss"])
                 fields.update(check, step1_loss_same_seed_again=again)
-                ok = ok and again == loss1 and (
-                    check["loss_vs_cpu_rel_err"] <= ZOO_LOSS_TOL
-                    and check["grads_vs_cpu_frobenius_rel_err"] <= ZOO_GRAD_TOL)
+                ok = ok and again == loss1 and check["ok"]
                 f32_loss = loss1
             else:
                 err = abs(loss1 - f32_loss) / abs(f32_loss)
@@ -4197,8 +4213,9 @@ def zoo_sweep_phase() -> None:
     from vision_tpu_torch.tools import zoo
 
     device = torch.cuda.get_device_name(0)
+    families = {f"vision_tpu_torch.models.{f}" for f in ZOO_FAMILIES}
     names = [n for n in list_models() if n not in zoo.CELLS and
-             _MODELS[n].__module__.rsplit(".", 1)[1] in ZOO_FAMILIES]
+             _MODELS[n].__module__ in families]
     failed = []
     for name in names:
         t0 = time.perf_counter()
@@ -4245,6 +4262,254 @@ def zoo_phases(kernels) -> None:
     emit("zoo_launches", launches=launches)
     if any(launches.values()):
         raise RuntimeError(f"zoo: kernels launched on a path that has none: "
+                           f"{launches}")
+
+
+# the segmentation step held against the CPU: crop, batch (at batch 2,
+# ASPP's pooled 1x1 map normalised over the batch is +-1 whatever its
+# input, and rounding alone sets its gradient: 1.2e-3 of the whole on the
+# CPU against f64, 8e-5 at batch 8; tools/step_gap.py)
+DENSE_SEG_CPU = (240, 8)
+DENSE_FLOW_CPU_SIZE = (256, 320)  # the flow step held against the CPU
+DENSE_SWEEP_BATCH = 2
+# one builder a kind held against the CPU
+DENSE_SWEEP_CPU = ("lraspp_mobilenet_v3_large", "raft_small", "r2plus1d_18")
+DENSE_FAMILIES = ("segmentation", "optical_flow", "video")
+
+
+def kernel_launches_of(fn) -> int:
+    """The CUDA kernels one call of ``fn`` launches (``torch.profiler``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def dense_forward_phases() -> None:
+    """``dense_forward`` / ``_amp``: the JAX bench's dense and video cells
+    (``bench.py:_bench_zoo_fwd``) served at full width in f32 and bf16 (the
+    batch norms' statistics kept f32): DeepLabV3-ResNet-50 at 520x520 batch
+    4 (its ``out`` logits), RAFT-large on 512x512 pairs batch 2 with 12 flow
+    updates (the last flow), MViT-V2-S and Swin3D-T on 16x224x224 clips
+    batch 4. ms a batch and samples a second (median of 5 after a warm-up),
+    TFLOP/s from the cell's GMACs beside the card's peak, f32 device ms a
+    batch (queued behind a spin kernel), the busy share (device over wall)
+    and the kernels a forward; the f32 output of one sample against the
+    same model on the CPU, bf16 against f32."""
+    import torch
+
+    from vision_tpu_torch.tools import dense
+
+    device = torch.cuda.get_device_name(0)
+    for name, (size, batch) in dense.CELLS.items():
+        model = dense.seeded_model(name, size)
+        params = sum(p.numel() for p in model.parameters())
+        cpu_model = copy.deepcopy(model).cpu()
+        args = dense.inputs(name, batch, size)
+        flops = 2 * dense.gmacs(name) * 1e9 * batch
+        with torch.inference_mode():
+            out = dense.serve(model, name, args)
+            err = rel_err(out[:1], dense.serve(cpu_model, name, tuple(
+                a[:1].cpu() for a in args)))
+            del cpu_model
+            ms, ms_all = host_ms(lambda: dense.serve(model, name, args))
+            dev_ms = device_ms(lambda: dense.serve(model, name, args),
+                               launches=3, warmup=1)
+            launches = kernel_launches_of(lambda: dense.serve(model, name,
+                                                              args))
+            emit("dense_forward", model=name, device=device, params=params,
+                 jax_num_params=num_params(name), dtype="float32",
+                 batch=batch, size=size, ms_per_batch=ms,
+                 samples_per_s=batch / ms * 1e3, ms_all=ms_all,
+                 device_ms_per_batch=dev_ms, busy_share=dev_ms / ms,
+                 kernel_launches_per_batch=launches,
+                 out_vs_cpu_rel_err=err, tol=ZOO_LOGITS_TOL,
+                 tflops=flops / ms / 1e9, peak_tflops=PEAK_F32_FLOPS / 1e12,
+                 out_std=float(out.float().std()))
+            if params != num_params(name) or not err <= ZOO_LOGITS_TOL \
+                    or not bool(torch.isfinite(out).all()):
+                raise RuntimeError(f"dense_forward {name}: wrong parameter "
+                                   "count, or output off the CPU's or not "
+                                   "finite")
+            model16 = dense.to_bf16(model)
+            args16 = tuple(a.to(torch.bfloat16) for a in args)
+            err16 = rel_err(dense.serve(model16, name, args16).float(), out)
+            ms, ms_all = host_ms(lambda: dense.serve(model16, name, args16))
+            dev_ms = device_ms(lambda: dense.serve(model16, name, args16),
+                               launches=3, warmup=1)
+            emit("dense_forward_amp", model=name, device=device,
+                 dtype="bfloat16", batch=batch, size=size, ms_per_batch=ms,
+                 samples_per_s=batch / ms * 1e3, ms_all=ms_all,
+                 device_ms_per_batch=dev_ms, busy_share=dev_ms / ms,
+                 out_vs_f32_rel_err=err16, tol=ZOO_AMP_LOGITS_TOL,
+                 tflops=flops / ms / 1e9, peak_tflops=PEAK_BF16_FLOPS / 1e12)
+            if not err16 <= ZOO_AMP_LOGITS_TOL:
+                raise RuntimeError(f"dense_forward_amp {name}: bf16 output "
+                                   "off the f32 one")
+        del model, model16, args, args16, out
+        torch.cuda.empty_cache()
+
+
+def dense_train_line(phase, name, call, size, batch, check=None,
+                     f32_loss=None) -> float:
+    """``timed_steps(call)``; one line with ms a step, samples a second and
+    the peak memory; ``check`` (``step_check``) or ``f32_loss`` (the amp
+    step 1's reference, within ``ZOO_AMP_LOSS_TOL``) gate it. Returns step
+    1's loss."""
+    import torch
+
+    loss1, times, losses = timed_steps(call)
+    ms = statistics.median(times)
+    fields = dict(model=name, device=torch.cuda.get_device_name(0),
+                  size=size, batch=batch, ms_per_step=ms,
+                  samples_per_s=batch / ms * 1e3, ms_all=times,
+                  step1_loss=loss1, losses=losses,
+                  peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    ok = all(math.isfinite(v) for v in [loss1] + losses)
+    if check is not None:
+        fields.update(check)
+        ok = ok and check["ok"]
+    if f32_loss is not None:
+        err = abs(loss1 - f32_loss) / abs(f32_loss)
+        fields.update(loss_vs_f32_rel_err=err, loss_tol=ZOO_AMP_LOSS_TOL)
+        ok = ok and err <= ZOO_AMP_LOSS_TOL
+    emit(phase, **fields)
+    if not ok:
+        raise RuntimeError(f"{phase} {name}: step 1 off its reference or a "
+                           "loss not finite")
+    return loss1
+
+
+def dense_train_phases() -> None:
+    """``seg_train`` / ``_amp``: DeepLabV3-ResNet-50 trained at the JAX
+    recipe's size (480x480 crops, batch 8, 21 classes, seeded targets with
+    255-ignored pixels; SGD lr 0.01, momentum 0.9, weight decay 1e-4), f32
+    then bf16 amp; step 1 with the heads' dropout off held against the CPU
+    on ``DENSE_SEG_CPU`` (240x240 crops, batch 8; ``step_check``), the
+    dropout then drawn from a CUDA generator, the amp step 1's loss within
+    ``ZOO_AMP_LOSS_TOL`` of the f32 one. ``raft_train``: RAFT-large at
+    batch 2, 12 flow updates, on 368x496 pairs (torchvision's FlyingChairs
+    crop), AdamW lr 4e-4, weight decay 1e-4, every gradient clipped to
+    [-1, 1], f32; step 1 held against the CPU on 256x320 pairs."""
+    import torch
+
+    from vision_tpu_torch.models._api import resolve_device
+    from vision_tpu_torch.tools import dense
+
+    card = resolve_device(None)
+    name = "deeplabv3_resnet50"
+    size, batch = dense.SEG_TRAIN
+    check = step_check(
+        lambda: dense.seeded_model(name, size, aspp_dropout=0.0,
+                                   head_dropout=0.0),
+        dense.seg_step, lambda dev: dense.seg_batch(
+            DENSE_SEG_CPU[1], DENSE_SEG_CPU[0], 1, dev))
+    torch.cuda.empty_cache()
+    data = dense.seg_batch(batch, size, 2)
+    f32_loss = None
+    for phase, dtype in (("seg_train", None), ("seg_train_amp", torch.bfloat16)):
+        model = dense.seeded_model(name, size)
+        torch.cuda.reset_peak_memory_stats()
+        step = dense.seg_step(model, dtype)
+        gen = torch.Generator(device=card).manual_seed(ZOO_SEED)
+        loss1 = dense_train_line(
+            phase, name, lambda: step(data, gen)["loss"], size, batch,
+            check=check if dtype is None else None, f32_loss=f32_loss)
+        f32_loss = loss1 if dtype is None else f32_loss
+        del model, step
+        torch.cuda.empty_cache()
+    del data
+
+    name = "raft_large"
+    size, batch = dense.FLOW_TRAIN
+    check = step_check(
+        lambda: dense.seeded_model(name, size), dense.flow_step,
+        lambda dev: dense.flow_batch(batch, DENSE_FLOW_CPU_SIZE, 1, dev))
+    torch.cuda.empty_cache()
+    data = dense.flow_batch(batch, size, 2)
+    model = dense.seeded_model(name, size)
+    torch.cuda.reset_peak_memory_stats()
+    step = dense.flow_step(model)
+    dense_train_line("raft_train", name, lambda: step(data)["loss"],
+                     list(size), batch, check=check)
+    del model, step, data
+    torch.cuda.empty_cache()
+
+
+def dense_sweep_phase() -> None:
+    """``dense_sweep``: every other builder of segmentation, optical flow
+    and video, built on the card at full width (its parameter count its
+    meta's), served once in f32 at batch 2: segmentation at 520x520, RAFT
+    on 512x512 pairs (12 updates), video on 16-frame clips at its preset's
+    crop; the output finite and of its shape; ``DENSE_SWEEP_CPU`` held
+    against the CPU on one sample. Each model is freed before the next."""
+    import torch
+
+    from vision_tpu_torch.models import list_models
+    from vision_tpu_torch.models._api import _MODELS
+    from vision_tpu_torch.tools import dense
+
+    device = torch.cuda.get_device_name(0)
+    names = [n for n in list_models() if n not in dense.CELLS and
+             _MODELS[n].__module__.split(".")[2] in DENSE_FAMILIES]
+    failed = []
+    for name in names:
+        t0 = time.perf_counter()
+        size = dense.default_size(name)
+        model = dense.seeded_model(name, size)
+        params = sum(p.numel() for p in model.parameters())
+        args = dense.inputs(name, DENSE_SWEEP_BATCH, size, 3)
+        kind = dense.kind(name)
+        side = size if kind != "video" else size[1]
+        want_shape = {"segmentation": [DENSE_SWEEP_BATCH, 21, side, side],
+                      "flow": [DENSE_SWEEP_BATCH, 2, side, side],
+                      "video": [DENSE_SWEEP_BATCH, 400]}[kind]
+        with torch.inference_mode():
+            out = dense.serve(model, name, args)
+            fields = dict(model=name, device=device, size=size,
+                          batch=DENSE_SWEEP_BATCH, params=params,
+                          finite=bool(torch.isfinite(out).all()),
+                          shape=list(out.shape))
+            ok = (params == num_params(name) and fields["finite"]
+                  and fields["shape"] == want_shape)
+            if name in DENSE_SWEEP_CPU:
+                cpu_model = copy.deepcopy(model).cpu()
+                err = rel_err(out[:1], dense.serve(cpu_model, name, tuple(
+                    a[:1].cpu() for a in args)))
+                fields.update(out_vs_cpu_rel_err=err, tol=ZOO_LOGITS_TOL)
+                ok = ok and err <= ZOO_LOGITS_TOL
+                del cpu_model
+        emit("dense_sweep", seconds=time.perf_counter() - t0, ok=ok, **fields)
+        if not ok:
+            failed.append(name)
+        del model, args, out
+        torch.cuda.empty_cache()
+    if failed:
+        raise RuntimeError(f"dense_sweep: wrong parameter count, output not "
+                           f"finite, of the wrong shape or off the CPU's: "
+                           f"{failed}")
+    emit("dense_sweep_done", builders=len(names))
+
+
+def dense_phases(kernels) -> None:
+    """Segmentation, optical flow and video: the JAX bench's last four zoo
+    cells served, DeepLabV3 and RAFT trained, then every other builder of
+    the three once. No kernel of the repo's is on these paths: the launch
+    counts, set to 0 before them, are printed after them and must still
+    read 0."""
+    kernels.reset()
+    dense_forward_phases()
+    dense_train_phases()
+    dense_sweep_phase()
+    launches = kernels.launches()
+    emit("dense_launches", launches=launches)
+    if any(launches.values()):
+        raise RuntimeError(f"dense: kernels launched on a path that has none: "
                            f"{launches}")
 
 

@@ -45,6 +45,9 @@ from vision_tpu_torch._jax_convert import load_jax_variables
 from vision_tpu_torch.models.detection._utils import BoxCoder
 from vision_tpu_torch.models.detection.faster_rcnn import FasterRCNN, init_weights
 from vision_tpu_torch.ops.poolers import MultiScaleRoIAlign, window_pool_plain
+from test_torch_threads import few_torch_threads  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
 CFG = dict(backbone_depth=18, num_classes=6, rpn_pre_nms_top_n=200,
            rpn_post_nms_top_n=100)

@@ -59,6 +59,9 @@ from vision_tpu_torch.ops.deform_conv import (
     sort_corners,
     tile_plan,
 )
+from test_torch_threads import few_torch_threads  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
 # (n, c_in, h, w, c_out, (kh, kw), stride, pad, dil, groups, og, mask, bias)
 CASES = [

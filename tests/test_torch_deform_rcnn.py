@@ -62,6 +62,9 @@ from vision_tpu_torch.models.detection.faster_rcnn import init_weights
 from vision_tpu_torch.models.detection.mask_rcnn import MaskRCNN
 from vision_tpu_torch.models._api import Weights
 from vision_tpu_torch.tools.detection_request import ellipse_masks, seed_offsets
+from test_torch_threads import few_torch_threads  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
 CFG = dict(backbone_depth=50, num_classes=5, rpn_pre_nms_top_n=200,
            rpn_post_nms_top_n=10, box_detections_per_img=5,

@@ -53,6 +53,9 @@ from vision_tpu_torch.tools.detection_request import (
     seeded_keypoints,
     train_batch,
 )
+from test_torch_threads import few_torch_threads  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
 CFG = dict(backbone_depth=18, rpn_pre_nms_top_n=200, rpn_post_nms_top_n=10,
            box_detections_per_img=5)

@@ -59,6 +59,9 @@ from vision_tpu_torch.tools.detection_request import (
     raw_images,
     train_batch,
 )
+from test_torch_threads import few_torch_threads  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
 CFG = dict(backbone_depth=18, num_classes=6, rpn_pre_nms_top_n=200,
            rpn_post_nms_top_n=10, box_detections_per_img=5)

@@ -15,6 +15,9 @@ from vision_tpu.ops._pallas.nms import (
     nms_pallas_bitmask_sorted,
     nms_pallas_sorted,
 )
+from test_torch_threads import few_torch_threads  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
 # the packages re-export a function named ``nms`` over the module name
 jnms = importlib.import_module("vision_tpu.ops.nms")

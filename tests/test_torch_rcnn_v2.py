@@ -83,6 +83,9 @@ from vision_tpu_torch.ops.feature_pyramid_network import FeaturePyramidNetwork
 from vision_tpu_torch.ops.misc import BatchNorm2d
 from vision_tpu_torch.ops.poolers import MultiScaleRoIAlign
 from vision_tpu_torch.tools.detection_request import ellipse_masks
+from test_torch_threads import few_torch_threads  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
 H, W = 128, 160
 CFG = dict(backbone_depth=18, num_classes=5, rpn_pre_nms_top_n=200,

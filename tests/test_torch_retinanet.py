@@ -80,6 +80,9 @@ from vision_tpu_torch.ops.boxes import box_iou
 from vision_tpu_torch.ops.feature_pyramid_network import LastLevelP6P7
 from vision_tpu_torch.ops.misc import BatchNorm2d
 from vision_tpu_torch.parallel import make_detection_train_step
+from test_torch_threads import few_torch_threads  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
 H, W = 128, 160
 CLASSES = 5

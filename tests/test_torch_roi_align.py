@@ -16,6 +16,9 @@ from vision_tpu.ops._pallas.roi_align import roi_align_pallas
 from vision_tpu.ops.roi_align import _roi_align_gather, roi_align_mxu
 from vision_tpu.ops.roi_align import roi_align as jax_roi_align
 from vision_tpu_torch.ops.roi_align import roi_align, roi_align_backward_plain
+from test_torch_threads import few_torch_threads  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
 ATOL = 2e-5
 

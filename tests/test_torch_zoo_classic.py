@@ -28,6 +28,9 @@ from torch_zoo_cases import (
     images,
     sweep,
 )
+from test_torch_threads import few_torch_threads  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
 jreg, jalex, jvgg, jdense = (
     importlib.import_module(f"vision_tpu.models.{m}") for m in (

@@ -25,6 +25,9 @@ from torch_zoo_cases import (
     check_train_forward,
     images,
 )
+from test_torch_threads import few_torch_threads  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
 jgoog, jinc = (importlib.import_module(f"vision_tpu.models.{m}")
                for m in ("googlenet", "inception"))

@@ -33,6 +33,9 @@ from torch_zoo_cases import (
     images,
     sweep,
 )
+from test_torch_threads import few_torch_threads  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
 tmv2 = importlib.import_module("vision_tpu_torch.models.mobilenetv2")
 tmv3 = importlib.import_module("vision_tpu_torch.models.mobilenetv3")

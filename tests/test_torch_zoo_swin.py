@@ -30,6 +30,9 @@ from torch_zoo_cases import (
     nchw,
     sweep,
 )
+from test_torch_threads import few_torch_threads  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
 tswin = importlib.import_module("vision_tpu_torch.models.swin_transformer")
 tmaxvit = importlib.import_module("vision_tpu_torch.models.maxvit")

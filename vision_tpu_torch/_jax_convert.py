@@ -15,7 +15,9 @@ flattens CHW, reordered: a parent module names such children in its
 ``classifier.0``, GoogLeNet's ``aux{1,2}.fc1``). ConvNeXt's ``layer_scale``
 (``(dim,)`` in JAX) takes torchvision's ``(dim, 1, 1)``; the 2-D
 ``relative_position_bias_table`` of Swin and MaxViT is not a Dense kernel
-and keeps its ``[offsets, heads]`` layout. A port module with a
+and keeps its ``[offsets, heads]`` layout, as do the video Swin's 3-D
+one and MViT's ``rel_pos_{h,w,t}`` and ``pos_encoding.spatial_pos`` /
+``temporal_pos`` tables. A port module with a
 ``jax_names`` dict (``ops.misc.MLP``) renames its children by it. flax
 ``GroupNorm``'s ``scale`` is a ``weight`` as batch norm's is; RetinaNet's
 extra blocks, ``backbone/extra_blocks/p6`` beside the JAX FPN, go to
@@ -92,16 +94,25 @@ def _hwc_input(module: nn.Module, name: str):
     return getattr(owner, "jax_hwc_inputs", {}).get(child)
 
 
+# 2-D parameters that are tables, not Dense kernels: their layout is the
+# same in both libraries
+_TABLES = ("relative_position_bias_table", "rel_pos_h", "rel_pos_w",
+           "rel_pos_t", "spatial_pos", "temporal_pos")
+
+
 def _to_torch_layout(name: str, arr: np.ndarray, target: torch.Tensor,
                      module: nn.Module) -> np.ndarray:
     if arr.ndim == 4 and isinstance(
             module.get_submodule(name.rsplit(".", 1)[0]), nn.ConvTranspose2d):
         arr = arr.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]  # -> (in, out, kh, kw)
+    elif arr.ndim == 4 and target.ndim == 5 and arr.shape[:2] == (1, 1):
+        # S3D's classifier: a 2-D 1x1 kernel in JAX, a 1x1x1 Conv3d here
+        arr = arr.transpose(3, 2, 0, 1)[:, :, None]
     elif arr.ndim == 4:  # HWIO -> OIHW
         arr = arr.transpose(3, 2, 0, 1)
     elif arr.ndim == 5:  # DHWIO -> OIDHW
         arr = arr.transpose(4, 3, 0, 1, 2)
-    elif arr.ndim == 2 and not name.endswith("relative_position_bias_table"):
+    elif arr.ndim == 2 and not name.endswith(_TABLES):
         hw = _hwc_input(module, name)
         if hw is None:
             arr = arr.T  # IO -> OI

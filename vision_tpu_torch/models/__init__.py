@@ -1,5 +1,6 @@
 """Models (counterpart of ``vision_tpu/models``): the classification
-families, ``detection`` and ``feature_extraction``."""
+families, ``detection``, ``segmentation``, ``optical_flow``, ``video`` and
+``feature_extraction``."""
 
 import importlib
 
@@ -16,12 +17,15 @@ from vision_tpu_torch.models import (
     mnasnet,
     mobilenetv2,
     mobilenetv3,
+    optical_flow,
     regnet,
     resnet,
+    segmentation,
     shufflenetv2,
     squeezenet,
     swin_transformer,
     vgg,
+    video,
     vision_transformer,
 )
 from vision_tpu_torch.models._api import get_model, get_model_weights, list_models
@@ -136,6 +140,9 @@ __all__ = [
     "swin_transformer",
     "vgg",
     "feature_extraction",
+    "optical_flow",
+    "segmentation",
+    "video",
 ]
 
 # the families' classes, weights and builders (each module's ``__all__``;

@@ -16,7 +16,11 @@ from vision_tpu_torch.parallel.recipe import (
 from vision_tpu_torch.parallel.train import (
     cross_entropy_loss,
     make_detection_train_step,
+    make_flow_train_step,
+    make_segmentation_train_step,
     make_train_step,
+    segmentation_criterion,
+    sequence_loss,
 )
 
 __all__ = [
@@ -29,7 +33,11 @@ __all__ = [
     "lr_schedule",
     "make_detection_train_step",
     "make_device_augment",
+    "make_flow_train_step",
     "make_lr_scheduler",
     "make_optimizer",
+    "make_segmentation_train_step",
     "make_train_step",
+    "segmentation_criterion",
+    "sequence_loss",
 ]

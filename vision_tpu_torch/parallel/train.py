@@ -1,10 +1,13 @@
 """Train steps on one device: the classification step (counterpart of
 ``vision_tpu/parallel/train.py``: forward in training mode, cross-entropy
-with label smoothing or soft labels, backward, one optimizer update) and
-the detection step, two-stage or one-stage (counterpart of
+with label smoothing or soft labels, backward, one optimizer update), the
+detection step, two-stage or one-stage (counterpart of
 ``references/detection/engine.py:make_detection_train_step``, f32 or the
-bf16 amp step). The mesh, buffer donation and ``reduce_across_devices`` of
-the JAX package have no counterpart here yet.
+bf16 amp step), the semantic-segmentation step (counterpart of
+``references/segmentation/train.py``'s) and the optical-flow step
+(counterpart of ``references/optical_flow/train.py``'s). The mesh, buffer
+donation and ``reduce_across_devices`` of the JAX package have no
+counterpart here yet.
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ from torch import nn
 from vision_tpu_torch.ops.misc import FrozenBatchNorm2d
 
 __all__ = ["cross_entropy_loss", "make_detection_train_step",
-           "make_train_step"]
+           "make_flow_train_step", "make_segmentation_train_step",
+           "make_train_step", "segmentation_criterion", "sequence_loss"]
 
 
 def cross_entropy_loss(
@@ -78,17 +82,7 @@ def make_train_step(
         images, labels = batch["image"], batch["label"]
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        kwargs = {} if generator is None else {"generator": generator}
-        if compute_dtype is None:
-            logits = model(images, **kwargs)
-        else:
-            # buffers are not replaced: the running statistics stay f32
-            cast = {
-                name: p.to(compute_dtype) if p.is_floating_point() else p
-                for name, p in model.named_parameters()
-            }
-            logits = torch.func.functional_call(
-                model, cast, (images.to(compute_dtype),), kwargs)
+        logits = _forward(model, images, generator, compute_dtype)
         loss = cross_entropy_loss(logits, labels, label_smoothing)
         loss.backward()
         metrics = {"loss": loss.detach()}
@@ -100,6 +94,133 @@ def make_train_step(
             hits = logits.detach().argmax(-1) == labels
             metrics["accuracy"] = hits.float().mean()
         return metrics
+
+    return step
+
+
+def _forward(model: nn.Module, images: torch.Tensor,
+             generator: Optional[torch.Generator],
+             compute_dtype: Optional[torch.dtype]):
+    """``model(images, generator=generator)`` (without the keyword where
+    ``generator`` is None); with ``compute_dtype``, the parameters and the
+    images cast to it at the call, the buffers (the running statistics)
+    left as they are."""
+    kwargs = {} if generator is None else {"generator": generator}
+    if compute_dtype is None:
+        return model(images, **kwargs)
+    cast = {name: p.to(compute_dtype) if p.is_floating_point() else p
+            for name, p in model.named_parameters()}
+    return torch.func.functional_call(model, cast,
+                                      (images.to(compute_dtype),), kwargs)
+
+
+def segmentation_criterion(outputs: Dict[str, torch.Tensor],
+                           target: torch.Tensor,
+                           ignore_index: int = 255) -> torch.Tensor:
+    """``references/segmentation/train.py:criterion``: the cross-entropy of
+    ``outputs["out"]`` (``[N, C, H, W]`` logits, in f32) against ``target``
+    (``[N, H, W]`` int), plus 0.5 times that of ``outputs["aux"]`` where
+    there is one; each the mean over the pixels whose target is not
+    ``ignore_index``, over at least one pixel (an all-ignored batch gives
+    0, where ``F.cross_entropy`` gives NaN)."""
+    valid = target != ignore_index
+    tgt = torch.where(valid, target, torch.zeros_like(target)).long()
+    count = valid.sum().clamp(min=1)
+    losses = {}
+    for name, logits in outputs.items():
+        logp = F.log_softmax(logits.float(), dim=1)
+        ce = -logp.gather(1, tgt[:, None])[:, 0]
+        losses[name] = (ce * valid).sum() / count
+    if "aux" in losses:
+        return losses["out"] + 0.5 * losses["aux"]
+    return losses["out"]
+
+
+def make_segmentation_train_step(
+    model: nn.Module,
+    optimizer: torch.optim.Optimizer,
+    compute_dtype: Optional[torch.dtype] = None,
+    ignore_index: int = 255,
+) -> Callable[..., Dict[str, torch.Tensor]]:
+    """Build ``step(batch, generator=None) -> {"loss"}`` for a segmentation
+    model (``model(images, generator=)`` returning ``{"out", "aux"}``
+    logits) and ``batch = {"image": [N, 3, H, W], "target": [N, H, W]
+    int64}`` on the model's device: the JAX recipe's step
+    (``references/segmentation/train.py:250-290``). Training mode, the
+    heads' dropout drawn from ``generator``, ``segmentation_criterion``,
+    backward, one update through ``optimizer`` (the recipe's: SGD, momentum
+    0.9, weight decay 1e-4 added to the gradient before the momentum,
+    ``torch.optim.SGD``'s own order). ``compute_dtype=torch.bfloat16`` is
+    the recipe's amp: parameters and image cast at the call, the batch-norm
+    statistics and the outputs f32 before the loss, f32 masters. The loss
+    stays on the device."""
+
+    def step(batch: Dict[str, torch.Tensor],
+             generator: Optional[torch.Generator] = None
+             ) -> Dict[str, torch.Tensor]:
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        outputs = _forward(model, batch["image"], generator, compute_dtype)
+        loss = segmentation_criterion(
+            {k: v.float() for k, v in outputs.items()},
+            batch["target"], ignore_index)
+        loss.backward()
+        optimizer.step()
+        return {"loss": loss.detach()}
+
+    return step
+
+
+def sequence_loss(flow_preds, flow_gt: torch.Tensor,
+                  valid_mask: Optional[torch.Tensor] = None,
+                  gamma: float = 0.8, max_flow: float = 400.0
+                  ) -> torch.Tensor:
+    """``references/optical_flow/train.py:sequence_loss``: the sum over the
+    N predictions (``[B, 2, H, W]``) of ``gamma^(N-1-i)`` times the mean
+    L1 (summed over the two channels) over the pixels where ``|gt| <
+    max_flow`` (and ``valid_mask``), over at least one pixel."""
+    valid = flow_gt.pow(2).sum(1).sqrt() < max_flow
+    if valid_mask is not None:
+        valid = valid & valid_mask
+    count = valid.sum().clamp(min=1)
+    n = len(flow_preds)
+    total = flow_gt.new_zeros(())
+    for i, pred in enumerate(flow_preds):
+        l1 = (pred.float() - flow_gt).abs().sum(1)
+        total = total + gamma ** (n - 1 - i) * (l1 * valid).sum() / count
+    return total
+
+
+def make_flow_train_step(
+    model: nn.Module,
+    optimizer: torch.optim.Optimizer,
+    num_flow_updates: int = 12,
+    gamma: float = 0.8,
+) -> Callable[..., Dict[str, torch.Tensor]]:
+    """Build ``step(batch) -> {"loss"}`` for RAFT and ``batch = {"image1",
+    "image2": [N, 3, H, W] in [-1, 1], "flow": [N, 2, H, W]}`` (and an
+    optional ``"valid"`` ``[N, H, W]`` bool) on the model's device: the JAX
+    recipe's step (``references/optical_flow/train.py:150-185``). Training
+    mode (``raft_large``'s context encoder normalises by its batch),
+    ``num_flow_updates`` updates, ``sequence_loss``, backward, every
+    gradient clipped elementwise to [-1, 1] (the JAX recipe's; torchvision
+    clips by norm), one update through ``optimizer`` (the recipe's: AdamW,
+    lr 4e-4, weight decay 1e-4). f32 only: the JAX flow trainer has no
+    amp. The loss stays on the device."""
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+
+    def step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        preds = model(batch["image1"], batch["image2"],
+                      num_flow_updates=num_flow_updates)
+        loss = sequence_loss(preds, batch["flow"], batch.get("valid"), gamma)
+        loss.backward()
+        for p in params:
+            if p.grad is not None:
+                p.grad.clamp_(-1.0, 1.0)
+        optimizer.step()
+        return {"loss": loss.detach()}
 
     return step
 

@@ -1,8 +1,9 @@
 """The classification zoo's cells on the card: the JAX bench's zoo cells
 (``bench.py:_bench_zoo_fwd``: EfficientNet-V2-S at 384 px, batch 32;
 ConvNeXt-T and Swin-T at 224 px, batch 64), their seeded models and
-inputs, the bf16 serving cast and one SGD step, shared by
-``chip_smoke.py``'s zoo phases and ``tools/profile_zoo.py``.
+inputs, the bf16 serving cast, one SGD step, and step 1 of a train step
+held against the CPU (``step_against_cpu``), shared by ``chip_smoke.py``'s
+zoo and dense phases and ``tools/profile_zoo.py``.
 
 A model is built from its seed with torchvision's initialisation, then its
 batch norms' running statistics are set from one seeded batch in training
@@ -13,28 +14,27 @@ shrink through every depthwise block, to logits of ~1e-14.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+import copy
+import contextlib
+from typing import Callable, Dict, List, Optional, Union
 
 import torch
+import torch.nn.functional as F
 
-from vision_tpu_torch.models import (
-    ConvNeXt_Tiny_Weights,
-    EfficientNet_V2_S_Weights,
-    Swin_T_Weights,
-    get_model,
-)
+from vision_tpu_torch.models import get_model, get_model_weights
 from vision_tpu_torch.models._api import resolve_device
 from vision_tpu_torch.ops.misc import BatchNorm2d
 from vision_tpu_torch.parallel import make_train_step
 
 __all__ = ["CELLS", "LR", "TRAIN_BATCH", "batch_of", "calibrate_norms",
-           "gmacs", "images", "seeded_model", "sgd_step", "to_bf16"]
+           "gmacs", "images", "relu_sides", "seeded_model", "sgd_step",
+           "step_against_cpu", "to_bf16"]
 
-# name -> (image size, batch, weights enum: GMACs a sample in its meta)
+# name -> (image size, batch)
 CELLS = {
-    "efficientnet_v2_s": (384, 32, EfficientNet_V2_S_Weights),
-    "convnext_tiny": (224, 64, ConvNeXt_Tiny_Weights),
-    "swin_t": (224, 64, Swin_T_Weights),
+    "efficientnet_v2_s": (384, 32),
+    "convnext_tiny": (224, 64),
+    "swin_t": (224, 64),
 }
 TRAIN_BATCH = 32
 LR = 0.1  # SGD, momentum 0.9, weight decay 1e-4
@@ -44,9 +44,9 @@ Device = Union[str, torch.device, None]
 
 
 def gmacs(name: str) -> float:
-    """A cell's GMACs a sample at its size (its weights' ``_ops``, the
+    """GMACs a sample at the checkpoint's size (the weights' ``_ops``, the
     JAX bench's figure)."""
-    return CELLS[name][2].DEFAULT.meta["_ops"]
+    return get_model_weights(name).DEFAULT.meta["_ops"]
 
 
 def images(batch: int, size: int, seed: int = 0,
@@ -59,11 +59,10 @@ def images(batch: int, size: int, seed: int = 0,
 
 
 @torch.no_grad()
-def calibrate_norms(model: torch.nn.Module, x: torch.Tensor,
-                    generator: torch.Generator) -> None:
-    """Every batch norm's running statistics set to ``x``'s batch
-    statistics through the model (one training-mode forward with momentum
-    1); the model is left in eval mode."""
+def calibrate_norms(model: torch.nn.Module, call: Callable[[], object]) -> None:
+    """Every batch norm's running statistics set to the batch statistics
+    of ``call()``, one forward of ``model`` in training mode with momentum
+    1; the model is left in eval mode."""
     norms = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
     momenta = [m.momentum for m in norms]
     for m in norms:
@@ -71,7 +70,7 @@ def calibrate_norms(model: torch.nn.Module, x: torch.Tensor,
     try:
         if norms:
             model.train()
-            model(x, generator=generator)
+            call()
     finally:
         for m, momentum in zip(norms, momenta):
             m.momentum = momentum
@@ -86,7 +85,8 @@ def seeded_model(name: str, size: int, device: Device = None, seed: int = 0,
     model = get_model(name, device=device, seed=seed, **kwargs)
     dev = next(model.parameters()).device
     gen = torch.Generator(device=dev).manual_seed(seed)
-    calibrate_norms(model, images(CALIBRATION_BATCH, size, 100, dev), gen)
+    x = images(CALIBRATION_BATCH, size, 100, dev)
+    calibrate_norms(model, lambda: model(x, generator=gen))
     return model
 
 
@@ -123,3 +123,60 @@ def batch_of(batch: int, size: int, seed: int = 0,
              device: Device = None) -> Dict[str, torch.Tensor]:
     return {"image": images(batch, size, seed, device),
             "label": labels(batch, seed, device)}
+
+
+@contextlib.contextmanager
+def relu_sides(sides: List[torch.Tensor], switched: Optional[List[int]]):
+    """``F.relu`` keeping each call's ``x > 0`` in ``sides`` (``switched``
+    None), or applying the kept ones in call order: ``x`` times the mask,
+    whose gradient is the mask, each element whose own side of 0 differs
+    counted in ``switched[0]``."""
+    plain, kept = F.relu, iter(list(sides))
+
+    def relu(x: torch.Tensor, inplace: bool = False) -> torch.Tensor:
+        if switched is None:
+            sides.append(x.detach() > 0)
+            return plain(x, inplace)
+        keep = next(kept).to(x.device)
+        if keep.shape != x.shape:
+            raise RuntimeError("the replayed ReLU calls differ in shape")
+        switched[0] += int(((x.detach() > 0) != keep).sum())
+        return x * keep.to(x.dtype)
+
+    F.relu = relu
+    try:
+        yield
+    finally:
+        F.relu = plain
+
+
+def step_against_cpu(make: Callable[[], torch.nn.Module],
+                     step_of: Callable, batch_of: Callable) -> Dict:
+    """Step 1 of a train step on the card and on the CPU from the same
+    weights (``make()``, on the card; ``step_of(model)`` the step;
+    ``batch_of(device)`` its batch): the losses and every gradient the step
+    leaves. The CPU's step takes each ReLU to the side the card's took: a
+    randomly initialised network trained on batch statistics amplifies an
+    f32 rounding through its depth (DeepLabV3-ResNet-50's pre-activations
+    part by ~1e-4 of their scale at the head, on either device against
+    f64), and the few ReLU inputs so near 0 that they switch side (~1e-5 of
+    them) move its gradients by ~3e-2; taken to the same sides the two
+    devices' gradients are compared as the same function's. The elements
+    that would have switched are counted."""
+    model, sides, switched, out = make(), [], [0], {}
+    cpu = copy.deepcopy(model).cpu()
+    for where, twin, hold in (("card", model, None), ("cpu", cpu, switched)):
+        batch = batch_of(next(twin.parameters()).device)
+        with relu_sides(sides, hold):
+            loss = float(step_of(twin)(batch)["loss"])
+        grads = torch.cat([p.grad.double().cpu().ravel()
+                           for p in twin.parameters() if p.grad is not None])
+        out[where] = (loss, grads)
+    del model, cpu
+    (loss, grads), (want, want_grads) = out["card"], out["cpu"]
+    total = sum(s.numel() for s in sides)
+    return {"loss_vs_cpu_rel_err": abs(loss - want) / abs(want),
+            "grads_vs_cpu_frobenius_rel_err": float(
+                (grads - want_grads).norm() / want_grads.norm()),
+            "relu_outputs": total, "relu_switched": switched[0],
+            "relu_switched_share": switched[0] / max(total, 1)}

@@ -5,6 +5,10 @@ from vision_tpu_torch.transforms import v2
 from vision_tpu_torch.transforms._presets import (
     ImageClassification,
     ObjectDetection,
+    OpticalFlow,
+    SemanticSegmentation,
+    VideoClassification,
 )
 
-__all__ = ["ImageClassification", "ObjectDetection", "v2"]
+__all__ = ["ImageClassification", "ObjectDetection", "OpticalFlow",
+           "SemanticSegmentation", "VideoClassification", "v2"]
