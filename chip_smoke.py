@@ -64,6 +64,20 @@ off, seeded random weights:
   ``nms_retinanet``); each train phase ends with the trained model's
   detections through that kernel; the per-level top-k timed three ways
   (line ``topk_retinanet``);
+* the last five detectors, served f32 and bf16 and trained f32 and amp
+  (``detection_zoo_phases``): FCOS ResNet-50-FPN (two images on the 1344
+  canvas, batch 2; one NMS an image over 5,000 candidates), the
+  MobileNetV3-Large FPN Faster R-CNN (the same images and batch; the NMS,
+  window-pool and RoIAlign kernels and both backwards, its frozen norms
+  scaled from the request's canvas) and its 320 variant on the 640 canvas
+  (f32), SSD300-VGG16 (32 images on its 300 canvas, one NMS an image over
+  36,000 candidates; trained at 32) and SSDlite320 (32 images, 27,000;
+  trained at 192): each f32 request's maps and head outputs against the
+  same model on the CPU, its detections against the same head outputs
+  through the plain versions (the SSDs' on one image: the plain NMS's
+  N x N matrix), each one-stage step 1 against the CPU on the card's ReLU
+  sides; rows ``nms_fcos``, ``nms_ssd``, ``nms_ssdlite`` and
+  ``window_pool_mobilenet`` (with the RoIs that overflow its window);
 * ViT-B/16 (``vit_b_16``, BASELINE config 2; its head drawn from a seeded
   normal, since torchvision's starts at zero): served at batch 64 in f32
   and bf16 (the f32 logits of 4 images against the CPU, bf16 against f32);
@@ -769,6 +783,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows += retinanet_phases(kernels)
     torch.cuda.empty_cache()
+    t_det = time.perf_counter()
+    rows += detection_zoo_phases(kernels)
+    det_s = time.perf_counter() - t_det
+    torch.cuda.empty_cache()
     vit_phases(kernels)
     torch.cuda.empty_cache()
     rows += vit_long_phases(kernels)
@@ -785,7 +803,8 @@ def main() -> int:
     dense_phases(kernels)
     dense_s = time.perf_counter() - t_dense
     emit("done", build_s=build_s, phases_s=time.perf_counter() - t_phases,
-         zoo_s=zoo_s, dense_s=dense_s, total_s=time.perf_counter() - t0)
+         detection_zoo_s=det_s, zoo_s=zoo_s, dense_s=dense_s,
+         total_s=time.perf_counter() - t0)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
@@ -2272,10 +2291,13 @@ def scaled_retinanet(name):
     return model
 
 
-def retina_internals(model, canvas):
-    """A RetinaNet's FPN maps and head outputs on ``canvas``."""
-    (cls_logits, bbox_reg, _), feats = model(canvas, return_features=True)
-    return list(feats.values()), cls_logits, bbox_reg
+def one_stage_internals(model, canvas):
+    """A one-stage detector's feature maps and head outputs on ``canvas``,
+    each a list of tensors (RetinaNet's and FCOS's per level, SSD's
+    concatenated over its maps)."""
+    outs, feats = model(canvas, return_features=True)
+    return [list(feats.values())] + [o if isinstance(o, list) else [o]
+                                     for o in outs[:-1]]
 
 
 def top_k_keys(x, k):
@@ -2322,82 +2344,173 @@ def topk_line(scores, k=1000) -> None:
         raise RuntimeError(f"topk_retinanet: the three top-k differ: {equal}")
 
 
-def retinanet_serve_phases(kernels, name, phases, weights):
-    """RetinaNet ``name`` (``scaled_retinanet``) served from the two raw
-    images through ``detection_request.serve_retinanet``, in f32
-    (``phases[0]``) and, where ``phases`` names a second, in bf16
-    (``phases[1]``), each against the same request through the plain
-    versions (``check_detections``, 300 rows an image); every request's
-    NMS takes [2, 5,000] candidates. The bf16 request's boxes and scores
-    are f32, its top 5 scores within 0.05 of the f32 request's and its FPN
-    maps and head outputs within ``AMP_VS_F32_TOL`` of theirs. Returns the
-    f32 request's recorded calls and each type's launches."""
+def first_images(outs, k):
+    """A one-stage detector's outputs (lists over levels or tensors,
+    anchors last) cut to the first ``k`` images."""
+    return [[t[:k] for t in o] if isinstance(o, list) else o[:k]
+            for o in outs[:-1]] + [outs[-1]]
+
+
+def bf16_gate(inner16, inner32, cpu_model, internals, canvas, images):
+    """The bf16 request's maps and head outputs (``inner16``, groups of
+    tensors) against the f32 request's (``inner32``): each group within
+    ``AMP_VS_F32_TOL`` of its largest value; where a group lies further,
+    on the first ``images`` images within twice as far as the same model
+    in bf16 lies from itself in f32 on the CPU on them (run only then, from
+    ``cpu_model``, the f32 model's CPU copy): a randomly initialised deep
+    trunk amplifies each layer's bf16 rounding (the MobileNet FPN trunk's
+    maps on a 320 canvas on the CPU: 1.1e-2 after its stem, 1.7e-1 after
+    its last layer), and bf16 arithmetic is then held to itself. Returns
+    ``(ok, errors by group, the fields to print)``."""
+    from vision_tpu_torch.tools import zoo
+
+    vs_f32 = [max(rel_errs(g, w)) for g, w in zip(inner16, inner32)]
+    if max(vs_f32) <= AMP_VS_F32_TOL or cpu_model is None:
+        return max(vs_f32) <= AMP_VS_F32_TOL, vs_f32, {}
     import torch
 
-    from vision_tpu_torch.models.detection import GeneralizedRCNNTransform
-    from vision_tpu_torch.tools.detection_request import (
-        SEED,
-        raw_images,
-        serve_retinanet,
-    )
+    x = canvas[:images].float().cpu()
+    with torch.inference_mode():
+        want = internals(cpu_model, x)
+        got = internals(zoo.to_bf16(copy.deepcopy(cpu_model)), x.bfloat16())
+    cpu = [max(rel_errs(g, w)) for g, w in zip(got, want)]
+    card = [max(rel_errs([t[:images] for t in g], [t[:images] for t in w]))
+            for g, w in zip(inner16, inner32)]
+    ok = all(e <= AMP_VS_F32_TOL or c <= max(AMP_VS_F32_TOL, 2.0 * p)
+             for e, c, p in zip(vs_f32, card, cpu))
+    return ok, vs_f32, dict(bf16_vs_f32_first_images=card,
+                            cpu_bf16_vs_f32_first_images=cpu,
+                            bf16_gate_images=images)
 
-    raw = raw_images()
-    preset = weights.COCO_V1.transforms()
-    transform = GeneralizedRCNNTransform()
-    model = scaled_retinanet(name)
+
+def one_stage_serve_phases(kernels, name, phases, model, raw, transform,
+                           candidates, per_image, plain_images=None,
+                           cpu_images=0, expected_sizes=None, **fields):
+    """A one-stage detector ``model`` (builder ``name``) served from the
+    raw images ``raw`` through its weights' preset, ``transform`` and
+    ``detection_request.serve_one_stage``, in f32 (``phases[0]``) and,
+    where ``phases`` names a second, in bf16 (``phases[1]``,
+    ``zoo.to_bf16``: live batch norms keep f32 statistics): ms a batch
+    (and an image), images/s and peak GB over ``TIMED_FORWARDS`` requests
+    after a warm-up that records the kernels' inputs; every image's NMS
+    takes ``candidates`` boxes; the detections (``per_image`` rows) against
+    the same head outputs through the plain versions (``check_detections``)
+    on the first ``plain_images`` images (all when None: the plain NMS
+    builds an N x N matrix an image); with ``cpu_images`` the f32 maps and
+    head outputs of that many images against the same model on the CPU,
+    within ``DET_CPU_MAPS_TOL`` and ``DET_CPU_TOL``. The bf16 request's boxes and scores are f32,
+    its top 5 scores within 0.05 of the f32 request's and its maps and head
+    outputs within ``AMP_VS_F32_TOL`` of theirs (``bf16_gate``, which with
+    ``cpu_images`` holds a group further than that to the CPU's own bf16
+    arithmetic). ``fields`` go to each phase's line. Returns the f32
+    request's recorded calls and each type's launches."""
+    import torch
+
+    from vision_tpu_torch.models import get_model_weights
+    from vision_tpu_torch.models.detection.roi_heads import Detections
+    from vision_tpu_torch.tools import zoo
+    from vision_tpu_torch.tools.detection_request import SEED, serve_one_stage
+
+    weights = get_model_weights(name).COCO_V1
+    preset = weights.transforms()
     params = sum(p.numel() for p in model.parameters())
-    launches_by, calls32 = {}, None
+    n = len(raw)
+    k = n if plain_images is None else plain_images
+    launches_by, calls32, cpu_model = {}, None, None
     for dtype, phase in zip((torch.float32, torch.bfloat16), phases):
         bf16 = dtype == torch.bfloat16
         tag = "bf16" if bf16 else "f32"
-        model.to(dtype)
+        if bf16:
+            zoo.to_bf16(model)
         calls: dict = {}
-        (batch, dets, boxes), (_, ref, _), times, launches, inner = serve_phase(
-            kernels, model, preset, transform, raw, dtype, calls,
-            request=serve_retinanet, internals=retina_internals)
+        with torch.inference_mode():
+            with kernels.recording(calls):
+                serve_one_stage(model, preset, transform, raw, dtype)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset()
+            times = []
+            for _ in range(TIMED_FORWARDS):
+                t = time.perf_counter()
+                batch, dets, boxes = serve_one_stage(model, preset, transform,
+                                                     raw, dtype)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+            launches = kernels.launches()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            canvas = batch.tensors.to(dtype)
+            size = tuple(canvas.shape[-2:])
+            # the request's own head outputs (the whole batch: a bf16
+            # forward of fewer images takes other algorithms and roundings)
+            outs = first_images(model(canvas), k)
+            with kernels.plain_versions():
+                ref = model.postprocess_detections(*outs, size)
+            del outs
+            inner = one_stage_internals(model, canvas)
+            torch.cuda.synchronize()
         shapes = [list(c[0].shape) for c in calls["nms"]]
-        fields = {}
+        ms = statistics.median(times)
+        out = dict(model=name, params=params, dtype=str(dtype)[6:],
+                   images=len(raw), seed=SEED, canvas=list(canvas.shape[-2:]),
+                   batch=n, ms_per_batch_median=ms,
+                   ms_per_img_median=ms / n, images_per_s=n / ms * 1e3,
+                   ms_all=times, peak_memory_gb=peak_gb,
+                   image_sizes=batch.image_sizes,
+                   requests=TIMED_FORWARDS, launches=launches,
+                   nms_boxes=shapes,
+                   nms_valid_per_row=calls["nms"][0][1].sum(1).tolist(),
+                   valid_per_image=dets.valid.sum(1).tolist(),
+                   plain_images=k, **fields)
         if bf16:
             s16 = dets.scores.flatten().sort().values[-5:]
             top5_err = float((s16 - s32).abs().max())
-            vs_f32 = {k: rel_errs(g, w) for k, g, w in zip(
-                ("fpn", "cls_logits", "bbox_reg"), inner, inner32)}
-            fields = dict(top5_scores_f32=s32.tolist(),
-                          top5_scores_bf16=s16.tolist(), top5_max_err=top5_err,
-                          top5_tol=0.05, rel_err_vs_f32=vs_f32,
-                          rel_err_vs_f32_tol=AMP_VS_F32_TOL,
-                          boxes_dtype=str(dets.boxes.dtype)[6:],
-                          scores_dtype=str(dets.scores.dtype)[6:])
-        emit(phase, model=name, params=params, dtype=str(dtype)[6:],
-             images=[list(r.shape) for r in raw], seed=SEED,
-             canvas=list(transform.fixed_size), batch=len(raw),
-             image_sizes=batch.image_sizes, cls_scale=RETINA_CLS_SCALE,
-             ms_per_img_median=statistics.median(times), ms_per_img_all=times,
-             requests=TIMED_FORWARDS, launches=launches, nms_boxes=shapes,
-             valid_per_image=dets.valid.sum(1).tolist(), **fields)
-        if params != weights.COCO_V1.meta["num_params"]:
+            amp_ok, vs_f32, gate = bf16_gate(inner, inner32, cpu_model,
+                                             one_stage_internals, canvas,
+                                             cpu_images)
+            out.update(top5_scores_f32=s32.tolist(),
+                       top5_scores_bf16=s16.tolist(), top5_max_err=top5_err,
+                       top5_tol=0.05, rel_err_vs_f32=vs_f32,
+                       rel_err_vs_f32_tol=AMP_VS_F32_TOL,
+                       boxes_dtype=str(dets.boxes.dtype)[6:],
+                       scores_dtype=str(dets.scores.dtype)[6:], **gate)
+        elif cpu_images:
+            cpu_model = copy.deepcopy(model).cpu()
+            with torch.inference_mode():
+                want = one_stage_internals(cpu_model, canvas[:cpu_images].cpu())
+            vs_cpu = [max(rel_errs([g[:cpu_images].cpu() for g in got], w))
+                      for got, w in zip(inner, want)]
+            out.update(vs_cpu_rel_err=vs_cpu, vs_cpu_images=cpu_images,
+                       vs_cpu_tol=DET_CPU_TOL, vs_cpu_maps_tol=DET_CPU_MAPS_TOL)
+            del want
+        emit(phase, **out)
+        if params != weights.meta["num_params"]:
             raise RuntimeError(f"{phase}: {params} parameters, not torchvision's")
-        if batch.image_sizes != RESIZED:
-            raise RuntimeError(f"image sizes {batch.image_sizes}, expected {RESIZED}")
-        if shapes != [[len(raw), RETINA_CANDIDATES, 4]]:
+        if expected_sizes is not None and batch.image_sizes != expected_sizes:
+            raise RuntimeError(f"image sizes {batch.image_sizes}, expected "
+                               f"{expected_sizes}")
+        if shapes != [[n, candidates, 4]]:
             raise RuntimeError(f"{phase}: NMS over {shapes}, expected "
-                               f"[{len(raw)}, {RETINA_CANDIDATES}, 4]")
+                               f"[{n}, {candidates}, 4]")
         require_launched(launches, ("nms",), phase)
-        check_detections(dets, ref, batch=len(raw), phase=phase,
-                         per_image=RETINA_DETECTIONS,
+        check_detections(Detections(*(t[:k] for t in dets)), ref, batch=k,
+                         phase=phase, per_image=per_image,
                          score_tol=AMP_SCORE_TOL if bf16 else 1e-4,
                          box_tol=AMP_BOX_TOL if bf16 else 1e-2)
-        check_mapped_boxes(boxes, raw, per_image=RETINA_DETECTIONS)
+        check_mapped_boxes(boxes, raw, per_image=per_image)
         if bf16:
             if dets.boxes.dtype != torch.float32 or dets.scores.dtype != torch.float32:
                 raise RuntimeError(f"{phase}: boxes or scores not f32")
             if top5_err > 0.05:
                 raise RuntimeError(f"{phase}: the top 5 scores are not within "
                                    "0.05 of the f32 request's")
-            if max(max(v) for v in vs_f32.values()) > AMP_VS_F32_TOL:
-                raise RuntimeError(f"{phase}: FPN maps or head outputs too far "
+            if not amp_ok:
+                raise RuntimeError(f"{phase}: maps or head outputs too far "
                                    f"from the f32 request's: {vs_f32}")
         else:
+            if cpu_images and (vs_cpu[0] > DET_CPU_MAPS_TOL
+                               or max(vs_cpu[1:]) > DET_CPU_TOL):
+                raise RuntimeError(f"{phase}: maps or head outputs too far "
+                                   f"from the CPU's: {vs_cpu}")
             calls32 = calls
             s32 = dets.scores.flatten().sort().values[-5:]
             inner32 = inner
@@ -2405,10 +2518,27 @@ def retinanet_serve_phases(kernels, name, phases, weights):
                 with torch.inference_mode():
                     topk_line(torch.sigmoid(inner[1][0].float()))
         launches_by[tag] = launches
-        del dets, ref, inner
-    del model, inner32
+        del dets, ref, inner, batch, canvas
+    del inner32, cpu_model
     torch.cuda.empty_cache()
     return calls32, launches_by
+
+
+def retinanet_serve_phases(kernels, name, phases):
+    """RetinaNet ``name`` (``scaled_retinanet``) served from the two raw
+    images on the 1344 canvas (``one_stage_serve_phases``): [2, 5,000]
+    NMS candidates, 300 rows an image, every image against the plain
+    path."""
+    from vision_tpu_torch.models.detection import GeneralizedRCNNTransform
+    from vision_tpu_torch.tools.detection_request import raw_images
+
+    model = scaled_retinanet(name)
+    out = one_stage_serve_phases(
+        kernels, name, phases, model, raw_images(), GeneralizedRCNNTransform(),
+        RETINA_CANDIDATES, RETINA_DETECTIONS, expected_sizes=RESIZED,
+        cls_scale=RETINA_CLS_SCALE)
+    del model
+    return out
 
 
 def retinanet_train_hooks(kernels, phase, v2):
@@ -2474,15 +2604,13 @@ def retinanet_phases(kernels):
 
     from vision_tpu_torch.models.detection import (
         GeneralizedRCNNTransform,
-        RetinaNet_ResNet50_FPN_V2_Weights,
         RetinaNet_ResNet50_FPN_Weights,
     )
     from vision_tpu_torch.tools.detection_request import raw_images, train_batch
 
     v1, v2 = "retinanet_resnet50_fpn", "retinanet_resnet50_fpn_v2"
     calls, launches_by = retinanet_serve_phases(
-        kernels, v1, ("retinanet_images", "retinanet_images_amp"),
-        RetinaNet_ResNet50_FPN_Weights)
+        kernels, v1, ("retinanet_images", "retinanet_images_amp"))
     cases = [kernel_case(kernels, "nms", args, "retinanet_images",
                          valid_per_row=args[1].sum(1).tolist())
              for args in calls["nms"]]
@@ -2500,8 +2628,7 @@ def retinanet_phases(kernels):
 
     first = train("retinanet_train", v1, False)
     train("retinanet_train_amp", v1, False, first)
-    retinanet_serve_phases(kernels, v2, ("retinanet_v2_images",),
-                           RetinaNet_ResNet50_FPN_V2_Weights)
+    retinanet_serve_phases(kernels, v2, ("retinanet_v2_images",))
     with torch.no_grad():
         batch = train_batch(RetinaNet_ResNet50_FPN_Weights.COCO_V1.transforms(),
                             GeneralizedRCNNTransform(), raw_images())
@@ -2509,6 +2636,464 @@ def retinanet_phases(kernels):
     del batch
     torch.cuda.empty_cache()
     train("retinanet_v2_train_amp", v2, True, first)
+    return rows
+
+
+# The last five detectors of the JAX package (fcos_resnet50_fpn, the
+# MobileNetV3-Large FPN Faster R-CNNs, ssd300_vgg16,
+# ssdlite320_mobilenet_v3_large). FCOS: at the seeded init the
+# classification bias's prior (0.01) and a centre-ness near 0.5 give scores
+# sqrt(0.01 * 0.5) ~ 0.07, under the 0.2 threshold; cls_logits' weight
+# scaled by FCOS_CLS_SCALE spreads the logits so that some pass. Each image
+# sends P3-P7's top 1,000 (location, class) candidates to one NMS: [2,
+# 5,000] boxes. SSD and SSDlite: a softmax over 91 classes at the seeded
+# init gives each class ~0.011, just above SSD's 0.01 threshold (SSDlite's
+# is 0.001), so every candidate would be valid; in SSD's padding, where
+# the bias-free VGG's maps are 0, every class stays at 1/91. The
+# classification predictors' weights scaled spread the scores, and SSD's
+# background bias raised by SSD_BACKGROUND (to 1/(e^3 + 90) = 0.009 a
+# class in the padding) favours the background as a trained model's does:
+# on the CPU on the two request images some 15,000 of SSD's 36,000
+# candidates were valid; at SSDlite's 0.001 all 27,000 stay valid at any
+# scale up to x128 (21,000-27,000 at x256). Their requests
+# are 32 raw images (detection_request's two sizes, 16 of each) on their
+# fixed canvases, and each image sends the top 400 (SSDlite 300) boxes of
+# each of 90 classes to one NMS: [32, 36,000] and [32, 27,000] boxes.
+FCOS_CLS_SCALE = 8.0
+FCOS_CANDIDATES = 5000
+SSD_CLS_SCALE = 8.0
+SSD_BACKGROUND = 3.0
+# torchvision's init zeroes the VGG's biases, so on the canvas's zero
+# padding conv4_3's map is exactly 0 on the CPU and the round-off of the
+# card's convolution algorithms elsewhere, which SSD's L2 normalisation
+# divides by sqrt(sum x^2 + 1e-12): on an H100 the normalised map read
+# 0.98 of its largest value away from the CPU's there (every layer
+# before it within 3.5e-6). Seeded N(0, SSD_BIAS_STD^2) biases in the
+# backbone keep the padding's maps away from 0, as a trained VGG's do.
+SSD_BIAS_STD = 0.01
+SSDLITE_CLS_SCALE = 32.0
+SSD_CANDIDATES = 36_000
+SSDLITE_CANDIDATES = 27_000
+ONE_STAGE_SERVE_BATCH = 32
+# the torchvision recipes' global batches on one card: 8 x 4 and 8 x 24
+# (references/detection/README.md)
+SSD_TRAIN_BATCH = 32
+SSDLITE_TRAIN_BATCH = 192
+# the plain NMS builds an N x N IoU matrix (5.2 GB an image at 36,000,
+# its intermediates some 35 GB): the SSDs' kernel keep masks and
+# detections are held against it on this many images of the request
+PLAIN_NMS_IMAGES = 1
+# f32 maps and head outputs (RPN outputs for the R-CNNs) on the card
+# against the same model on the CPU, of each tensor's largest value, on
+# this many images (TF32 off on the card)
+DET_CPU_IMAGES = 1
+DET_CPU_TOL = 1e-4
+# the feature maps' own gate: SSD's conv4_3 map is L2-normalised over the
+# channels at each location, which multiplies the convolutions' round-off
+# (~3e-6 of the largest value, every layer before it on an H100) where a
+# location's norm is small: 1.8e-4 of the map's largest value on an H100
+# 80GB HBM3 (700 W), the head outputs on it 3.8e-5 and 5.2e-5
+DET_CPU_MAPS_TOL = 1e-3
+# step 1 of a one-stage train step held against the CPU (``step_check``):
+# on the first two images of the request, FCOS's at a 512 canvas
+ONE_STAGE_CPU_IMAGES = 2
+FCOS_CPU_TRANSFORM = dict(min_size=384, max_size=512)
+# the MobileNet Faster R-CNN's trained gradients held against the plain
+# twin's: the box head's first layer, the RPN head's conv, an FPN lateral
+# conv and the trunk's last convolution (trainable at 3 stages)
+MOBILE_RCNN_GRADS = ("roi_heads.box_head.fc6.weight", "rpn.head.conv.0.0.weight",
+                     "backbone.fpn.inner_blocks.1.0.weight",
+                     "backbone.body.16.0.weight")
+
+
+def scaled_one_stage(name, scale, background=0.0):
+    """One-stage detector ``name`` with seeded weights, its classification
+    predictors' weights scaled by ``scale`` and, in an SSD's, the
+    background class's bias raised by ``background``; SSD300's backbone
+    biases drawn N(0, ``SSD_BIAS_STD``^2) from a CPU generator of seed 1;
+    SSDlite's batch norms scaled on 8 seeded images at its canvas
+    (``detection_request.scale_norms``), as a trained model's keep its
+    activations of order 1."""
+    import torch
+
+    from vision_tpu_torch.models import get_model
+    from vision_tpu_torch.tools import zoo
+    from vision_tpu_torch.tools.detection_request import scale_norms, transform_for
+
+    model = get_model(name, seed=0)
+    head = model.head.classification_head
+    preds = ([head.cls_logits] if hasattr(head, "cls_logits") else
+             [m if isinstance(m, torch.nn.Conv2d) else m[-1]
+              for m in head.module_list])
+    with torch.no_grad():
+        for m in preds:
+            m.weight.mul_(scale)
+            if background:  # channel a * K + 0: anchor a's background
+                m.bias[::model.num_classes] += background
+        if name == "ssd300_vgg16":
+            gen = torch.Generator().manual_seed(1)
+            for m in model.backbone.modules():
+                if isinstance(m, torch.nn.Conv2d):
+                    m.bias.copy_(torch.randn(m.bias.shape, generator=gen)
+                                 * SSD_BIAS_STD)
+    if name.startswith("ssdlite"):
+        with torch.inference_mode():
+            scale_norms(model, zoo.images(zoo.CALIBRATION_BATCH,
+                                          transform_for(name).fixed_size[0], 100))
+    return model
+
+
+def nms_case(kernels, args, path, images=None):
+    """The bitmask NMS kernel at a recorded call against its plain version
+    (``kernel_case``), with each row's valid count. With ``images`` only
+    the first ``images`` rows' keep masks are held against the plain
+    version, whose N x N matrix does not fit a whole request of 36,000
+    candidates an image; its ``plain_ms`` is of those rows, beside the
+    kernel's own time on them (``ms_on_plain_rows``); ``ms``,
+    ``device_ms`` and the bound are of the whole call."""
+    import torch
+
+    valid = args[1].sum(1).tolist()
+    if images is None:
+        return kernel_case(kernels, "nms", args, path, valid_per_row=valid)
+    fn, plain = kernels.cuda["nms"], kernels.plain["nms"]
+    boxes, ok, thr = args
+    rows = (boxes[:images], ok[:images], thr)
+    got = fn(*args)[:images]
+    want = plain(*rows)
+    torch.cuda.synchronize()
+    err = float((got.int() - want.int()).abs().max())
+    del got, want
+    nbytes, ops, peak = nms_work(args)
+    b_ms, b_by = bound_ms(nbytes, ops, peak)
+    case = dict(kernel="nms", path=path, dtype="float32",
+                shape=[list(boxes.shape), list(ok.shape)], valid_per_row=valid,
+                plain_rows=images, max_abs_err=err, max_rel_err=err, tol=0.0,
+                ms=cuda_ms(lambda: fn(*args)),
+                device_ms=device_ms(lambda: fn(*args)),
+                plain_ms=cuda_ms(lambda: plain(*rows), reps=2, warmup=0),
+                ms_on_plain_rows=cuda_ms(lambda: fn(*rows)),
+                bound_ms=b_ms, bound_by=b_by,
+                bytes_bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
+                operations_bound_ms=ops / peak * 1e3)
+    emit("kernel_case", **case)
+    if err > 0:
+        raise RuntimeError(f"nms ({path}): the keep mask of the first "
+                           f"{images} rows differs from the plain version's")
+    return case
+
+
+def one_stage_train_phases(kernels, name, phases, batch_size, scale,
+                           background=0.0, cpu_transform=None):
+    """One-stage detector ``name`` (``scaled_one_stage``) trained by the
+    detection recipe's SGD (``recipe_optimizer``) through
+    ``make_detection_train_step(one_stage=True)`` on ``batch_size`` raw
+    images (``detection_request``'s two sizes in turn) at its transform,
+    with seeded gt boxes: step 1 on the first ``ONE_STAGE_CPU_IMAGES``
+    images (through ``cpu_transform`` where given) held against the CPU on
+    the card's ReLU sides (``step_check``); then in f32 (``phases[0]``) and
+    bf16 (``phases[1]``, the amp step) from the same weights, step 1 and
+    ``ZOO_STEPS`` timed steps: ms a step, images/s, peak GB; the amp step
+    1 loss within ``ZOO_AMP_LOSS_TOL`` of the f32 one. No kernel of the
+    repo's runs in these steps (NMS serves only): the launches are printed
+    and must read 0."""
+    import torch
+
+    from vision_tpu_torch.models import get_model_weights
+    from vision_tpu_torch.models.detection import GeneralizedRCNNTransform
+    from vision_tpu_torch.parallel import make_detection_train_step
+    from vision_tpu_torch.tools.detection_request import (
+        IMAGE_SIZES,
+        raw_images,
+        recipe_optimizer,
+        train_batch,
+        transform_for,
+    )
+
+    preset = get_model_weights(name).COCO_V1.transforms()
+    raw = raw_images(IMAGE_SIZES * (batch_size // len(IMAGE_SIZES)))
+    with torch.no_grad():
+        small = train_batch(
+            preset, GeneralizedRCNNTransform(**cpu_transform, device="cpu")
+            if cpu_transform else transform_for(name, "cpu"),
+            raw[:ONE_STAGE_CPU_IMAGES])
+        batch = train_batch(preset, transform_for(name), raw)
+
+    def lr0_step(model):
+        params = [p for p in model.parameters() if p.requires_grad]
+        return make_detection_train_step(model, torch.optim.SGD(params, lr=0.0),
+                                         one_stage=True)
+
+    check = step_check(lambda: scaled_one_stage(name, scale, background),
+                       lr0_step,
+                       lambda dev: {k: v.to(dev) for k, v in small.items()})
+    device = torch.cuda.get_device_name(0)
+    f32_loss = None
+    kernels.reset()
+    for phase, dtype in zip(phases, (None, torch.bfloat16)):
+        model = scaled_one_stage(name, scale, background)
+        optimizer, scheduler = recipe_optimizer(model)
+        step = make_detection_train_step(model, optimizer, compute_dtype=dtype,
+                                         one_stage=True)
+        torch.cuda.reset_peak_memory_stats()
+
+        def call():
+            out = step(batch)
+            scheduler.step()
+            return out["loss"]
+
+        loss1, times, losses = timed_steps(call)
+        ms = statistics.median(times)
+        fields = dict(model=name, device=device,
+                      dtype="float32" if dtype is None else "bfloat16",
+                      batch=batch_size, input=list(batch["image"].shape),
+                      ms_per_step=ms, images_per_s=batch_size / ms * 1e3,
+                      ms_all=times, step1_loss=loss1, losses=losses,
+                      peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                      cls_scale=scale, background_bias=background)
+        ok = all(math.isfinite(v) for v in [loss1] + losses) and losses[-1] != loss1
+        if dtype is None:
+            fields.update(check, cpu_images=ONE_STAGE_CPU_IMAGES,
+                          cpu_input=list(small["image"].shape))
+            ok = ok and check["ok"]
+            f32_loss = loss1
+        else:
+            err = abs(loss1 - f32_loss) / abs(f32_loss)
+            fields.update(loss_vs_f32_rel_err=err, loss_tol=ZOO_AMP_LOSS_TOL)
+            ok = ok and err <= ZOO_AMP_LOSS_TOL
+        emit(phase, **fields)
+        if not ok:
+            raise RuntimeError(f"{phase}: step 1 off its reference, a loss not "
+                               "finite, or no update")
+        del model, step, optimizer
+        torch.cuda.empty_cache()
+    launches = kernels.launches()
+    emit(f"{phases[0]}_launches", launches=launches)
+    if any(launches.values()):
+        raise RuntimeError(f"{phases[0]}: a kernel launched in a one-stage "
+                           f"train step: {launches}")
+
+
+def count_window_overflow(model, canvas):
+    """(RoIs whose bilinear corners leave the pooler's window, RoIs) of one
+    forward of an R-CNN on ``canvas``: the flags of
+    ``ops/poolers.py:_local_weights``, its two calls a pooling (rows, then
+    columns), counted by wrapping it for that forward."""
+    import torch
+
+    poolers = importlib.import_module("vision_tpu_torch.ops.poolers")
+    plain, flags = poolers._local_weights, []
+
+    def record(*args):
+        out = plain(*args)
+        flags.append(out[1])
+        return out
+
+    poolers._local_weights = record
+    try:
+        with torch.inference_mode():
+            model(canvas)
+    finally:
+        poolers._local_weights = plain
+    over = [fy | fx for fy, fx in zip(flags[0::2], flags[1::2])]
+    return int(sum(int(o.sum()) for o in over)), sum(o.numel() for o in over)
+
+
+def mobile_rcnn_serve_phases(kernels, name, phases, transform):
+    """A MobileNet Faster R-CNN (``scaled_detector``, its frozen batch
+    norms set from the request's canvas: ``scale_norms``) served
+    from the two raw images through ``transform`` (``serve_phase``), in
+    f32 and, where
+    ``phases`` names a second, in bf16: ms a batch, images/s and peak GB;
+    the detections against the same request through the plain versions;
+    the f32 FPN maps and RPN outputs of ``DET_CPU_IMAGES`` against the CPU;
+    bf16's top 5 scores within 0.05 and its maps and RPN outputs within
+    ``AMP_VS_F32_TOL`` of the f32 request's (``bf16_gate``: or within twice
+    the CPU's own bf16 distance); the pooler's window overflow
+    counted. Returns the f32 request's recorded calls, launches and the
+    overflow count."""
+    import torch
+
+    from vision_tpu_torch.models import get_model_weights
+    from vision_tpu_torch.tools import zoo
+    from vision_tpu_torch.tools.detection_request import (
+        SEED,
+        scale_norms,
+        raw_images,
+    )
+
+    raw = raw_images()
+    preset = get_model_weights(name).COCO_V1.transforms()
+    model = scaled_detector(name)
+    with torch.inference_mode():
+        scale_norms(model, transform([preset(r) for r in raw]).tensors)
+    params = sum(p.numel() for p in model.parameters())
+    out32 = None
+    for dtype, phase in zip((torch.float32, torch.bfloat16), phases):
+        bf16 = dtype == torch.bfloat16
+        tag = "bf16" if bf16 else "f32"
+        if bf16:
+            zoo.to_bf16(model)
+        calls: dict = {}
+        torch.cuda.reset_peak_memory_stats()
+        (batch, dets, boxes), (_, ref, _), times, launches, inner = serve_phase(
+            kernels, model, preset, transform, raw, dtype, calls)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        canvas = batch.tensors.to(dtype)
+        ms = statistics.median(times) * len(raw)
+        fields = dict(model=name, params=params, dtype=str(dtype)[6:],
+                      seed=SEED, canvas=list(transform.fixed_size),
+                      batch=len(raw), image_sizes=batch.image_sizes,
+                      ms_per_batch_median=ms, ms_per_img_median=ms / len(raw),
+                      images_per_s=len(raw) / ms * 1e3, peak_memory_gb=peak_gb,
+                      requests=TIMED_FORWARDS, launches=launches,
+                      valid_per_image=dets.valid.sum(1).tolist(),
+                      cls_scale=CLS_SCALE)
+        if bf16:
+            s16 = dets.scores.flatten().sort().values[-5:]
+            top5_err = float((s16 - s32).abs().max())
+            amp_ok, vs_f32, gate = bf16_gate(inner, inner32, cpu_model,
+                                             rpn_internals, canvas,
+                                             DET_CPU_IMAGES)
+            fields.update(top5_scores_f32=s32.tolist(),
+                          top5_scores_bf16=s16.tolist(), top5_max_err=top5_err,
+                          rel_err_vs_f32=vs_f32,
+                          rel_err_vs_f32_tol=AMP_VS_F32_TOL, **gate)
+        else:
+            cpu_model = copy.deepcopy(model).cpu()
+            with torch.inference_mode():
+                want = rpn_internals(cpu_model, canvas[:DET_CPU_IMAGES].cpu())
+            vs_cpu = [max(rel_errs([g[:DET_CPU_IMAGES].cpu() for g in got], w))
+                      for got, w in zip(inner, want)]
+            overflow, rois = count_window_overflow(model, canvas)
+            fields.update(vs_cpu_rel_err=vs_cpu, vs_cpu_images=DET_CPU_IMAGES,
+                          vs_cpu_tol=DET_CPU_TOL,
+                          vs_cpu_maps_tol=DET_CPU_MAPS_TOL,
+                          window_overflow_rois=overflow,
+                          pooled_rois=rois)
+            del want
+        emit(phase, **fields)
+        if params != get_model_weights(name).COCO_V1.meta["num_params"]:
+            raise RuntimeError(f"{phase}: {params} parameters, not torchvision's")
+        require_launched(launches, ("nms", f"window_pool_{tag}",
+                                    f"roi_align_{tag}"), phase)
+        check_detections(dets, ref, batch=len(raw), phase=phase,
+                         score_tol=AMP_SCORE_TOL if bf16 else 1e-4,
+                         box_tol=AMP_BOX_TOL if bf16 else 1e-2)
+        check_mapped_boxes(boxes, raw)
+        if bf16:
+            if top5_err > 0.05 or not amp_ok:
+                raise RuntimeError(f"{phase}: top 5 scores or maps too far from "
+                                   f"the f32 request's: {top5_err}, {vs_f32}")
+        else:
+            if vs_cpu[0] > DET_CPU_MAPS_TOL or max(vs_cpu[1:]) > DET_CPU_TOL:
+                raise RuntimeError(f"{phase}: maps or RPN outputs too far from "
+                                   f"the CPU's: {vs_cpu}")
+            out32 = (calls, launches, overflow, rois)
+            s32 = dets.scores.flatten().sort().values[-5:]
+            inner32 = inner
+        del dets, ref, inner, batch, canvas
+    del model, cpu_model
+    torch.cuda.empty_cache()
+    return out32
+
+
+def detection_zoo_phases(kernels):
+    """The last five detectors, each at full width with seeded weights:
+    FCOS ResNet-50-FPN (``fcos_images``, ``_amp``: two raw images on the
+    1344 canvas; ``fcos_train``, ``_amp``: batch 2), the MobileNetV3-Large
+    FPN Faster R-CNN (``frcnn_mobilenet_images``, ``_amp`` on the 1344
+    canvas; ``frcnn_mobilenet_train``, ``_amp``: batch 2 through
+    ``det_train_phase``, the pooler kernels and their backwards), its 320
+    variant served on the 640 canvas in f32 (``frcnn_mobilenet_320_images``),
+    SSD300-VGG16 (``ssd_images``, ``_amp``: 32 raw images; ``ssd_train``,
+    ``_amp``: batch 32) and SSDlite320 (``ssdlite_images``, ``_amp``: 32
+    raw images; ``ssdlite_train``, ``_amp``: batch 192). Rows
+    ``nms_fcos``, ``nms_ssd``, ``nms_ssdlite`` (the bitmask NMS kernel at
+    each f32 request's input, the SSDs' held against the plain version on
+    ``PLAIN_NMS_IMAGES`` image) and ``window_pool_mobilenet`` (the window
+    pool over the MobileNet FPN's two levels, both at stride 32, with the
+    RoIs that overflow its window)."""
+    import torch
+
+    from vision_tpu_torch.models.detection import GeneralizedRCNNTransform
+    from vision_tpu_torch.tools.detection_request import (
+        IMAGE_SIZES,
+        scale_norms,
+        raw_images,
+        transform_for,
+    )
+
+    rows = []
+    fcos = "fcos_resnet50_fpn"
+    calls, launches = one_stage_serve_phases(
+        kernels, fcos, ("fcos_images", "fcos_images_amp"),
+        scaled_one_stage(fcos, FCOS_CLS_SCALE), raw_images(),
+        GeneralizedRCNNTransform(), FCOS_CANDIDATES, 100,
+        cpu_images=DET_CPU_IMAGES, expected_sizes=RESIZED,
+        cls_scale=FCOS_CLS_SCALE)
+    cases = [nms_case(kernels, a, "fcos_images") for a in calls["nms"]]
+    rows.append(kernel_row(
+        "nms", cases, launches["f32"]["nms"], row_name="nms_fcos",
+        valid_per_row=cases[0]["valid_per_row"],
+        path="fcos_images (1344x1344, batch 2): one NMS an image over "
+             "P3-P7's 5,000 candidates at 0.6, 91 labels apart by offsets"))
+    del calls
+    torch.cuda.empty_cache()
+    one_stage_train_phases(kernels, fcos, ("fcos_train", "fcos_train_amp"), 2,
+                           FCOS_CLS_SCALE, cpu_transform=FCOS_CPU_TRANSFORM)
+
+    mobile = "fasterrcnn_mobilenet_v3_large_fpn"
+    calls, launches, overflow, rois = mobile_rcnn_serve_phases(
+        kernels, mobile, ("frcnn_mobilenet_images", "frcnn_mobilenet_images_amp"),
+        GeneralizedRCNNTransform())
+    rows.append(kernel_row(
+        "window_pool", [kernel_case(kernels, "window_pool", a,
+                                    "frcnn_mobilenet_images")
+                        for a in calls["window_pool"]],
+        launches["window_pool_f32"], row_name="window_pool_mobilenet",
+        path="frcnn_mobilenet_images (1344x1344, batch 2): levels '0' and "
+             "'1', both 42x42 (stride 32), 256 channels",
+        window_overflow_rois=overflow, pooled_rois=rois))
+    del calls
+    first = det_train_phase(kernels, "frcnn_mobilenet_train", name=mobile,
+                            grads=MOBILE_RCNN_GRADS,
+                            prepare=scale_norms)[2]
+    det_train_phase(kernels, "frcnn_mobilenet_train_amp", name=mobile,
+                    grads=MOBILE_RCNN_GRADS, f32_first=first,
+                    prepare=scale_norms)
+    mobile_rcnn_serve_phases(
+        kernels, "fasterrcnn_mobilenet_v3_large_320_fpn",
+        ("frcnn_mobilenet_320_images",),
+        transform_for("fasterrcnn_mobilenet_v3_large_320_fpn"))
+
+    many = raw_images(IMAGE_SIZES * (ONE_STAGE_SERVE_BATCH // len(IMAGE_SIZES)))
+    for name, tag, scale, background, candidates, per_image, train_size in (
+            ("ssd300_vgg16", "ssd", SSD_CLS_SCALE, SSD_BACKGROUND,
+             SSD_CANDIDATES, 200, SSD_TRAIN_BATCH),
+            ("ssdlite320_mobilenet_v3_large", "ssdlite", SSDLITE_CLS_SCALE, 0.0,
+             SSDLITE_CANDIDATES, 300, SSDLITE_TRAIN_BATCH)):
+        calls, launches = one_stage_serve_phases(
+            kernels, name, (f"{tag}_images", f"{tag}_images_amp"),
+            scaled_one_stage(name, scale, background), many,
+            transform_for(name), candidates, per_image,
+            plain_images=PLAIN_NMS_IMAGES, cpu_images=DET_CPU_IMAGES,
+            cls_scale=scale, background_bias=background)
+        cases = [nms_case(kernels, a, f"{tag}_images", PLAIN_NMS_IMAGES)
+                 for a in calls["nms"]]
+        rows.append(kernel_row(
+            "nms", cases, launches["f32"]["nms"], row_name=f"nms_{tag}",
+            valid_per_row=cases[0]["valid_per_row"],
+            plain_rows=PLAIN_NMS_IMAGES,
+            ms_on_plain_rows=cases[0]["ms_on_plain_rows"],
+            path=f"{tag}_images ({transform_for(name).fixed_size[0]} canvas, "
+                 f"batch {ONE_STAGE_SERVE_BATCH}): one NMS an image over "
+                 f"{candidates:,} candidates (top {candidates // 90} of each "
+                 "of 90 classes)"))
+        del calls
+        torch.cuda.empty_cache()
+        one_stage_train_phases(kernels, name, (f"{tag}_train", f"{tag}_train_amp"),
+                               train_size, scale, background)
     return rows
 
 

@@ -56,6 +56,10 @@ def test_import_pulls_in_no_jax():
         "vision_tpu_torch.models.detection.roi_heads, "
         "vision_tpu_torch.models.detection.backbone_utils, "
         "vision_tpu_torch.models.detection.retinanet, "
+        "vision_tpu_torch.models.detection.fcos, "
+        "vision_tpu_torch.models.detection.ssd, "
+        "vision_tpu_torch.models.detection.ssdlite, "
+        "vision_tpu_torch.tools.detection_request, "
         "vision_tpu_torch.ops.losses, vision_tpu_torch.ops._topk, "
         "vision_tpu_torch.tools.profile_faster_rcnn, vision_tpu_torch.io, "
         "vision_tpu_torch.io.image, vision_tpu_torch.io.jpeg_device, "

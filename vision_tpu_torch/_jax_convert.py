@@ -28,7 +28,15 @@ names already hold dots (``encoder.layers.encoder_layer_{i}``, ``mlp.0``,
 ``heads.head``) and join as they are; its top-level ``class_token`` and
 ``encoder.pos_embedding`` carry across unchanged; its attention's ``in_proj``
 Dense (``[D, 3D]``, columns q, k, v) is torch's ``in_proj_weight`` (``[3D,
-D]``, the row blocks in the same order) and ``in_proj_bias``.
+D]``, the row blocks in the same order) and ``in_proj_bias``. The last
+detectors load as they stand: FCOS's towers (``conv.{3i}`` convolutions,
+``conv.{3i+1}`` GroupNorms) and its P6/P7 (inside the JAX FPN too);
+SSD's ``backbone.scale_weight`` (a top-level parameter of the extractor)
+and ``features.N`` / ``extra.N``; SSDlite's batch statistics (the
+``batch_stats`` collection), and the second half of its split C4 block,
+which JAX numbers from 0 and the port, as torchvision, from 1
+(``ssdlite._C4Rest.jax_names``); the MobileNet FPN trunk's frozen norms
+(``frozen``, ``backbone.body.N``).
 
 Transposed convolutions (the Mask R-CNN and Keypoint R-CNN predictors'
 ``conv5_mask`` and ``kps_score_lowres``): a flax ``nn.ConvTranspose``

@@ -1,5 +1,6 @@
 """Box coding, matching and sampling (counterpart of
-``vision_tpu/models/detection/_utils.py``): ``BoxCoder``, ``Matcher`` and
+``vision_tpu/models/detection/_utils.py``): ``BoxCoder``,
+``BoxLinearCoder`` (FCOS), ``Matcher``, ``SSDMatcher`` and
 ``BalancedPositiveNegativeSampler``, batched over images on fixed-size,
 padded tensors with validity masks."""
 
@@ -15,7 +16,9 @@ __all__ = [
     "BETWEEN_THRESHOLDS",
     "BalancedPositiveNegativeSampler",
     "BoxCoder",
+    "BoxLinearCoder",
     "Matcher",
+    "SSDMatcher",
     "smooth_l1",
     "unit_box_where",
 ]
@@ -101,6 +104,46 @@ class BoxCoder:
         )
 
 
+class BoxLinearCoder:
+    """FCOS's coding: the distances from an anchor's centre to the four
+    edges of a box (left, top, right, bottom), divided by the anchor's
+    width and height when ``normalize_by_size``. ``decode`` runs in f32."""
+
+    def __init__(self, normalize_by_size: bool = True):
+        self.normalize_by_size = normalize_by_size
+
+    def _sizes(self, boxes: torch.Tensor) -> torch.Tensor:
+        w = boxes[..., 2] - boxes[..., 0]
+        h = boxes[..., 3] - boxes[..., 1]
+        return torch.stack([w, h, w, h], dim=-1)
+
+    def encode(self, reference_boxes: torch.Tensor,
+               proposals: torch.Tensor) -> torch.Tensor:
+        """The distances from the centres of ``proposals [..., 4]`` to the
+        edges of ``reference_boxes [..., 4]`` -> ``[..., 4]``."""
+        cx = (proposals[..., 0] + proposals[..., 2]) / 2
+        cy = (proposals[..., 1] + proposals[..., 3]) / 2
+        targets = torch.stack([cx - reference_boxes[..., 0],
+                               cy - reference_boxes[..., 1],
+                               reference_boxes[..., 2] - cx,
+                               reference_boxes[..., 3] - cy], dim=-1)
+        if self.normalize_by_size:
+            targets = targets / self._sizes(proposals)
+        return targets
+
+    def decode(self, rel_codes: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+        """``rel_codes [..., 4]`` about ``boxes [..., 4]`` -> xyxy boxes."""
+        rel_codes = rel_codes.float()
+        boxes = boxes.float()
+        cx = (boxes[..., 0] + boxes[..., 2]) / 2
+        cy = (boxes[..., 1] + boxes[..., 3]) / 2
+        if self.normalize_by_size:
+            rel_codes = rel_codes * self._sizes(boxes)
+        return torch.stack([cx - rel_codes[..., 0], cy - rel_codes[..., 1],
+                            cx + rel_codes[..., 2], cy + rel_codes[..., 3]],
+                           dim=-1)
+
+
 class Matcher:
     """``__call__(quality [..., M, N], valid_gt [..., M])`` -> int64
     matches ``[..., N]``: for each of N predictions the gt index of its
@@ -138,6 +181,32 @@ class Matcher:
                 is_best &= valid_gt[..., None]
             matches = torch.where(is_best.any(dim=-2), all_matches, matches)
         return matches
+
+
+class SSDMatcher(Matcher):
+    """SSD's matching: ``Matcher(threshold, threshold)``, then each valid
+    gt's best prediction (the first on ties) is forced to that gt; where
+    several gts claim one prediction the later gt wins, as torchvision's
+    sequential assignment has it. Unlike ``allow_low_quality_matches``,
+    which gives every tying prediction its own best gt."""
+
+    def __init__(self, threshold: float = 0.5):
+        super().__init__(threshold, threshold, allow_low_quality_matches=False)
+
+    def __call__(self, match_quality_matrix: torch.Tensor,
+                 valid_gt: Optional[torch.Tensor] = None) -> torch.Tensor:
+        matches = super().__call__(match_quality_matrix, valid_gt)
+        m = match_quality_matrix
+        if valid_gt is not None:
+            m = torch.where(valid_gt[..., None], m, torch.full_like(m, -1.0))
+        num_gt, num_pred = m.shape[-2:]
+        best = m.argmax(dim=-1)  # [..., M]
+        claims = best[..., None] == torch.arange(num_pred, device=m.device)
+        if valid_gt is not None:
+            claims &= valid_gt[..., None]
+        gt_idx = torch.arange(num_gt, device=m.device)[:, None]
+        forced = torch.where(claims, gt_idx, -1).amax(dim=-2)  # [..., N]
+        return torch.where(forced >= 0, forced, matches)
 
 
 class BalancedPositiveNegativeSampler:

@@ -6,7 +6,9 @@ norm. Module names are torchvision's, so
 ``backbone.body.layer1.0.conv1.weight`` and the like load from a
 torchvision checkpoint. ``deform_stages`` puts deformable 3x3
 convolutions into the bottlenecks of the listed stages
-(``DeformFrozenBottleneck``), as the JAX trunk does."""
+(``DeformFrozenBottleneck``), as the JAX trunk does. The MobileNetV3-Large
+FPN trunk of the MobileNet Faster R-CNNs is ``MobileNetV3FPNBackbone``
+(``backbone.body.{0..16}``, torchvision's names)."""
 
 from __future__ import annotations
 
@@ -18,15 +20,22 @@ import torch.nn.functional as F
 from torch import nn
 
 from vision_tpu_torch.models import resnet
+from vision_tpu_torch.models.mobilenetv3 import (
+    InvertedResidual,
+    _cna,
+    _large_setting,
+)
 from vision_tpu_torch.ops.deform_conv import DeformConv2d
 from vision_tpu_torch.ops.feature_pyramid_network import (
     ExtraFPNBlock,
     FeaturePyramidNetwork,
+    LastLevelMaxPool,
 )
 from vision_tpu_torch.ops.misc import BatchNorm2d, FrozenBatchNorm2d
 
 __all__ = ["BackboneWithFPN", "DeformFrozenBottleneck", "FrozenBasicBlock",
-           "FrozenBottleneck", "ResNetTrunk", "freeze_trunk_layers"]
+           "FrozenBottleneck", "MobileNetV3FPNBackbone", "ResNetTrunk",
+           "freeze_layers_before", "freeze_trunk_layers"]
 
 # the trunk's stages from the last to the first, as torchvision's
 # ``_resnet_fpn_extractor`` and the JAX recipe (``references/detection/
@@ -203,6 +212,60 @@ class BackboneWithFPN(nn.Module):
         return self.fpn(OrderedDict(
             (str(i), feats[str(layer - 1)])
             for i, layer in enumerate(self.returned_layers)))
+
+
+class MobileNetV3FPNBackbone(nn.Module):
+    """MobileNetV3-Large's features with frozen batch norm (``body``, an
+    ``nn.Sequential`` of the stem, the 15 blocks and the last 1x1
+    convolution: ``body.0`` .. ``body.16``), tapped after ``body.13`` (160
+    channels) as "0" and after ``body.16`` (960 channels) as "1", both at
+    stride 32 (``body.13`` is the last strided block), then an FPN of
+    ``out_channels`` with ``LastLevelMaxPool``: {"0", "1", "pool"}."""
+
+    taps = {13: "0", 16: "1"}
+    # the first block of each stage (torchvision's ``_is_cn`` blocks, the
+    # strided ones), then the last convolution: where freezing may stop
+    stage_starts = (0, 2, 4, 7, 13, 16)
+
+    def __init__(self, out_channels: int = 256):
+        super().__init__()
+        setting, _ = _large_setting()
+        layers = [_cna(3, setting[0].input_channels, 3, 2,
+                       norm_layer=FrozenBatchNorm2d)]
+        layers += [InvertedResidual(c, norm_layer=FrozenBatchNorm2d)
+                   for c in setting]
+        layers.append(_cna(setting[-1].out_channels, 6 * setting[-1].out_channels,
+                           1, norm_layer=FrozenBatchNorm2d))
+        self.body = nn.Sequential(*layers)
+        self.fpn = FeaturePyramidNetwork(
+            [setting[12].out_channels, 6 * setting[-1].out_channels],
+            out_channels, LastLevelMaxPool())
+        self.out_channels = out_channels
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        taps = OrderedDict()
+        for i, layer in enumerate(self.body):
+            x = layer(x)
+            if i in self.taps:
+                taps[self.taps[i]] = x
+        return self.fpn(taps)
+
+
+def freeze_layers_before(layers: Sequence[nn.Module], starts: Sequence[int],
+                         trainable_layers: int) -> None:
+    """torchvision's rule for the MobileNet and VGG trunks: of ``layers``
+    (the trunk's modules in order, its stages beginning at ``starts``),
+    train only the last ``trainable_layers`` stages (0 .. len(starts)):
+    every parameter of the layers before the first of them gets
+    ``requires_grad_(False)``, all of them at 0."""
+    if not 0 <= trainable_layers <= len(starts):
+        raise ValueError(f"trainable_layers must be in [0, {len(starts)}], "
+                         f"got {trainable_layers}")
+    before = (len(layers) if trainable_layers == 0
+              else starts[len(starts) - trainable_layers])
+    for layer in list(layers)[:before]:
+        for p in layer.parameters():
+            p.requires_grad_(False)
 
 
 def freeze_trunk_layers(trunk: ResNetTrunk, trainable_layers: int) -> None:

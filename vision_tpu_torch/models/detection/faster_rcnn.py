@@ -1,6 +1,6 @@
-"""Faster R-CNN ResNet-FPN inference and training loss (counterpart of
-``vision_tpu/models/detection/faster_rcnn.py``, the ResNet variants, v1
-and v2).
+"""Faster R-CNN inference and training loss (counterpart of
+``vision_tpu/models/detection/faster_rcnn.py``): the ResNet-50-FPN
+variants, v1 and v2, and the MobileNetV3-Large FPN ones.
 
 Backbone -> FPN -> RPN head -> fixed-size ``filter_proposals`` (top-k +
 per-level NMS) -> windowed ``MultiScaleRoIAlign`` -> box head ->
@@ -25,6 +25,13 @@ running statistics (the JAX model's ``use_running_average=True``, in
 training too), the RPN head has two 3x3 convs, and the box head is
 ``FastRCNNConvFCHead`` (four conv + batch norm + ReLU, then one fc), whose
 batch norm follows the training mode as the trunk's does.
+
+MobileNet (``backbone_type="mobilenet_v3_large"``,
+``fasterrcnn_mobilenet_v3_large_fpn`` and ``_320_fpn``): the frozen-BN
+MobileNetV3-Large trunk tapped at ``body.13`` and ``body.16`` (both at
+stride 32) under an FPN of 256 channels and "pool"; 15 anchors a location
+(sizes 32-512 at ratios 0.5, 1, 2) on "0", "1" and "pool"; the box pooler
+over "0" and "1".
 
 Amp (bf16) eval is the JAX package's switch: ``model.to(torch.bfloat16)``
 and a bf16 canvas. The trunk, the FPN, the heads and the pooled features
@@ -51,6 +58,8 @@ from vision_tpu_torch.models._api import (
 from vision_tpu_torch.models.detection.anchor_utils import AnchorGenerator
 from vision_tpu_torch.models.detection.backbone_utils import (
     BackboneWithFPN,
+    MobileNetV3FPNBackbone,
+    freeze_layers_before,
     freeze_trunk_layers,
 )
 from vision_tpu_torch.models.detection.roi_heads import (
@@ -69,8 +78,12 @@ from vision_tpu_torch.transforms._presets import ObjectDetection
 __all__ = [
     "FasterRCNN",
     "build_detector",
+    "FasterRCNN_MobileNet_V3_Large_320_FPN_Weights",
+    "FasterRCNN_MobileNet_V3_Large_FPN_Weights",
     "FasterRCNN_ResNet50_FPN_V2_Weights",
     "FasterRCNN_ResNet50_FPN_Weights",
+    "fasterrcnn_mobilenet_v3_large_320_fpn",
+    "fasterrcnn_mobilenet_v3_large_fpn",
     "fasterrcnn_resnet50_fpn",
     "fasterrcnn_resnet50_fpn_v2",
     "init_weights",
@@ -84,14 +97,17 @@ _HE_NORMAL = ("backbone.body", "roi_heads.box_head", "roi_heads.mask_",
 
 class FasterRCNN(nn.Module):
     """Faster R-CNN with a ResNet-FPN backbone, frozen-BN (v1) or, with
-    ``v2``, the v2 model of the module docstring. Module and state-dict
-    names are torchvision's. ``deform_stages`` (1-based trunk stages, (2,
-    3, 4) = C3-C5) and ``deform_modulated`` make those stages' 3x3
-    convolutions deformable (``DeformFrozenBottleneck``; v1 only)."""
+    ``v2``, the v2 model of the module docstring; with
+    ``backbone_type="mobilenet_v3_large"`` the MobileNet FPN one (v1's
+    heads). Module and state-dict names are torchvision's.
+    ``deform_stages`` (1-based trunk stages, (2, 3, 4) = C3-C5) and
+    ``deform_modulated`` make those stages' 3x3 convolutions deformable
+    (``DeformFrozenBottleneck``; the v1 ResNet trunk only)."""
 
     def __init__(
         self,
         backbone_depth: int = 50,
+        backbone_type: str = "resnet",
         num_classes: int = 91,
         rpn_pre_nms_top_n: int = 1000,
         rpn_post_nms_top_n: int = 1000,
@@ -105,18 +121,30 @@ class FasterRCNN(nn.Module):
         v2: bool = False,
     ):
         super().__init__()
-        if deform_stages and v2:
+        if deform_stages and (v2 or backbone_type != "resnet"):
             raise ValueError("deform_stages is only supported on the "
                              "frozen-BN v1 trunk")
         self.v2 = v2
-        self.backbone = BackboneWithFPN(
-            backbone_depth, out_channels=256,
-            deform_stages=tuple(deform_stages),
-            deform_modulated=deform_modulated, frozen_bn=not v2,
-            norm_layer=(functools.partial(BatchNorm2d, use_running_average=True)
-                        if v2 else None))
-        sizes = ((32,), (64,), (128,), (256,), (512,))
-        anchor_generator = AnchorGenerator(sizes, ((0.5, 1.0, 2.0),) * 5)
+        if backbone_type == "mobilenet_v3_large":
+            if v2:
+                raise ValueError("the MobileNet Faster R-CNN has no v2")
+            self.backbone = MobileNetV3FPNBackbone(256)
+            self.featmap_names = ["0", "1"]
+            sizes = ((32, 64, 128, 256, 512),) * 3
+        elif backbone_type == "resnet":
+            self.backbone = BackboneWithFPN(
+                backbone_depth, out_channels=256,
+                deform_stages=tuple(deform_stages),
+                deform_modulated=deform_modulated, frozen_bn=not v2,
+                norm_layer=(functools.partial(BatchNorm2d,
+                                              use_running_average=True)
+                            if v2 else None))
+            self.featmap_names = list(_FEATMAPS)
+            sizes = ((32,), (64,), (128,), (256,), (512,))
+        else:
+            raise ValueError(f"unknown backbone_type {backbone_type!r}; "
+                             "expected 'resnet' or 'mobilenet_v3_large'")
+        anchor_generator = AnchorGenerator(sizes, ((0.5, 1.0, 2.0),) * len(sizes))
         self.rpn = RegionProposalNetwork(
             anchor_generator,
             RPNHead(256, anchor_generator.num_anchors_per_location()[0],
@@ -126,7 +154,7 @@ class FasterRCNN(nn.Module):
             nms_thresh=rpn_nms_thresh,
             score_thresh=rpn_score_thresh,
         )
-        pool = MultiScaleRoIAlign(_FEATMAPS, 7, 2)
+        pool = MultiScaleRoIAlign(self.featmap_names, 7, 2)
         self.roi_heads = RoIHeads(
             pool,
             FastRCNNConvFCHead() if v2 else TwoMLPHead(256 * 7 * 7, 1024),
@@ -139,7 +167,7 @@ class FasterRCNN(nn.Module):
     def features_and_rpn(self, images: torch.Tensor):
         """Backbone features, RPN head outputs and anchors."""
         feats = self.backbone(images)
-        rpn_feats = [feats[k] for k in _FEATMAPS + ["pool"]]
+        rpn_feats = [feats[k] for k in self.featmap_names + ["pool"]]
         objectness, deltas = self.rpn.head(rpn_feats)
         anchors = self.rpn.anchor_generator(
             tuple(images.shape[-2:]), [tuple(f.shape[-2:]) for f in rpn_feats],
@@ -167,7 +195,7 @@ class FasterRCNN(nn.Module):
         n, p = proposals.boxes.shape[:2]
         rois = self.make_rois(proposals.boxes)
         pooled = self.roi_heads.box_roi_pool(
-            {k: feats[k] for k in _FEATMAPS}, rois, image_size
+            {k: feats[k] for k in self.featmap_names}, rois, image_size
         )
         class_logits, box_regression = self.roi_heads.box_predictor(
             self.roi_heads.box_head(pooled)
@@ -205,8 +233,8 @@ class FasterRCNN(nn.Module):
             generator)
         n, s = sampled.boxes.shape[:2]
         pooled = self.roi_heads.box_roi_pool(
-            {k: feats[k] for k in _FEATMAPS}, self.make_rois(sampled.boxes),
-            image_size,
+            {k: feats[k] for k in self.featmap_names},
+            self.make_rois(sampled.boxes), image_size,
         )
         class_logits, box_regression = self.roi_heads.box_predictor(
             self.roi_heads.box_head(pooled)
@@ -299,6 +327,17 @@ def _upgrade_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def freeze_resnet_trunk(model: nn.Module, trainable_layers: int) -> None:
+    """``freeze_trunk_layers`` of ``model.backbone.body``."""
+    freeze_trunk_layers(model.backbone.body, trainable_layers)
+
+
+def freeze_mobilenet_trunk(model: nn.Module, trainable_layers: int) -> None:
+    """torchvision's rule for the MobileNet FPN trunk (0-6 stages)."""
+    freeze_layers_before(model.backbone.body,
+                         MobileNetV3FPNBackbone.stage_starts, trainable_layers)
+
+
 def build_detector(
     cls,
     weights: Optional[Union[WeightsEnum, Weights, str]],
@@ -308,23 +347,24 @@ def build_detector(
     trainable_backbone_layers: Optional[int],
     init=None,
     upgrade=None,
+    freeze=freeze_resnet_trunk,
     **kwargs,
 ) -> nn.Module:
-    """A ResNet-50-FPN detector of class ``cls`` in eval mode, on ``device``
-    (the card when None). Without ``weights`` the parameters are
-    torchvision's initialisation (``init(model, generator)``,
-    ``init_weights`` unless given) drawn from a CPU ``torch.Generator``
-    seeded with ``seed``, so every device gets the same numbers.
-    ``trainable_backbone_layers`` (0-5) leaves only the last that many
-    trunk stages trainable (``freeze_trunk_layers``); None trains all, as
-    the JAX recipe's default does. A checkpoint goes through
+    """A detector ``cls(**kwargs)`` in eval mode, on ``device`` (the card
+    when None). Without ``weights`` the parameters are torchvision's
+    initialisation (``init(model, generator)``, ``init_weights`` unless
+    given) drawn from a CPU ``torch.Generator`` seeded with ``seed``, so
+    every device gets the same numbers. ``trainable_backbone_layers``
+    leaves only the last that many trunk stages trainable
+    (``freeze(model, n)``: the ResNet trunk's 0-5 by default); None trains
+    all, as the JAX recipe's default does. A checkpoint goes through
     ``upgrade`` (``_upgrade_state_dict`` unless given) and must hold every
     tensor of the model but a deformable trunk's offset predictors, which
     start at zero where it has none (a plain checkpoint in a deform
     model)."""
     device = resolve_device(device)
     weights = weights_enum.verify(weights)
-    model = cls(backbone_depth=50, **kwargs)
+    model = cls(**kwargs)
     if weights is not None:
         missing, unexpected = model.load_state_dict(
             (upgrade or _upgrade_state_dict)(weights.get_state_dict()),
@@ -338,7 +378,7 @@ def build_detector(
     else:
         (init or init_weights)(model, torch.Generator().manual_seed(seed))
     if trainable_backbone_layers is not None:
-        freeze_trunk_layers(model.backbone.body, trainable_backbone_layers)
+        freeze(model, trainable_backbone_layers)
     return model.eval().to(device)
 
 
@@ -370,3 +410,70 @@ def fasterrcnn_resnet50_fpn_v2(
     return build_detector(FasterRCNN, weights,
                           FasterRCNN_ResNet50_FPN_V2_Weights, device, seed,
                           trainable_backbone_layers, v2=True, **kwargs)
+
+
+class FasterRCNN_MobileNet_V3_Large_FPN_Weights(WeightsEnum):
+    COCO_V1 = Weights(
+        url="https://download.pytorch.org/models/"
+        "fasterrcnn_mobilenet_v3_large_fpn-fb6a3cc7.pth",
+        transforms=ObjectDetection,
+        meta={"num_params": 19386354,
+              "_metrics": {"COCO-val2017": {"box_map": 32.8}}},
+    )
+    DEFAULT = COCO_V1
+
+
+class FasterRCNN_MobileNet_V3_Large_320_FPN_Weights(WeightsEnum):
+    COCO_V1 = Weights(
+        url="https://download.pytorch.org/models/"
+        "fasterrcnn_mobilenet_v3_large_320_fpn-907ea3f9.pth",
+        transforms=ObjectDetection,
+        meta={"num_params": 19386354,
+              "_metrics": {"COCO-val2017": {"box_map": 22.8}}},
+    )
+    DEFAULT = COCO_V1
+
+
+@register_model()
+def fasterrcnn_mobilenet_v3_large_fpn(
+    *,
+    weights: Optional[Union[FasterRCNN_MobileNet_V3_Large_FPN_Weights, Weights,
+                            str]] = None,
+    device: Union[str, torch.device, None] = None,
+    seed: int = 0,
+    trainable_backbone_layers: Optional[int] = None,
+    **kwargs,
+) -> FasterRCNN:
+    """Faster R-CNN MobileNetV3-Large FPN (``build_detector``; its trunk
+    freezes by stage, 0-6): RPN score threshold 0.05; served at the
+    transform's default 800 / 1333."""
+    kwargs.setdefault("rpn_score_thresh", 0.05)
+    return build_detector(FasterRCNN, weights,
+                          FasterRCNN_MobileNet_V3_Large_FPN_Weights, device,
+                          seed, trainable_backbone_layers,
+                          freeze=freeze_mobilenet_trunk,
+                          backbone_type="mobilenet_v3_large", **kwargs)
+
+
+@register_model()
+def fasterrcnn_mobilenet_v3_large_320_fpn(
+    *,
+    weights: Optional[Union[FasterRCNN_MobileNet_V3_Large_320_FPN_Weights,
+                            Weights, str]] = None,
+    device: Union[str, torch.device, None] = None,
+    seed: int = 0,
+    trainable_backbone_layers: Optional[int] = None,
+    **kwargs,
+) -> FasterRCNN:
+    """The low-resolution MobileNet Faster R-CNN: as
+    ``fasterrcnn_mobilenet_v3_large_fpn`` with the RPN's pre- and post-NMS
+    top-n at 150; served at ``GeneralizedRCNNTransform(min_size=320,
+    max_size=640)``."""
+    kwargs.setdefault("rpn_score_thresh", 0.05)
+    kwargs.setdefault("rpn_pre_nms_top_n", 150)
+    kwargs.setdefault("rpn_post_nms_top_n", 150)
+    return build_detector(FasterRCNN, weights,
+                          FasterRCNN_MobileNet_V3_Large_320_FPN_Weights,
+                          device, seed, trainable_backbone_layers,
+                          freeze=freeze_mobilenet_trunk,
+                          backbone_type="mobilenet_v3_large", **kwargs)

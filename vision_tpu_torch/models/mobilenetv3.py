@@ -6,14 +6,17 @@ NCHW input; torchvision's module and state-dict names
 blocks, the squeeze-excitation with a hardsigmoid scale. Batch norm as the
 JAX reference configures it (eps 1e-5, torch momentum 0.1), not
 torchvision's (1e-3, 0.01). The classifier's dropout draws from
-``forward(x, generator=g)`` in training mode.
+``forward(x, generator=g)`` in training mode. ``_cna`` and
+``InvertedResidual`` take another ``norm_layer`` (the detection trunks':
+frozen batch norm in the Faster R-CNN FPN trunk, eps 1e-3 and momentum
+0.03 in SSDlite's).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -28,6 +31,7 @@ from vision_tpu_torch.models._utils import (
     normal_linear,
 )
 from vision_tpu_torch.ops.misc import (
+    BatchNorm2d,
     Conv2dNormActivation,
     SqueezeExcitation,
     dropout as _dropout,
@@ -67,29 +71,32 @@ def _conf(i, k, e, o, se, act, s, d, width_mult=1.0) -> IRConf:
 
 
 def _cna(cin: int, cout: int, kernel: int = 3, stride: int = 1,
-         groups: int = 1, act=nn.Hardswish,
-         dilation: int = 1) -> Conv2dNormActivation:
+         groups: int = 1, act=nn.Hardswish, dilation: int = 1,
+         norm_layer: Callable[..., nn.Module] = BatchNorm2d
+         ) -> Conv2dNormActivation:
     return Conv2dNormActivation(cin, cout, kernel, stride, groups=groups,
-                                activation_layer=act, dilation=dilation,
-                                inplace=None)
+                                norm_layer=norm_layer, activation_layer=act,
+                                dilation=dilation, inplace=None)
 
 
 class InvertedResidual(nn.Module):
-    def __init__(self, cnf: IRConf):
+    def __init__(self, cnf: IRConf,
+                 norm_layer: Callable[..., nn.Module] = BatchNorm2d):
         super().__init__()
         self.use_res = cnf.stride == 1 and cnf.input_channels == cnf.out_channels
         act = nn.Hardswish if cnf.use_hs else nn.ReLU
+        cna = functools.partial(_cna, norm_layer=norm_layer)
         e = cnf.expanded_channels
         layers: List[nn.Module] = []
         if e != cnf.input_channels:
-            layers.append(_cna(cnf.input_channels, e, 1, act=act))
-        layers.append(_cna(e, e, cnf.kernel,
-                           1 if cnf.dilation > 1 else cnf.stride, groups=e,
-                           act=act, dilation=cnf.dilation))
+            layers.append(cna(cnf.input_channels, e, 1, act=act))
+        layers.append(cna(e, e, cnf.kernel,
+                          1 if cnf.dilation > 1 else cnf.stride, groups=e,
+                          act=act, dilation=cnf.dilation))
         if cnf.use_se:
             layers.append(SqueezeExcitation(e, _make_divisible(e // 4, 8),
                                             scale_activation=nn.Hardsigmoid))
-        layers.append(_cna(e, cnf.out_channels, 1, act=None))
+        layers.append(cna(e, cnf.out_channels, 1, act=None))
         self.block = nn.Sequential(*layers)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -246,10 +246,11 @@ def make_detection_train_step(
     stay on the device: reading them is the caller's synchronisation.
 
     ``one_stage=True`` is the JAX recipe's one-stage convention
-    (``engine.py:45-47``; RetinaNet): the forward first, then
-    ``compute_loss(*outputs, gt_boxes, gt_labels, gt_valid)``; the step
-    returns ``"loss"`` and the model's losses (``"classification"``,
-    ``"bbox_regression"``), and takes no generator.
+    (``engine.py:45-47``; RetinaNet, FCOS, SSD, SSDlite): the forward
+    first, then ``compute_loss(*outputs, gt_boxes, gt_labels, gt_valid)``;
+    the step returns ``"loss"`` and the model's losses (``"classification"``,
+    ``"bbox_regression"``, FCOS's ``"bbox_ctrness"``), and takes no
+    generator.
 
     ``compute_dtype=torch.bfloat16`` is the JAX recipe's amp step
     (``references/detection/engine.py:24-37``): the parameters, the frozen
@@ -258,8 +259,9 @@ def make_detection_train_step(
     arithmetic promotes to f32; the losses are summed in f32; the master
     parameters and the optimizer state stay f32 (the cast is
     differentiable, so the optimizer sees f32 gradients). The window pool
-    and RoIAlign take their bf16 kernels forward and backward. A live batch
-    norm (RetinaNet v2's trunk) keeps its running statistics f32 and
+    and RoIAlign take their bf16 kernels forward and backward; the models'
+    losses are computed in f32. A live batch norm (RetinaNet v2's trunk,
+    SSDlite's trunk and head) keeps its running statistics f32 and
     updates them in place at every step, in every stage, trainable or not
     (``engine.py:49-55``: the recipe masks the updates of the parameters,
     not of the statistics)."""

@@ -1,24 +1,31 @@
 """The served detection request that ``chip_smoke.py`` (phases
 ``faster_rcnn_images``, ``faster_rcnn_amp``, ``mask_rcnn_images``,
-``mask_rcnn_amp``, ``keypoint_rcnn_images``, ``retinanet*_images*``) and
+``mask_rcnn_amp``, ``keypoint_rcnn_images``, ``retinanet*_images*`` and
+the phases of the MobileNet Faster R-CNNs, FCOS, SSD and SSDlite) and
 ``profile_faster_rcnn`` (the ``*request_*`` cells) drive: two seeded uint8
 images of COCO's two most common sizes through the weights' preset, the
 transform, the model and ``postprocess_boxes``, for Mask R-CNN
-``paste_masks``, for RetinaNet its ``postprocess_detections`` first
-(``serve_retinanet``); and the
+``paste_masks``, for a one-stage detector (RetinaNet, FCOS, SSD, SSDlite)
+its ``postprocess_detections`` first (``serve_one_stage``), each model at
+its own transform (``transform_for``); and the
 training batch of the same images, with gt masks and keypoints where the
-model takes them (phases ``*_train``, cells ``*train``); and the seeded
-offset predictors of a deformable trunk (``seed_offsets``).
+model takes them (phases ``*_train``, cells ``*train``); the seeded
+offset predictors of a deformable trunk (``seed_offsets``); and batch
+norms scaled from a batch (``scale_norms``).
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import List, Sequence, Tuple
 
 import torch
 
 from vision_tpu_torch.models.detection.roi_heads import paste_masks_in_image
-from vision_tpu_torch.models.detection.transform import resize_boxes
+from vision_tpu_torch.models.detection.transform import (
+    GeneralizedRCNNTransform,
+    resize_boxes,
+)
 
 IMAGE_SIZES = ((480, 640), (427, 640))
 SEED = 0
@@ -35,9 +42,31 @@ WARMUP_ITERS = 1000
 OFFSET_RMS = 1.5
 
 
+# the transforms torchvision's builders give these detectors (the others
+# take the default, 800 / 1333 on a 1344 canvas): SSD's mean and a std of
+# 1/255 on a fixed 300 canvas, SSDlite's 0.5 on 320, the low-resolution
+# MobileNet Faster R-CNN's 320 / 640
+TRANSFORMS = {
+    "ssd300_vgg16": dict(min_size=300, max_size=300, fixed_size=(300, 300),
+                         image_mean=(0.48235, 0.45882, 0.40784),
+                         image_std=(1.0 / 255.0,) * 3),
+    "ssdlite320_mobilenet_v3_large": dict(
+        min_size=320, max_size=320, fixed_size=(320, 320),
+        image_mean=(0.5,) * 3, image_std=(0.5,) * 3),
+    "fasterrcnn_mobilenet_v3_large_320_fpn": dict(min_size=320, max_size=640),
+}
+
+
+def transform_for(name: str, device=None) -> GeneralizedRCNNTransform:
+    """The ``GeneralizedRCNNTransform`` that detector ``name`` is served
+    and trained at (``TRANSFORMS``, else the default), on ``device``."""
+    return GeneralizedRCNNTransform(**TRANSFORMS.get(name, {}), device=device)
+
+
 def raw_images(sizes: Sequence[Tuple[int, int]] = IMAGE_SIZES,
                seed: int = SEED) -> List[torch.Tensor]:
-    """Uniform uint8 ``[3, H, W]`` images on the CPU, from ``seed``."""
+    """Uniform uint8 ``[3, H, W]`` images on the CPU, from ``seed``, one of
+    each size (``IMAGE_SIZES * 16`` for a batch of 32)."""
     gen = torch.Generator().manual_seed(seed)
     return [torch.randint(0, 256, (3, h, w), dtype=torch.uint8, generator=gen)
             for h, w in sizes]
@@ -55,10 +84,11 @@ def serve(model, preset, transform, raw, dtype=torch.float32):
     return batch, dets, boxes
 
 
-def serve_retinanet(model, preset, transform, raw, dtype=torch.float32):
-    """``serve`` for RetinaNet: the model's head outputs go through its
-    ``postprocess_detections`` at the canvas's size, then each image's
-    boxes are mapped back to its own size. The same results as ``serve``."""
+def serve_one_stage(model, preset, transform, raw, dtype=torch.float32):
+    """``serve`` for a one-stage detector (RetinaNet, FCOS, SSD, SSDlite):
+    the model's head outputs go through its ``postprocess_detections`` at
+    the canvas's size, then each image's boxes are mapped back to its own
+    size. The same results as ``serve``."""
     batch = transform([preset(r) for r in raw])
     canvas = batch.tensors.to(dtype)
     dets = model.postprocess_detections(*model(canvas),
@@ -115,7 +145,8 @@ def train_batch(preset, transform, raw, seed: int = SEED, num_classes: int = 91,
     ``transform``, and per image ``GT_COUNTS`` seeded gt boxes (16 px to
     half the image plus 16 on a side, inside the original image), mapped
     to the resized image with ``resize_boxes``, labels in [1,
-    ``num_classes``), padded to ``GT_ROWS`` rows; with ``masks`` the
+    ``num_classes``), padded to ``GT_ROWS`` rows (``GT_COUNTS`` taken in
+    turn for a batch of more than two images); with ``masks`` the
     ``ellipse_masks`` of the boxes on the canvas, with ``keypoints`` the
     ``seeded_keypoints`` (from another generator, so that the boxes are the
     same either way). Everything on the canvas's device."""
@@ -125,7 +156,8 @@ def train_batch(preset, transform, raw, seed: int = SEED, num_classes: int = 91,
     boxes = torch.zeros(n, GT_ROWS, 4)
     labels = torch.zeros(n, GT_ROWS, dtype=torch.int64)
     valid = torch.zeros(n, GT_ROWS, dtype=torch.bool)
-    for i, (r, size, count) in enumerate(zip(raw, batch.image_sizes, GT_COUNTS)):
+    for i, (r, size, count) in enumerate(zip(raw, batch.image_sizes,
+                                             itertools.cycle(GT_COUNTS))):
         h, w = r.shape[-2:]
         extent = torch.tensor([float(w), float(h)])
         wh = torch.rand(count, 2, generator=gen) * extent / 2 + 16
@@ -184,6 +216,34 @@ def seed_offsets(model, images: torch.Tensor, rms: float = OFFSET_RMS,
         for h in hooks:
             h.remove()
     return read
+
+
+@torch.no_grad()
+def scale_norms(model, images: torch.Tensor) -> None:
+    """Scale every batch norm of ``model``, frozen or live, by the root mean
+    square of its own input over ``images`` (``running_var`` set to the
+    mean of its square over all but the channels, ``running_mean`` to 0),
+    in one eval-mode forward, each norm after those before it. With the
+    identity statistics of a seeded init a MobileNet trunk's activations
+    shrink to ~1e-8 by its last block, where a trained model's statistics
+    keep them of order 1. The mean is 0 so that a norm does not subtract
+    a large mean from its input: a bf16 input rounded about a mean several
+    times its spread loses most of what the norm keeps (centred statistics
+    left SSDlite's bf16 maps 1.0 of their largest value from f32 on the
+    CPU, these 0.10)."""
+    from vision_tpu_torch.ops.misc import BatchNorm2d, FrozenBatchNorm2d
+
+    def set_scale(mod, args):
+        mod.running_mean.zero_()
+        mod.running_var.copy_(args[0].float().pow(2).mean((0, 2, 3)))
+
+    hooks = [m.register_forward_pre_hook(set_scale) for m in model.modules()
+             if isinstance(m, (BatchNorm2d, FrozenBatchNorm2d))]
+    try:
+        model(images)
+    finally:
+        for h in hooks:
+            h.remove()
 
 
 def recipe_optimizer(model):

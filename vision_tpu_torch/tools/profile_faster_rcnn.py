@@ -36,7 +36,7 @@ print the device time of the deformable convolution's products
 ``retinanet_resnet50_fpn``, as ``chip_smoke.py``'s ``retinanet_images``,
 ``retinanet_images_amp``, ``retinanet_train`` and ``retinanet_train_amp``
 drive it (``cls_logits``' weight scaled x4 when served; its postprocess
-through ``serve_retinanet``; trained by the one-stage convention). Runs
+through ``serve_one_stage``; trained by the one-stage convention). Runs
 ``--steps`` steps under ``torch.profiler``
 after two warm-up steps and prints JSON lines: per step the host wall
 time and the summed device kernel time (their ratio is the device's busy
@@ -67,7 +67,7 @@ from vision_tpu_torch.tools.detection_request import (
     recipe_optimizer,
     seed_offsets,
     serve,
-    serve_retinanet,
+    serve_one_stage,
     train_batch,
 )
 
@@ -187,7 +187,7 @@ def main() -> None:
                 seed_offsets(model, transform([preset(r) for r in raw]).tensors)
         model.to(dtype)
 
-        request = serve_retinanet if prefix == "retinanet_" else serve
+        request = serve_one_stage if prefix == "retinanet_" else serve
 
         def step():
             _, dets, boxes = request(model, preset, transform, raw, dtype)
