@@ -139,7 +139,20 @@ off, seeded random weights:
   zoo's) and RAFT-large at 368x496,
   batch 2, in f32 (step 1 against the CPU on 256x320 pairs); then every
   other builder of the three once, one a kind against the CPU. No kernel
-  of the repo's is on these paths.
+  of the repo's is on these paths;
+* the reference recipes' train side (``parallel/presets.py``, last): the
+  five detection policies on 32 seeded COCO-like samples (boxes, masks,
+  17 keypoints), the four classification policies at 224 on 64 images
+  and the video preset on 8 clips of 16x256x340, each sample on the card
+  held against the same preset on the CPU with the card's draws handed
+  across (``recipe_transforms``: ms and host synchronisations a sample,
+  boxes kept, the gates' binomial checks); SSD300 trained at batch 32
+  from the ``ssd`` policy through ``collate_detection`` and Mask R-CNN at
+  batch 2 from ``hflip`` with masks (``det_recipe_train``, the latter
+  against the plain versions and through the window-pool and RoIAlign
+  kernels); R3D-18 (16x112, batch 8) and MViT-V2-S (16x224, batch 4)
+  trained from the video preset in f32 and amp (``video_train``, step 1
+  against the CPU).
 
 Every kernel is held against its plain PyTorch version on the card at the
 inputs the model gave it, and each path's result against a run of the same
@@ -802,9 +815,13 @@ def main() -> int:
     t_dense = time.perf_counter()
     dense_phases(kernels)
     dense_s = time.perf_counter() - t_dense
+    torch.cuda.empty_cache()
+    t_recipe = time.perf_counter()
+    recipe_phases(kernels)
+    recipe_s = time.perf_counter() - t_recipe
     emit("done", build_s=build_s, phases_s=time.perf_counter() - t_phases,
          detection_zoo_s=det_s, zoo_s=zoo_s, dense_s=dense_s,
-         total_s=time.perf_counter() - t0)
+         recipe_s=recipe_s, total_s=time.perf_counter() - t0)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
@@ -1125,10 +1142,10 @@ def det_train_phase(kernels, phase, name="fasterrcnn_resnet50_fpn",
                     grads=DET_GRADS, num_classes=91, f32_first=None,
                     prepare=None, require=(), model_kwargs=None,
                     evaluate=None, grad_norm="max", grad_tols=None,
-                    **extras):
+                    batch=None, **extras):
     """A detector trained on the request's two images (batch 2, the 1344
     canvas, seeded gt boxes; with ``extras`` the gt masks or keypoints of
-    ``train_batch``): ``DET_STEPS`` SGD steps through the kernels (the
+    ``train_batch``), or on ``batch`` where given: ``DET_STEPS`` SGD steps through the kernels (the
     first recording every kernel's inputs; the launches counted over all of
     them), each against one step through the plain versions from the same
     weights and generator state (``plain_twin_step``). Step 1: each loss
@@ -1173,18 +1190,14 @@ def det_train_phase(kernels, phase, name="fasterrcnn_resnet50_fpn",
         FasterRCNN_ResNet50_FPN_Weights,
         GeneralizedRCNNTransform,
     )
-    from vision_tpu_torch.tools.detection_request import (
-        GT_COUNTS,
-        GT_ROWS,
-        raw_images,
-        train_batch,
-    )
+    from vision_tpu_torch.tools.detection_request import raw_images, train_batch
 
-    raw = raw_images()
-    with torch.no_grad():
-        batch = train_batch(FasterRCNN_ResNet50_FPN_Weights.COCO_V1.transforms(),
-                            GeneralizedRCNNTransform(), raw,
-                            num_classes=num_classes, **extras)
+    if batch is None:
+        with torch.no_grad():
+            batch = train_batch(
+                FasterRCNN_ResNet50_FPN_Weights.COCO_V1.transforms(),
+                GeneralizedRCNNTransform(), raw_images(),
+                num_classes=num_classes, **extras)
     calls: dict = {}
     kernels.reset()
     amp = f32_first is not None
@@ -1228,8 +1241,10 @@ def det_train_phase(kernels, phase, name="fasterrcnn_resnet50_fpn",
     emit(phase, model=name, params=run["params"],
          trainable_params=run["trainable_params"],
          trainable_backbone_layers=3, input=list(batch["image"].shape),
-         gt_boxes=list(GT_COUNTS), gt_rows=GT_ROWS,
-         gt_extras={k: list(batch[k].shape) for k in extras},
+         gt_boxes=batch["valid"].sum(1).tolist(),
+         gt_rows=batch["valid"].shape[1],
+         gt_extras={k: list(batch[k].shape) for k in ("masks", "keypoints")
+                    if k in batch},
          dtype="bfloat16" if amp else "float32",
          optimizer="SGD lr 0.02 momentum 0.9 weight_decay 1e-4, linear "
                    "warmup from 1e-3 over 1000 steps", lr_per_step=run["lr"],
@@ -1238,7 +1253,7 @@ def det_train_phase(kernels, phase, name="fasterrcnn_resnet50_fpn",
          loss_tol=first_tol, grad_rel_err=grad_rel, grad_fro_rel_err=grad_fro,
          grad_gate=grad_norm, grad_tol=grad_tol, grad_tols=tols,
          ms_per_step_median=ms,
-         images_per_s=len(raw) / ms * 1e3, ms_all=run["ms"],
+         images_per_s=len(batch["image"]) / ms * 1e3, ms_all=run["ms"],
          timed_steps=TIMED_FORWARDS, peak_memory_gb=run["peak_gb"],
          recorded_inputs_gb=sum(a.numel() * a.element_size()
                                 for args in calls.values() for call in args
@@ -5096,6 +5111,572 @@ def dense_phases(kernels) -> None:
     if any(launches.values()):
         raise RuntimeError(f"dense: kernels launched on a path that has none: "
                            f"{launches}")
+
+
+RECIPE_SIZES = ((480, 640), (427, 640), (640, 480), (612, 612))  # COCO-like
+RECIPE_SAMPLES = 32  # detection samples a policy
+RECIPE_MAX_BOXES = 12
+RECIPE_CLS_IMAGES = 64
+RECIPE_CLS_SIZES = ((375, 500), (500, 375), (333, 500), (480, 640))
+RECIPE_CLIPS = 8
+RECIPE_CLIP = (16, 256, 340)  # frames, height, width
+RECIPE_COORD_TOL = 1e-6  # boxes and keypoints, of the largest coordinate
+RECIPE_LEVEL_SHARE = 1e-2  # float pixels one uint8 level apart, at most
+RECIPE_NORM_TOL = 1e-5  # normalised pixels, of the largest value
+RECIPE_NORM_LEVEL_SHARE = 2e-2
+RECIPE_VIDEO_TOL = 1e-5  # the video preset, of the largest value
+RECIPE_GATE_DRAWS = 4000  # draws of each gate for the binomial check
+DET_POLICIES = ("hflip", "lsj", "multiscale", "ssd", "ssdlite")
+GEOMETRY_ONLY = ("hflip", "ssdlite")  # no resize, no colour op: exact
+CLS_POLICIES = ("ra", "ta_wide", "augmix", "imagenet")
+RECIPE_SSD_BATCH = 32
+RECIPE_MASK_BATCH = 2
+VIDEO_TRAIN = {"r3d_18": (16, 112, 8), "mvit_v2_s": (16, 224, 4)}
+VIDEO_CPU_BATCH = {"r3d_18": 2, "mvit_v2_s": 1}
+VIDEO_STEPS = 3
+
+
+def recipe_samples(count, seed=0, sizes=RECIPE_SIZES, keypoints=True):
+    """Seeded detection samples on the CPU, in pinned memory (as a loader
+    with ``pin_memory=True`` hands them over): a uint8 ``Image`` of each
+    of ``sizes`` in turn, 2-12 boxes (16 px to half the image a side),
+    their ellipse masks, with ``keypoints`` 17 keypoints each
+    (``detection_request``'s), labels in [1, 91)."""
+    import torch
+
+    from vision_tpu_torch import tv_tensors as tv
+    from vision_tpu_torch.tools.detection_request import (
+        ellipse_masks,
+        seeded_keypoints,
+    )
+
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    for i in range(count):
+        h, w = sizes[i % len(sizes)]
+        n = int(torch.randint(2, RECIPE_MAX_BOXES + 1, (), generator=gen))
+        img = torch.randint(0, 256, (3, h, w), dtype=torch.uint8, generator=gen)
+        extent = torch.tensor([float(w), float(h)])
+        wh = torch.rand(n, 2, generator=gen) * (extent / 2 - 16) + 16
+        xy = torch.rand(n, 2, generator=gen) * (extent - wh)
+        boxes = torch.cat([xy, xy + wh], 1)
+        valid = torch.ones(1, n, dtype=torch.bool)
+        masks = ellipse_masks(boxes[None], valid, (h, w))[0].to(torch.uint8)
+        kps = seeded_keypoints(boxes[None], valid, gen)[0]
+        target = {"boxes": tv.BoundingBoxes(boxes, format="XYXY",
+                                            canvas_size=(h, w)),
+                  "labels": torch.randint(1, 91, (n,), generator=gen),
+                  "masks": tv.Mask(masks)}
+        if keypoints:
+            target["keypoints"] = tv.KeyPoints(kps, canvas_size=(h, w))
+        sample = (tv.Image(img), target)
+        out.append(_pinned(sample))
+    return out
+
+
+def _pinned(sample):
+    import torch
+    import torch.utils._pytree as pytree
+
+    return pytree.tree_map(
+        lambda x: x.pin_memory() if isinstance(x, torch.Tensor) else x, sample)
+
+
+def _cpu(sample):
+    import torch
+    import torch.utils._pytree as pytree
+
+    return pytree.tree_map(
+        lambda x: x.to("cpu") if isinstance(x, torch.Tensor) else x, sample)
+
+
+def sample_errors(card, cpu):
+    """Leaf by leaf, the card's sample against the CPU's (same structure):
+    the image's largest difference and the share of its pixels that
+    differ at all; the largest box / keypoint difference of the largest
+    coordinate; whether the labels and masks are equal."""
+    import torch
+    import torch.utils._pytree as pytree
+
+    from vision_tpu_torch import tv_tensors as tv
+
+    out = {"image_max": 0.0, "image_share": 0.0, "coord": 0.0,
+           "exact_equal": True}
+    for a, b in zip(pytree.tree_flatten(card)[0], pytree.tree_flatten(cpu)[0]):
+        a = a.as_subclass(torch.Tensor).cpu() if isinstance(a, torch.Tensor) else a
+        was = b
+        b = b.as_subclass(torch.Tensor) if isinstance(b, torch.Tensor) else b
+        if not isinstance(a, torch.Tensor):
+            continue
+        if a.shape != b.shape:
+            out["exact_equal"] = False
+            out["coord"] = float("inf")
+            continue
+        if isinstance(was, (tv.Image, tv.Video)) or (
+                a.is_floating_point() and a.ndim == 3):
+            diff = (a.float() - b.float()).abs()
+            out["image_max"] = max(out["image_max"], float(diff.max()))
+            out["image_share"] = max(out["image_share"],
+                                     float((diff > 1e-6).float().mean()))
+        elif isinstance(was, (tv.BoundingBoxes, tv.KeyPoints)):
+            if a.numel():
+                scale = max(float(b.abs().max()), 1.0)
+                out["coord"] = max(out["coord"],
+                                   float((a - b).abs().max()) / scale)
+        else:
+            out["exact_equal"] &= bool(torch.equal(a, b))
+    return out
+
+
+def count_syncs(fn) -> int:
+    """The host synchronisations ``fn()`` makes (PyTorch's sync debug
+    mode's warnings)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("called a synchronizing" in str(w.message) for w in caught)
+
+
+def run_preset(card, cpu, samples, seed, policy):
+    """Every sample through ``card`` (draws recorded from a CPU generator
+    seeded ``seed``) and again through ``cpu`` on the card's draws; then
+    the card's pass again, timed (ms a sample) and again with the host
+    synchronisations counted. Returns the outputs, the worst errors and
+    the figures."""
+    import torch
+
+    from vision_tpu_torch.transforms import v2 as T
+
+    gen = torch.Generator().manual_seed(seed)
+    outs, worst = [], {"image_max": 0.0, "image_share": 0.0, "coord": 0.0,
+                       "exact_equal": True}
+    for sample in samples:
+        rec = T.Record(gen)
+        out = card(sample, rec)
+        replay = T.Replay(rec.params)
+        want = cpu(_cpu(sample), replay)
+        if not replay.exhausted:
+            raise RuntimeError(f"{policy}: the CPU took fewer draws than the card")
+        err = sample_errors(out, want)
+        for k in ("image_max", "image_share", "coord"):
+            worst[k] = max(worst[k], err[k])
+        worst["exact_equal"] &= err["exact_equal"]
+        outs.append(out)
+
+    def one_pass():
+        g = torch.Generator().manual_seed(seed)
+        for sample in samples:
+            card(sample, g)
+        torch.cuda.synchronize()
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    one_pass()
+    ms = (time.perf_counter() - t) * 1e3 / len(samples)
+    syncs = count_syncs(one_pass) / len(samples)
+    return outs, worst, {"ms_per_sample": ms, "host_syncs_per_sample": syncs}
+
+
+def recipe_gate_checks() -> dict:
+    """Each random-apply draw of the presets' transforms fires at its ``p``
+    over ``RECIPE_GATE_DRAWS`` draws from a CPU generator (four standard
+    deviations), and RandomPhotometricDistort's five ``p`` draws and its
+    even contrast order too."""
+    import torch
+
+    from vision_tpu_torch import tv_tensors as tv
+    from vision_tpu_torch.transforms import v2 as T
+
+    flat = [tv.Image(torch.zeros(3, 8, 8, dtype=torch.uint8))]
+    gen = torch.Generator().manual_seed(5)
+    n = RECIPE_GATE_DRAWS
+    gates = {"RandomHorizontalFlip(0.5)": (T.RandomHorizontalFlip(0.5), 0.5),
+             "RandomZoomOut(0.5)": (T.RandomZoomOut(p=0.5), 0.5),
+             "RandomErasing(0.25)": (T.RandomErasing(p=0.25), 0.25)}
+    out = {}
+    for name, (t, p) in gates.items():
+        count = sum(t._draw_sample(flat, gen)["applied"] for _ in range(n))
+        out[name] = {"fired": count, "draws": n, "p": p,
+                     "ok": binomial_ok(count, n, p)}
+    distort = T.RandomPhotometricDistort()
+    draws = [distort.make_params(flat, gen) for _ in range(n)]
+    for key in ("brightness_factor", "contrast_factor", "saturation_factor",
+                "hue_factor", "channel_permutation"):
+        count = sum(d[key] is not None for d in draws)
+        out[f"RandomPhotometricDistort.{key}"] = {
+            "fired": count, "draws": n, "p": 0.5, "ok": binomial_ok(count, n, 0.5)}
+    count = sum(d["contrast_before"] for d in draws)
+    out["RandomPhotometricDistort.contrast_before"] = {
+        "fired": count, "draws": n, "p": 0.5, "ok": binomial_ok(count, n, 0.5)}
+    return out
+
+
+def recipe_transforms_phase():
+    """``recipe_transforms``: the reference recipes' train-side presets on
+    the card, each sample held against the same preset on the CPU with the
+    card's draws handed across (``Record`` / ``Replay``). The five
+    detection policies on ``RECIPE_SAMPLES`` seeded COCO-like samples
+    (2-12 boxes, masks, 17 keypoints; keypoints mirrored with COCO's flip
+    indices): the geometry-only policies exact, the others' images at most
+    one uint8 level apart on at most ``RECIPE_LEVEL_SHARE`` of the pixels,
+    boxes and keypoints within ``RECIPE_COORD_TOL``, labels and masks
+    equal. The four classification policies at 224 on
+    ``RECIPE_CLS_IMAGES`` ImageNet-like images (normalised outputs within
+    ``RECIPE_NORM_TOL``, one level over std on at most
+    ``RECIPE_NORM_LEVEL_SHARE`` of the values); the video preset on
+    ``RECIPE_CLIPS`` clips of 16 frames at 256x340, crop 112 and 224,
+    within ``RECIPE_VIDEO_TOL``. Per policy: ms a sample, host
+    synchronisations a sample, the share of boxes ``SanitizeBoundingBoxes``
+    kept; and the gates' binomial checks. Returns the ``ssd`` policy's
+    outputs (the SSD train phase's batch) and their ms a sample."""
+    import torch
+
+    from vision_tpu_torch.parallel import presets as P
+    from vision_tpu_torch.transforms import v2 as T
+
+    t0 = time.perf_counter()
+    device = torch.cuda.get_device_name(0)
+    samples = recipe_samples(RECIPE_SAMPLES)
+    boxes_in = sum(len(s[1]["boxes"]) for s in samples)
+    flip = P.COCO_PERSON_KEYPOINT_FLIP_INDICES
+    lines, ssd = {}, None
+    for i, policy in enumerate(DET_POLICIES):
+        card = P.DetectionPresetTrain(data_augmentation=policy,
+                                      keypoint_flip_indices=flip)
+        cpu = P.DetectionPresetTrain(data_augmentation=policy,
+                                     keypoint_flip_indices=flip, device="cpu")
+        outs, err, fig = run_preset(card, cpu, samples, 100 + i, policy)
+        kept = sum(len(o[1]["boxes"]) for o in outs)
+        exact = policy in GEOMETRY_ONLY
+        ok = (err["exact_equal"] and err["coord"] <= RECIPE_COORD_TOL
+              and (err["image_max"] == 0.0 if exact else
+                   (err["image_max"] <= 1.0 / 255.0 + 1e-6
+                    and err["image_share"] <= RECIPE_LEVEL_SHARE)))
+        lines[policy] = dict(fig, samples=len(samples),
+                             sanitize_kept_share=kept / boxes_in,
+                             boxes_in=boxes_in, boxes_kept=kept,
+                             image_vs_cpu_max_abs_err=err["image_max"],
+                             image_vs_cpu_differing_share=err["image_share"],
+                             coord_vs_cpu_rel_err=err["coord"],
+                             labels_masks_equal=err["exact_equal"],
+                             gate="exact" if exact else "one level",
+                             output_sizes=sorted({tuple(o[0].shape[-2:])
+                                                  for o in outs})[:6], ok=ok)
+        if policy == "ssd":
+            ssd = (outs, fig["ms_per_sample"])
+        if not ok:
+            emit("recipe_transforms", failed=policy, **lines[policy])
+            raise RuntimeError(f"recipe_transforms {policy}: the card's "
+                               "samples are off the CPU's")
+    gen_cls = torch.Generator().manual_seed(1)
+    images = [torch.randint(0, 256, (3, h, w), dtype=torch.uint8,
+                            generator=gen_cls).pin_memory()
+              for h, w in (RECIPE_CLS_SIZES[k % len(RECIPE_CLS_SIZES)]
+                           for k in range(RECIPE_CLS_IMAGES))]
+    level = torch.tensor([1 / 255 / s for s in (0.229, 0.224, 0.225)])
+    for i, policy in enumerate(CLS_POLICIES):
+        kw = dict(crop_size=224, auto_augment_policy=policy)
+        card = P.ClassificationPresetTrain(**kw)
+        cpu = P.ClassificationPresetTrain(**kw, device="cpu")
+        gen = torch.Generator().manual_seed(200 + i)
+        worst, share = 0.0, 0.0
+        for img in images:
+            rec = T.Record(gen)
+            got = card(img, rec).cpu()
+            want = cpu(img.cpu(), T.Replay(rec.params))
+            diff = (got - want).abs()
+            scale = float(want.abs().max())
+            worst = max(worst, float((diff - level[:, None, None]).max()) / scale)
+            share = max(share, float((diff > RECIPE_NORM_TOL * scale)
+                                     .float().mean()))
+
+        def one_pass(seed=200 + i):
+            g = torch.Generator().manual_seed(seed)
+            for img in images:
+                card(img, g)
+            torch.cuda.synchronize()
+
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        one_pass()
+        ms = (time.perf_counter() - t) * 1e3 / len(images)
+        syncs = count_syncs(one_pass) / len(images)
+        ok = worst <= RECIPE_NORM_TOL and share <= RECIPE_NORM_LEVEL_SHARE
+        lines[f"cls_{policy}"] = dict(samples=len(images), ms_per_sample=ms,
+                                      host_syncs_per_sample=syncs,
+                                      beyond_one_level_rel=worst,
+                                      differing_share=share, ok=ok)
+        if not ok:
+            raise RuntimeError(f"recipe_transforms {policy}: the card's images "
+                               "are off the CPU's")
+    gen_clip = torch.Generator().manual_seed(2)
+    frames, h, w = RECIPE_CLIP
+    clips = [torch.randint(0, 256, (frames, 3, h, w), dtype=torch.uint8,
+                           generator=gen_clip).pin_memory()
+             for _ in range(RECIPE_CLIPS)]
+    for crop in (112, 224):
+        resize = int(round(crop * 8 / 7))
+        card = P.VideoClassificationPresetTrain(crop_size=crop,
+                                                resize_size=resize)
+        cpu = P.VideoClassificationPresetTrain(crop_size=crop,
+                                               resize_size=resize, device="cpu")
+        gen = torch.Generator().manual_seed(300 + crop)
+        worst = 0.0
+        for clip in clips:
+            rec = T.Record(gen)
+            got = card(clip, rec).cpu()
+            want = cpu(clip.cpu(), T.Replay(rec.params))
+            worst = max(worst, float((got - want).abs().max()
+                                     / want.abs().max()))
+
+        def one_pass(seed=300 + crop):
+            g = torch.Generator().manual_seed(seed)
+            for clip in clips:
+                card(clip, g)
+            torch.cuda.synchronize()
+
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        one_pass()
+        ms = (time.perf_counter() - t) * 1e3 / len(clips)
+        syncs = count_syncs(one_pass) / len(clips)
+        ok = worst <= RECIPE_VIDEO_TOL
+        lines[f"video_{crop}"] = dict(clips=len(clips), clip=list(RECIPE_CLIP),
+                                      resize_size=resize, ms_per_clip=ms,
+                                      host_syncs_per_clip=syncs,
+                                      vs_cpu_rel_err=worst, ok=ok)
+        if not ok:
+            raise RuntimeError(f"recipe_transforms video {crop}: the card's "
+                               "clips are off the CPU's")
+    gates = recipe_gate_checks()
+    emit("recipe_transforms", device=device, policies=lines, gates=gates,
+         tol={"coord": RECIPE_COORD_TOL, "level_share": RECIPE_LEVEL_SHARE,
+              "norm": RECIPE_NORM_TOL, "norm_level_share": RECIPE_NORM_LEVEL_SHARE,
+              "video": RECIPE_VIDEO_TOL},
+         seconds=time.perf_counter() - t0)
+    if not all(g["ok"] for g in gates.values()):
+        raise RuntimeError(f"recipe_transforms: a gate fires off its p: {gates}")
+    return ssd
+
+
+def det_recipe_train_phase(kernels, ssd):
+    """``det_recipe_train``: detectors trained from the recipes' presets
+    through ``collate_detection``. SSD300-VGG16 at batch
+    ``RECIPE_SSD_BATCH`` from the ``ssd`` policy's samples
+    (``recipe_transforms``'), on its 300 canvas: ``DET_STEPS`` steps in f32
+    and in amp (recipe SGD, one-stage step), the amp step 1's loss within
+    ``ZOO_AMP_LOSS_TOL`` of the f32 one, no kernel of the repo's launched.
+    Mask R-CNN ResNet-50-FPN at batch ``RECIPE_MASK_BATCH`` from the
+    ``hflip`` policy with masks on the 1344 canvas: ``det_train_phase``
+    (each step against one through the plain versions), the window-pool and
+    RoIAlign kernels required. ms a step beside the preset's ms."""
+    import torch
+
+    from vision_tpu_torch.models.detection import GeneralizedRCNNTransform
+    from vision_tpu_torch.parallel import (
+        DetectionPresetTrain,
+        collate_detection,
+        make_detection_train_step,
+    )
+    from vision_tpu_torch.tools.detection_request import (
+        GT_ROWS,
+        recipe_optimizer,
+        transform_for,
+    )
+
+    outs, preset_ms = ssd
+    name = "ssd300_vgg16"
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    batch = collate_detection(outs[:RECIPE_SSD_BATCH], transform_for(name),
+                              max_boxes=RECIPE_MAX_BOXES)
+    torch.cuda.synchronize()
+    collate_ms = (time.perf_counter() - t) * 1e3
+    lines = {}
+    kernels.reset()
+    f32_loss = None
+    for dtype in (None, torch.bfloat16):
+        model = scaled_one_stage(name, SSD_CLS_SCALE, SSD_BACKGROUND)
+        optimizer, scheduler = recipe_optimizer(model)
+        step = make_detection_train_step(model, optimizer, compute_dtype=dtype,
+                                         one_stage=True)
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        for i in range(DET_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            losses.append(float(step(batch)["loss"]))
+            times.append((time.perf_counter() - t) * 1e3)
+            scheduler.step()
+        tag = "f32" if dtype is None else "amp"
+        ok = all(math.isfinite(v) for v in losses) and losses[-1] != losses[0]
+        line = dict(losses=losses, ms_all=times,
+                    ms_per_step=statistics.median(times[1:]),
+                    peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        if dtype is None:
+            f32_loss = losses[0]
+        else:
+            err = abs(losses[0] - f32_loss) / abs(f32_loss)
+            line.update(loss_vs_f32_rel_err=err, loss_tol=ZOO_AMP_LOSS_TOL)
+            ok = ok and err <= ZOO_AMP_LOSS_TOL
+        lines[f"ssd_{tag}"] = line
+        del model, step, optimizer
+        torch.cuda.empty_cache()
+        if not ok:
+            emit("det_recipe_train", failed=f"ssd_{tag}", **line)
+            raise RuntimeError(f"det_recipe_train ssd {tag}: a loss not finite, "
+                               "no update, or amp off f32")
+    launches = kernels.launches()
+    if any(launches.values()):
+        raise RuntimeError(f"det_recipe_train ssd: a kernel launched: {launches}")
+    emit("det_recipe_train", model=name, batch=RECIPE_SSD_BATCH,
+         input=list(batch["image"].shape), gt_rows=RECIPE_MAX_BOXES,
+         gt_boxes=batch["valid"].sum(1).tolist(),
+         preset_ms_per_sample=preset_ms,
+         preset_ms_per_batch=preset_ms * RECIPE_SSD_BATCH,
+         collate_ms=collate_ms, **lines,
+         device=torch.cuda.get_device_name(0))
+    del batch
+    torch.cuda.empty_cache()
+
+    samples = recipe_samples(RECIPE_MASK_BATCH, seed=9,
+                             sizes=((480, 640), (427, 640)), keypoints=False)
+    preset = DetectionPresetTrain(data_augmentation="hflip")
+    gen = torch.Generator().manual_seed(11)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    outs = [preset(s, gen) for s in samples]
+    batch = collate_detection(outs, GeneralizedRCNNTransform(),
+                              max_boxes=GT_ROWS)
+    torch.cuda.synchronize()
+    preset_ms = (time.perf_counter() - t) * 1e3
+    emit("det_recipe_train_mask_batch", policy="hflip",
+         preset_and_collate_ms=preset_ms, input=list(batch["image"].shape),
+         masks=list(batch["masks"].shape),
+         gt_boxes=batch["valid"].sum(1).tolist())
+    det_train_phase(kernels, "det_recipe_train_mask", name="maskrcnn_resnet50_fpn",
+                    grads=MASK_GRADS, batch=batch)
+    del batch
+    torch.cuda.empty_cache()
+
+
+def video_train_phase():
+    """``video_train``: the video recipe from uint8 clips through
+    ``VideoClassificationPresetTrain`` on the card (16 frames of 256x340,
+    crop 112 with resize 128 for R3D-18 at batch 8, crop 224 with resize
+    256 for MViT-V2-S at batch 4; 400 classes), ``make_train_step`` with
+    the recipe's SGD (``video_recipe_optimizer``), f32 and amp,
+    ``VIDEO_STEPS`` steps each; step 1 (stochastic depth and dropout off)
+    held against the CPU's at ``VIDEO_CPU_BATCH`` (``step_check``), the amp
+    step 1's loss within ``ZOO_AMP_LOSS_TOL`` of the f32 one. ms a step,
+    clips/s, peak GB, the preset's ms a clip."""
+    import torch
+
+    from vision_tpu_torch.models._api import resolve_device
+    from vision_tpu_torch.parallel import (
+        VideoClassificationPresetTrain,
+        make_train_step,
+        video_recipe_optimizer,
+    )
+    from vision_tpu_torch.tools import dense
+
+    card = resolve_device(None)
+    for name, (frames, crop, batch_size) in VIDEO_TRAIN.items():
+        gen_clip = torch.Generator().manual_seed(3)
+        raw = [torch.randint(0, 256, (frames, 3, *RECIPE_CLIP[1:]),
+                             dtype=torch.uint8, generator=gen_clip).pin_memory()
+               for _ in range(batch_size)]
+        labels = torch.randint(0, 400, (batch_size,), generator=gen_clip)
+        preset = VideoClassificationPresetTrain(
+            crop_size=crop, resize_size=int(round(crop * 8 / 7)))
+        gen = torch.Generator().manual_seed(4)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        clips = torch.stack([preset(c, gen) for c in raw])
+        torch.cuda.synchronize()
+        preset_ms = (time.perf_counter() - t) * 1e3 / batch_size
+        batch = {"image": clips, "label": labels.to(card)}
+        quiet = ({"stochastic_depth_prob": 0.0, "dropout": 0.0}
+                 if name.startswith("mvit") else {})
+        cpu_n = VIDEO_CPU_BATCH[name]
+
+        def lr0_step(model):
+            return make_train_step(model, torch.optim.SGD(model.parameters(),
+                                                          lr=0.0))
+
+        check = step_check(
+            lambda: dense.seeded_model(name, **quiet), lr0_step,
+            lambda dev: {"image": clips[:cpu_n].to(dev),
+                         "label": batch["label"][:cpu_n].to(dev)})
+        torch.cuda.empty_cache()
+        f32_loss = None
+        for dtype in (None, torch.bfloat16):
+            tag = "video_train" if dtype is None else "video_train_amp"
+            model = dense.seeded_model(name)
+            optimizer, scheduler = video_recipe_optimizer(model)
+            step = make_train_step(model, optimizer, compute_dtype=dtype)
+            g = torch.Generator(device=card).manual_seed(ZOO_SEED)
+            torch.cuda.reset_peak_memory_stats()
+
+            def call():
+                out = step(batch, g)
+                scheduler.step()
+                return out["loss"]
+
+            loss1, times, losses = timed_steps(call)
+            ms = statistics.median(times)
+            fields = dict(model=name, device=torch.cuda.get_device_name(0),
+                          dtype="float32" if dtype is None else "bfloat16",
+                          clip=[frames, crop, crop], batch=batch_size,
+                          raw_clip=[frames, *RECIPE_CLIP[1:]],
+                          preset_ms_per_clip=preset_ms, ms_per_step=ms,
+                          clips_per_s=batch_size / ms * 1e3, ms_all=times,
+                          step1_loss=loss1, losses=losses,
+                          peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                          optimizer="SGD lr 0.01 momentum 0.9 weight_decay 1e-4")
+            ok = all(math.isfinite(v) for v in [loss1] + losses)
+            if dtype is None:
+                fields.update(check, cpu_batch=cpu_n)
+                ok = ok and check["ok"]
+                f32_loss = loss1
+            else:
+                err = abs(loss1 - f32_loss) / abs(f32_loss)
+                fields.update(loss_vs_f32_rel_err=err, loss_tol=ZOO_AMP_LOSS_TOL)
+                ok = ok and err <= ZOO_AMP_LOSS_TOL
+            emit(tag, **fields)
+            if not ok:
+                raise RuntimeError(f"{tag} {name}: step 1 off its reference or "
+                                   "a loss not finite")
+            del model, step, optimizer
+            torch.cuda.empty_cache()
+        del batch, clips
+
+
+def recipe_phases(kernels) -> None:
+    """The reference recipes' train side: ``recipe_transforms``,
+    ``det_recipe_train`` and ``video_train``. Of the repo's kernels only
+    the Mask R-CNN steps launch any (the window pool and RoIAlign, which
+    ``det_train_phase`` requires)."""
+    import torch
+
+    ssd = recipe_transforms_phase()
+    torch.cuda.empty_cache()
+    det_recipe_train_phase(kernels, ssd)
+    torch.cuda.empty_cache()
+    kernels.reset()
+    video_train_phase()
+    launches = kernels.launches()
+    emit("video_train_launches", launches=launches)
+    if any(launches.values()):
+        raise RuntimeError(f"video_train: a kernel launched: {launches}")
 
 
 def kernel_phases(kernels, calls, launches):

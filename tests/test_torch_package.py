@@ -71,7 +71,13 @@ def test_import_pulls_in_no_jax():
         "vision_tpu_torch.transforms.v2, "
         "vision_tpu_torch.transforms.v2._batch_augment, "
         "vision_tpu_torch.tools.profile_vit_train, "
-        "vision_tpu_torch.tools.vit_train\n"
+        "vision_tpu_torch.tools.vit_train, vision_tpu_torch.tv_tensors, "
+        "vision_tpu_torch.transforms.v2._color, "
+        "vision_tpu_torch.transforms.v2._temporal, "
+        "vision_tpu_torch.transforms.v2._utils, "
+        "vision_tpu_torch.transforms.v2.functional._meta, "
+        "vision_tpu_torch.transforms.v2.functional._utils, "
+        "vision_tpu_torch.parallel.presets, vision_tpu_torch.parallel.video\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'vision_tpu', 'PIL')]\n"
         "print(bad)\n"
@@ -91,6 +97,8 @@ def test_no_source_imports_jax_or_vision_tpu():
     assert PKG / "io" / "_exif.py" in sources
     assert PKG / "ops" / "attention.py" in sources
     assert PKG / "tools" / "vit_train.py" in sources
+    assert PKG / "tv_tensors" / "_tv_tensor.py" in sources
+    assert PKG / "parallel" / "presets.py" in sources
     for src in sources:
         assert not pattern.search(src.read_text()), src
 

@@ -1,6 +1,17 @@
-"""Training steps and the classification recipe (counterpart of
-``vision_tpu/parallel`` and of the device side of
-``references/classification``; one device)."""
+"""Training steps, the classification recipe, the reference recipes'
+train-side presets with the detection collation, and the video recipe
+(counterpart of ``vision_tpu/parallel`` and of the train side of
+``references/``; one device)."""
+
+from vision_tpu_torch.parallel.presets import (
+    ClassificationPresetEval,
+    ClassificationPresetTrain,
+    DetectionPresetEval,
+    DetectionPresetTrain,
+    VideoClassificationPresetEval,
+    VideoClassificationPresetTrain,
+    collate_detection,
+)
 
 from vision_tpu_torch.parallel.recipe import (
     VIT_B_16_RECIPE,
@@ -22,8 +33,17 @@ from vision_tpu_torch.parallel.train import (
     segmentation_criterion,
     sequence_loss,
 )
+from vision_tpu_torch.parallel.video import (
+    VideoAccuracy,
+    video_lr_lambda,
+    video_recipe_optimizer,
+)
 
 __all__ = [
+    "ClassificationPresetEval",
+    "ClassificationPresetTrain",
+    "DetectionPresetEval",
+    "DetectionPresetTrain",
     "DeviceAugment",
     "ExponentialMovingAverage",
     "VIT_B_16_RECIPE",
@@ -40,4 +60,10 @@ __all__ = [
     "make_train_step",
     "segmentation_criterion",
     "sequence_loss",
+    "VideoAccuracy",
+    "VideoClassificationPresetEval",
+    "VideoClassificationPresetTrain",
+    "collate_detection",
+    "video_lr_lambda",
+    "video_recipe_optimizer",
 ]

@@ -49,8 +49,9 @@ def make_train_step(
     clip_grad_norm: Optional[float] = None,
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """Build ``step(batch, generator=None) -> {"loss", "accuracy"}`` for
-    ``batch = {"image": [N, 3, H, W], "label": [N] or [N, C]}`` on the
-    model's device. ``generator`` (a ``torch.Generator`` on the model's
+    ``batch = {"image": [N, 3, H, W] images, or [N, 3, T, H, W] clips of a
+    video model, "label": [N] or [N, C]}`` on the model's device (an
+    ``"image"`` of another rank raises). ``generator`` (a ``torch.Generator`` on the model's
     device) is handed to ``model(images, generator=generator)``, where the
     model's dropout and stochastic depth draw from it, as the JAX step
     hands its ``"dropout"`` key to the model; with None the model is called
@@ -80,6 +81,9 @@ def make_train_step(
              generator: Optional[torch.Generator] = None
              ) -> Dict[str, torch.Tensor]:
         images, labels = batch["image"], batch["label"]
+        if images.dim() not in (4, 5):
+            raise ValueError(f"the step takes [N, C, H, W] images or [N, 3, T, "
+                             f"H, W] clips, got {tuple(images.shape)}")
         model.train()
         optimizer.zero_grad(set_to_none=True)
         logits = _forward(model, images, generator, compute_dtype)

@@ -10,12 +10,16 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from vision_tpu_torch import tv_tensors
 from vision_tpu_torch.transforms.v2._transform import (
     Shape,
     Transform,
     _RandomApplyTransform,
     rand,
+    randint,
+    uniform,
 )
+from vision_tpu_torch.transforms.v2._utils import query_size
 from vision_tpu_torch.transforms.v2.functional._augment import erase
 
 __all__ = ["CutMix", "MixUp", "RandomErasing"]
@@ -60,6 +64,48 @@ class RandomErasing(_RandomApplyTransform):
     def transform_all(self, images, params):
         return erase(images, params["i"], params["j"], params["h"],
                      params["w"], self.value)
+
+    _transformed_types = (tv_tensors.Image, tv_tensors.Video, torch.Tensor)
+
+    def make_params(self, flat_inputs, generator):
+        """A sample's box: the JAX package's eager draw, ten attempts, the
+        first strictly inside the image; ``v`` the fill (``value`` None:
+        standard normal noise ``[C, h, w]``), or no box (``h`` 0)."""
+        img_h, img_w = query_size(flat_inputs)
+        channels = next((x.shape[-3] for x in flat_inputs
+                         if isinstance(x, torch.Tensor) and x.ndim >= 3
+                         and not isinstance(x, (tv_tensors.Mask,
+                                                tv_tensors.BoundingBoxes,
+                                                tv_tensors.KeyPoints))), 3)
+        log_ratio = (math.log(self.ratio[0]), math.log(self.ratio[1]))
+        for _ in range(_CANDIDATES):
+            erase_area = img_h * img_w * uniform(generator, *self.scale)
+            aspect = math.exp(uniform(generator, *log_ratio))
+            h = int(round(math.sqrt(erase_area * aspect)))
+            w = int(round(math.sqrt(erase_area / aspect)))
+            if not (h < img_h and w < img_w):
+                continue
+            if self.value is None:
+                v = torch.randn((channels, h, w), generator=generator)
+            elif isinstance(self.value, (list, tuple)):
+                v = torch.tensor(self.value, dtype=torch.float32)[:, None, None]
+            else:
+                v = float(self.value)
+            return dict(i=randint(generator, 0, img_h - h + 1),
+                        j=randint(generator, 0, img_w - w + 1), h=h, w=w, v=v)
+        return dict(i=0, j=0, h=0, w=0, v=None)
+
+    def transform_sample(self, inpt, params):
+        if params["v"] is None or params["h"] == 0:
+            return inpt
+        i, j, h, w = (params[k] for k in "ijhw")
+        out = inpt.as_subclass(torch.Tensor).clone()
+        v = params["v"]
+        out[..., i:i + h, j:j + w] = (v.to(out.device, out.dtype)
+                                      if isinstance(v, torch.Tensor) else v)
+        if isinstance(inpt, tv_tensors.TVTensor):
+            return tv_tensors.wrap(out, like=inpt)
+        return out
 
     def __repr__(self) -> str:
         return f"RandomErasing(p={self.p}, value={self.value})"

@@ -1,16 +1,35 @@
 """Container transforms (counterpart of
 ``vision_tpu/transforms/v2/_container.py``): ``Compose`` and
-``RandomChoice``, for batch transforms (``_transform.py``)."""
+``RandomChoice`` for batches and samples (``_transform.py``);
+``RandomApply`` and ``RandomOrder`` for samples. A container passes the
+sample's generator (a ``Record`` or ``Replay`` too) to each transform it
+runs, in turn; its own draw (the pick, the gate, the order) comes first.
+A member that is not a ``Transform`` is called on the sample alone."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
+import torch.utils._pytree as pytree
 
-from vision_tpu_torch.transforms.v2._transform import Shape, Transform, rand
+from vision_tpu_torch.transforms.v2._transform import (
+    Shape,
+    Transform,
+    permutation,
+    rand,
+    uniform,
+)
 
-__all__ = ["Compose", "RandomChoice"]
+__all__ = ["Compose", "RandomApply", "RandomChoice", "RandomOrder"]
+
+
+def _run(t: Callable, sample: Any, generator) -> Any:
+    return t(sample, generator) if isinstance(t, Transform) else t(sample)
+
+
+def _flat(sample: Any) -> List[Any]:
+    return pytree.tree_flatten(sample)[0]
 
 
 class Compose(Transform):
@@ -38,6 +57,11 @@ class Compose(Transform):
         for t, p in zip(self.transforms, params):
             inputs = t.apply(inputs, p)
         return inputs
+
+    def forward_sample(self, sample: Any, generator=None) -> Any:
+        for t in self.transforms:
+            sample = _run(t, sample, generator)
+        return sample
 
     def __repr__(self) -> str:
         return f"Compose([{', '.join(repr(t) for t in self.transforms)}])"
@@ -87,5 +111,49 @@ class RandomChoice(Transform):
 
         return pick(*outs)
 
+    def make_params(self, flat_inputs, generator):
+        u, edge = uniform(generator), 0.0
+        for k, p in enumerate(self.p[:-1]):
+            edge += p
+            if u < edge:
+                return {"choice": k}
+        return {"choice": len(self.p) - 1}
+
+    def forward_sample(self, sample: Any, generator=None) -> Any:
+        params = self.sample_params(_flat(sample), generator)
+        return _run(self.transforms[params["choice"]], sample, generator)
+
     def __repr__(self) -> str:
         return f"RandomChoice([{', '.join(repr(t) for t in self.transforms)}])"
+
+
+class RandomApply(Transform):
+    """The whole list, in turn, with probability ``p``."""
+
+    def __init__(self, transforms: Sequence[Callable], p: float = 0.5):
+        self.transforms = list(transforms)
+        self.p = p
+
+    def make_params(self, flat_inputs, generator):
+        return {"applied": uniform(generator) < self.p}
+
+    def forward_sample(self, sample: Any, generator=None) -> Any:
+        if self.sample_params(_flat(sample), generator)["applied"]:
+            for t in self.transforms:
+                sample = _run(t, sample, generator)
+        return sample
+
+
+class RandomOrder(Transform):
+    """Every transform, in a uniformly random order."""
+
+    def __init__(self, transforms: Sequence[Callable]):
+        self.transforms = list(transforms)
+
+    def make_params(self, flat_inputs, generator):
+        return {"order": permutation(generator, len(self.transforms))}
+
+    def forward_sample(self, sample: Any, generator=None) -> Any:
+        for i in self.sample_params(_flat(sample), generator)["order"]:
+            sample = _run(self.transforms[i], sample, generator)
+        return sample

@@ -1,37 +1,71 @@
 """Geometry transforms (counterpart of
-``vision_tpu/transforms/v2/_geometry.py``) for batches:
-``RandomResizedCrop`` (the JAX package's traced draw and its ``batched``
-resample, with the horizontal flip folded in) and
-``RandomHorizontalFlip``."""
+``vision_tpu/transforms/v2/_geometry.py``). For batches: ``RandomResizedCrop``
+(the JAX package's traced draw and its ``batched`` resample, with the
+horizontal flip folded in), ``RandomHorizontalFlip`` and
+``RandomVerticalFlip``. For samples (``_transform.py``), every class here,
+moving boxes, masks and keypoints with the image: the JAX package's eager
+draws, as Python numbers from the sample's CPU generator."""
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import torch
 
+from vision_tpu_torch import tv_tensors
+from vision_tpu_torch.ops.boxes import box_iou
+from vision_tpu_torch.transforms.v2 import functional as F
 from vision_tpu_torch.transforms.v2._transform import (
     Shape,
     Transform,
     _RandomApplyTransform,
     rand,
+    randint,
+    uniform,
 )
+from vision_tpu_torch.transforms.v2._utils import query_size
 from vision_tpu_torch.transforms.v2.functional._geometry import (
+    _parse_pad,
     horizontal_flip_image,
     resized_crop_flip_batch,
+    vertical_flip_image,
 )
 
-__all__ = ["RandomHorizontalFlip", "RandomResizedCrop"]
+__all__ = ["CenterCrop", "Pad", "RandomCrop", "RandomHorizontalFlip",
+           "RandomIoUCrop", "RandomResize", "RandomResizedCrop",
+           "RandomShortestSize", "RandomVerticalFlip", "RandomZoomOut",
+           "Resize", "ScaleJitter"]
 
 _CANDIDATES = 10
 
 
 class RandomHorizontalFlip(_RandomApplyTransform):
-    """Mirror each image with probability ``p``."""
+    """Mirror each image (a sample: everything in it) with probability
+    ``p``. ``keypoint_flip_indices`` (COCO person's 17-entry left/right
+    map) re-orders ``KeyPoints`` after the mirror, so that a mirrored left
+    shoulder is labelled the right one."""
+
+    def __init__(self, p: float = 0.5,
+                 keypoint_flip_indices: Optional[Sequence[int]] = None):
+        super().__init__(p)
+        self.keypoint_flip_indices = (
+            None if keypoint_flip_indices is None
+            else tuple(int(i) for i in keypoint_flip_indices))
 
     def transform_all(self, images, params):
         return horizontal_flip_image(images)
+
+    def transform_sample(self, inpt, params):
+        return F.horizontal_flip(inpt, self.keypoint_flip_indices)
+
+
+class RandomVerticalFlip(_RandomApplyTransform):
+    def transform_all(self, images, params):
+        return vertical_flip_image(images)
+
+    def transform_sample(self, inpt, params):
+        return F.vertical_flip(inpt)
 
 
 class RandomResizedCrop(Transform):
@@ -114,6 +148,259 @@ class RandomResizedCrop(Transform):
         return self.transform(images, self.draw(tuple(images.shape),
                                                 generator, flip_p))
 
+    def make_params(self, flat_inputs, generator):
+        """The JAX package's eager draw: ten attempts, each a uniform area
+        share and a log-uniform aspect, rounded; the first that fits takes
+        a uniform corner; else the centre crop at an in-range aspect."""
+        height, width = query_size(flat_inputs)
+        area = height * width
+        log_ratio = (math.log(self.ratio[0]), math.log(self.ratio[1]))
+        for _ in range(_CANDIDATES):
+            target_area = area * uniform(generator, *self.scale)
+            aspect = math.exp(uniform(generator, *log_ratio))
+            w = int(round(math.sqrt(target_area * aspect)))
+            h = int(round(math.sqrt(target_area / aspect)))
+            if 0 < w <= width and 0 < h <= height:
+                return dict(top=randint(generator, 0, height - h + 1),
+                            left=randint(generator, 0, width - w + 1),
+                            height=h, width=w)
+        in_ratio = width / height
+        if in_ratio < self.ratio[0]:
+            w, h = width, int(round(width / self.ratio[0]))
+        elif in_ratio > self.ratio[1]:
+            h, w = height, int(round(height * self.ratio[1]))
+        else:
+            w, h = width, height
+        return dict(top=(height - h) // 2, left=(width - w) // 2, height=h,
+                    width=w)
+
+    def transform_sample(self, inpt, params):
+        return F.resized_crop(inpt, params["top"], params["left"],
+                              params["height"], params["width"], self.size,
+                              self.interpolation, self.antialias)
+
     def __repr__(self) -> str:
         return (f"RandomResizedCrop(size={self.size}, scale={self.scale}, "
                 f"ratio={self.ratio})")
+
+
+class Resize(Transform):
+    def __init__(self, size, interpolation: str = "bilinear",
+                 max_size: Optional[int] = None, antialias: bool = True):
+        self.size = size
+        self.interpolation = interpolation
+        self.max_size = max_size
+        self.antialias = antialias
+
+    def transform_sample(self, inpt, params):
+        return F.resize(inpt, self.size, self.interpolation, self.max_size,
+                        self.antialias)
+
+
+class CenterCrop(Transform):
+    def __init__(self, size):
+        self.size = size
+
+    def transform_sample(self, inpt, params):
+        return F.center_crop(inpt, self.size)
+
+
+class Pad(Transform):
+    def __init__(self, padding, fill=0, padding_mode: str = "constant"):
+        self.padding = padding
+        self.fill = fill
+        self.padding_mode = padding_mode
+
+    def transform_sample(self, inpt, params):
+        return F.pad(inpt, self.padding, self.fill, self.padding_mode)
+
+
+class RandomCrop(Transform):
+    """A ``size`` crop at a uniform corner, after ``padding``; with
+    ``pad_if_needed`` a side shorter than the crop is padded on both ends
+    by the shortfall first (the JAX package's rule, which the detection
+    recipe's ``lsj`` policy takes as torchvision's ``FixedSizeCrop``)."""
+
+    def __init__(self, size, padding=None, pad_if_needed: bool = False,
+                 fill=0, padding_mode: str = "constant"):
+        self.size = (size, size) if isinstance(size, int) else tuple(size)
+        self.padding = padding
+        self.pad_if_needed = pad_if_needed
+        self.fill = fill
+        self.padding_mode = padding_mode
+
+    def make_params(self, flat_inputs, generator):
+        h, w = query_size(flat_inputs)
+        if self.padding is not None:
+            left, top, right, bottom = _parse_pad(self.padding)
+            h, w = h + top + bottom, w + left + right
+        th, tw = self.size
+        pad_extra = [0, 0, 0, 0]  # left, top, right, bottom
+        if self.pad_if_needed:
+            if w < tw:
+                pad_extra[0] = pad_extra[2] = tw - w
+                w += 2 * (tw - w)
+            if h < th:
+                pad_extra[1] = pad_extra[3] = th - h
+                h += 2 * (th - h)
+        if h < th or w < tw:
+            raise ValueError(f"crop size {self.size} larger than input ({h}, {w})")
+        return dict(top=randint(generator, 0, h - th + 1),
+                    left=randint(generator, 0, w - tw + 1), pad_extra=pad_extra)
+
+    def transform_sample(self, inpt, params):
+        out = inpt
+        if self.padding is not None:
+            out = F.pad(out, self.padding, self.fill, self.padding_mode)
+        if any(params["pad_extra"]):
+            out = F.pad(out, params["pad_extra"], self.fill, self.padding_mode)
+        return F.crop(out, params["top"], params["left"], *self.size)
+
+
+class _RandomResizeBase(Transform):
+    def __init__(self, interpolation: str = "bilinear", antialias: bool = True):
+        self.interpolation = interpolation
+        self.antialias = antialias
+
+    def transform_sample(self, inpt, params):
+        return F.resize(inpt, params["size"], self.interpolation,
+                        antialias=self.antialias)
+
+
+class ScaleJitter(_RandomResizeBase):
+    """Resize by ``min(target_h / H, target_w / W)`` times a uniform factor
+    in ``scale_range``."""
+
+    def __init__(self, target_size, scale_range=(0.1, 2.0),
+                 interpolation: str = "bilinear", antialias: bool = True):
+        super().__init__(interpolation, antialias)
+        self.target_size = target_size
+        self.scale_range = scale_range
+
+    def make_params(self, flat_inputs, generator):
+        orig_h, orig_w = query_size(flat_inputs)
+        scale = self.scale_range[0] + uniform(generator) * (
+            self.scale_range[1] - self.scale_range[0])
+        r = min(self.target_size[1] / orig_h,
+                self.target_size[0] / orig_w) * scale
+        return dict(size=(int(orig_h * r), int(orig_w * r)))
+
+
+class RandomShortestSize(_RandomResizeBase):
+    """The short side to one of ``min_size`` (uniform), the long side kept
+    within ``max_size``."""
+
+    def __init__(self, min_size, max_size: Optional[int] = None,
+                 interpolation: str = "bilinear", antialias: bool = True):
+        super().__init__(interpolation, antialias)
+        self.min_size = [min_size] if isinstance(min_size, int) else list(min_size)
+        self.max_size = max_size
+
+    def make_params(self, flat_inputs, generator):
+        orig_h, orig_w = query_size(flat_inputs)
+        min_size = self.min_size[randint(generator, 0, len(self.min_size))]
+        r = min_size / min(orig_h, orig_w)
+        if self.max_size is not None:
+            r = min(r, self.max_size / max(orig_h, orig_w))
+        return dict(size=(int(orig_h * r), int(orig_w * r)))
+
+
+class RandomResize(_RandomResizeBase):
+    """The short side to a uniform integer in [min_size, max_size)."""
+
+    def __init__(self, min_size: int, max_size: int,
+                 interpolation: str = "bilinear", antialias: bool = True):
+        super().__init__(interpolation, antialias)
+        self.min_size = min_size
+        self.max_size = max_size
+
+    def make_params(self, flat_inputs, generator):
+        return dict(size=[randint(generator, self.min_size, self.max_size)])
+
+
+class RandomZoomOut(_RandomApplyTransform):
+    """With probability ``p``, the sample on a canvas ``r`` times its size
+    (``r`` uniform in ``side_range``) filled with ``fill``, at a uniform
+    place."""
+
+    def __init__(self, fill=0, side_range=(1.0, 4.0), p: float = 0.5):
+        super().__init__(p)
+        if side_range[0] < 1.0 or side_range[0] > side_range[1]:
+            raise ValueError(f"invalid side range {side_range}")
+        self.fill = fill
+        self.side_range = side_range
+
+    def make_params(self, flat_inputs, generator):
+        orig_h, orig_w = query_size(flat_inputs)
+        r = self.side_range[0] + uniform(generator) * (
+            self.side_range[1] - self.side_range[0])
+        canvas_w, canvas_h = int(orig_w * r), int(orig_h * r)
+        left = int(uniform(generator) * (canvas_w - orig_w))
+        top = int(uniform(generator) * (canvas_h - orig_h))
+        return dict(padding=[left, top, canvas_w - (left + orig_w),
+                             canvas_h - (top + orig_h)])
+
+    def transform_sample(self, inpt, params):
+        return F.pad(inpt, params["padding"], self.fill)
+
+
+class RandomIoUCrop(Transform):
+    """SSD's crop: an overlap floor drawn from ``sampler_options`` (1.0: no
+    crop), then up to ``trials`` crops of a uniform scale in [min_scale,
+    max_scale] of each side, an aspect in range, at a uniform place, until
+    one holds a box's centre and overlaps one such box by at least the
+    floor; a sample with no box passes through. Sanitise the boxes after
+    (``SanitizeBoundingBoxes``), as the recipe does. The draws read the
+    boxes on the host: one host synchronisation a call for boxes on the
+    card."""
+
+    def __init__(self, min_scale: float = 0.3, max_scale: float = 1.0,
+                 min_aspect_ratio: float = 0.5, max_aspect_ratio: float = 2.0,
+                 sampler_options: Optional[List[float]] = None,
+                 trials: int = 40):
+        self.min_scale = min_scale
+        self.max_scale = max_scale
+        self.min_aspect_ratio = min_aspect_ratio
+        self.max_aspect_ratio = max_aspect_ratio
+        self.options = sampler_options or [0.0, 0.1, 0.3, 0.5, 0.7, 0.9, 1.0]
+        self.trials = trials
+
+    def make_params(self, flat_inputs, generator):
+        orig_h, orig_w = query_size(flat_inputs)
+        boxes = next((x for x in flat_inputs
+                      if isinstance(x, tv_tensors.BoundingBoxes)), None)
+        if boxes is None:
+            return {}
+        xyxy = F.convert_bounding_box_format(
+            boxes, new_format="XYXY").as_tensor().float().cpu()
+        cx = 0.5 * (xyxy[:, 0] + xyxy[:, 2])
+        cy = 0.5 * (xyxy[:, 1] + xyxy[:, 3])
+        while True:
+            floor = self.options[randint(generator, 0, len(self.options))]
+            if floor >= 1.0:
+                return {}
+            for _ in range(self.trials):
+                r = self.min_scale + uniform(generator) * (
+                    self.max_scale - self.min_scale)
+                new_w, new_h = int(orig_w * r), int(orig_h * r)
+                if not (self.min_aspect_ratio <= new_w / max(new_h, 1)
+                        <= self.max_aspect_ratio):
+                    continue
+                left = int(uniform(generator) * (orig_w - new_w))
+                top = int(uniform(generator) * (orig_h - new_h))
+                right, bottom = left + new_w, top + new_h
+                within = (left < cx) & (cx < right) & (top < cy) & (cy < bottom)
+                if not bool(within.any()):
+                    continue
+                crop = torch.tensor([[left, top, right, bottom]],
+                                    dtype=torch.float32)
+                if float(box_iou(crop, xyxy[within]).max()) < floor:
+                    continue
+                return dict(top=top, left=left, height=new_h, width=new_w,
+                            is_within_crop_area=within)
+
+    def transform_sample(self, inpt, params):
+        if not params:
+            return inpt
+        return F.crop(inpt, params["top"], params["left"], params["height"],
+                      params["width"])

@@ -1,7 +1,7 @@
 """Colour functionals (counterpart of
-``vision_tpu/transforms/v2/functional/_color.py``): the RandAugment colour
-ops on ``(..., C, H, W)`` tensors; the blends, solarize and autocontrast
-take uint8 or float in [0, 1], posterize and equalize uint8.
+``vision_tpu/transforms/v2/functional/_color.py``) on ``(..., C, H, W)``
+tensors, images and videos (``Image`` and ``Video`` come back typed, any
+other typed tensor raises): uint8 or float in [0, 1].
 
 Every factor may be a Python number or a tensor with one value a sample
 (``[N]`` for an ``[N, C, H, W]`` batch), so that one call applies a
@@ -15,22 +15,48 @@ as ``torch``'s ``.to(uint8)`` and JAX's ``astype`` do.
 
 from __future__ import annotations
 
-from typing import Union
+import functools
+from typing import Sequence, Union
 
 import numpy as np
 import torch
 
+from vision_tpu_torch import tv_tensors
+from vision_tpu_torch.transforms.v2.functional._misc import _index
+
 __all__ = [
     "adjust_brightness",
     "adjust_contrast",
+    "adjust_gamma",
+    "adjust_hue",
     "adjust_saturation",
     "adjust_sharpness",
     "autocontrast",
     "equalize",
+    "grayscale_to_rgb",
+    "invert",
+    "permute_channels",
     "posterize",
     "rgb_to_grayscale",
     "solarize",
 ]
+
+
+def _image_functional(fn):
+    """``fn`` of plain tensors, taking an ``Image`` or a ``Video`` too and
+    giving its result the input's type."""
+
+    @functools.wraps(fn)
+    def wrapper(inpt, *args, **kwargs):
+        if isinstance(inpt, tv_tensors.TVTensor):
+            if not isinstance(inpt, (tv_tensors.Image, tv_tensors.Video)):
+                raise TypeError(f"{fn.__name__} takes images and videos, got "
+                                f"{type(inpt).__name__}")
+            return tv_tensors.wrap(fn(inpt.as_tensor(), *args, **kwargs),
+                                   like=inpt)
+        return fn(inpt, *args, **kwargs)
+
+    return wrapper
 
 Factor = Union[float, torch.Tensor]
 
@@ -68,6 +94,7 @@ def _gray_f32(image: torch.Tensor) -> torch.Tensor:
     return 0.2989 * r.float() + 0.587 * g.float() + 0.114 * b.float()
 
 
+@_image_functional
 def rgb_to_grayscale(image: torch.Tensor,
                      num_output_channels: int = 1) -> torch.Tensor:
     """``L = 0.2989 R + 0.587 G + 0.114 B`` in f32, truncated to the input's
@@ -81,16 +108,19 @@ def rgb_to_grayscale(image: torch.Tensor,
     return out
 
 
+@_image_functional
 def adjust_brightness(image: torch.Tensor, brightness_factor: Factor) -> torch.Tensor:
     return _blend(image, torch.zeros_like(image), brightness_factor)
 
 
+@_image_functional
 def adjust_saturation(image: torch.Tensor, saturation_factor: Factor) -> torch.Tensor:
     if image.shape[-3] == 1:
         return image
     return _blend(image, rgb_to_grayscale(image, 3), saturation_factor)
 
 
+@_image_functional
 def adjust_contrast(image: torch.Tensor, contrast_factor: Factor) -> torch.Tensor:
     """Blend with the mean of the grayscale image (floored first for an
     integer image), one mean an image."""
@@ -104,6 +134,7 @@ def adjust_contrast(image: torch.Tensor, contrast_factor: Factor) -> torch.Tenso
     return _blend(image, mean.expand(image.shape), contrast_factor)
 
 
+@_image_functional
 def adjust_sharpness(image: torch.Tensor, sharpness_factor: Factor) -> torch.Tensor:
     """Blend with the image smoothed by the 3x3 kernel ``[[1, 1, 1], [1, 5,
     1], [1, 1, 1]] / 13``; the border ring keeps the original pixels. The
@@ -127,11 +158,19 @@ def adjust_sharpness(image: torch.Tensor, sharpness_factor: Factor) -> torch.Ten
     return _blend(image, blurred, sharpness_factor)
 
 
+@_image_functional
 def posterize(image: torch.Tensor, bits: Union[int, torch.Tensor]) -> torch.Tensor:
     """Keep the top ``bits`` bits of a uint8 image (``bits`` an int or one
-    a sample)."""
+    a sample); a float image (``bits`` an int) to ``2^bits`` levels,
+    floored."""
+    if image.is_floating_point() and not isinstance(bits, torch.Tensor):
+        if bits >= 8:
+            return image
+        levels = float(2 ** int(bits))
+        return torch.floor(image * levels) / levels
     if image.dtype != torch.uint8:
-        raise TypeError(f"posterize takes uint8 images, got {image.dtype}")
+        raise TypeError(f"posterize takes uint8 or float images, got "
+                        f"{image.dtype}")
     if not isinstance(bits, torch.Tensor):
         return image & (-(2 ** (8 - int(bits))) & 0xFF)
     shift = (8 - _per_sample(bits, image).to(torch.int32)).clamp(0, 8)
@@ -139,6 +178,7 @@ def posterize(image: torch.Tensor, bits: Union[int, torch.Tensor]) -> torch.Tens
     return image & mask.to(torch.uint8)
 
 
+@_image_functional
 def solarize(image: torch.Tensor, threshold: Factor) -> torch.Tensor:
     """Invert the pixels at or above ``threshold``."""
     bound = _max_value(image.dtype)
@@ -146,6 +186,7 @@ def solarize(image: torch.Tensor, threshold: Factor) -> torch.Tensor:
     return torch.where(image >= _per_sample(threshold, image), inverted, image)
 
 
+@_image_functional
 def autocontrast(image: torch.Tensor) -> torch.Tensor:
     """Stretch each channel of each image to the full range (a constant
     channel is left as it is)."""
@@ -159,11 +200,16 @@ def autocontrast(image: torch.Tensor) -> torch.Tensor:
     return out.to(image.dtype)
 
 
+@_image_functional
 def equalize(image: torch.Tensor) -> torch.Tensor:
     """Histogram equalisation of each channel of each uint8 image
     (torchvision's ``_equalize``: ``step = (n - hist[max]) // 255``, the
     table ``(cumsum + step // 2) // step`` shifted by one, the channel kept
     where ``step`` is 0)."""
+    if image.is_floating_point():
+        # the JAX package's float path: through uint8 and back
+        u8 = (image.float() * 255.0).to(torch.uint8)
+        return (equalize(u8).float() / 255.0).to(image.dtype)
     if image.dtype != torch.uint8:
         raise TypeError(f"equalize takes uint8 images, got {image.dtype}")
     h, w = image.shape[-2:]
@@ -176,3 +222,92 @@ def equalize(image: torch.Tensor) -> torch.Tensor:
     lut = torch.cat([torch.zeros_like(lut[:, :1]), lut[:, :-1]], 1).clamp(0, 255)
     out = torch.where(step == 0, rows, lut.gather(1, rows))
     return out.to(torch.uint8).reshape(image.shape)
+
+
+@_image_functional
+def grayscale_to_rgb(image: torch.Tensor) -> torch.Tensor:
+    if image.shape[-3] == 3:
+        return image
+    return image.expand(*image.shape[:-3], 3, *image.shape[-2:])
+
+
+def _rgb_to_hsv(img: torch.Tensor) -> torch.Tensor:
+    """torchvision's ``_rgb2hsv`` on f32 in [0, 1], the JAX package's order
+    of operations."""
+    r, g, b = img.unbind(-3)
+    maxc = torch.maximum(torch.maximum(r, g), b)
+    minc = torch.minimum(torch.minimum(r, g), b)
+    eqc = maxc == minc
+    cr = maxc - minc
+    ones = torch.ones_like(maxc)
+    s = cr / torch.where(eqc, ones, maxc)
+    cr_divisor = torch.where(eqc, ones, cr)
+    rc = (maxc - r) / cr_divisor
+    gc = (maxc - g) / cr_divisor
+    bc = (maxc - b) / cr_divisor
+    hr = (maxc == r) * (bc - gc)
+    hg = ((maxc == g) & (maxc != r)) * (2.0 + rc - bc)
+    hb = ((maxc != g) & (maxc != r)) * (4.0 + gc - rc)
+    h = torch.remainder((hr + hg + hb) / 6.0 + 1.0, 1.0)
+    return torch.stack([h, s, maxc], -3)
+
+
+def _hsv_to_rgb(img: torch.Tensor) -> torch.Tensor:
+    h, s, v = img.unbind(-3)
+    i = torch.floor(h * 6.0)
+    f = h * 6.0 - i
+    i = i.to(torch.int32) % 6
+    p = (v * (1.0 - s)).clamp(0.0, 1.0)
+    q = (v * (1.0 - s * f)).clamp(0.0, 1.0)
+    t = (v * (1.0 - s * (1.0 - f))).clamp(0.0, 1.0)
+    table = torch.stack([torch.stack(c, -3) for c in (
+        (v, t, p), (q, v, p), (p, v, t), (p, q, v), (t, p, v), (v, p, q))], 0)
+    pick = i.long().unsqueeze(-3).expand(*i.shape[:-2], 3, *i.shape[-2:])
+    return table.gather(0, pick.unsqueeze(0))[0]
+
+
+@_image_functional
+def adjust_hue(image: torch.Tensor, hue_factor: float) -> torch.Tensor:
+    """Rotate the hue by ``hue_factor`` (in [-0.5, 0.5]) of a turn, through
+    HSV; an integer image is rounded back."""
+    if not -0.5 <= hue_factor <= 0.5:
+        raise ValueError(f"hue_factor must be in [-0.5, 0.5], got {hue_factor}")
+    if image.shape[-3] == 1:
+        return image
+    bound = _max_value(image.dtype)
+    hsv = _rgb_to_hsv(image.float() / bound)
+    h = torch.remainder(hsv[..., 0, :, :] + hue_factor, 1.0)
+    out = _hsv_to_rgb(torch.stack([h, hsv[..., 1, :, :], hsv[..., 2, :, :]],
+                                  -3)) * bound
+    if not image.dtype.is_floating_point:
+        out = torch.round(out)
+    return out.to(image.dtype)
+
+
+@_image_functional
+def adjust_gamma(image: torch.Tensor, gamma: float, gain: float = 1.0
+                 ) -> torch.Tensor:
+    if gamma < 0:
+        raise ValueError("gamma must be non-negative")
+    bound = _max_value(image.dtype)
+    out = (gain * (image.float() / bound) ** gamma).clamp(0.0, 1.0) * bound
+    if not image.dtype.is_floating_point:
+        out = torch.round(out)
+    return out.to(image.dtype)
+
+
+@_image_functional
+def invert(image: torch.Tensor) -> torch.Tensor:
+    bound = _max_value(image.dtype)
+    if not image.dtype.is_floating_point:
+        return (int(bound) - image.to(torch.int32)).to(image.dtype)
+    return bound - image
+
+
+@_image_functional
+def permute_channels(image: torch.Tensor, permutation: Sequence[int]
+                     ) -> torch.Tensor:
+    if len(permutation) != image.shape[-3]:
+        raise ValueError("permutation length must equal the channel count")
+    return image.index_select(-3, _index(tuple(int(i) for i in permutation),
+                                         image.device))

@@ -4,7 +4,12 @@ tensors: those of the image presets (``resize_image``, ``crop_image``,
 ``center_crop_image``) and those of the train-time augmentation
 (``horizontal_flip_image``, ``resized_crop_flip_batch``, ``affine_image``,
 ``rotate_image``, and ``affine_grid_sample``, which warps each image of a
-batch by a matrix of its own)."""
+batch by a matrix of its own); and the per-sample kernels of masks, boxes,
+keypoints and videos beside them, with the functionals (``resize``,
+``horizontal_flip``, ``vertical_flip``, ``crop``, ``center_crop``, ``pad``,
+``resized_crop``) that pick a kernel by the input's type. ``affine``,
+``rotate``, ``perspective``, ``elastic``, ``five_crop`` and ``ten_crop`` of
+boxes, masks and keypoints are not ported yet."""
 
 from __future__ import annotations
 
@@ -15,19 +20,54 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from vision_tpu_torch.transforms.v2.functional._misc import _channel_values
+from vision_tpu_torch import tv_tensors
+from vision_tpu_torch.transforms.v2.functional._meta import (
+    clamp_bounding_boxes,
+    get_size,
+)
+from vision_tpu_torch.transforms.v2.functional._misc import (
+    _channel_values,
+    _index,
+)
 from vision_tpu_torch.transforms.v2.functional._resample import resize_2d
+from vision_tpu_torch.transforms.v2.functional._utils import (
+    _call_kernel,
+    _register_kernel_internal,
+)
 
 __all__ = [
     "affine_grid_sample",
     "affine_image",
+    "center_crop",
     "center_crop_image",
+    "crop",
+    "crop_bounding_boxes",
     "crop_image",
+    "crop_keypoints",
+    "crop_mask",
+    "horizontal_flip",
+    "horizontal_flip_bounding_boxes",
     "horizontal_flip_image",
+    "horizontal_flip_keypoints",
+    "horizontal_flip_mask",
     "inverse_affine_matrix",
+    "pad",
+    "pad_image",
+    "pad_mask",
+    "resize",
+    "resize_bounding_boxes",
     "resize_image",
+    "resize_keypoints",
+    "resize_mask",
+    "resized_crop",
     "resized_crop_flip_batch",
+    "resized_crop_image",
     "rotate_image",
+    "vertical_flip",
+    "vertical_flip_bounding_boxes",
+    "vertical_flip_image",
+    "vertical_flip_keypoints",
+    "vertical_flip_mask",
 ]
 
 
@@ -311,3 +351,347 @@ def rotate_image(
     batch = image.reshape(-1, *image.shape[-3:])
     out = affine_grid_sample(batch, matrix, interpolation, fill)
     return out.reshape(image.shape)
+
+
+# ----------------------------------------------------------------------
+# Per-sample kernels of masks, boxes, keypoints and videos, and the
+# functionals that dispatch on the input's type (``_utils.py``): the
+# counterparts of ``vision_tpu/transforms/v2/functional/_geometry.py``'s
+# resize (l.123-216), flips (l.218-340), crop (l.345-421), center_crop
+# (l.423-472), pad (l.474-531) and resized_crop (l.533-551). Box arithmetic
+# is f32 (the boxes' own type again at the end), scale factors rounded to
+# f32 first, as the JAX package's are.
+# ----------------------------------------------------------------------
+
+def _f32(v: float) -> float:
+    return float(np.float32(v))
+
+
+def resize_mask(mask: torch.Tensor, size, max_size: Optional[int] = None
+                ) -> torch.Tensor:
+    """Nearest resize of ``[..., H, W]`` masks."""
+    h, w = mask.shape[-2:]
+    new_h, new_w = _compute_resized_output_size((h, w), size, max_size)
+    if (new_h, new_w) == (h, w):
+        return mask
+    if mask.dtype == torch.bool:
+        return resize_2d(mask.to(torch.uint8), (new_h, new_w), mode="nearest",
+                         antialias=False).bool()
+    return resize_2d(mask, (new_h, new_w), mode="nearest", antialias=False)
+
+
+def _scale_boxes(b: torch.Tensor, format, rw: float, rh: float) -> torch.Tensor:
+    rw, rh = _f32(rw), _f32(rh)
+    fmt = _box_format(format)
+    if fmt == "xyxyxyxy":
+        factors = (rw, rh) * 4
+    elif fmt in ("xywhr", "cxcywhr"):
+        factors = (rw, rh, rw, rh, 1.0)
+    else:
+        factors = (rw, rh, rw, rh)
+    return torch.stack([b[..., i] * f for i, f in enumerate(factors)], -1)
+
+
+def resize_bounding_boxes(boxes: torch.Tensor, format, canvas_size, size,
+                          max_size: Optional[int] = None):
+    """Boxes scaled by the resize's ratios; returns (boxes, new canvas)."""
+    old_h, old_w = canvas_size
+    new_h, new_w = _compute_resized_output_size(canvas_size, size, max_size)
+    out = _scale_boxes(boxes.float(), format, new_w / old_w, new_h / old_h)
+    return out.to(boxes.dtype), (new_h, new_w)
+
+
+def resize_keypoints(kp: torch.Tensor, canvas_size, size,
+                     max_size: Optional[int] = None):
+    old_h, old_w = canvas_size
+    new_h, new_w = _compute_resized_output_size(canvas_size, size, max_size)
+    xy = kp[..., :2].float()
+    xy = torch.stack([xy[..., 0] * _f32(new_w / old_w),
+                      xy[..., 1] * _f32(new_h / old_h)], -1).to(kp.dtype)
+    return torch.cat([xy, kp[..., 2:]], -1), (new_h, new_w)
+
+
+def _box_format(format) -> str:
+    return (format.value if isinstance(format, tv_tensors.BoundingBoxFormat)
+            else str(format)).lower()
+
+
+def horizontal_flip_mask(mask: torch.Tensor) -> torch.Tensor:
+    return mask.flip(-1)
+
+
+def vertical_flip_image(image: torch.Tensor) -> torch.Tensor:
+    return image.flip(-2)
+
+
+vertical_flip_mask = vertical_flip_image
+
+
+def _flip_boxes(b: torch.Tensor, format, extent: float, axis: int
+                ) -> torch.Tensor:
+    """Mirror boxes across the canvas's vertical (``axis`` 0: x) or
+    horizontal (``axis`` 1: y) centre line."""
+    fmt = _box_format(format)
+    c = list(b.unbind(-1))
+    if fmt == "xyxy":
+        c[axis], c[axis + 2] = extent - c[axis + 2], extent - c[axis]
+    elif fmt == "xywh":
+        c[axis] = extent - c[axis] - c[axis + 2]
+    elif fmt == "cxcywh":
+        c[axis] = extent - c[axis]
+    elif fmt == "cxcywhr":
+        c[axis], c[4] = extent - c[axis], -c[4]
+    elif fmt == "xywhr":
+        c[axis] = extent - c[axis]
+        c[4] = 180.0 - c[4] if axis == 0 else -c[4]
+    elif fmt == "xyxyxyxy":
+        for i in range(axis, 8, 2):
+            c[i] = extent - c[i]
+    else:
+        raise ValueError(f"unsupported format {format}")
+    return torch.stack(c, -1)
+
+
+def horizontal_flip_bounding_boxes(boxes: torch.Tensor, format, canvas_size
+                                   ) -> torch.Tensor:
+    return _flip_boxes(boxes, format, canvas_size[1], 0)
+
+
+def vertical_flip_bounding_boxes(boxes: torch.Tensor, format, canvas_size
+                                 ) -> torch.Tensor:
+    return _flip_boxes(boxes, format, canvas_size[0], 1)
+
+
+def horizontal_flip_keypoints(kp: torch.Tensor, canvas_size,
+                              flip_indices: Optional[Sequence[int]] = None
+                              ) -> torch.Tensor:
+    """x to ``W - 1 - x``; with ``flip_indices`` (COCO person's left/right
+    pairs) the points of each instance re-ordered after, so that a
+    mirrored left shoulder is a right shoulder."""
+    x = (canvas_size[1] - 1 - kp[..., 0:1]).to(kp.dtype)
+    out = torch.cat([x, kp[..., 1:]], -1)
+    if flip_indices is not None:
+        out = out.index_select(-2, _index(tuple(int(i) for i in flip_indices),
+                                          out.device))
+    return out
+
+
+def vertical_flip_keypoints(kp: torch.Tensor, canvas_size) -> torch.Tensor:
+    y = (canvas_size[0] - 1 - kp[..., 1:2]).to(kp.dtype)
+    return torch.cat([kp[..., 0:1], y, kp[..., 2:]], -1)
+
+
+def crop_mask(mask: torch.Tensor, top: int, left: int, height: int,
+              width: int) -> torch.Tensor:
+    return crop_image(mask.unsqueeze(-3), top, left, height, width).squeeze(-3)
+
+
+def crop_bounding_boxes(boxes: torch.Tensor, format, top: int, left: int,
+                        height: int, width: int):
+    """Boxes moved by the crop's corner (not clamped); returns (boxes, new
+    canvas)."""
+    fmt = _box_format(format)
+    shift = {"xyxyxyxy": (left, top) * 4, "xywhr": (left, top, 0, 0, 0),
+             "cxcywhr": (left, top, 0, 0, 0), "xywh": (left, top, 0, 0),
+             "cxcywh": (left, top, 0, 0)}.get(fmt, (left, top, left, top))
+    b = boxes.float()
+    out = torch.stack([b[..., i] - float(s) for i, s in enumerate(shift)], -1)
+    return out.to(boxes.dtype), (height, width)
+
+
+def crop_keypoints(kp: torch.Tensor, top: int, left: int, height: int,
+                   width: int):
+    xy = torch.stack([kp[..., 0] - left, kp[..., 1] - top], -1).to(kp.dtype)
+    return torch.cat([xy, kp[..., 2:]], -1), (height, width)
+
+
+def _parse_pad(padding) -> Tuple[int, int, int, int]:
+    """(left, top, right, bottom) from torch's padding conventions."""
+    if isinstance(padding, (int, float)):
+        return (int(padding),) * 4
+    padding = [int(p) for p in padding]
+    if len(padding) == 1:
+        return (padding[0],) * 4
+    if len(padding) == 2:
+        return (padding[0], padding[1], padding[0], padding[1])
+    if len(padding) == 4:
+        return tuple(padding)
+    raise ValueError(f"invalid padding {padding}")
+
+
+def _pad_index(n: int, before: int, after: int, mode: str,
+               device) -> torch.Tensor:
+    """Source index of each padded position along an axis of ``n``."""
+    i = torch.arange(-before, n + after, device=device)
+    if mode == "edge":
+        return i.clamp(0, n - 1)
+    period = 2 * n - (2 if mode == "reflect" else 0)
+    if period <= 0:
+        return torch.zeros_like(i)
+    i = torch.remainder(i, period)
+    if mode == "reflect":
+        return torch.where(i < n, i, period - i)
+    if mode == "symmetric":
+        return torch.where(i < n, i, period - 1 - i)
+    raise ValueError(f"unknown padding_mode {mode!r}")
+
+
+def pad_image(image: torch.Tensor, padding, fill=0,
+              padding_mode: str = "constant") -> torch.Tensor:
+    """``[..., C, H, W]`` padded by (left, top, right, bottom): with
+    ``fill`` (a number, or one a channel) for ``"constant"``, else by
+    ``"edge"``, ``"reflect"`` or ``"symmetric"`` copies."""
+    left, top, right, bottom = _parse_pad(padding)
+    h, w = image.shape[-2:]
+    if padding_mode != "constant":
+        rows = _pad_index(h, top, bottom, padding_mode, image.device)
+        cols = _pad_index(w, left, right, padding_mode, image.device)
+        return image.index_select(-2, rows).index_select(-1, cols)
+    shape = (*image.shape[:-2], h + top + bottom, w + left + right)
+    if fill is None:
+        fill = 0
+    if isinstance(fill, (list, tuple)):
+        c = image.shape[-3]
+        values = [fill[i if len(fill) > 1 else 0] for i in range(c)]
+        out = torch.empty(shape, dtype=image.dtype, device=image.device)
+        for i, v in enumerate(values):
+            out[..., i, :, :] = v
+    else:
+        out = torch.full(shape, fill, dtype=image.dtype, device=image.device)
+    out[..., top:top + h, left:left + w] = image
+    return out
+
+
+def pad_mask(mask: torch.Tensor, padding, fill=0,
+             padding_mode: str = "constant") -> torch.Tensor:
+    """A mask padded as one channel: a fill of one value a channel gives it
+    its first value (the JAX package pads a mask through its image kernel)."""
+    return pad_image(mask.unsqueeze(-3), padding, fill, padding_mode).squeeze(-3)
+
+
+def _resize_boxes_k(inpt, size, interpolation="bilinear", max_size=None,
+                    antialias=True):
+    out, cs = resize_bounding_boxes(inpt.as_tensor(), inpt.format,
+                                    inpt.canvas_size, size, max_size)
+    return tv_tensors.wrap(out, like=inpt, canvas_size=cs)
+
+
+def _resize_kp_k(inpt, size, interpolation="bilinear", max_size=None,
+                 antialias=True):
+    out, cs = resize_keypoints(inpt.as_tensor(), inpt.canvas_size, size,
+                               max_size)
+    return tv_tensors.wrap(out, like=inpt, canvas_size=cs)
+
+
+def resize(inpt, size, interpolation: str = "bilinear",
+           max_size: Optional[int] = None, antialias: bool = True):
+    return _call_kernel(resize, inpt, size, interpolation, max_size, antialias)
+
+
+def horizontal_flip(inpt, keypoint_flip_indices=None):
+    """``keypoint_flip_indices`` re-orders the points of ``KeyPoints`` after
+    the mirror (``horizontal_flip_keypoints``); other types ignore it."""
+    if isinstance(inpt, tv_tensors.KeyPoints):
+        return tv_tensors.wrap(horizontal_flip_keypoints(
+            inpt.as_tensor(), inpt.canvas_size, keypoint_flip_indices),
+            like=inpt)
+    return _call_kernel(horizontal_flip, inpt)
+
+
+def vertical_flip(inpt):
+    return _call_kernel(vertical_flip, inpt)
+
+
+def crop(inpt, top: int, left: int, height: int, width: int):
+    """The ``height x width`` region at (top, left): zeros outside the
+    image; boxes moved and clamped to the new canvas, keypoints moved."""
+    return _call_kernel(crop, inpt, top, left, height, width)
+
+
+def _crop_boxes_k(inpt, top, left, height, width):
+    out, cs = crop_bounding_boxes(inpt.as_tensor(), inpt.format, top, left,
+                                  height, width)
+    return clamp_bounding_boxes(tv_tensors.wrap(out, like=inpt, canvas_size=cs))
+
+
+def _crop_kp_k(inpt, top, left, height, width):
+    out, cs = crop_keypoints(inpt.as_tensor(), top, left, height, width)
+    return tv_tensors.wrap(out, like=inpt, canvas_size=cs)
+
+
+def center_crop(inpt, output_size):
+    if isinstance(output_size, int):
+        output_size = (output_size, output_size)
+    elif len(output_size) == 1:
+        output_size = (output_size[0], output_size[0])
+    crop_h, crop_w = output_size
+    h, w = get_size(inpt)
+    top = int(round((h - crop_h) / 2.0))
+    left = int(round((w - crop_w) / 2.0))
+    return crop(inpt, top, left, crop_h, crop_w)
+
+
+def pad(inpt, padding, fill=0, padding_mode: str = "constant"):
+    """Pad by (left, top, right, bottom); boxes and keypoints move with the
+    corner (boxes clamped to the new canvas)."""
+    return _call_kernel(pad, inpt, padding, fill, padding_mode)
+
+
+def _pad_boxes_k(inpt, padding, fill=0, padding_mode="constant"):
+    left, top, right, bottom = _parse_pad(padding)
+    h, w = inpt.canvas_size
+    cs = (h + top + bottom, w + left + right)
+    out, _ = crop_bounding_boxes(inpt.as_tensor(), inpt.format, -top, -left,
+                                 *cs)
+    return clamp_bounding_boxes(tv_tensors.wrap(out, like=inpt, canvas_size=cs))
+
+
+def _pad_kp_k(inpt, padding, fill=0, padding_mode="constant"):
+    left, top, right, bottom = _parse_pad(padding)
+    h, w = inpt.canvas_size
+    kp = inpt.as_tensor()
+    xy = torch.stack([kp[..., 0] + left, kp[..., 1] + top], -1).to(kp.dtype)
+    return tv_tensors.wrap(torch.cat([xy, kp[..., 2:]], -1), like=inpt,
+                           canvas_size=(h + top + bottom, w + left + right))
+
+
+def resized_crop_image(image, top, left, height, width, size,
+                       interpolation="bilinear", antialias=True):
+    return resize_image(crop_image(image, top, left, height, width), size,
+                        interpolation, antialias=antialias)
+
+
+def resized_crop(inpt, top, left, height, width, size,
+                 interpolation="bilinear", antialias=True):
+    return resize(crop(inpt, top, left, height, width), size, interpolation,
+                  antialias=antialias)
+
+
+def _register():
+    for fn, image_k, mask_k, boxes_k, kp_k in (
+        (resize, resize_image,
+         lambda m, size, interpolation="bilinear", max_size=None,
+         antialias=True: resize_mask(m, size, max_size),
+         _resize_boxes_k, _resize_kp_k),
+        (horizontal_flip, horizontal_flip_image, horizontal_flip_mask,
+         lambda b: tv_tensors.wrap(horizontal_flip_bounding_boxes(
+             b.as_tensor(), b.format, b.canvas_size), like=b), None),
+        (vertical_flip, vertical_flip_image, vertical_flip_mask,
+         lambda b: tv_tensors.wrap(vertical_flip_bounding_boxes(
+             b.as_tensor(), b.format, b.canvas_size), like=b),
+         lambda k: tv_tensors.wrap(vertical_flip_keypoints(
+             k.as_tensor(), k.canvas_size), like=k)),
+        (crop, crop_image, crop_mask, _crop_boxes_k, _crop_kp_k),
+        (pad, pad_image, pad_mask, _pad_boxes_k, _pad_kp_k),
+    ):
+        for image_type in (torch.Tensor, tv_tensors.Image, tv_tensors.Video):
+            _register_kernel_internal(fn, image_type)(image_k)
+        _register_kernel_internal(fn, tv_tensors.Mask)(mask_k)
+        _register_kernel_internal(fn, tv_tensors.BoundingBoxes,
+                                  tv_tensor_wrapper=False)(boxes_k)
+        if kp_k is not None:
+            _register_kernel_internal(fn, tv_tensors.KeyPoints,
+                                      tv_tensor_wrapper=False)(kp_k)
+
+
+_register()

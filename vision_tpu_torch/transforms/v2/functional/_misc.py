@@ -1,15 +1,20 @@
 """Value functionals (counterpart of
 ``vision_tpu/transforms/v2/functional/_misc.py``): ``normalize_image`` and
-``to_dtype_image``, on ``(..., C, H, W)`` tensors."""
+``to_dtype_image`` on ``(..., C, H, W)`` tensors, ``normalize`` and
+``to_dtype`` on typed ones, and ``sanitize_bounding_boxes``."""
 
 from __future__ import annotations
 
 import functools
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["normalize_image", "to_dtype_image"]
+from vision_tpu_torch import tv_tensors
+from vision_tpu_torch.ops.boxes import box_convert
+
+__all__ = ["normalize", "normalize_image", "sanitize_bounding_boxes",
+           "to_dtype", "to_dtype_image"]
 
 _VALUE_BITS = {
     torch.uint8: 8,
@@ -29,6 +34,17 @@ def _channel_values(values: Tuple[float, ...], dtype: torch.dtype,
     stream drains. Never an inference tensor, so that autograd may save it."""
     with torch.inference_mode(False):
         return torch.tensor(values, dtype=dtype).to(device)[:, None, None]
+
+
+@functools.lru_cache(maxsize=64)
+def _index(values: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """``values`` as an int64 index tensor on ``device``, made once (an
+    index list copied to the card at every call would wait for it)."""
+    with torch.inference_mode(False):
+        host = torch.tensor(values, dtype=torch.int64)
+        if device.type == "cuda":
+            return host.pin_memory().to(device, non_blocking=True)
+        return host.to(device)
 
 
 def normalize_image(image: torch.Tensor, mean: Sequence[float],
@@ -65,3 +81,61 @@ def to_dtype_image(image: torch.Tensor, dtype: torch.dtype = torch.float32,
     if in_bits > out_bits:
         return (image >> (in_bits - out_bits)).to(dtype)
     return image.to(dtype) << (out_bits - in_bits)
+
+
+def _image_like(inpt) -> bool:
+    return isinstance(inpt, (tv_tensors.Image, tv_tensors.Video)) or not (
+        isinstance(inpt, tv_tensors.TVTensor))
+
+
+def to_dtype(inpt, dtype: torch.dtype = torch.float32, scale: bool = False):
+    """Images, videos and plain tensors through ``to_dtype_image``; masks,
+    boxes and keypoints cast as they are."""
+    if not isinstance(inpt, tv_tensors.TVTensor):
+        return to_dtype_image(inpt, dtype, scale)
+    if _image_like(inpt):
+        out = to_dtype_image(inpt.as_tensor(), dtype, scale)
+    else:
+        out = inpt.as_tensor().to(dtype)
+    return tv_tensors.wrap(out, like=inpt)
+
+
+def normalize(inpt, mean: Sequence[float], std: Sequence[float]):
+    if not _image_like(inpt):
+        raise TypeError(f"normalize takes images and videos, got "
+                        f"{type(inpt).__name__}")
+    if isinstance(inpt, tv_tensors.TVTensor):
+        return tv_tensors.wrap(normalize_image(inpt.as_tensor(), mean, std),
+                               like=inpt)
+    return normalize_image(inpt, mean, std)
+
+
+def sanitize_bounding_boxes(boxes, format=None,
+                            canvas_size: Optional[Tuple[int, int]] = None,
+                            min_size: float = 1.0, min_area: float = 1.0):
+    """(boxes, valid): ``valid`` ``[N]`` marks the boxes at least
+    ``min_size`` wide and high, of area at least ``min_area``, and inside
+    the canvas at every coordinate (a box that sticks out is dropped:
+    clamp first to keep it). The boxes come back as they were;
+    ``format`` and ``canvas_size`` go with a plain tensor only."""
+    if isinstance(boxes, tv_tensors.BoundingBoxes):
+        if format is not None or canvas_size is not None:
+            raise ValueError("format and canvas_size must not be passed with "
+                             "BoundingBoxes")
+        fmt, (h, w) = boxes.format.value.lower(), boxes.canvas_size
+        data = boxes.as_tensor()
+    else:
+        if format is None or canvas_size is None:
+            raise ValueError("format and canvas_size are required for plain "
+                             "tensors")
+        fmt = (format.value if isinstance(format, tv_tensors.BoundingBoxFormat)
+               else str(format)).lower()
+        (h, w), data = canvas_size, boxes
+    xyxy = box_convert(data.float(), fmt, "xyxy")
+    ws = xyxy[..., 2] - xyxy[..., 0]
+    hs = xyxy[..., 3] - xyxy[..., 1]
+    valid = (ws >= min_size) & (hs >= min_size) & (ws * hs >= min_area)
+    valid &= (xyxy >= 0).all(-1)
+    valid &= (xyxy[..., 0] <= w) & (xyxy[..., 2] <= w)
+    valid &= (xyxy[..., 1] <= h) & (xyxy[..., 3] <= h)
+    return boxes, valid

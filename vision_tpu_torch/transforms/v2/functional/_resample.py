@@ -10,6 +10,13 @@ per (sizes, mode, device), not once per image.
 
 Layout: the last two axes are (H, W), as in the port's CHW / NCHW
 convention; the JAX package's are (H, W, C).
+
+The antialiased bilinear matrix (aten's ``_compute_weights_aa``) is also
+``jax.image.resize(..., method="bilinear")``'s, whose ``antialias``
+defaults to True and which the JAX package's video recipe preset calls
+directly: both widen the triangle by the shrink factor (support 1 when
+enlarging) and normalise over the taps inside the image. They differ only
+in rounding: JAX places the sample points in f32, this matrix in f64.
 """
 
 from __future__ import annotations
@@ -143,10 +150,13 @@ def _device_matrix(in_size: int, out_size: int, mode: str, antialias: bool,
     # the cached matrix outlives the mode it was made in: it is never an
     # inference tensor, so that a later product under autograd (the
     # keypoint predictor's upsample in training) may save it
+    matrix = resample_matrix(in_size, out_size, mode, antialias,
+                             align_corners)
     with torch.inference_mode(False):
-        return torch.from_numpy(
-            resample_matrix(in_size, out_size, mode, antialias, align_corners)
-        ).to(device)
+        host = torch.from_numpy(matrix)
+        if device.type == "cuda":  # through pinned memory: no host wait
+            return host.pin_memory().to(device, non_blocking=True)
+        return host.to(device)
 
 
 def resize_plane(
