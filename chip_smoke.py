@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Builds the thirteen CUDA kernel libraries of ``vision_tpu_torch`` from
-``csrc/`` (``nvcc``) and its JPEG codec (``csrc/jpeg_codec.cpp``, ``g++``, no
-library), all at once, and drives the port's main paths at full width, TF32
+``csrc/`` (``nvcc``) and its JPEG and PNG / GIF codecs
+(``csrc/jpeg_codec.cpp``, ``csrc/image_codecs.cpp``, ``g++``, no library),
+all at once, and drives the port's main paths at full width, TF32
 off, seeded random weights:
 
 * Faster R-CNN ResNet-50-FPN inference (91 classes, one 832x832 f32 image)
@@ -117,6 +118,18 @@ off, seeded random weights:
   of the decode on the card (coefficient limit 5), and from decoded frames
   already on the card; ResNet-18 in f32 through its weights' preset
   (BASELINE config 1). Each first batch is held against the CPU;
+* ImageNet from files on disk (``tools/imagenet_folder.py``): the
+  fixtures of ``tests/torch_io_data`` (progressive, CMYK and EXIF JPEGs,
+  PNGs of every kind, an animated GIF) decoded on the card's host against
+  their manifest's digests, host ms an image by stream kind
+  (``image_io``); a tree of 8 classes (train/ 320 JPEGs, val/ 128 files
+  with PNGs) written to a temporary directory and read through
+  ``ImageFolder`` and ``DeviceJpegLoader`` into an epoch of ResNet-50 amp
+  steps through the ``matmul_stats`` ``wgmma`` kernel, step 1 against the
+  plain path (``imagenet_folder_train``), into the bf16 model, a batch
+  against the same loader on the CPU (``imagenet_folder_eval``), and
+  through ``ImageFolder`` + ``DataLoader`` + the weights' preset
+  (``imagenet_folder_host``); every lane counted, nothing dropped;
 * the classification zoo (``tools/zoo.py``, the JAX bench's zoo cells,
   seeded weights, batch norms calibrated on one seeded batch):
   EfficientNet-V2-S at 384 px (batch 32), ConvNeXt-T and Swin-T at 224 px
@@ -808,6 +821,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     imagenet_e2e_phases()
     torch.cuda.empty_cache()
+    t_folder = time.perf_counter()
+    imagenet_folder_phases(kernels)
+    folder_s = time.perf_counter() - t_folder
+    torch.cuda.empty_cache()
     t_zoo = time.perf_counter()
     zoo_phases(kernels)
     zoo_s = time.perf_counter() - t_zoo
@@ -820,7 +837,7 @@ def main() -> int:
     recipe_phases(kernels)
     recipe_s = time.perf_counter() - t_recipe
     emit("done", build_s=build_s, phases_s=time.perf_counter() - t_phases,
-         detection_zoo_s=det_s, zoo_s=zoo_s, dense_s=dense_s,
+         detection_zoo_s=det_s, folder_s=folder_s, zoo_s=zoo_s, dense_s=dense_s,
          recipe_s=recipe_s, total_s=time.perf_counter() - t0)
 
     print(smi, flush=True)
@@ -4398,6 +4415,328 @@ def imagenet_e2e_phases() -> None:
         if params != RESNET18_PARAMS or not input_err <= E2E_INPUT_TOL:
             raise RuntimeError("resnet18_e2e_images: wrong parameter count, or "
                                "input off the CPU's")
+
+
+# ImageNet from files on disk (tools/imagenet_folder.py)
+FOLDER_BATCH = 32
+FOLDER_CROP = 224
+FOLDER_CLASSES = 8
+FOLDER_TRAIN_PER_CLASS = 40
+FOLDER_VAL_PER_CLASS = 16
+FOLDER_FIRST_LOSS_TOL = 2e-2  # amp step 1 against the plain path's, relative
+FOLDER_CHECKED = 8  # images of the eval batch held against the CPU
+# normalised input, card against CPU, absolute: one uint8 level over the
+# smallest ImageNet std (the card's and the CPU's decodes of one stream
+# differ by a level at most; a uint8 resize may round a near-tie the other
+# way, resnet50_preset_check)
+PRESET_INPUT_TOL = 1.0 / (255.0 * 0.224) + 1e-5
+FOLDER_IO_REPS = 3
+
+
+def image_io_phase() -> dict:
+    """The port's codecs on the card's host against the fixtures of
+    ``tests/torch_io_data`` (Pillow streams; the card's machine has no
+    PIL): every fixture's decoded pixels, and each JPEG fixture's
+    coefficients at limits 8 and 5, against the SHA-256 digests its
+    manifest recorded from libjpeg, libpng and ``vision_tpu``'s GIF decoder
+    (a JPEG's pixels from the port's own host decode there, beside their
+    distance from libjpeg's); the progressive fixtures decoded on the card
+    within one level of the host; then host ms an image at 500x375 for
+    baseline, progressive and CMYK streams (the whole decode and the
+    Huffman pass alone) and for PNG decode and encode, on one thread and
+    on ``decode_threads()``. Returns the host ms by stream kind."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from vision_tpu_torch.io import _codecs, _image_codecs, decode_jpeg, decode_png
+    from vision_tpu_torch.io.jpeg_device import decode_threads
+    from vision_tpu_torch.tools import imagenet_folder as folder
+
+    manifest = json.loads((folder.FIXTURES / "manifest.json").read_text())
+
+    def digest(arrs) -> str:
+        h = hashlib.sha256()
+        for a in arrs:
+            h.update(np.ascontiguousarray(a).tobytes())
+        return h.hexdigest()
+
+    streams = {n: (folder.FIXTURES / n).read_bytes() for n in manifest}
+    bad = []
+    for name, want in sorted(manifest.items()):
+        data = streams[name]
+        if want["kind"] == "jpeg":
+            px = _codecs.decode_jpeg_native(data)
+            for m in (8, 5):
+                key = f"coefs_sha256_m{m}"
+                if key in want:
+                    coefs = _codecs.jpeg_coefficients_native(data, m % 8)[0]
+                    if digest(coefs) != want[key]:
+                        bad.append(f"{name} {key}")
+        elif want["kind"] == "png":
+            px = _image_codecs.decode_png_native(data)
+            if "pixels16_sha256" in want and digest(
+                    [_image_codecs.decode_png_native(data, wide=True)]) != want["pixels16_sha256"]:
+                bad.append(f"{name} pixels16")
+        else:
+            px = _image_codecs.decode_gif_native(data)
+        if list(px.shape) != want["shape"] or digest([px]) != want["pixels_sha256"]:
+            bad.append(f"{name} pixels")
+    progressive = [streams[n] for n in sorted(streams) if n.startswith("prog_")]
+    host = decode_jpeg(progressive, device="cpu")
+    card = decode_jpeg(progressive)
+    card_err = max(int((h.expand_as(c).int() - c.cpu().int()).abs().max())
+                   for h, c in zip(host, card))
+    png_card = all(bool((decode_png(streams[n]).cpu() == decode_png(streams[n], device="cpu")).all())
+                   for n in streams if n.endswith(".png"))
+
+    threads = decode_threads()
+    base = folder.baseline_jpegs(sizes=[folder.BASELINE_SIZES[0]], variants=8, quality=75)
+    kinds = {"baseline": base, "progressive": [streams["prog_420.jpg"]] * 8,
+             "cmyk": [streams["cmyk.jpg"]] * 8}
+    ms = {}
+    for kind, batch in kinds.items():
+        for t in (1, threads):
+            ms[f"{kind}_decode_ms_t{t}"] = folder.host_ms(
+                _codecs.decode_jpeg_native, batch, t, FOLDER_IO_REPS)
+            if kind != "cmyk":
+                ms[f"{kind}_huffman_ms_t{t}"] = folder.host_ms(
+                    _codecs.jpeg_coefficients_native, batch, t, FOLDER_IO_REPS)
+    h, w = folder.BASELINE_SIZES[0]
+    pngs = [_image_codecs.encode_png_native(folder.photo(h, w, seed=s)) for s in range(8)]
+    imgs = [folder.photo(h, w, seed=s) for s in range(8)]
+    for t in (1, threads):
+        ms[f"png_decode_ms_t{t}"] = folder.host_ms(
+            _image_codecs.decode_png_native, pngs, t, FOLDER_IO_REPS)
+        ms[f"png_encode_ms_t{t}"] = folder.host_ms(
+            _image_codecs.encode_png_native, imgs, t, FOLDER_IO_REPS)
+    emit("image_io", fixtures=len(manifest), digest_mismatches=bad,
+         progressive_card_vs_host_max_abs_err=card_err, card_tol=1,
+         png_card_equals_host=png_card, host_threads=threads, image=[h, w],
+         png_bytes_mean=sum(map(len, pngs)) / len(pngs), **ms)
+    if bad or card_err > 1 or not png_card:
+        raise RuntimeError(f"image_io: digests off the manifest's {bad}, or the "
+                           "card's decode off the host's")
+    return ms
+
+
+def folder_epoch(loader, step=None):
+    """One epoch of ``loader``, with ``step`` on each batch: the wall
+    seconds with one synchronisation at the end, the batches, the images,
+    and each step's loss (read after the epoch)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses, n, batches = [], 0, 0
+    for batch in loader:
+        n += batch["label"].shape[0]
+        batches += 1
+        if step is not None:
+            losses.append(step(batch)["loss"])
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, batches, n, [float(v) for v in losses]
+
+
+def imagenet_folder_phases(kernels) -> None:
+    """ImageNet from files on disk: a tree of 8 classes in a temporary
+    directory (``tools/imagenet_folder.py``: train/ 8 x 40 JPEGs, mostly
+    the port's baseline encodes at five ImageNet sizes, one copy a class of
+    the progressive 4:2:0, 4:4:4, grey and restart, EXIF-rotated and CMYK
+    fixtures; val/ 8 x 16, with a progressive, a CMYK and two PNGs a
+    class). ``imagenet_folder_train``: ``ImageFolder`` -> ``DeviceJpegLoader``
+    (train, batch 32 at 224, EXIF applied) alone for an epoch, then feeding
+    ResNet-50 ``fused_bn=True`` amp steps for one epoch through the
+    ``matmul_stats`` ``wgmma`` kernel, step 1's loss against the plain
+    path's on the same batch; the loader's per-bucket program timed on the
+    card. ``imagenet_folder_eval``: the loader (eval) feeding ResNet-50 in
+    bf16, one batch's input against the same loader on the CPU and its
+    logits against the CPU's f32 model. ``imagenet_folder_host``:
+    ``ImageFolder`` + ``DataLoader`` (threads) + ``read_image`` + the
+    weights' ``ImageClassification`` preset over val/, PNGs included.
+    Every epoch's ``stats`` must show nothing dropped and every CMYK (and
+    PNG) file in the re-encode lane."""
+    import tempfile
+
+    import torch
+
+    from vision_tpu_torch.datasets import DataLoader, ImageFolder
+    from vision_tpu_torch.io import DeviceJpegLoader
+    from vision_tpu_torch.io.jpeg_device import decode_threads
+    from vision_tpu_torch.models import ResNet50_Weights, get_model
+    from vision_tpu_torch.models._api import resolve_device
+    from vision_tpu_torch.parallel import make_train_step
+    from vision_tpu_torch.tools import imagenet_folder as folder
+
+    cuda = resolve_device(None)
+    io_ms = image_io_phase()
+    tmp = tempfile.TemporaryDirectory(prefix="imagenet_folder_")
+    try:
+        t0 = time.perf_counter()
+        kinds = folder.write_tree(tmp.name, FOLDER_CLASSES, FOLDER_TRAIN_PER_CLASS,
+                                  FOLDER_VAL_PER_CLASS)
+        tree_s = time.perf_counter() - t0
+        train_ds = ImageFolder(os.path.join(tmp.name, "train"))
+        val_ds = ImageFolder(os.path.join(tmp.name, "val"))
+        if len(train_ds) != kinds["train"]["files"] or len(val_ds) != kinds["val"]["files"]:
+            raise RuntimeError(f"imagenet_folder: ImageFolder found {len(train_ds)} / "
+                               f"{len(val_ds)} files of {kinds}")
+
+        # (a) the loader alone, then feeding the amp step
+        loader = DeviceJpegLoader(train_ds.samples, FOLDER_BATCH, FOLDER_CROP,
+                                  train=True, apply_exif_orientation=True, seed=0)
+        # the first epoch faults in the recycled coefficient arrays; the
+        # second, the same samples, runs warm
+        cold_s, batches, n, _ = folder_epoch(loader)
+        alone_s, _, _, _ = folder_epoch(loader)
+        stats_alone, buckets = dict(loader.stats), list(loader.buckets)
+        model = get_model("resnet50", fused_bn=True, seed=0)
+        optimizer = torch.optim.SGD(model.parameters(), lr=LR, momentum=0.9,
+                                    weight_decay=1e-4)
+        step = make_train_step(model, optimizer, compute_dtype=torch.bfloat16)
+        first = next(iter(loader))
+        first = {k: v.clone() for k, v in first.items()}
+        with kernels.plain_versions():
+            ref = train_steps(first, fused=True, dtype=torch.bfloat16, steps=1)
+        kernels.reset()
+        loss1 = float(step(first)["loss"])
+        launches = kernels.launches()
+        rel = abs(loss1 - ref["losses"][0]) / abs(ref["losses"][0])
+        # the step alone on one batch already on the card, for the idle share
+        step(first)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(3):
+            loss = step(first)["loss"]
+        float(loss)
+        step_ms = (time.perf_counter() - t) * 1e3 / 3
+        loader.set_epoch(1)
+        kernels.reset()
+        with_s, steps, n_step, losses = folder_epoch(loader, step)
+        launches_epoch = kernels.launches()
+        stats = dict(loader.stats)
+        # the per-bucket program on the first bucket to fill
+        by_bucket = {}
+        for i in range(len(train_ds)):
+            lane, r, label = loader._coefficients(i)
+            if lane == "offload":
+                bk = loader._bucket_key([c.shape for c in r[0]], r[2])
+                items = by_bucket.setdefault(bk, [])
+                items.append((r[0], r[1], r[3], label))
+                if len(items) == FOLDER_BATCH:
+                    break
+        staged = loader.stage(bk, items)
+        boxes, flips = loader._draws(torch.Generator().manual_seed(0), staged[2])
+        program_ms = device_ms(lambda: loader.device_batch(*staged, boxes, flips, bk),
+                               launches=5)
+        idle = max(0.0, 1.0 - steps * step_ms / (with_s * 1e3))
+        emit("imagenet_folder_train", tree=kinds, tree_s=tree_s, batch=FOLDER_BATCH,
+             crop=FOLDER_CROP, batches=batches, images=n,
+             buckets_per_epoch=len(buckets), buckets=[list(map(str, b)) for b in buckets],
+             stats=stats_alone, stats_epoch_1=stats, stats_total=loader.stats_total,
+             offload_hit_rate=loader.offload_hit_rate,
+             loader_images_per_s=n / alone_s, loader_s=alone_s,
+             loader_first_epoch_images_per_s=n / cold_s,
+             with_step_images_per_s=n_step / with_s, with_step_s=with_s, steps=steps,
+             step_ms_on_card_input=step_ms, input_idle_share=idle,
+             losses=losses, first_loss=loss1, plain_first_loss=ref["losses"][0],
+             first_loss_rel_err=rel, loss_tol=FOLDER_FIRST_LOSS_TOL,
+             launches=launches, launches_epoch=launches_epoch,
+             bucket_program_device_ms=program_ms, bucket_program=str(bk),
+             host_ms=io_ms)
+        require_launched(launches, ("matmul_stats", "matmul_stats_wgmma"),
+                         "ImageNet folder train (amp)")
+        require_launched(launches_epoch, ("matmul_stats", "matmul_stats_wgmma"),
+                         "ImageNet folder train epoch (amp)")
+        want_stats = {"offload": kinds["train"]["files"] - kinds["train"]["cmyk"]
+                      - kinds["train"]["exif"], "reencode_fallback": kinds["train"]["cmyk"],
+                      "exif_reorient": kinds["train"]["exif"], "dropped": 0}
+        if (stats_alone != want_stats or stats != want_stats
+                or n != kinds["train"]["files"] or n_step != n
+                or not all(math.isfinite(v) for v in losses) or rel > FOLDER_FIRST_LOSS_TOL):
+            raise RuntimeError(f"imagenet_folder_train: stats {stats} (want {want_stats}), "
+                               f"{n} images, losses {losses}, first loss off by {rel}")
+        del model, optimizer, step, ref, first
+        torch.cuda.empty_cache()
+
+        # (b) the loader (eval) feeding the bf16 model
+        model32 = get_model("resnet50", seed=0)
+        model16 = get_model("resnet50", seed=0).to(torch.bfloat16)
+        cpu50 = get_model("resnet50", seed=0, device="cpu")
+        eval_loader = DeviceJpegLoader(val_ds.samples, FOLDER_BATCH, FOLDER_CROP,
+                                       train=False)
+        cpu_loader = DeviceJpegLoader(val_ds.samples, FOLDER_BATCH, FOLDER_CROP,
+                                      train=False, device="cpu")
+        with torch.inference_mode():
+            card_first = next(iter(eval_loader))
+            cpu_first = next(iter(cpu_loader))
+            input_err = float((card_first["image"].cpu() - cpu_first["image"]).abs().max())
+            input_tol = PRESET_INPUT_TOL
+            x = card_first["image"][:FOLDER_CHECKED]
+            check = check_logits("imagenet_folder_eval", x, x.cpu(), model32, cpu50,
+                                 model16)
+            outs = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for b in eval_loader:
+                outs.append(model16(b["image"].to(torch.bfloat16)))
+            torch.cuda.synchronize()
+            eval_s = time.perf_counter() - t0
+            n_eval, eval_batches = sum(o.shape[0] for o in outs), len(outs)
+        val_want = kinds["val"]["cmyk"] + kinds["val"]["png"]
+        emit("imagenet_folder_eval", batch=FOLDER_BATCH, images=n_eval,
+             batches=eval_batches, buckets_per_epoch=len(eval_loader.buckets),
+             stats=eval_loader.stats, images_per_s=n_eval / eval_s,
+             input_vs_cpu_loader_max_abs_err=input_err, input_tol=input_tol,
+             labels_equal=bool((card_first["label"].cpu() == cpu_first["label"]).all()),
+             logits_finite=all(bool(torch.isfinite(o).all()) for o in outs), **check)
+        if (input_err > input_tol or eval_loader.stats["dropped"]
+                or eval_loader.stats["reencode_fallback"] != val_want
+                or n_eval != kinds["val"]["files"]
+                or not all(bool(torch.isfinite(o).all()) for o in outs)):
+            raise RuntimeError(f"imagenet_folder_eval: input off the CPU loader's by "
+                               f"{input_err}, stats {eval_loader.stats}, {n_eval} images")
+        del cpu50, model32
+
+        # (c) ImageFolder + DataLoader + read_image + the preset, on threads
+        weights = ResNet50_Weights.DEFAULT
+        host_ds = ImageFolder(os.path.join(tmp.name, "val"),
+                              transform=weights.transforms(device="cpu"))
+        dl = DataLoader(host_ds, batch_size=FOLDER_BATCH, num_workers=decode_threads())
+        t0 = time.perf_counter()
+        n_host, finite, first_x = 0, True, None
+        with torch.inference_mode():
+            for xb, yb in dl:
+                logits = model16(xb.to(cuda, non_blocking=True).to(torch.bfloat16))
+                finite = finite and bool(torch.isfinite(logits).all())
+                n_host += yb.shape[0]
+                if first_x is None:
+                    first_x = xb
+            torch.cuda.synchronize()
+            host_s = time.perf_counter() - t0
+            raw = [read_image_card(p) for p, _ in host_ds.samples[:FOLDER_CHECKED]]
+            x_card = torch.stack([weights.transforms()(r) for r in raw]).cpu()
+        preset_err = float((x_card - first_x[:FOLDER_CHECKED]).abs().max())
+        emit("imagenet_folder_host", images=n_host, png=kinds["val"]["png"],
+             images_per_s=n_host / host_s, workers=decode_threads(),
+             card_preset_vs_cpu_preset_max_abs_err=preset_err, logits_finite=finite)
+        if n_host != kinds["val"]["files"] or not finite or not preset_err <= PRESET_INPUT_TOL:
+            raise RuntimeError(f"imagenet_folder_host: {n_host} images, finite {finite}, "
+                               f"the card's preset off the CPU's by {preset_err}")
+    finally:
+        tmp.cleanup()
+
+
+
+
+def read_image_card(path):
+    """The file decoded on the host (CMYK streams decode there only), on
+    the card."""
+    from vision_tpu_torch.io import ImageReadMode, read_image
+    from vision_tpu_torch.models._api import resolve_device
+
+    return read_image(path, ImageReadMode.RGB, device="cpu").to(resolve_device(None))
 
 
 def require_only(launches: dict, name: str, want: int, what: str) -> None:

@@ -123,18 +123,24 @@ def test_coefficients_equal_libjpeg_at_coef_limit(m):
 
 
 def test_progressive_stream_is_refused():
-    """A progressive stream (SOF2) is not read: the binding gives None, as
-    the JAX contract has it for an unsupported stream, and ``decode_jpeg``
-    raises naming the stream's type. libjpeg reads it (the JAX package's
-    coefficients path supports it)."""
+    """Arithmetic coding is what the codec refuses now: a hand-made SOF9
+    stream (a baseline stream's frame marker rewritten) gives code 2, the
+    binding None, and ``decode_jpeg`` raises naming it. A progressive
+    stream (SOF2), refused before, reads: its coefficients are libjpeg's."""
+    base = pil_jpeg(photo(), quality=75)
+    sof = base.index(b"\xff\xc0")
+    arithmetic = base[:sof + 1] + b"\xc9" + base[sof + 2:]
+    assert _codecs.jpeg_coefficients_native(arithmetic) is None
+    assert _codecs.jpeg_coefficients_code(arithmetic)[0] == 2
+    with pytest.raises(RuntimeError, match="arithmetic"):
+        decode_jpeg(arithmetic, device="cpu")
+    with pytest.raises(RuntimeError, match="arithmetic"):
+        jpeg_device.decode_jpeg_batch_device([arithmetic], device="cpu")
     data = pil_jpeg(photo(), quality=75, progressive=True)
-    assert jax_codecs().jpeg_coefficients_native(data) is not None
-    assert _codecs.jpeg_coefficients_native(data) is None
-    assert _codecs.jpeg_coefficients_code(data)[0] == 1
-    with pytest.raises(RuntimeError, match="progressive"):
-        decode_jpeg(data, device="cpu")
-    with pytest.raises(RuntimeError, match="progressive"):
-        jpeg_device.decode_jpeg_batch_device([data], device="cpu")
+    assert _codecs.jpeg_coefficients_code(data)[0] == 0
+    assert_same_coefficients(_codecs.jpeg_coefficients_native(data),
+                             jax_codecs().jpeg_coefficients_native(data))
+    assert decode_jpeg(data, device="cpu").shape == (3, 120, 160)
 
 
 def test_truncated_and_corrupt_streams_fail_cleanly():
@@ -286,8 +292,9 @@ def test_host_decode_against_torch_decode_coefs(subsampling, m):
 
 def test_codec_builds_atomically_from_concurrent_callers(tmp_path, monkeypatch):
     """Four threads build into an empty directory at once: each compiles
-    into a file of its own and renames it into place, so the library that
-    stands is whole and loads, and no temporary file is left."""
+    into a file of its own and renames it into place, so the libraries that
+    stand (the JPEG codec, and the PNG / GIF codec ``build`` makes beside
+    it) are whole and load, and no temporary file is left."""
     monkeypatch.setattr(_codecs, "build_dir", lambda: tmp_path)
     errors = []
 
@@ -304,7 +311,9 @@ def test_codec_builds_atomically_from_concurrent_callers(tmp_path, monkeypatch):
         t.join(timeout=300)
     assert not any(t.is_alive() for t in threads) and not errors
     built = sorted(p.name for p in tmp_path.iterdir())
-    assert built == [_codecs._lib_path().name]
+    assert built == sorted([_codecs._lib_path().name,
+                            _codecs.lib_path(_codecs._IMAGE_SOURCE).name])
     import ctypes
 
-    assert ctypes.CDLL(str(tmp_path / built[0])).vt_decode_jpeg
+    assert ctypes.CDLL(str(_codecs._lib_path())).vt_decode_jpeg
+    assert ctypes.CDLL(str(_codecs.lib_path(_codecs._IMAGE_SOURCE))).vt_png_decode

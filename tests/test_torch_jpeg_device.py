@@ -234,13 +234,21 @@ def test_exif_orientation_matches_jax(orientation):
 
 
 def test_decode_image_dispatches_on_magic_bytes():
+    """JPEG, PNG and GIF decode by their magic bytes (PNG and GIF equal to
+    ``vision_tpu``'s decoders); WebP still raises ``NotImplementedError``
+    naming the queue; other bytes raise."""
     data = pil_jpeg(photo(), quality=75)
     assert decode_image(data, device="cpu").shape == (3, 120, 160)
     assert decode_image(np.frombuffer(data, np.uint8), device="cpu").shape == (3, 120, 160)
-    for other in (b"\x89PNG\r\n\x1a\n" + bytes(20), b"GIF89a" + bytes(20),
-                  b"RIFF\x00\x00\x00\x00WEBPVP8 " + bytes(20)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            decode_image(other, device="cpu")
+    png, gif = io.BytesIO(), io.BytesIO()
+    PIL.Image.fromarray(photo(40, 56)).save(png, "PNG")
+    PIL.Image.fromarray(photo(40, 56)).quantize(64).save(gif, "GIF")
+    got = decode_image(png.getvalue(), device="cpu").permute(1, 2, 0).numpy()
+    np.testing.assert_array_equal(got, jimage.decode_png(png.getvalue()))
+    got = decode_image(gif.getvalue(), device="cpu").permute(1, 2, 0).numpy()
+    np.testing.assert_array_equal(got, jimage.decode_gif(gif.getvalue()))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        decode_image(b"RIFF\x00\x00\x00\x00WEBPVP8 " + bytes(20), device="cpu")
     with pytest.raises(RuntimeError, match="Unsupported image format"):
         decode_image(b"\x00" * 32, device="cpu")
 
@@ -288,14 +296,19 @@ def test_jpeg_frame_reads_the_codecs_size_and_sampling(name):
 
 
 def test_jpeg_frame_is_none_where_the_codec_reads_no_baseline_frame():
-    """Progressive, cut inside the header, not a JPEG: no frame, and the
-    batch decoders raise the codec's own error for the stream."""
+    """Arithmetic-coded, cut inside the header, not a JPEG: no frame, and
+    the batch decoders raise the codec's own error for the stream. A
+    progressive stream has its frame now, the codec's."""
     progressive = pil_jpeg(photo(), quality=75, progressive=True)
     good = pil_jpeg(photo(), quality=75)
-    for data in (progressive, good[:30], b"\xff\xd8\xff\xd9", b"GIF89a" + bytes(20)):
+    sof = good.index(b"\xff\xc0")
+    arithmetic = good[:sof + 1] + b"\xc9" + good[sof + 2:]
+    for data in (arithmetic, good[:30], b"\xff\xd8\xff\xd9", b"GIF89a" + bytes(20)):
         assert _codecs.jpeg_frame(data) is None
-    with pytest.raises(RuntimeError, match="progressive"):
-        jpeg_device.host_entropy_decode_batch([good, progressive])
+    _, _, samp, hw = _codecs.jpeg_coefficients_native(progressive)
+    assert _codecs.jpeg_frame(progressive) == (hw, samp)
+    with pytest.raises(RuntimeError, match="arithmetic"):
+        jpeg_device.host_entropy_decode_batch([good, arithmetic])
     with pytest.raises(RuntimeError, match="corrupt or truncated"):
         jpeg_device.host_decode_batch([good[:30]])
 

@@ -77,7 +77,12 @@ def test_import_pulls_in_no_jax():
         "vision_tpu_torch.transforms.v2._utils, "
         "vision_tpu_torch.transforms.v2.functional._meta, "
         "vision_tpu_torch.transforms.v2.functional._utils, "
-        "vision_tpu_torch.parallel.presets, vision_tpu_torch.parallel.video\n"
+        "vision_tpu_torch.parallel.presets, vision_tpu_torch.parallel.video, "
+        "vision_tpu_torch.io._image_codecs, vision_tpu_torch.io.device_loader, "
+        "vision_tpu_torch.datasets, vision_tpu_torch.datasets.folder, "
+        "vision_tpu_torch.datasets.imagenet, vision_tpu_torch.datasets.samplers, "
+        "vision_tpu_torch.datasets.utils, vision_tpu_torch.datasets.vision, "
+        "vision_tpu_torch.tools.imagenet_folder\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'vision_tpu', 'PIL')]\n"
         "print(bad)\n"
@@ -99,6 +104,11 @@ def test_no_source_imports_jax_or_vision_tpu():
     assert PKG / "tools" / "vit_train.py" in sources
     assert PKG / "tv_tensors" / "_tv_tensor.py" in sources
     assert PKG / "parallel" / "presets.py" in sources
+    assert PKG / "io" / "device_loader.py" in sources
+    assert PKG / "io" / "_image_codecs.py" in sources
+    assert PKG / "datasets" / "folder.py" in sources
+    assert PKG / "datasets" / "samplers.py" in sources
+    assert PKG / "tools" / "imagenet_folder.py" in sources
     for src in sources:
         assert not pattern.search(src.read_text()), src
 
@@ -121,6 +131,10 @@ def test_default_device_raises_without_cuda(monkeypatch):
         vision_tpu_torch.io.decode_batch([])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         get_model("vit_b_16")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        vision_tpu_torch.io.decode_png(b"\x89PNG")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        vision_tpu_torch.io.DeviceJpegLoader([], 1)
 
 
 def test_cpu_tensors_take_the_plain_path():

@@ -1,6 +1,6 @@
-// Baseline JPEG codec of the port, in plain C++17 with no library: the
-// counterpart of the JPEG half of vision_tpu/csrc/image_codecs.cpp, which
-// links libjpeg. The machine with the card has no libjpeg, libpng or PIL,
+// JPEG codec of the port, in plain C++17 with no library: the counterpart
+// of the JPEG half of vision_tpu/csrc/image_codecs.cpp, which links
+// libjpeg. The machine with the card has no libjpeg, libpng or PIL,
 // so the port carries its own.
 //
 // C ABI (bound with ctypes by vision_tpu_torch/io/_codecs.py):
@@ -10,7 +10,10 @@
 //                         outputs as vtpu_jpeg_coefficients);
 //   vt_decode_jpeg        the whole decode on the host, in the float
 //                         arithmetic of the device path
-//                         (vision_tpu_torch/io/jpeg_device.py);
+//                         (vision_tpu_torch/io/jpeg_device.py); a
+//                         4-component stream (CMYK, or YCCK after the
+//                         APP14 Adobe transform flag) gives RGB as Pillow's
+//                         convert("RGB") of libjpeg's CMYK output does;
 //   vt_encode_jpeg        a baseline encoder with libjpeg's defaults
 //                         (Annex K tables scaled by IJG's quality formula,
 //                         2x2/1x1/1x1 sampling, the standard Huffman
@@ -20,12 +23,16 @@
 // buffers instead (a batch's slot), and allocate nothing once their thread
 // has decoded an image of that size.
 //
-// Streams: baseline sequential Huffman (SOF0, and SOF1 with 8-bit
-// samples), 1 or 3 components, sampling factors 1 or 2, restart intervals,
-// interleaved or single-component scans. Progressive, arithmetic-coded,
-// lossless or hierarchical, 12-bit and 2- or 4-component streams return a
-// distinct positive code; a corrupt or truncated stream returns -1. No
-// read goes past `len`.
+// Streams: Huffman-coded sequential (SOF0, and SOF1 with 8-bit samples)
+// and progressive (SOF2: DC first and refinement scans, AC first scans
+// with EOB runs, AC refinement with correction bits, spectral selection
+// and successive approximation) JPEG, 1 or 3 components (4 on the pixel
+// path), sampling factors 1 or 2, restart intervals in every scan type,
+// interleaved or single-component scans. Arithmetic-coded, lossless or
+// hierarchical, 12-bit and 2-component streams (and 4-component ones on
+// the coefficient path, as libjpeg's jpeg_read_coefficients leaves them to
+// its caller's colour conversion) return a distinct positive code; a
+// corrupt or truncated stream returns -1. No read goes past `len`.
 //
 // Build: g++ -O2 -shared -fPIC -std=c++17 -ffp-contract=off jpeg_codec.cpp
 // (-ffp-contract=off: every float product and sum rounds on its own, as
@@ -44,7 +51,6 @@ enum Status {
   kOk = 0,
   kCorrupt = -1,
   kNoMemory = -2,
-  kProgressive = 1,
   kArithmetic = 2,
   kLossless = 3,
   kPrecision = 4,
@@ -214,9 +220,13 @@ struct Decoder {
   int restart_interval = 0;
   int width = 0, height = 0, ncomp = 0;
   int hmax = 1, vmax = 1;
-  Component comp[3];
+  Component comp[4];
   bool frame = false;
+  bool progressive = false;
+  bool four = false;       // 4 components read (the pixel path)
+  int adobe_transform = -1;  // APP14 "Adobe" transform flag, -1: none
   int scans = 0;
+  bool eoi = false;
 
   int u16(size_t at) const { return (data[at] << 8) | data[at + 1]; }
 
@@ -274,7 +284,7 @@ struct Decoder {
     height = u16(seg + 1);
     width = u16(seg + 3);
     ncomp = data[seg + 5];
-    if (ncomp != 1 && ncomp != 3) return kComponents;
+    if (ncomp != 1 && ncomp != 3 && !(four && ncomp == 4)) return kComponents;
     if (height == 0 || width == 0) return kCorrupt;  // DNL is not supported
     if (seg + 6 + 3 * (size_t)ncomp > seg_end) return kCorrupt;
     hmax = vmax = 1;
@@ -339,6 +349,95 @@ struct Decoder {
     return true;
   }
 
+  // progressive scans (ITU T.81 G.1.2, in libjpeg's jdphuff.c order)
+  bool dc_first(BitReader& br, Component& c, int16_t* blk, int al) {
+    const int t = decode_symbol(br, dc[c.td]);
+    if (t < 0 || t > 16) return false;
+    const int diff = t ? extend(br.get(t), t) : 0;
+    c.dc_pred += diff;
+    blk[0] = (int16_t)(c.dc_pred * (1 << al));
+    return true;
+  }
+
+  static void dc_refine(BitReader& br, int16_t* blk, int al) {
+    if (br.get(1)) blk[0] = (int16_t)(blk[0] | (1 << al));
+  }
+
+  bool ac_first(BitReader& br, const Component& c, int16_t* blk, int ss,
+                int se, int al, long& eobrun) {
+    if (eobrun > 0) {
+      --eobrun;
+      return true;
+    }
+    const Huffman& h = ac[c.ta];
+    for (int k = ss; k <= se; ++k) {
+      const int rs = decode_symbol(br, h);
+      if (rs < 0) return false;
+      const int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        if (k > se) return false;
+        blk[kNatural[k]] = (int16_t)(extend(br.get(s), s) * (1 << al));
+      } else if (r == 15) {
+        k += 15;  // sixteen zeros
+      } else {
+        eobrun = 1L << r;  // this block and eobrun - 1 more end here
+        if (r) eobrun += br.get(r);
+        --eobrun;
+        break;
+      }
+    }
+    return true;
+  }
+
+  // one correction bit for a coefficient that is already non-zero: its
+  // magnitude grows by 2^al where the bit is set and that bit is not yet
+  static inline void correct(BitReader& br, int16_t* coef, int p1) {
+    if (br.get(1) && (*coef & p1) == 0)
+      *coef = (int16_t)(*coef >= 0 ? *coef + p1 : *coef - p1);
+  }
+
+  bool ac_refine(BitReader& br, const Component& c, int16_t* blk, int ss,
+                 int se, int al, long& eobrun) {
+    const int p1 = 1 << al;
+    int k = ss;
+    if (eobrun == 0) {
+      const Huffman& h = ac[c.ta];
+      for (; k <= se; ++k) {
+        const int rs = decode_symbol(br, h);
+        if (rs < 0) return false;
+        int r = rs >> 4, s = rs & 15;
+        if (s) {  // a newly non-zero coefficient of magnitude 2^al
+          s = br.get(1) ? p1 : -p1;
+        } else if (r != 15) {
+          eobrun = 1L << r;  // the rest of the band, here and in later blocks
+          if (r) eobrun += br.get(r);
+          break;
+        }
+        // skip r zero coefficients (and the new one's place), correcting
+        // the non-zero ones on the way
+        do {
+          int16_t* coef = blk + kNatural[k];
+          if (*coef != 0) {
+            correct(br, coef, p1);
+          } else if (--r < 0) {
+            break;
+          }
+          ++k;
+        } while (k <= se);
+        if (s) blk[kNatural[k]] = (int16_t)s;
+      }
+    }
+    if (eobrun > 0) {  // inside an EOB run: correction bits only
+      for (; k <= se; ++k) {
+        int16_t* coef = blk + kNatural[k];
+        if (*coef != 0) correct(br, coef, p1);
+      }
+      --eobrun;
+    }
+    return true;
+  }
+
   // after the last MCU of an interval: the RSTn marker must follow
   bool restart(BitReader& br) {
     pos = (size_t)(br.p - data);
@@ -356,7 +455,26 @@ struct Decoder {
     const int ns = data[seg];
     if (ns < 1 || ns > ncomp || seg + 1 + 2 * (size_t)ns + 3 > seg_end)
       return kCorrupt;
-    Component* sc[3];
+    const size_t after = seg + 1 + 2 * ns;
+    const int ss = data[after], se = data[after + 1];
+    const int ah = data[after + 2] >> 4, al = data[after + 2] & 15;
+    // which tables the scan reads: a progressive DC refinement none, a DC
+    // first scan the DC table, an AC scan the AC table
+    bool need_dc = true, need_ac = true;
+    if (progressive) {
+      if (ss == 0) {
+        if (se != 0) return kCorrupt;
+        need_dc = ah == 0;
+        need_ac = false;
+      } else {
+        if (se < ss || se > 63 || ns != 1) return kCorrupt;
+        need_dc = false;
+      }
+      if ((ah != 0 && al != ah - 1) || al > 13) return kCorrupt;
+    } else if (ss != 0 || se != 63 || ah != 0 || al != 0) {
+      return kCorrupt;
+    }
+    Component* sc[4];
     int blocks_per_mcu = 0;
     for (int i = 0; i < ns; ++i) {
       const int id = data[seg + 1 + 2 * i];
@@ -367,7 +485,8 @@ struct Decoder {
       if (!c) return kCorrupt;
       c->td = tables >> 4;
       c->ta = tables & 15;
-      if (c->td > 3 || c->ta > 3 || !dc[c->td].defined || !ac[c->ta].defined)
+      if (c->td > 3 || c->ta > 3 || (need_dc && !dc[c->td].defined) ||
+          (need_ac && !ac[c->ta].defined))
         return kCorrupt;
       if (!qt_defined[c->tq]) return kCorrupt;
       c->dc_pred = 0;
@@ -375,13 +494,12 @@ struct Decoder {
       blocks_per_mcu += ns == 1 ? 1 : c->h * c->v;
     }
     if (blocks_per_mcu > 10) return kCorrupt;
-    const size_t after = seg + 1 + 2 * ns;
-    const int ss = data[after], se = data[after + 1], ahal = data[after + 2];
-    if (ss != 0 || se != 63 || ahal != 0) return kCorrupt;
 
     BitReader br;
     br.p = data + seg_end;
     br.end = data + len;
+    // a single-component scan covers the component's own blocks,
+    // ceil(comp_w / 8) x ceil(comp_h / 8), not the MCU-padded grid
     int mcus_x, mcus_y;
     if (ns == 1) {
       mcus_x = sc[0]->bw;
@@ -390,12 +508,25 @@ struct Decoder {
       mcus_x = (width + 8 * hmax - 1) / (8 * hmax);
       mcus_y = (height + 8 * vmax - 1) / (8 * vmax);
     }
+    // 0: sequential; 1, 2: DC first, refinement; 3, 4: AC first, refinement
+    const int kind = !progressive ? 0 : (ss == 0 ? 1 : 3) + (ah != 0);
+    long eobrun = 0;
+    auto block = [&](Component& c, int16_t* blk) -> bool {
+      switch (kind) {
+        case 0: return decode_block(br, c, blk);
+        case 1: return dc_first(br, c, blk, al);
+        case 2: dc_refine(br, blk, al); return true;
+        case 3: return ac_first(br, c, blk, ss, se, al, eobrun);
+        default: return ac_refine(br, c, blk, ss, se, al, eobrun);
+      }
+    };
     const long total = (long)mcus_x * mcus_y;
     long todo = restart_interval;
     for (long n = 0; n < total; ++n) {
       if (restart_interval) {
         if (todo == 0) {
           if (br.overrun() || !restart(br)) return kCorrupt;
+          eobrun = 0;  // an EOB run ends with its interval
           todo = restart_interval;
         }
         --todo;
@@ -403,15 +534,15 @@ struct Decoder {
       const int mx = (int)(n % mcus_x), my = (int)(n / mcus_x);
       if (ns == 1) {
         Component& c = *sc[0];
-        int16_t* block = c.coef + ((size_t)my * c.bw_alloc + mx) * 64;
-        if (!decode_block(br, c, block)) return kCorrupt;
+        if (!block(c, c.coef + ((size_t)my * c.bw_alloc + mx) * 64))
+          return kCorrupt;
       } else {
         for (int i = 0; i < ns; ++i) {
           Component& c = *sc[i];
           for (int y = 0; y < c.v; ++y)
             for (int x = 0; x < c.h; ++x) {
               const size_t by = (size_t)my * c.v + y, bx = (size_t)mx * c.h + x;
-              if (!decode_block(br, c, c.coef + (by * c.bw_alloc + bx) * 64))
+              if (!block(c, c.coef + (by * c.bw_alloc + bx) * 64))
                 return kCorrupt;
             }
         }
@@ -428,7 +559,11 @@ struct Decoder {
     pos = 2;
     for (;;) {
       const int m = next_marker();
-      if (m == 0 || m == 0xD9) break;  // end of data, or EOI
+      if (m == 0xD9) {
+        eoi = true;
+        break;
+      }
+      if (m == 0) break;  // the end of the data
       if (m == 0x01 || (m >= 0xD0 && m <= 0xD7)) continue;  // no length
       if (m == 0xD8) return kCorrupt;
       if (pos + 2 > len) return kCorrupt;
@@ -439,11 +574,10 @@ struct Decoder {
       switch (m) {
         case 0xC0:
         case 0xC1:
+        case 0xC2:
+          progressive = m == 0xC2;
           rc = read_sof(seg, seg_end);
           break;
-        case 0xC2:
-        case 0xC6:
-          return kProgressive;
         case 0xC9:
         case 0xCA:
         case 0xCB:
@@ -454,6 +588,7 @@ struct Decoder {
           return kArithmetic;
         case 0xC3:
         case 0xC5:
+        case 0xC6:
         case 0xC7:
           return kLossless;
         case 0xC4:
@@ -471,13 +606,21 @@ struct Decoder {
           rc = read_sos(seg, seg_end);
           if (rc != kOk) return rc;
           continue;  // pos is past the scan's data
+        case 0xEE:  // APP14: Adobe's colour transform flag
+          if (seg_len >= 14 && memcmp(data + seg, "Adobe", 5) == 0)
+            adobe_transform = data[seg + 11];
+          break;
         default:
-          break;  // APPn, COM and the rest: skipped
+          break;  // other APPn, COM and the rest: skipped
       }
       if (rc != kOk) return rc;
       pos = seg_end;
     }
     if (!frame || scans == 0) return kCorrupt;
+    // a sequential stream whose every MCU is there may lack its EOI; no
+    // count of scans says when a progressive one is whole, so its EOI must
+    // be there: a stream cut between two scans is a truncated one
+    if (progressive && !eoi) return kCorrupt;
     return kOk;
   }
 };
@@ -829,20 +972,20 @@ int decode_pixels(const Decoder& d, int m, uint8_t* px) {
   const int w = (int)(((long)d.width * m + 7) / 8);
   float b[64];
   idct_basis(m, b);
-  size_t sizes[3] = {0, 0, 0}, total = 0;
+  size_t sizes[4] = {0, 0, 0, 0}, total = 0;
+  int cpw = 0;  // the widest plane but the first
   for (int ci = 0; ci < d.ncomp; ++ci) {
     sizes[ci] = (size_t)d.comp[ci].bh * m * d.comp[ci].bw * m;
     total += sizes[ci];
+    if (ci > 0 && d.comp[ci].bw * m > cpw) cpw = d.comp[ci].bw * m;
   }
-  const int cpw = d.ncomp == 3
-      ? (d.comp[1].bw > d.comp[2].bw ? d.comp[1].bw : d.comp[2].bw) * m : 0;
   try {
     scratch.planes.resize(total);
-    scratch.rows.resize((size_t)cpw + 2 * (size_t)w);
+    scratch.rows.resize((size_t)cpw + 3 * (size_t)w);
   } catch (const std::bad_alloc&) {
     return kNoMemory;
   }
-  float* planes[3] = {scratch.planes.data(), nullptr, nullptr};
+  float* planes[4] = {scratch.planes.data(), nullptr, nullptr, nullptr};
   for (int ci = 1; ci < d.ncomp; ++ci) planes[ci] = planes[ci - 1] + sizes[ci - 1];
   for (int ci = 0; ci < d.ncomp; ++ci)
     plane_for(m, d.comp[ci], d.qt[d.comp[ci].tq], b, planes[ci]);
@@ -853,22 +996,48 @@ int decode_pixels(const Decoder& d, int m, uint8_t* px) {
     return kOk;
   }
   float* tmp = scratch.rows.data();
-  float* cb = tmp + cpw;
-  float* cr = cb + w;
+  float* rows[3] = {tmp + cpw, tmp + cpw + w, tmp + cpw + 2 * (size_t)w};
+  const float *cb = rows[0], *cr = rows[1], *k4 = rows[2];
+  // a 4-component stream: CMYK as stored, or YCCK (Adobe transform 2),
+  // whose first three planes are YCbCr of the inverted CMY
+  const bool ycck = d.ncomp == 4 && d.adobe_transform == 2;
   for (int i = 0; i < h; ++i) {
     const float* y = planes[0] + (size_t)i * ypw;
-    float* rows[2] = {cb, cr};
-    for (int k = 0; k < 2; ++k) {
-      const Component& c = d.comp[k + 1];
-      upsampled_row(planes[k + 1], c.bh * m, c.bw * m, d.vmax / c.v,
-                    d.hmax / c.h, i, w, tmp, rows[k]);
+    for (int k = 1; k < d.ncomp; ++k) {
+      const Component& c = d.comp[k];
+      upsampled_row(planes[k], c.bh * m, c.bw * m, d.vmax / c.v,
+                    d.hmax / c.h, i, w, tmp, rows[k - 1]);
     }
     uint8_t* o = px + (size_t)i * w * 3;
+    if (d.ncomp == 3) {
+      for (int j = 0; j < w; ++j) {
+        const float yy = y[j], u = cb[j] - 128.f, v = cr[j] - 128.f;
+        o[3 * j] = to_u8(yy + 1.402f * v);
+        o[3 * j + 1] = to_u8(yy - 0.344136f * u - 0.714136f * v);
+        o[3 * j + 2] = to_u8(yy + 1.772f * u);
+      }
+      continue;
+    }
     for (int j = 0; j < w; ++j) {
-      const float yy = y[j], u = cb[j] - 128.f, v = cr[j] - 128.f;
-      o[3 * j] = to_u8(yy + 1.402f * v);
-      o[3 * j + 1] = to_u8(yy - 0.344136f * u - 0.714136f * v);
-      o[3 * j + 2] = to_u8(yy + 1.772f * u);
+      // Pillow's view of libjpeg's CMYK output: every sample inverted
+      // (its "CMYK;I" raw mode), then its cmyk2rgb in integers
+      int inv[3];
+      if (ycck) {
+        const float yy = y[j], u = cb[j] - 128.f, v = cr[j] - 128.f;
+        inv[0] = to_u8(yy + 1.402f * v);
+        inv[1] = to_u8(yy - 0.344136f * u - 0.714136f * v);
+        inv[2] = to_u8(yy + 1.772f * u);
+      } else {
+        inv[0] = 255 - to_u8(y[j]);
+        inv[1] = 255 - to_u8(cb[j]);
+        inv[2] = 255 - to_u8(cr[j]);
+      }
+      const int nk = to_u8(k4[j]);
+      for (int c = 0; c < 3; ++c) {
+        const int t = inv[c] * nk + 128;
+        const int v = nk - (((t >> 8) + t) >> 8);
+        o[3 * j + c] = (uint8_t)(v < 0 ? 0 : v);
+      }
     }
   }
   return kOk;
@@ -877,9 +1046,10 @@ int decode_pixels(const Decoder& d, int m, uint8_t* px) {
 int decode_stream(Decoder* d, const uint8_t* buf, size_t len, bool pixels) {
   d->data = buf;
   d->len = len;
+  d->four = pixels;
   const int rc = d->run();
   if (rc != kOk) return rc;
-  if (pixels && d->ncomp == 3 &&
+  if (pixels && d->ncomp >= 3 &&
       (d->comp[0].h != d->hmax || d->comp[0].v != d->vmax))
     return kSampling;  // chroma sampled finer than luma
   return kOk;

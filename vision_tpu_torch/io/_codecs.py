@@ -1,9 +1,10 @@
 """ctypes bindings of the port's JPEG codec (``csrc/jpeg_codec.cpp``; the
-counterpart of ``vision_tpu/io/_codecs.py``'s JPEG half).
+counterpart of ``vision_tpu/io/_codecs.py``'s JPEG half). The PNG and GIF
+half is ``io/_image_codecs.py``, built by :func:`build_source` too.
 
-The codec is plain C++17 with no library, so the host compiler that
-``nvcc`` needs already (``g++``) builds it anywhere: on first use it is
-compiled into ``build/kernels/`` at the root of the checkout, its name
+The codecs are plain C++17 with no library, so the host compiler that
+``nvcc`` needs already (``g++``) builds them anywhere: on first use each
+is compiled into ``build/kernels/`` at the root of the checkout, its name
 keyed by a hash of the source and the flags, through a temporary file and
 ``os.replace``, so that processes building at once never load half a file.
 A failed build raises with the compiler's output; there is no fallback.
@@ -29,6 +30,7 @@ from vision_tpu_torch._kernels import build_dir
 
 __all__ = [
     "build",
+    "build_source",
     "decode_jpeg_native",
     "encode_jpeg_native",
     "has_native",
@@ -38,20 +40,19 @@ __all__ = [
 ]
 
 _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "jpeg_codec.cpp"
+_IMAGE_SOURCE = _SOURCE.with_name("image_codecs.cpp")
 _FLAGS = ["-O2", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off"]
 
 # the codec's return codes, as jpeg_codec.cpp's Status
 _STREAM_ERRORS = {
     -1: "a corrupt or truncated JPEG stream",
     -2: "out of memory",
-    1: "a progressive JPEG (SOF2), which the port's decoder does not read yet "
-       "(ROADMAP.md, queue 1)",
     2: "an arithmetic-coded JPEG, which the port's decoder does not read",
     3: "a lossless or hierarchical JPEG, which the port's decoder does not read",
     4: "a JPEG of other than 8-bit samples (12-bit), which the port's decoder "
        "does not read",
-    5: "a JPEG of other than 1 or 3 components (CMYK), which the port's "
-       "decoder does not read",
+    5: "a JPEG of other than 1 or 3 components (CMYK: its coefficients are "
+       "not read, only its pixels on the host), or of 2",
     6: "a JPEG with sampling factors outside 1..2, or chroma sampled finer "
        "than luma, which the port's decoder does not read",
     7: "a JPEG of another size than the buffer given for it",
@@ -70,35 +71,46 @@ class _VtImage(ctypes.Structure):
     ]
 
 
-def _lib_path() -> Path:
+def lib_path(source: Path) -> Path:
+    """Where :func:`build_source` puts the library of ``source``."""
     digest = hashlib.sha256(
-        _SOURCE.read_bytes() + " ".join(_FLAGS).encode()).hexdigest()[:16]
-    return build_dir() / f"libjpeg_codec-{digest}.so"
+        source.read_bytes() + " ".join(_FLAGS).encode()).hexdigest()[:16]
+    return build_dir() / f"lib{source.stem}-{digest}.so"
 
 
-def build() -> float:
-    """Compile the codec if it is not built yet. Returns the seconds spent
-    (0.0 when it was built already)."""
-    out = _lib_path()
+def _lib_path() -> Path:
+    return lib_path(_SOURCE)
+
+
+def build_source(source: Path) -> float:
+    """Compile one codec source if it is not built yet. Returns the seconds
+    spent (0.0 when it was built already)."""
+    out = lib_path(source)
     if out.exists():
         return 0.0
     t0 = time.perf_counter()
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     proc = subprocess.run(
-        ["g++", *_FLAGS, "-o", str(tmp), str(_SOURCE)],
+        ["g++", *_FLAGS, "-o", str(tmp), str(source)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed for {_SOURCE.name}:\n{proc.stdout}")
+        raise RuntimeError(f"g++ failed for {source.name}:\n{proc.stdout}")
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return time.perf_counter() - t0
+
+
+def build() -> float:
+    """Compile both codecs (JPEG, and PNG / GIF) if they are not built
+    yet. Returns the seconds spent (0.0 when they were built already)."""
+    return sum(build_source(src) for src in (_SOURCE, _IMAGE_SOURCE))
 
 
 def _load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            build()
+            build_source(_SOURCE)
             lib = ctypes.CDLL(str(_lib_path()))
             p, i, sz = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
             ip = ctypes.POINTER(ctypes.c_int)
@@ -147,19 +159,20 @@ def _into(arr: np.ndarray, dtype) -> int:
     return arr.ctypes.data
 
 
-# frame types the codec refuses (progressive, lossless, hierarchical,
-# arithmetic-coded): a stream whose first frame header is one of these
-_OTHER_SOF = frozenset((0xC2, 0xC3, 0xC5, 0xC6, 0xC7, *range(0xC9, 0xD0)))
+# frame types the codec refuses (lossless, hierarchical, arithmetic-coded):
+# a stream whose first frame header is one of these
+_OTHER_SOF = frozenset((0xC3, 0xC5, 0xC6, 0xC7, *range(0xC9, 0xD0)))
 
 
 def jpeg_frame(data) -> Optional[Tuple[Tuple[int, int], List[Tuple[int, int]]]]:
-    """``((H, W), [(h_samp, v_samp), ...])`` from a stream's baseline frame
-    header (SOF0 or SOF1), read without decoding: the markers are walked as
-    the codec walks them. None where no such header that the codec reads
-    comes before the first scan (not a JPEG, a truncated header, another
-    frame type, 12-bit samples, other than 1 or 3 components, sampling
-    outside 1..2); the decode then says why. A header that parses does not
-    make the stream decodable."""
+    """``((H, W), [(h_samp, v_samp), ...])`` from a stream's frame header
+    (SOF0, SOF1 or SOF2: sequential and progressive streams group and
+    bucket alike), read without decoding: the markers are walked as the
+    codec walks them. None where no such header that the codec reads comes
+    before the first scan (not a JPEG, a truncated header, another frame
+    type, 12-bit samples, other than 1, 3 or 4 components, sampling outside
+    1..2); the decode then says why. A header that parses does not make the
+    stream decodable: a 4-component one (CMYK) decodes on the host only."""
     data = _bytes(data)
     n = len(data)
     if n < 4 or data[0] != 0xFF or data[1] != 0xD8:
@@ -182,14 +195,14 @@ def jpeg_frame(data) -> Optional[Tuple[Tuple[int, int], List[Tuple[int, int]]]]:
         seg_len = (data[pos] << 8) | data[pos + 1]
         if seg_len < 2 or pos + seg_len > n:
             return None
-        if m in (0xC0, 0xC1):
+        if m in (0xC0, 0xC1, 0xC2):
             seg = pos + 2
             if seg_len < 8 or data[seg] != 8:
                 return None
             h = (data[seg + 1] << 8) | data[seg + 2]
             w = (data[seg + 3] << 8) | data[seg + 4]
             ncomp = data[seg + 5]
-            if ncomp not in (1, 3) or not h or not w or seg_len < 8 + 3 * ncomp:
+            if ncomp not in (1, 3, 4) or not h or not w or seg_len < 8 + 3 * ncomp:
                 return None
             samp = [(data[seg + 7 + 3 * i] >> 4, data[seg + 7 + 3 * i] & 15)
                     for i in range(ncomp)]
@@ -215,8 +228,10 @@ def jpeg_coefficients_code(data, coef_limit: int = 0, out=None):
         ptrs = (ctypes.POINTER(ctypes.c_int16) * 3)()
         rc = lib.vt_jpeg_coefficients(*head, ptrs)
     else:
-        dst = (ctypes.c_void_p * 3)(*[_into(a, np.int16) for a in out])
-        caps = (ctypes.c_size_t * 3)(*[a.size for a in out])
+        # room for 4: a CMYK frame's batch holds four arrays, which the
+        # codec refuses before it writes any
+        dst = (ctypes.c_void_p * 4)(*[_into(a, np.int16) for a in out])
+        caps = (ctypes.c_size_t * 4)(*[a.size for a in out])
         rc = lib.vt_jpeg_coefficients_to(*head, dst, caps)
     if rc != 0:
         return rc, None
@@ -241,23 +256,26 @@ def jpeg_coefficients_code(data, coef_limit: int = 0, out=None):
 
 
 def jpeg_coefficients_native(data, coef_limit: int = 0, out=None):
-    """Entropy-decode a baseline JPEG to its quantised DCT coefficients:
+    """Entropy-decode a sequential or progressive JPEG to its quantised DCT
+    coefficients (a progressive stream's scans accumulate into the same
+    buffer, as libjpeg's ``jpeg_read_coefficients`` leaves them):
     ``(coefs, qtabs, samp, (H, W))`` as ``vision_tpu``'s
     ``jpeg_coefficients_native`` returns them. ``coefs[ci]`` is int16
     ``(blocks_h, blocks_w, M*M)`` in natural order (M = ``coef_limit`` in
     1..7, else 8: the top-left MxM of each block), ``qtabs[ci]`` the uint16
     ``(64,)`` table, ``samp[ci]`` ``(h_samp, v_samp)``. With ``out`` (one
     int16 array a component, of those shapes) the coefficients are written
-    there. None for a stream the decoder does not read (progressive,
-    arithmetic-coded, 12-bit, CMYK), a corrupt one, or one of another
-    geometry than ``out``; :func:`jpeg_coefficients_code` says which."""
+    there. None for a stream the decoder does not read (arithmetic-coded,
+    12-bit, CMYK), a corrupt one, or one of another geometry than ``out``;
+    :func:`jpeg_coefficients_code` says which."""
     return jpeg_coefficients_code(data, coef_limit, out)[1]
 
 
 def decode_jpeg_native(data, coef_limit: int = 0,
                        out: Optional[np.ndarray] = None) -> np.ndarray:
     """The whole decode on the host: ``(H', W', C)`` uint8, C = 1 for a
-    grey stream and 3 (RGB) otherwise, H' = ceil(H*M/8) (M as in
+    grey stream and 3 (RGB) otherwise (a CMYK or YCCK stream converted as
+    Pillow's ``convert("RGB")`` converts libjpeg's output), H' = ceil(H*M/8) (M as in
     :func:`jpeg_coefficients_native`); written into ``out`` where it is
     given, which must have that shape. Raises ``RuntimeError`` naming the
     stream's type where the decoder does not read it."""

@@ -1,6 +1,7 @@
 """Image IO of the port (counterpart of ``vision_tpu/io/image.py``): JPEG
-through the port's own codec (``csrc/jpeg_codec.cpp``), no PIL and no
-library fallback.
+(sequential and progressive, CMYK on the host) through the port's own codec
+(``csrc/jpeg_codec.cpp``), PNG and GIF through ``csrc/image_codecs.cpp``;
+no PIL and no library fallback.
 
 Images are CHW uint8 tensors, the port's layout (the JAX package returns
 HWC arrays). ``decode_jpeg`` decodes on the card unless it is given
@@ -9,7 +10,8 @@ HWC arrays). ``decode_jpeg`` decodes on the card unless it is given
 pass and the card the rest (``jpeg_device.decode_jpeg_batch_device``).
 Both give the same pixels within one count. A list is decoded on host
 threads (``jpeg_device.decode_pool``), one batch for each frame size and
-sampling.
+sampling. PNG and GIF decode on the host and land on ``device`` (the card
+unless the caller asks for the CPU). WebP is not read yet.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
-from vision_tpu_torch.io import _codecs, _exif
+from vision_tpu_torch.io import _codecs, _exif, _image_codecs
 from vision_tpu_torch.io.jpeg_device import (
     decode_jpeg_batch_device,
     group_by_frame,
@@ -31,13 +33,19 @@ from vision_tpu_torch.models._api import resolve_device
 
 __all__ = [
     "ImageReadMode",
+    "decode_gif",
     "decode_image",
     "decode_jpeg",
+    "decode_png",
+    "decode_png16",
+    "decode_webp",
     "encode_jpeg",
+    "encode_png",
     "read_file",
     "read_image",
     "write_file",
     "write_jpeg",
+    "write_png",
 ]
 
 Device = Union[str, torch.device, None]
@@ -154,9 +162,11 @@ def decode_jpeg(
     channel under ``UNCHANGED``), with every mode. ``scale=(M, 8)``, M in
     1..7, decodes at M/8 size from the top-left M x M coefficients on
     either device. ``apply_exif_orientation`` applies the APP1 orientation
-    tag. A stream the decoder does not read (progressive,
-    arithmetic-coded, 12-bit, CMYK) or a corrupt one raises
-    ``RuntimeError`` naming it."""
+    tag. Progressive streams read as sequential ones do. A CMYK (or YCCK)
+    stream decodes on the host only, to RGB as ``vision_tpu``'s fallback
+    (Pillow's ``convert("RGB")``) gives it; on the card it raises. A stream
+    the decoder does not read (arithmetic-coded, 12-bit) or a corrupt one
+    raises ``RuntimeError`` naming it."""
     device = resolve_device(device)
     coef_limit = _coef_limit(scale)
     is_list = isinstance(data, (list, tuple))
@@ -180,6 +190,63 @@ def decode_jpeg(
     return out if is_list else out[0]
 
 
+def _hwc(arr: np.ndarray) -> torch.Tensor:
+    """``(..., H, W, C)`` numpy -> ``(..., C, H, W)`` contiguous tensor."""
+    return torch.from_numpy(np.ascontiguousarray(arr)).movedim(-1, -3).contiguous()
+
+
+def decode_png(
+    data,
+    mode: ImageReadMode = ImageReadMode.UNCHANGED,
+    apply_exif_orientation: bool = False,
+    device: Device = None,
+) -> torch.Tensor:
+    """A PNG to CHW uint8 (reference ``io/image.py:93``; ``vision_tpu``'s
+    ``decode_png``): palettes and grey of 1-4 bits expanded, ``tRNS`` as an
+    alpha channel, 16-bit samples cut to their high byte, Adam7 streams
+    de-interlaced; then ``mode``, and the eXIf chunk's orientation with
+    ``apply_exif_orientation``. Decoded on the host, returned on
+    ``device`` (None: the card)."""
+    device = resolve_device(device)
+    data = _as_bytes(data)
+    img = _apply_mode(_hwc(_image_codecs.decode_png_native(data)), mode)
+    if apply_exif_orientation:
+        img = _exif.exif_orientation_transform(
+            img, _exif.parse_png_exif_orientation(data))
+    return img.to(device)
+
+
+def decode_png16(data, device: Device = None) -> torch.Tensor:
+    """A 16-bit PNG to CHW ``torch.uint16`` (``vision_tpu``'s
+    ``decode_png16``; the reference's ``decode_png`` keeps 16 bits): a
+    ``tRNS`` colour gives an alpha channel of 0 or 65535. Another depth
+    raises ``RuntimeError``."""
+    device = resolve_device(device)
+    return _hwc(_image_codecs.decode_png_native(_as_bytes(data),
+                                                wide=True)).to(device)
+
+
+def decode_gif(data, device: Device = None) -> torch.Tensor:
+    """A GIF to uint8 RGB (reference ``io/image.py:362``; ``vision_tpu``'s
+    ``decode_gif``): ``[N, 3, H, W]``, every frame composed on the logical
+    screen (transparency, disposal), or ``[3, H, W]`` for one frame."""
+    device = resolve_device(device)
+    frames = _image_codecs.decode_gif_native(_as_bytes(data))
+    out = _hwc(frames)
+    return (out[0] if out.shape[0] == 1 else out).to(device)
+
+
+_WEBP_QUEUED = ("WebP decoding (VP8 lossy and VP8L lossless) is not in the "
+                "port yet (ROADMAP.md queue 1: WebP)")
+
+
+def decode_webp(data, mode: ImageReadMode = ImageReadMode.UNCHANGED,
+                device: Device = None) -> torch.Tensor:
+    """reference ``io/image.py:383``: not read yet, raises
+    ``NotImplementedError``."""
+    raise NotImplementedError(_WEBP_QUEUED)
+
+
 _JPEG_MAGIC = b"\xff\xd8\xff"
 _PNG_MAGIC = b"\x89PNG"
 _GIF_MAGIC = b"GIF"
@@ -192,22 +259,23 @@ def decode_image(
     apply_exif_orientation: bool = False,
     device: Device = None,
 ) -> torch.Tensor:
-    """Dispatch on the magic bytes (reference ``decode_image.cpp:80``).
-    JPEG only for now: PNG, GIF and WebP raise ``NotImplementedError``
-    (``ROADMAP.md`` queue 1, "PNG, GIF and WebP")."""
+    """Dispatch on the magic bytes (reference ``decode_image.cpp:80``):
+    JPEG, PNG and GIF (a one-frame GIF takes ``mode``, an animation is
+    returned as it is, as ``vision_tpu``'s does); WebP raises
+    ``NotImplementedError``. ``apply_exif_orientation`` reaches the JPEG and
+    PNG decoders only, as in the reference."""
     data = _as_bytes(data)
     if data[:3] == _JPEG_MAGIC:
         return decode_jpeg(data, mode, device=device,
                            apply_exif_orientation=apply_exif_orientation)
-    for magic, name in ((_PNG_MAGIC, "PNG"), (_GIF_MAGIC, "GIF")):
-        if data[:len(magic)] == magic:
-            raise NotImplementedError(
-                f"{name} decoding is not in the port yet (ROADMAP.md queue 1: "
-                "PNG, GIF and WebP)")
+    if data[:4] == _PNG_MAGIC:
+        return decode_png(data, mode, apply_exif_orientation, device=device)
+    if data[:3] == _GIF_MAGIC:
+        out = decode_gif(data, device="cpu")
+        out = _apply_mode(out, mode) if out.ndim == 3 else out
+        return out.to(resolve_device(device))
     if data[:4] == _WEBP_RIFF and data[8:12] == b"WEBP":
-        raise NotImplementedError(
-            "WebP decoding is not in the port yet (ROADMAP.md queue 1: PNG, "
-            "GIF and WebP)")
+        raise NotImplementedError(_WEBP_QUEUED)
     raise RuntimeError("Unsupported image format: expected jpeg/png/gif/webp "
                        "magic bytes")
 
@@ -230,6 +298,26 @@ def encode_jpeg(img: torch.Tensor, quality: int = 75) -> bytes:
 
 def write_jpeg(img: torch.Tensor, filename, quality: int = 75) -> None:
     write_file(filename, encode_jpeg(img, quality))
+
+
+def encode_png(img: torch.Tensor, compression_level: int = 6) -> bytes:
+    """An 8-bit PNG of a ``[C, H, W]`` (C 1-4) or ``[H, W]`` uint8 image
+    (reference ``io/image.py`` ``encode_png``), rows filtered as libpng
+    chooses by default, deflated at ``compression_level``."""
+    img = torch.as_tensor(img)
+    if img.dtype != torch.uint8:
+        raise TypeError(f"encode_png expects uint8, got {img.dtype}")
+    if img.ndim == 2:
+        img = img.unsqueeze(0)
+    if img.ndim != 3 or img.shape[0] not in (1, 2, 3, 4):
+        raise ValueError("encode_png: permitted channel values are 1 to 4, "
+                         f"got shape {tuple(img.shape)}")
+    return _image_codecs.encode_png_native(img.permute(1, 2, 0).cpu().numpy(),
+                                           compression_level)
+
+
+def write_png(img: torch.Tensor, filename, compression_level: int = 6) -> None:
+    write_file(filename, encode_png(img, compression_level))
 
 
 def read_image(

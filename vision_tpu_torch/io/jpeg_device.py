@@ -50,6 +50,7 @@ __all__ = [
     "decode_coefs",
     "decode_jpeg_batch_device",
     "decode_pool",
+    "coef_shapes",
     "decode_threads",
     "group_by_frame",
     "host_decode_batch",
@@ -276,6 +277,16 @@ def _coef_m(coef_limit: int) -> int:
     return coef_limit if 0 < coef_limit < 8 else 8
 
 
+def coef_shapes(hw: Tuple[int, int], samp, coef_limit: int = 0):
+    """Each component's coefficient array shape ``(bh, bw, M*M)`` for a
+    frame of size ``hw`` and sampling ``samp`` (``_codecs.jpeg_frame``'s)."""
+    (h, w), m = hw, _coef_m(coef_limit)
+    hmax = max(s[0] for s in samp)
+    vmax = max(s[1] for s in samp)
+    return [(-(-h * sv // (8 * vmax)), -(-w * sh // (8 * hmax)), m * m)
+            for sh, sv in samp]
+
+
 def host_decode_batch(buffers: Sequence[bytes], coef_limit: int = 0,
                       pool: Optional[ThreadPoolExecutor] = None,
                       pin: bool = False) -> torch.Tensor:
@@ -310,14 +321,9 @@ def host_entropy_decode_batch(buffers: Sequence[bytes], coef_limit: int = 0,
     of ``pool`` and writes straight into its row of the batch (pinned with
     ``pin``). Raises as :func:`host_decode_batch`."""
     (h, w), samp = _one_frame(buffers)
-    m = _coef_m(coef_limit)
-    hmax = max(s[0] for s in samp)
-    vmax = max(s[1] for s in samp)
     n = len(buffers)
-    coefs = tuple(torch.empty((n, -(-h * sv // (8 * vmax)),
-                               -(-w * sh // (8 * hmax)), m * m),
-                              dtype=torch.int16, pin_memory=pin)
-                  for sh, sv in samp)
+    coefs = tuple(torch.empty((n, *shape), dtype=torch.int16, pin_memory=pin)
+                  for shape in coef_shapes((h, w), samp, coef_limit))
     qtabs = tuple(torch.empty((n, 64), dtype=torch.float32, pin_memory=pin)
                   for _ in samp)
     carr = [c.numpy() for c in coefs]
