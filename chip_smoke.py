@@ -165,7 +165,23 @@ off, seeded random weights:
   against the plain versions and through the window-pool and RoIAlign
   kernels); R3D-18 (16x112, batch 8) and MViT-V2-S (16x224, batch 4)
   trained from the video preset in f32 and amp (``video_train``, step 1
-  against the CPU).
+  against the CPU);
+* detection and segmentation from files on disk (``tools/coco_folder.py``,
+  last): a COCO-layout tree (64 training images at COCO's sizes, two
+  without annotations, ~7 objects an image as polygons of 1-3 parts and
+  crowds in RLE; 32 val) and a VOC-layout tree (48 + 16 images, palette
+  class masks) written to a temporary directory; Mask R-CNN R50-FPN
+  trained for an epoch through the port's detection trainer
+  (``references/detection/train.py``: ``get_coco``, the ``hflip`` preset,
+  aspect-ratio groups, ``collate_detection``, the amp step), step 1
+  against the plain path, through the NMS, window-pool and RoIAlign
+  kernels and both backward kernels (``coco_folder_train``), then
+  evaluated over val through ``--test-only --resume`` and
+  ``CocoEvaluator``, which must read mAP 1.0 on the ground truth
+  (``coco_folder_eval``); DeepLabV3-R50 trained for an epoch at 480x480,
+  batch 8, through the segmentation trainer and evaluated on val
+  (``voc_folder_train``, ``voc_folder_eval``; the confusion matrix of the
+  ground truth must read 1.0).
 
 Every kernel is held against its plain PyTorch version on the card at the
 inputs the model gave it, and each path's result against a run of the same
@@ -836,9 +852,13 @@ def main() -> int:
     t_recipe = time.perf_counter()
     recipe_phases(kernels)
     recipe_s = time.perf_counter() - t_recipe
+    torch.cuda.empty_cache()
+    t_coco_voc = time.perf_counter()
+    coco_voc_folder_phases(kernels, rows)
+    coco_voc_s = time.perf_counter() - t_coco_voc
     emit("done", build_s=build_s, phases_s=time.perf_counter() - t_phases,
          detection_zoo_s=det_s, folder_s=folder_s, zoo_s=zoo_s, dense_s=dense_s,
-         recipe_s=recipe_s, total_s=time.perf_counter() - t0)
+         recipe_s=recipe_s, coco_voc_s=coco_voc_s, total_s=time.perf_counter() - t0)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
@@ -6016,6 +6036,230 @@ def recipe_phases(kernels) -> None:
     emit("video_train_launches", launches=launches)
     if any(launches.values()):
         raise RuntimeError(f"video_train: a kernel launched: {launches}")
+
+
+COCO_FOLDER_TRAIN = 64  # images of train2017/ (two without annotations)
+COCO_FOLDER_VAL = 32
+VOC_FOLDER_TRAIN = 48
+VOC_FOLDER_VAL = 16
+COCO_FOLDER_MODEL = "maskrcnn_resnet50_fpn"
+VOC_FOLDER_MODEL = "deeplabv3_resnet50"
+VOC_FOLDER_SIZE = 480  # PR 21's seg_train cell: 480x480 crops, batch 8
+VOC_FOLDER_BATCH = 8
+# the rows of the kernels line each phase's launches join, by counter
+COCO_FOLDER_ROWS = {
+    "coco_folder_train": {"nms": "nms", "window_pool_bf16": "window_pool_bf16",
+                          "window_pool_backward_bf16": "window_pool_backward_bf16",
+                          "roi_align_bf16": "roi_align_bf16",
+                          "roi_align_backward_bf16": "roi_align_backward_bf16",
+                          "roi_align_mask_targets": "roi_align_f32"},
+    "coco_folder_eval": {"nms": "nms", "window_pool": "window_pool_f32",
+                         "roi_align": "roi_align_f32"},
+}
+
+
+def coco_folder_train_phase(kernels, root, tree, tree_s) -> dict:
+    """``coco_folder_train``: Mask R-CNN R50-FPN trained for one epoch from
+    the COCO tree through the detection trainer's ``main`` (``--with-masks
+    --amp``, its defaults otherwise: batch 2, ``hflip``, aspect-ratio
+    groups of factor 3, short side 640, SGD with warmup), the checkpoint
+    written. Step 1 is held against the same step through the plain
+    versions from the same weights and generator state
+    (``plain_twin_step``: losses within ``AMP_FIRST_LOSS_TOL``, gradients
+    within ``AMP_GRAD_TOL``); the NMS, window-pool, RoIAlign and both
+    backward kernels must launch in the epoch. Returns the launches and
+    the checkpoint's path."""
+    import torch
+
+    from vision_tpu_torch.references.detection import train as det
+
+    out_dir = os.path.join(root, "checkpoints")
+    args = det.get_args_parser().parse_args([
+        "--data-path", root, "--model", COCO_FOLDER_MODEL, "--with-masks", "--amp",
+        "--epochs", "1", "--output-dir", out_dir, "--print-freq", "8"])
+    first = {}
+
+    def before_first(model, batch, generator):
+        t = time.perf_counter()
+        first["batch"] = [list(batch["image"].shape), batch["valid"].sum(1).tolist()]
+        first["plain"] = plain_twin_step(kernels, model, generator, batch,
+                                         torch.bfloat16, MASK_GRADS, COCO_FOLDER_MODEL)
+        kernels.reset()  # the counts of the epoch's own steps
+        first["plain_s"] = time.perf_counter() - t
+
+    def after_first(model):
+        named = dict(model.named_parameters())
+        first["grads"] = {n: named[n].grad.clone() for n in MASK_GRADS}
+
+    kernels.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run = det.main(args, hooks={"before_first": before_first, "after_first": after_first})
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    epoch_s = run["epoch_s"][0] - first["plain_s"]  # the plain step apart
+    launches = kernels.launches()
+    plain_losses, plain_grads = first["plain"]
+    losses = [s["losses"] for s in run["steps"]]
+    loss_rel = {k: abs(losses[0][k] - plain_losses[k]) / max(abs(plain_losses[k]), 1e-30)
+                for k in plain_losses}
+    grad_rel = dict(zip(MASK_GRADS, rel_errs([first["grads"][n] for n in MASK_GRADS],
+                                             [plain_grads[n] for n in MASK_GRADS])))
+    ms = [s["ms"] for s in run["steps"]]
+    host = run["host"]
+    kept = tree["train"]["images"] - tree["train"]["empty"]
+    emit("coco_folder_train", model=COCO_FOLDER_MODEL, tree=tree, tree_s=tree_s,
+         args={k: v for k, v in vars(args).items() if k != "data_path"},
+         images_kept=run["images_kept"], images_kept_want=kept, steps=len(ms),
+         first_batch=first["batch"], first_losses=losses[0], plain_first_losses=plain_losses,
+         first_loss_rel_err=loss_rel, loss_tol=AMP_FIRST_LOSS_TOL,
+         grad_rel_err=grad_rel, grad_tol=AMP_GRAD_TOL,
+         last_losses=losses[-1], ms_per_step_median=statistics.median(ms[1:]),
+         ms_all=ms, epoch_s=epoch_s, epoch_ms_per_step=epoch_s / len(ms) * 1e3,
+         plain_step_s=first["plain_s"], main_s=main_s,
+         host_ms_per_sample={k: host[k] / host["samples"] * 1e3
+                             for k in ("decode", "rasterise", "preset")},
+         collate_ms_per_batch=host["collate"] / len(ms) * 1e3,
+         samples=host["samples"], images_per_s=host["samples"] / epoch_s,
+         launches=launches, device=torch.cuda.get_device_name(0))
+    require_launched(launches, COCO_FOLDER_ROWS["coco_folder_train"].values(),
+                     "COCO folder train (amp)")
+    if (run["images_kept"] != kept or host["samples"] != 2 * len(ms)
+            or len(ms) != kept // 2
+            or not all(math.isfinite(v["loss"]) for v in losses)
+            or max(loss_rel.values()) > AMP_FIRST_LOSS_TOL
+            or max(grad_rel.values()) > AMP_GRAD_TOL):
+        raise RuntimeError("coco_folder_train: images kept, steps, a loss not finite, "
+                           "or step 1 off the plain path")
+    return {"launches": launches, "checkpoint": os.path.join(out_dir, "checkpoint_0.pth")}
+
+
+def coco_folder_eval_phase(kernels, root, checkpoint) -> dict:
+    """``coco_folder_eval``: the trained Mask R-CNN evaluated over val2017/
+    through the detection trainer's ``--test-only --resume`` (f32, batch
+    2, ``CocoEvaluator``): ms an image, mAP; the NMS, window-pool and
+    RoIAlign kernels must launch. Then ``CocoEvaluator`` fed the val ground
+    truths themselves as detections (crowds at a lower score) must read
+    mAP 1.0."""
+    import numpy as np
+    import torch
+
+    from vision_tpu_torch.datasets import CocoDetection
+    from vision_tpu_torch.references.detection import train as det
+    from vision_tpu_torch.references.detection.coco_eval import CocoEvaluator
+
+    args = det.get_args_parser().parse_args([
+        "--data-path", root, "--model", COCO_FOLDER_MODEL, "--test-only",
+        "--resume", checkpoint])
+    kernels.reset()
+    metrics = det.main(args)["metrics"]
+    launches = kernels.launches()
+    val = CocoDetection(os.path.join(root, "val2017"),
+                        os.path.join(root, "annotations", "instances_val2017.json"))
+    gts = det.coco_ground_truths(val)
+    evaluator = CocoEvaluator(gts)
+    evaluator.update({i: {"boxes": g["boxes"], "labels": g["labels"],
+                          "scores": np.where(g["iscrowd"] > 0, 0.5, 1.0)}
+                      for i, g in gts.items()})
+    truth = evaluator.summarize()
+    emit("coco_folder_eval", model=COCO_FOLDER_MODEL, metrics=metrics,
+         ms_per_image=metrics["seconds"] / metrics["images"] * 1e3,
+         ground_truth_map=truth, launches=launches,
+         device=torch.cuda.get_device_name(0))
+    require_launched(launches, COCO_FOLDER_ROWS["coco_folder_eval"].values(),
+                     "COCO folder eval")
+    if (metrics["images"] != COCO_FOLDER_VAL or truth["map"] != 1.0
+            or not 0.0 <= metrics["map"] <= 1.0):
+        raise RuntimeError(f"coco_folder_eval: {metrics['images']} images, mAP "
+                           f"{metrics['map']}, the ground truth's {truth['map']}")
+    return {"launches": launches}
+
+
+def voc_folder_phases(kernels, root, tree) -> None:
+    """``voc_folder_train``: DeepLabV3-R50 trained for one epoch from the VOC
+    tree through the segmentation trainer's ``main`` (480x480 crops, batch
+    8, f32, its other defaults), evaluated on val after it
+    (``voc_folder_eval``: mean IoU, ms an image); ``ConfusionMatrix`` of
+    val's ground truth against itself must read 1.0 (every class is in
+    val). No kernel of the repo's is on this path."""
+    import torch
+
+    from vision_tpu_torch.models._api import resolve_device
+    from vision_tpu_torch.references.segmentation import train as seg
+
+    args = seg.get_args_parser().parse_args([
+        "--data-path", root, "--model", VOC_FOLDER_MODEL, "--epochs", "1",
+        "--size", str(VOC_FOLDER_SIZE), "--batch-size", str(VOC_FOLDER_BATCH),
+        "--print-freq", "2"])
+    kernels.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run = seg.main(args)
+    wall_s = time.perf_counter() - t0
+    launches = kernels.launches()
+    ms = [s["ms"] for s in run["steps"]]
+    losses = [s["loss"] for s in run["steps"]]
+    host = run["host"]
+    emit("voc_folder_train", model=VOC_FOLDER_MODEL, tree=tree,
+         size=VOC_FOLDER_SIZE, batch=VOC_FOLDER_BATCH, steps=len(ms), losses=losses,
+         lr=[s["lr"] for s in run["steps"]], ms_per_step_median=statistics.median(ms[1:]),
+         ms_all=ms, epoch_s=run["epoch_s"][0],
+         epoch_ms_per_step=run["epoch_s"][0] / len(ms) * 1e3,
+         images_per_s=host["samples"] / run["epoch_s"][0], wall_s=wall_s,
+         host_ms_per_sample={k: host[k] / host["samples"] * 1e3 for k in ("read", "preset")},
+         samples=host["samples"], launches=launches,
+         device=torch.cuda.get_device_name(0))
+    confmat = seg.ConfusionMatrix(args.num_classes)
+    for batch in seg._voc_batches(args, "val", False, resolve_device(None)):
+        confmat.update(batch["target"], batch["target"])
+    acc, _, iou = confmat.compute()
+    ev = {k: v for k, v in run["eval"].items() if k != "confmat"}
+    emit("voc_folder_eval", model=VOC_FOLDER_MODEL, **ev,
+         ms_per_image=ev["seconds"] / ev["images"] * 1e3,
+         ground_truth={"acc_global": float(acc), "mean_iou": float(iou.mean())},
+         device=torch.cuda.get_device_name(0))
+    if any(launches.values()):
+        raise RuntimeError(f"voc_folder_train: a kernel launched: {launches}")
+    if (len(ms) != VOC_FOLDER_TRAIN // VOC_FOLDER_BATCH or ev["images"] != VOC_FOLDER_VAL
+            or not all(math.isfinite(v) for v in losses) or losses[0] == losses[-1]
+            or not 0.0 <= ev["mean_iou"] <= 1.0 or acc != 1.0 or iou.mean() != 1.0):
+        raise RuntimeError(f"voc_folder: {len(ms)} steps, {ev['images']} images, losses "
+                           f"{losses}, the ground truth's accuracy {acc} and mean IoU "
+                           f"{iou.mean()}")
+
+
+def coco_voc_folder_phases(kernels, rows) -> None:
+    """Detection and segmentation from COCO- and VOC-layout trees on disk
+    (``tools/coco_folder.py``, written to a temporary directory:
+    ``COCO_FOLDER_TRAIN`` / ``_VAL`` COCO images, ``VOC_FOLDER_TRAIN`` /
+    ``_VAL`` VOC ones): ``coco_folder_train``, ``coco_folder_eval``,
+    ``voc_folder_train``, ``voc_folder_eval``. The COCO phases' launches
+    join the kernels line's rows (``COCO_FOLDER_ROWS``) as
+    ``launches_<phase>``."""
+    import tempfile
+
+    import torch
+
+    from vision_tpu_torch.tools import coco_folder
+
+    tmp = tempfile.TemporaryDirectory(prefix="coco_voc_folder_")
+    try:
+        t0 = time.perf_counter()
+        coco = coco_folder.write_coco_tree(tmp.name, COCO_FOLDER_TRAIN, COCO_FOLDER_VAL)
+        voc = coco_folder.write_voc_tree(tmp.name, VOC_FOLDER_TRAIN, VOC_FOLDER_VAL)
+        tree_s = time.perf_counter() - t0
+        train = coco_folder_train_phase(kernels, tmp.name, coco, tree_s)
+        torch.cuda.empty_cache()
+        ev = coco_folder_eval_phase(kernels, tmp.name, train["checkpoint"])
+        torch.cuda.empty_cache()
+        voc_folder_phases(kernels, tmp.name, voc)
+    finally:
+        tmp.cleanup()
+    by_name = {r["name"]: r for r in rows}
+    for phase, launches in (("coco_folder_train", train["launches"]),
+                            ("coco_folder_eval", ev["launches"])):
+        for row, counter in COCO_FOLDER_ROWS[phase].items():
+            by_name[row][f"launches_{phase}"] = launches[counter]
 
 
 def kernel_phases(kernels, calls, launches):

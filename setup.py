@@ -44,8 +44,9 @@ setup(
     ),
     package_data={
         "vision_tpu": ["csrc/*.cpp", "csrc/*.so"],
-        # CUDA sources: built with nvcc on first use on a GPU host
-        "vision_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
+        # CUDA sources, built with nvcc on first use on a GPU host, and the
+        # codecs' C++, built with g++ on first use
+        "vision_tpu_torch": ["csrc/*.cu", "csrc/*.cuh", "csrc/*.cpp"],
     },
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "numpy"],

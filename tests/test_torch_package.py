@@ -82,9 +82,16 @@ def test_import_pulls_in_no_jax():
         "vision_tpu_torch.datasets, vision_tpu_torch.datasets.folder, "
         "vision_tpu_torch.datasets.imagenet, vision_tpu_torch.datasets.samplers, "
         "vision_tpu_torch.datasets.utils, vision_tpu_torch.datasets.vision, "
-        "vision_tpu_torch.tools.imagenet_folder\n"
+        "vision_tpu_torch.tools.imagenet_folder, "
+        "vision_tpu_torch.datasets.coco, vision_tpu_torch.datasets.voc, "
+        "vision_tpu_torch.tv_tensors._dataset_wrapper, "
+        "vision_tpu_torch.references.detection.train, "
+        "vision_tpu_torch.references.segmentation.train, "
+        "vision_tpu_torch.references.segmentation.coco_utils, "
+        "vision_tpu_torch.tools.coco_folder\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'vision_tpu', 'PIL')]\n"
+        "('jax', 'jaxlib', 'flax', 'vision_tpu', 'PIL', 'pycocotools', "
+        "'defusedxml')]\n"
         "print(bad)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -94,7 +101,8 @@ def test_import_pulls_in_no_jax():
 
 def test_no_source_imports_jax_or_vision_tpu():
     pattern = re.compile(
-        r"^\s*(import|from)\s+(jax|jaxlib|flax|vision_tpu|PIL)\b(?!_)", re.M
+        r"^\s*(import|from)\s+(jax|jaxlib|flax|vision_tpu|PIL|pycocotools|"
+        r"defusedxml)\b(?!_)", re.M
     )
     sources = list(PKG.rglob("*.py"))
     assert len(sources) > 10
@@ -109,8 +117,24 @@ def test_no_source_imports_jax_or_vision_tpu():
     assert PKG / "datasets" / "folder.py" in sources
     assert PKG / "datasets" / "samplers.py" in sources
     assert PKG / "tools" / "imagenet_folder.py" in sources
+    assert PKG / "references" / "detection" / "coco_utils.py" in sources
+    assert PKG / "tv_tensors" / "_dataset_wrapper.py" in sources
     for src in sources:
         assert not pattern.search(src.read_text()), src
+
+
+def test_packaging_ships_every_native_source():
+    """``setup.py``'s package data names every CUDA and C++ source that
+    ``csrc/`` holds (the codecs are built from theirs on first use)."""
+    import fnmatch
+
+    text = (PKG.parent / "setup.py").read_text()
+    patterns = re.search(r'"vision_tpu_torch": \[([^\]]*)\]', text).group(1)
+    patterns = re.findall(r'"([^"]+)"', patterns)
+    sources = [p.relative_to(PKG).as_posix() for p in (PKG / "csrc").iterdir()]
+    assert any(s.endswith(".cpp") for s in sources)
+    for src in sources:
+        assert any(fnmatch.fnmatch(src, pat) for pat in patterns), src
 
 
 def test_default_device_raises_without_cuda(monkeypatch):

@@ -163,6 +163,55 @@ def test_adam7_equals_pillow_and_the_source(color_type, depth, hw):
         np.testing.assert_array_equal(got, samples.astype(np.uint8))
 
 
+def voc_palette():
+    """VOC's 256-entry colour map (``bitget`` of each index's bits)."""
+    cmap = []
+    for i in range(256):
+        r = g = b = 0
+        c = i
+        for j in range(8):
+            r |= ((c >> 0) & 1) << (7 - j)
+            g |= ((c >> 1) & 1) << (7 - j)
+            b |= ((c >> 2) & 1) << (7 - j)
+            c >>= 3
+        cmap += [r, g, b]
+    return cmap
+
+
+@pytest.mark.parametrize("hw,interlace", [((37, 53), False), ((375, 500), False),
+                                          ((41, 29), True)])
+def test_voc_palette_masks_read_as_pillows_indices(hw, interlace, tmp_path):
+    """The private palette-index read (``decode_png_indices_native``) of
+    VOC-style class masks, written by Pillow in mode ``"P"`` with VOC's
+    colour map: classes 0-20 in blobs and index 255 on their borders, equal
+    to ``np.asarray(PIL.Image.open(...))``; the public ``decode_png``
+    expands the same file to the colour map's RGB."""
+    h, w = hw
+    rng = np.random.RandomState(h + w)
+    mask = np.zeros((h, w), np.uint8)
+    yy, xx = np.mgrid[:h, :w]
+    for c in rng.randint(1, 21, 6):
+        cy, cx, r = rng.randint(0, h), rng.randint(0, w), rng.randint(3, max(h, w) // 3)
+        d = np.hypot(yy - cy, xx - cx)
+        mask[d < r] = c
+        mask[(d >= r) & (d < r + 2)] = 255
+    img = PIL.Image.fromarray(mask, mode="P")
+    img.putpalette(voc_palette())
+    path = tmp_path / "mask.png"
+    img.save(path, interlace=interlace)
+    data = path.read_bytes()
+    want = np.asarray(PIL.Image.open(path))
+    assert want.dtype == np.uint8 and (want == 255).any()
+    np.testing.assert_array_equal(_image_codecs.decode_png_indices_native(data), want)
+    rgb = np.asarray(PIL.Image.open(path).convert("RGB"))
+    np.testing.assert_array_equal(
+        decode_png(data, device="cpu").permute(1, 2, 0).numpy(), rgb)
+    grey = png_stream(mask[..., None], 0, 8)
+    np.testing.assert_array_equal(_image_codecs.decode_png_indices_native(grey), mask)
+    with pytest.raises(RuntimeError, match="palette or 8-bit grey"):
+        _image_codecs.decode_png_indices_native(png_stream(samples_of(2, 8), 2, 8))
+
+
 def test_jax_decode_png_reads_adam7_wrongly():
     """``vision_tpu``'s libpng reader calls ``png_read_row`` over the rows
     without ``png_set_interlace_handling`` (``image_codecs.cpp:313-315``):

@@ -16,6 +16,11 @@
 //                   types 0-4 are undone, and Adam7 streams de-interlaced
 //                   (vision_tpu's reader reads them without libpng's
 //                   interlace handling, and so gives other pixels);
+//   vt_png_indices  the samples of a palette PNG as they are, one byte a
+//                   pixel: palette indices left unexpanded (a VOC class
+//                   mask's classes, 255 its borders), or an 8-bit grey
+//                   image's levels; what Pillow's "P" and "L" modes give.
+//                   Private: the port's VOC masks read through it;
 //   vt_png_filter   the rows of an 8-bit image, each prefixed by the
 //                   filter that minimises the sum of its absolute bytes
 //                   (libpng's default choice for 8-bit images that are not
@@ -355,6 +360,23 @@ int vt_png_decode(const uint8_t* raw, size_t raw_len, int w, int h, int depth,
     }
     if (has_trns) *o++ = match ? 0 : 255;
   }
+  return kOk;
+}
+
+// raw: the inflated IDAT data of a palette (colour type 3, any depth) or
+// 8-bit grey (colour type 0) image; out: cap bytes of h * w samples
+int vt_png_indices(const uint8_t* raw, size_t raw_len, int w, int h, int depth,
+                   int color_type, int interlace, uint8_t* out, size_t cap) {
+  if (w <= 0 || h <= 0 || interlace < 0 || interlace > 1) return kCorrupt;
+  if (!(color_type == 3 && png_depth_ok(3, depth)) &&
+      !(color_type == 0 && depth == 8))
+    return kCorrupt;
+  const size_t n = (size_t)w * h;
+  if (!out || cap < n) return kCapacity;
+  thread_local std::vector<uint16_t> samples;
+  const int rc = png_samples(raw, raw_len, w, h, depth, 1, interlace == 1, samples);
+  if (rc != kOk) return rc;
+  for (size_t i = 0; i < n; ++i) out[i] = (uint8_t)samples[i];
   return kOk;
 }
 

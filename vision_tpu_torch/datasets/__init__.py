@@ -1,7 +1,9 @@
 """Datasets of the port (counterpart of ``vision_tpu/datasets``): the
-folder datasets, ImageNet, the sampler, collation and the threaded
-loader. The other datasets wait (``ROADMAP.md``, queue 1)."""
+folder datasets, ImageNet, COCO, Pascal VOC, the sampler, collation, the
+threaded loader and ``wrap_dataset_for_transforms_v2``. The other
+datasets wait (``ROADMAP.md``, queue 1)."""
 
+from vision_tpu_torch.datasets.coco import COCOIndex, CocoCaptions, CocoDetection
 from vision_tpu_torch.datasets.folder import (
     IMG_EXTENSIONS,
     DatasetFolder,
@@ -27,8 +29,13 @@ from vision_tpu_torch.datasets.utils import (
     verify_str_arg,
 )
 from vision_tpu_torch.datasets.vision import StandardTransform, VisionDataset
+from vision_tpu_torch.datasets.voc import VOCDetection, VOCSegmentation
+from vision_tpu_torch.tv_tensors._dataset_wrapper import wrap_dataset_for_transforms_v2
 
 __all__ = [
+    "COCOIndex",
+    "CocoCaptions",
+    "CocoDetection",
     "IMG_EXTENSIONS",
     "DataLoader",
     "DatasetFolder",
@@ -36,6 +43,8 @@ __all__ = [
     "ImageFolder",
     "ImageNet",
     "StandardTransform",
+    "VOCDetection",
+    "VOCSegmentation",
     "VisionDataset",
     "check_integrity",
     "default_collate",
@@ -50,4 +59,5 @@ __all__ = [
     "parse_devkit_meta",
     "pil_loader",
     "verify_str_arg",
+    "wrap_dataset_for_transforms_v2",
 ]

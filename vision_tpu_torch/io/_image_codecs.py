@@ -50,11 +50,14 @@ def _load() -> ctypes.CDLL:
             lib.vt_png_decode.argtypes = [ctypes.c_char_p, sz, i, i, i, i, i,
                                           ctypes.c_char_p, i, ctypes.c_char_p,
                                           i, i, p, sz, ip]
+            lib.vt_png_indices.argtypes = [ctypes.c_char_p, sz, i, i, i, i,
+                                           i, p, sz]
             lib.vt_png_filter.argtypes = [ctypes.c_char_p, i, i, i, p, sz]
             lib.vt_decode_gif.argtypes = [
                 ctypes.c_char_p, sz,
                 ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)), ip, ip, ip]
-            for fn in ("vt_png_decode", "vt_png_filter", "vt_decode_gif"):
+            for fn in ("vt_png_decode", "vt_png_indices", "vt_png_filter",
+                       "vt_decode_gif"):
                 getattr(lib, fn).restype = ctypes.c_int
             lib.vt_free.argtypes = [p]
             lib.vt_free.restype = None
@@ -115,6 +118,41 @@ def png_header(data) -> Dict:
     return info
 
 
+def _inflate(info) -> bytes:
+    w, h = info["width"], info["height"]
+    try:
+        inflater = zlib.decompressobj()
+        # no more than the rows of the largest layout (8 bytes a pixel, a
+        # filter byte a row of each Adam7 pass) can hold
+        return inflater.decompress(info["idat"], h * (8 * w + 2) + 64)
+    except zlib.error as e:
+        raise RuntimeError(f"decode_png: the IDAT data do not inflate ({e})") from e
+
+
+def decode_png_indices_native(data) -> np.ndarray:
+    """``(H, W)`` uint8 of a palette PNG's indices, the palette left
+    unexpanded (index 255 stays 255), or of an 8-bit grey PNG's levels:
+    what ``np.asarray(PIL.Image.open(...))`` gives for Pillow's ``"P"``
+    and ``"L"`` modes, and what a VOC class mask is read as. Private: the
+    public ``decode_png`` expands palettes to RGB, as ``vision_tpu``'s
+    does. Raises ``RuntimeError`` for any other PNG."""
+    info = png_header(data)
+    w, h = info["width"], info["height"]
+    if not (info["color_type"] == 3 or (info["color_type"] == 0
+                                        and info["depth"] == 8)):
+        raise RuntimeError("decode_png_indices: a palette or 8-bit grey PNG "
+                           f"only (colour type {info['color_type']}, "
+                           f"{info['depth']} bits)")
+    raw = _inflate(info)
+    out = np.empty((h, w), np.uint8)
+    rc = _load().vt_png_indices(raw, len(raw), w, h, info["depth"],
+                                info["color_type"], info["interlace"],
+                                out.ctypes.data, out.nbytes)
+    if rc != 0:
+        raise RuntimeError(f"decode_png_indices: {_ERRORS.get(rc, rc)}")
+    return out
+
+
 def decode_png_native(data, wide: bool = False) -> np.ndarray:
     """``(H, W, C)`` of a PNG stream: uint8 with palettes and low-bit grey
     expanded, ``tRNS`` as alpha and 16-bit samples cut to their high byte
@@ -127,13 +165,7 @@ def decode_png_native(data, wide: bool = False) -> np.ndarray:
         raise RuntimeError(f"decode_png16: a {depth}-bit PNG (16-bit only)")
     plte = info["plte"] or b""
     trns = info["trns"] or b""
-    try:
-        inflater = zlib.decompressobj()
-        # no more than the rows of the largest layout (8 bytes a pixel, a
-        # filter byte a row of each Adam7 pass) can hold
-        raw = inflater.decompress(info["idat"], h * (8 * w + 2) + 64)
-    except zlib.error as e:
-        raise RuntimeError(f"decode_png: the IDAT data do not inflate ({e})") from e
+    raw = _inflate(info)
     lib = _load()
     channels = ctypes.c_int()
     args = (raw, len(raw), w, h, depth, info["color_type"], info["interlace"],

@@ -8,6 +8,8 @@ from vision_tpu_torch.parallel.presets import (
     ClassificationPresetTrain,
     DetectionPresetEval,
     DetectionPresetTrain,
+    SegmentationPresetEval,
+    SegmentationPresetTrain,
     VideoClassificationPresetEval,
     VideoClassificationPresetTrain,
     collate_detection,
@@ -60,6 +62,8 @@ __all__ = [
     "make_train_step",
     "segmentation_criterion",
     "sequence_loss",
+    "SegmentationPresetEval",
+    "SegmentationPresetTrain",
     "VideoAccuracy",
     "VideoClassificationPresetEval",
     "VideoClassificationPresetTrain",

@@ -1,6 +1,7 @@
 """The reference recipes' train-side presets and the detection collation
 (counterparts of ``references/detection/presets.py``,
-``references/classification/presets.py`` and
+``references/classification/presets.py``,
+``references/segmentation/presets.py`` and
 ``references/video_classification/presets.py``, and of the batching in
 ``references/detection/train.py:289-321``).
 
@@ -12,7 +13,7 @@ them) and runs the per-sample transforms there
 it is given (a ``Record`` or ``Replay`` too), as Python numbers. A
 detection sample costs the card one host synchronisation
 (``SanitizeBoundingBoxes``), two with ``RandomIoUCrop`` (``ssd``,
-``ssdlite``); a classification sample or a clip none. A detection sample is ``(Image, {"boxes":
+``ssdlite``); a classification or segmentation sample or a clip none. A detection sample is ``(Image, {"boxes":
 BoundingBoxes, "labels": tensor[, "masks": Mask][, "keypoints":
 KeyPoints]})``.
 
@@ -29,6 +30,7 @@ from __future__ import annotations
 
 from typing import Any, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.utils._pytree as pytree
 
@@ -56,6 +58,8 @@ __all__ = [
     "DetectionPresetTrain",
     "KINETICS_MEAN",
     "KINETICS_STD",
+    "SegmentationPresetEval",
+    "SegmentationPresetTrain",
     "VideoClassificationPresetEval",
     "VideoClassificationPresetTrain",
     "collate_detection",
@@ -194,6 +198,123 @@ class ClassificationPresetEval:
 
     def __call__(self, img: torch.Tensor, generator=None) -> torch.Tensor:
         return self._preset(img)
+
+
+_IMAGENET_MEAN = (0.485, 0.456, 0.406)
+_IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def _round_size(h: int, w: int, short: int) -> Tuple[int, int]:
+    scale = short / min(h, w)
+    return int(round(h * scale)), int(round(w * scale))
+
+
+def _nearest_rows(m: int, n: int, device) -> torch.Tensor:
+    """The source index of each of ``n`` outputs from ``m`` inputs that
+    ``jax.image.resize(..., "nearest")`` takes on the CPU: ``floor((i +
+    0.5) * (m * (1 / n)))`` in f32, the order XLA evaluates its ``(i + 0.5)
+    * m / n`` in (exact ties such as 2.5 * 30 / 25 fall to the row below;
+    held against JAX over every ``m`` in 1-199 and ``n`` in 1-399 by
+    steps of 3 and 7)."""
+    f32 = np.float32
+    scale = f32(m) * f32(1.0 / n)
+    idx = np.floor((np.arange(n, dtype=f32) + f32(0.5)) * scale)
+    return torch.from_numpy(np.minimum(idx, m - 1).astype(np.int64)).to(device)
+
+
+class _Segmentation(T.Transform):
+    """The segmentation recipe on one ``(Image, Mask)`` sample: the image
+    resized (bilinear, antialiased where it shrinks, in f32 with no
+    rounding, ``jax.image.resize``'s weights) so that its short side is
+    ``size``, its mask by the nearest pixel centre (``jax.image.resize``'s
+    ``"nearest"``); with ``train``, mirrored with ``hflip_prob``, padded at
+    the bottom and right to ``crop_size`` (image 0, mask 255) and cropped
+    to ``crop_size`` at a uniform corner; the image scaled to [0, 1] and
+    normalised (f32), the mask int64. Params: ``size``, ``flip``, ``top``,
+    ``left`` (``size`` drawn in ``[base / 2, 2 base]`` when training)."""
+
+    _transformed_types = (tv_tensors.Image, tv_tensors.Mask)
+
+    def __init__(self, base_size: int, crop_size: Optional[int], mean, std,
+                 hflip_prob: float, train: bool):
+        self.base_size = base_size
+        self.crop_size = crop_size
+        self.mean = [float(m) for m in mean]
+        self.std = [float(v) for v in std]
+        self.hflip_prob = hflip_prob
+        self.train = train
+
+    def make_params(self, flat_inputs, generator):
+        img = next(x for x in flat_inputs if isinstance(x, tv_tensors.Image))
+        h, w = img.shape[-2:]
+        if not self.train:
+            return dict(size=self.base_size, flip=False, top=0, left=0)
+        size = randint(generator, int(0.5 * self.base_size),
+                       int(2.0 * self.base_size) + 1)
+        flip = uniform(generator) < self.hflip_prob
+        nh, nw = _round_size(h, w, size)
+        c = self.crop_size
+        return dict(size=size, flip=flip,
+                    top=randint(generator, 0, max(nh, c) - c + 1),
+                    left=randint(generator, 0, max(nw, c) - c + 1))
+
+    def transform_sample(self, inpt, params):
+        is_mask = isinstance(inpt, tv_tensors.Mask)
+        x = inpt.as_subclass(torch.Tensor)
+        size = _round_size(*x.shape[-2:], params["size"])
+        if is_mask:
+            x = x.index_select(-2, _nearest_rows(x.shape[-2], size[0], x.device))
+            x = x.index_select(-1, _nearest_rows(x.shape[-1], size[1], x.device))
+        else:
+            x = F.resize_2d(x.float(), size)
+        if params["flip"]:
+            x = x.flip(-1)
+        if self.train:
+            c = self.crop_size
+            ph, pw = max(0, c - x.shape[-2]), max(0, c - x.shape[-1])
+            if ph or pw:
+                x = torch.nn.functional.pad(x, (0, pw, 0, ph),
+                                            value=255 if is_mask else 0)
+            top, left = params["top"], params["left"]
+            x = x[..., top:top + c, left:left + c]
+        if is_mask:
+            return x.long()
+        return F.normalize_image(x / 255.0, self.mean, self.std)
+
+
+class _SegmentationPreset(_Preset):
+    def __call__(self, sample, generator: SampleGenerator = None):
+        img, target = sample
+        if not isinstance(img, tv_tensors.Image):
+            img = tv_tensors.Image(img)
+        if not isinstance(target, tv_tensors.Mask):
+            target = tv_tensors.Mask(target)
+        img, target = super().__call__((img, target), generator)
+        return img.as_subclass(torch.Tensor), target.as_subclass(torch.Tensor)
+
+
+class SegmentationPresetTrain(_SegmentationPreset):
+    """``references/segmentation/presets.py`` (the JAX recipe's): on one
+    ``(image uint8 [3, H, W], mask [H, W])`` sample, the short side
+    resized to a uniform integer in ``[base_size / 2, 2 base_size]``, a
+    mirror with ``hflip_prob``, padding to ``crop_size`` (mask 255), a
+    uniform ``crop_size`` crop, to [0, 1] and normalised. Returns f32 ``[3,
+    crop, crop]`` and int64 ``[crop, crop]`` on the preset's device."""
+
+    def __init__(self, *, base_size: int, crop_size: int, hflip_prob: float = 0.5,
+                 mean=_IMAGENET_MEAN, std=_IMAGENET_STD, device: Device = None):
+        super().__init__([_Segmentation(base_size, crop_size, mean, std,
+                                        hflip_prob, train=True)], device)
+
+
+class SegmentationPresetEval(_SegmentationPreset):
+    """``references/segmentation/presets.py``: the short side resized to
+    ``base_size``, to [0, 1] and normalised; nothing drawn."""
+
+    def __init__(self, *, base_size: int, mean=_IMAGENET_MEAN,
+                 std=_IMAGENET_STD, device: Device = None):
+        super().__init__([_Segmentation(base_size, None, mean, std, 0.0,
+                                        train=False)], device)
 
 
 def _short_side_size(h: int, w: int, size: int) -> Tuple[int, int]:

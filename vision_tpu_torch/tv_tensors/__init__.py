@@ -1,6 +1,7 @@
 """Typed tensors (counterpart of ``vision_tpu/tv_tensors``): ``Image``,
-``Video``, ``Mask``, ``BoundingBoxes``, ``KeyPoints``. The dataset
-wrappers (``_dataset_wrapper.py``) wait for the datasets."""
+``Video``, ``Mask``, ``BoundingBoxes``, ``KeyPoints``; and
+``wrap_dataset_for_transforms_v2``, which types a dataset's samples
+(``_dataset_wrapper.py``)."""
 
 from vision_tpu_torch.tv_tensors._tv_tensor import (
     BoundingBoxes,
@@ -12,6 +13,9 @@ from vision_tpu_torch.tv_tensors._tv_tensor import (
     Video,
     wrap,
 )
+from vision_tpu_torch.tv_tensors._dataset_wrapper import (
+    wrap_dataset_for_transforms_v2,
+)
 
 __all__ = [
     "BoundingBoxFormat",
@@ -22,4 +26,5 @@ __all__ = [
     "TVTensor",
     "Video",
     "wrap",
+    "wrap_dataset_for_transforms_v2",
 ]
