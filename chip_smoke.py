@@ -181,7 +181,22 @@ off, seeded random weights:
   (``coco_folder_eval``); DeepLabV3-R50 trained for an epoch at 480x480,
   batch 8, through the segmentation trainer and evaluated on val
   (``voc_folder_train``, ``voc_folder_eval``; the confusion matrix of the
-  ground truth must read 1.0).
+  ground truth must read 1.0);
+* the rest of ``transforms/`` (``transforms_rest_phases``, last): each new
+  sample class (the affine, rotation, perspective and elastic warps over
+  images, masks, boxes and keypoints, five and ten crops, blur, noise,
+  JPEG, the keypoint clamp, sanitize and clamping mode) on the 32 seeded
+  COCO-like samples on the card, 4 of them against the CPU on the card's
+  draws (``warp_transforms``: ms and host synchronisations a sample);
+  Keypoint R-CNN R50-FPN trained for 8 amp steps at batch 2 on samples
+  warped on the card by ``tools/warp_train.py``'s chain, step 1 against
+  the plain path, through the NMS, window-pool and RoIAlign kernels and
+  both backward kernels (``keypoint_warp_train``: ms a step, ms a sample
+  of the chain, the card's busy share); ResNet-50 served from 8 f32
+  images through the v1 surface alone, ``Compose([Resize(256),
+  TenCrop(224)])`` and ``Normalize``, the logits averaged over the ten
+  crops, against the same images through the functionals on the CPU
+  (``v1_tencrop_eval``).
 
 Every kernel is held against its plain PyTorch version on the card at the
 inputs the model gave it, and each path's result against a run of the same
@@ -856,9 +871,14 @@ def main() -> int:
     t_coco_voc = time.perf_counter()
     coco_voc_folder_phases(kernels, rows)
     coco_voc_s = time.perf_counter() - t_coco_voc
+    torch.cuda.empty_cache()
+    t_rest = time.perf_counter()
+    transforms_rest_phases(kernels, rows)
+    transforms_rest_s = time.perf_counter() - t_rest
     emit("done", build_s=build_s, phases_s=time.perf_counter() - t_phases,
          detection_zoo_s=det_s, folder_s=folder_s, zoo_s=zoo_s, dense_s=dense_s,
-         recipe_s=recipe_s, coco_voc_s=coco_voc_s, total_s=time.perf_counter() - t0)
+         recipe_s=recipe_s, coco_voc_s=coco_voc_s,
+         transforms_rest_s=transforms_rest_s, total_s=time.perf_counter() - t0)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
@@ -1816,13 +1836,8 @@ def ops_rest_phase(dev="cuda") -> list:
             fn(xd, rd, dev).backward(cot_d)
 
         step_ms = device_ms(fwd_bwd, launches=10)
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            with torch.no_grad():
-                fn(xd, rd, dev)
-            torch.cuda.synchronize()
-        fwd_kernels = sum(e.device_type == torch.autograd.DeviceType.CUDA
-                          for e in prof.events())
+        with torch.no_grad():
+            fwd_kernels = cuda_trace(lambda: fn(xd, rd, dev))["kernels"]
         nbytes = x.numel() * 4 + out.numel() * 4 + (
             r.numel() * 4 if r is not None else 0)
         grad_bytes = out.numel() * 4 + x.numel() * 4 + (
@@ -5236,17 +5251,25 @@ DENSE_SWEEP_CPU = ("lraspp_mobilenet_v3_large", "raft_small", "r2plus1d_18")
 DENSE_FAMILIES = ("segmentation", "optical_flow", "video")
 
 
-def kernel_launches_of(fn) -> int:
-    """The CUDA kernels one call of ``fn`` launches (``torch.profiler``)."""
+def cuda_trace(fn, reps: int = 1) -> dict:
+    """``reps`` calls of ``fn`` under ``torch.profiler`` (CUDA activity):
+    the CUDA kernels launched, their summed device ms, and the wall ms
+    (the trace's own cost counts in it)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
+        wall = (time.perf_counter() - t) * 1e3
+    cuda = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"kernels": sum(e.count for e in cuda), "wall_ms": wall,
+            "device_ms": sum(float(getattr(e, "self_device_time_total", 0.0))
+                             for e in cuda) / 1e3}
 
 
 def dense_forward_phases() -> None:
@@ -5279,8 +5302,8 @@ def dense_forward_phases() -> None:
             ms, ms_all = host_ms(lambda: dense.serve(model, name, args))
             dev_ms = device_ms(lambda: dense.serve(model, name, args),
                                launches=3, warmup=1)
-            launches = kernel_launches_of(lambda: dense.serve(model, name,
-                                                              args))
+            launches = cuda_trace(
+                lambda: dense.serve(model, name, args))["kernels"]
             emit("dense_forward", model=name, device=device, params=params,
                  jax_num_params=num_params(name), dtype="float32",
                  batch=batch, size=size, ms_per_batch=ms,
@@ -5547,6 +5570,16 @@ def _cpu(sample):
 
     return pytree.tree_map(
         lambda x: x.to("cpu") if isinstance(x, torch.Tensor) else x, sample)
+
+
+def _card(sample):
+    """``sample`` on the card; pinned leaves copied without a wait."""
+    import torch
+    import torch.utils._pytree as pytree
+
+    return pytree.tree_map(
+        lambda x: x.to("cuda", non_blocking=True) if isinstance(x, torch.Tensor)
+        else x, sample)
 
 
 def sample_errors(card, cpu):
@@ -6260,6 +6293,337 @@ def coco_voc_folder_phases(kernels, rows) -> None:
                             ("coco_folder_eval", ev["launches"])):
         for row, counter in COCO_FOLDER_ROWS[phase].items():
             by_name[row][f"launches_{phase}"] = launches[counter]
+
+
+# The rest of transforms/ on the card (transforms_rest_phases, last)
+WARP_SAMPLES = 16  # of recipe_samples; each one timed and held against the CPU
+WARP_LEVEL_SHARE = 1e-3  # bilinear uint8 values one level apart, at most
+WARP_NOISE_TOL = 1e-3  # the noise's mean and std against mean and sigma
+WARP_NOISE_SIGMA = 0.1
+KEYPOINT_WARP_MODEL = "keypointrcnn_resnet50_fpn"
+KEYPOINT_WARP_STEPS = 8
+KEYPOINT_WARP_BATCH = 2
+KEYPOINT_WARP_PROFILED = 3  # the last steps, traced for the busy share
+TENCROP_IMAGES = 8
+TENCROP_SIZE = (375, 500)
+# the rows of the kernels line the keypoint_warp_train launches join
+KEYPOINT_WARP_ROWS = {"nms": "nms", "window_pool_bf16": "window_pool_bf16",
+                      "window_pool_backward_bf16": "window_pool_backward_bf16",
+                      "roi_align_bf16": "roi_align_bf16",
+                      "roi_align_backward_bf16": "roi_align_backward_bf16"}
+
+
+def warp_classes():
+    """name -> (transform, gate): each new sample class of the slice, the
+    keypoint ones behind a rotation that moves points out of the canvas.
+    ``"exact"``: every pixel equal; ``"level"``: uint8 pixels one level
+    apart at most, on at most ``WARP_LEVEL_SHARE`` of them."""
+    from vision_tpu_torch.transforms import v2 as T
+
+    return {
+        "RandomAffine": (T.RandomAffine(15, translate=(0.1, 0.1),
+                                        scale=(0.75, 1.25), shear=8), "exact"),
+        "RandomAffine_bilinear": (T.RandomAffine(
+            15, translate=(0.1, 0.1), scale=(0.75, 1.25), shear=8,
+            interpolation="bilinear", fill=[124, 116, 104]), "level"),
+        "RandomRotation": (T.RandomRotation(30), "exact"),
+        "RandomRotation_expand": (T.RandomRotation(30, "bilinear", expand=True),
+                                  "level"),
+        "RandomPerspective": (T.RandomPerspective(0.3, p=1.0), "level"),
+        "ElasticTransform": (T.ElasticTransform(), "level"),
+        "FiveCrop": (T.FiveCrop(224), "exact"),
+        "TenCrop": (T.TenCrop(224), "exact"),
+        "GaussianBlur": (T.GaussianBlur(9, (0.1, 2.0)), "level"),
+        "JPEG": (T.JPEG((50, 95)), "exact"),
+        "ClampKeyPoints": (T.Compose([T.RandomRotation(30),
+                                      T.ClampKeyPoints()]), "exact"),
+        "SanitizeKeyPoints": (T.Compose([T.RandomRotation(30),
+                                         T.SanitizeKeyPoints("default")]), "exact"),
+        "SetClampingMode": (T.Compose([T.SetClampingMode("hard"),
+                                       T.RandomRotation(30)]), "exact"),
+    }
+
+
+def warp_transforms_phase() -> dict:
+    """``warp_transforms``: each new sample class (``warp_classes``) on the
+    ``WARP_SAMPLES`` seeded COCO-like samples on the card (2-12 boxes,
+    masks, 17 keypoints), every sample held against the same class on the
+    CPU with the card's draws handed across (``run_preset``): masks, labels and the ``"exact"`` classes'
+    pixels equal, the ``"level"`` classes' one level apart on at most
+    ``WARP_LEVEL_SHARE``, boxes and keypoints within ``RECIPE_COORD_TOL``;
+    ``JPEG`` bit for bit (the same host codec). ``GaussianNoise``: the
+    card's uint8 output against the CPU's arithmetic on the card's normals
+    (drawn again from the recorded seed), exact; the noise of f32 images
+    (no clip) within ``WARP_NOISE_TOL`` of ``mean`` 0 and ``sigma``. Per
+    class: ms and host synchronisations a sample. Returns the lines."""
+    import torch
+
+    from vision_tpu_torch.transforms import v2 as T
+    from vision_tpu_torch.transforms.v2 import functional as F
+
+    t0 = time.perf_counter()
+    samples = recipe_samples(WARP_SAMPLES)
+    lines = {}
+    for i, (name, (t, gate)) in enumerate(warp_classes().items()):
+        outs, err, fig = run_preset(lambda s, g, t=t: t(_card(s), g),
+                                    lambda s, g, t=t: t(s, g),
+                                    samples, 400 + i, name)
+        ok = (err["exact_equal"] and err["coord"] <= RECIPE_COORD_TOL
+              and (err["image_max"] == 0.0 if gate == "exact" else
+                   (err["image_max"] <= 1.0
+                    and err["image_share"] <= WARP_LEVEL_SHARE)))
+        lines[name] = dict(fig, samples=len(samples), gate=gate,
+                           image_vs_cpu_max_abs_err=err["image_max"],
+                           image_vs_cpu_differing_share=err["image_share"],
+                           coord_vs_cpu_rel_err=err["coord"],
+                           labels_masks_equal=err["exact_equal"],
+                           output_sizes=sorted({tuple(x.shape[-2:]) for x in
+                                                torch.utils._pytree.tree_leaves(
+                                                    [o[0] for o in outs])})[:4],
+                           keypoint_groups=[sum(len(o[1]["keypoints"]) for o in outs),
+                                            sum(len(s[1]["keypoints"]) for s in samples)],
+                           ok=ok)
+        if not ok:
+            emit("warp_transforms", failed=name, **lines[name])
+            raise RuntimeError(f"warp_transforms {name}: the card's samples are "
+                               "off the CPU's")
+
+    noise = T.GaussianNoise(0.0, WARP_NOISE_SIGMA)
+
+    def noise_cpu(sample, replay):
+        """The CPU's arithmetic on the card's normals, from the recorded
+        seed."""
+        seed = replay.next(noise)["seed"]
+        g = torch.Generator(device="cuda")
+        g.manual_seed(seed)
+        img = sample[0]
+        z = torch.randn(img.shape, generator=g, device="cuda").cpu()
+        return (F.gaussian_noise(img, 0.0, WARP_NOISE_SIGMA, True, normals=z),
+                sample[1])
+
+    _, err, fig = run_preset(lambda s, g: noise(_card(s), g), noise_cpu,
+                             samples, 499, "GaussianNoise")
+    gen = torch.Generator().manual_seed(498)
+    floats = T.GaussianNoise(0.0, WARP_NOISE_SIGMA, clip=False)
+    diffs = []
+    for sample in samples:
+        img = F.to_dtype(_card(sample[0]), torch.float32, scale=True)
+        diffs.append((floats(img, gen) - img).double().flatten())
+    diffs = torch.cat(diffs)
+    mean, std = float(diffs.mean()), float(diffs.std())
+    ok = (err["image_max"] == 0.0 and err["exact_equal"]
+          and abs(mean) <= WARP_NOISE_TOL
+          and abs(std - WARP_NOISE_SIGMA) <= WARP_NOISE_TOL)
+    lines["GaussianNoise"] = dict(
+        fig, samples=len(samples), gate="cpu arithmetic on the card's normals "
+        "exact; f32 noise mean and std",
+        image_vs_cpu_max_abs_err=err["image_max"], noise_values=diffs.numel(),
+        noise_mean=mean, noise_std=std, sigma=WARP_NOISE_SIGMA,
+        noise_tol=WARP_NOISE_TOL, ok=ok)
+    emit("warp_transforms", device=torch.cuda.get_device_name(0), classes=lines,
+         tol={"coord": RECIPE_COORD_TOL, "level_share": WARP_LEVEL_SHARE,
+              "noise": WARP_NOISE_TOL},
+         seconds=time.perf_counter() - t0)
+    if not ok:
+        raise RuntimeError("warp_transforms GaussianNoise: the arithmetic or the "
+                           "noise's statistics are off")
+    return lines
+
+
+def keypoint_warp_train_phase(kernels) -> dict:
+    """``keypoint_warp_train``: Keypoint R-CNN R50-FPN (full width, two
+    classes) trained for ``KEYPOINT_WARP_STEPS`` amp steps at batch
+    ``KEYPOINT_WARP_BATCH`` on warped samples: seeded COCO-like samples (``recipe_samples``) through
+    ``tools/warp_train.py:keypoint_warp_chain`` on the card (random affine,
+    perspective half the time, flip with COCO's keypoint map, clamps,
+    ``SanitizeBoundingBoxes``), ``collate_detection`` onto the 1344 canvas,
+    ``make_detection_train_step(..., compute_dtype=torch.bfloat16)``. Step
+    1 against the plain path from the same weights and generator state
+    (``plain_twin_step``: losses within ``AMP_FIRST_LOSS_TOL``, gradients
+    within ``AMP_GRAD_TOL``); the NMS, window-pool, RoIAlign and both
+    backward kernels must launch. ms a step (steps 2 to the first traced
+    one), ms a sample of the chain, the card's busy share over the last
+    ``KEYPOINT_WARP_PROFILED`` whole iterations (chain, collate, step).
+    Returns the launches."""
+    import torch
+
+    from vision_tpu_torch.models import get_model
+    from vision_tpu_torch.models.detection import GeneralizedRCNNTransform
+    from vision_tpu_torch.parallel import collate_detection, make_detection_train_step
+    from vision_tpu_torch.tools.detection_request import recipe_optimizer
+    from vision_tpu_torch.tools.warp_train import (
+        keypoint_warp_chain,
+        to_float_samples,
+    )
+
+    t0 = time.perf_counter()
+    steps = KEYPOINT_WARP_STEPS
+    samples = recipe_samples(steps * KEYPOINT_WARP_BATCH, seed=13)
+    chain = keypoint_warp_chain()
+    chain_gen = torch.Generator().manual_seed(17)
+    transform = GeneralizedRCNNTransform()
+    model = get_model(KEYPOINT_WARP_MODEL, seed=0, trainable_backbone_layers=3)
+    optimizer, scheduler = recipe_optimizer(model)
+    step = make_detection_train_step(model, optimizer,
+                                     compute_dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    named = dict(model.named_parameters())
+    chain_ms, batch_ms, step_ms, losses, kept = [], [], [], [], []
+
+    def iteration(i, first=None):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        outs = [chain(_card(s), chain_gen) for s in
+                samples[i * KEYPOINT_WARP_BATCH:(i + 1) * KEYPOINT_WARP_BATCH]]
+        torch.cuda.synchronize()
+        chain_ms.append((time.perf_counter() - t) * 1e3 / len(outs))
+        kept.append([len(o[1]["boxes"]) for o in outs])
+        batch = collate_detection(to_float_samples(outs), transform,
+                                  max_boxes=RECIPE_MAX_BOXES)
+        torch.cuda.synchronize()
+        batch_ms.append((time.perf_counter() - t) * 1e3)
+        if first is not None:
+            first(batch)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step(batch, gen)
+        losses.append({k: float(v) for k, v in out.items()})
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        scheduler.step()
+        return batch
+
+    plain = {}
+
+    def before_first(batch):
+        plain["ref"] = plain_twin_step(kernels, model, gen, batch, torch.bfloat16,
+                                       KEYPOINT_GRADS, KEYPOINT_WARP_MODEL)
+        plain["shape"] = list(batch["image"].shape)
+        plain["keypoints"] = list(batch["keypoints"].shape)
+        kernels.reset()
+
+    kernels.reset()
+    iteration(0, before_first)
+    grads = {n: named[n].grad.clone() for n in KEYPOINT_GRADS}
+    timed = steps - KEYPOINT_WARP_PROFILED
+    for i in range(1, timed):
+        iteration(i)
+    at = [timed]
+
+    def traced():
+        iteration(at[0])
+        at[0] += 1
+
+    trace = cuda_trace(traced, KEYPOINT_WARP_PROFILED)
+    launches = kernels.launches()
+    plain_losses, plain_grads = plain["ref"]
+    loss_rel = {k: abs(losses[0][k] - plain_losses[k]) / max(abs(plain_losses[k]), 1e-30)
+                for k in plain_losses}
+    grad_rel = dict(zip(KEYPOINT_GRADS, rel_errs(
+        [grads[n] for n in KEYPOINT_GRADS], [plain_grads[n] for n in KEYPOINT_GRADS])))
+    emit("keypoint_warp_train", model=KEYPOINT_WARP_MODEL, steps=steps,
+         batch=KEYPOINT_WARP_BATCH, dtype="bfloat16 (amp)",
+         chain=repr(chain), first_input=plain["shape"],
+         first_keypoints=plain["keypoints"], boxes_kept=kept,
+         boxes_in=[len(s[1]["boxes"]) for s in samples],
+         first_losses=losses[0], plain_first_losses=plain_losses,
+         first_loss_rel_err=loss_rel, loss_tol=AMP_FIRST_LOSS_TOL,
+         grad_rel_err=grad_rel, grad_tol=AMP_GRAD_TOL, last_losses=losses[-1],
+         ms_per_step=statistics.median(step_ms[1:timed]), ms_all=step_ms,
+         chain_ms_per_sample=statistics.median(chain_ms),
+         chain_ms_all=chain_ms, chain_and_collate_ms_per_batch=statistics.median(
+             batch_ms), traced_iterations=KEYPOINT_WARP_PROFILED,
+         wall_ms=trace["wall_ms"], device_ms=trace["device_ms"],
+         busy_share=trace["device_ms"] / trace["wall_ms"],
+         launches=launches, seconds=time.perf_counter() - t0,
+         device=torch.cuda.get_device_name(0))
+    require_launched(launches, KEYPOINT_WARP_ROWS.values(), "keypoint_warp_train")
+    if (not all(math.isfinite(v["loss"]) for v in losses)
+            or max(loss_rel.values()) > AMP_FIRST_LOSS_TOL
+            or max(grad_rel.values()) > AMP_GRAD_TOL
+            or losses[0]["loss"] == losses[-1]["loss"]):
+        raise RuntimeError("keypoint_warp_train: a loss not finite, no update, or "
+                           "step 1 off the plain path")
+    del model, step, optimizer
+    return launches
+
+
+def v1_tencrop_eval_phase() -> dict:
+    """``v1_tencrop_eval``: ResNet-50 served through the v1 surface alone:
+    ``transforms.Compose([Resize(256), TenCrop(224)])`` on a plain 4-d f32
+    batch of ``TENCROP_IMAGES`` seeded 375x500 images on the card (one
+    call), ``transforms.Normalize`` on the stacked crops, the logits
+    averaged over the ten crops. Held against the same images through
+    ``transforms.functional`` calls (``resize``, ``ten_crop``,
+    ``normalize``) and the same model on the CPU: crops within 1e-5, logits
+    within ``ZOO_LOGITS_TOL`` of the largest (the f32 zoo checks')."""
+    import torch
+
+    import vision_tpu_torch.transforms as Tv1
+    import vision_tpu_torch.transforms.functional as F1
+    from vision_tpu_torch.models import get_model
+
+    mean, std = [0.485, 0.456, 0.406], [0.229, 0.224, 0.225]
+    images = TENCROP_IMAGES
+    gen = torch.Generator().manual_seed(21)
+    raw = torch.randint(0, 256, (images, 3, *TENCROP_SIZE), dtype=torch.uint8,
+                        generator=gen)
+    tencrop = Tv1.Compose([Tv1.Resize(256), Tv1.TenCrop(224)])
+    normalize = Tv1.Normalize(mean, std)
+    model = get_model("resnet50", seed=0)
+
+    def serve(x):
+        crops = torch.stack(tencrop(x), 1)
+        logits = model(normalize(crops.flatten(0, 1)))
+        return logits.view(len(x), 10, -1).mean(1), crops
+
+    with torch.inference_mode():
+        x = raw.to("cuda").float() / 255.0
+        logits, crops = serve(x)
+        times = []
+        for _ in range(TIMED_FORWARDS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            serve(x)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        x_cpu = raw.float() / 255.0
+        want_crops = torch.stack([torch.stack(F1.ten_crop(F1.resize(img, 256), 224))
+                                  for img in x_cpu])
+        cpu_model = get_model("resnet50", seed=0, device="cpu")
+        want = cpu_model(F1.normalize(want_crops.flatten(0, 1), mean, std))
+        want = want.view(images, 10, -1).mean(1)
+    crop_err = float((crops.cpu() - want_crops).abs().max())
+    rel = float((logits.cpu() - want).abs().max() / want.abs().max())
+    ms = statistics.median(times)
+    emit("v1_tencrop_eval", model="resnet50", images=[images, 3, *TENCROP_SIZE],
+         crops=list(crops.shape), transforms=repr(tencrop), dtype="float32",
+         crop_max_abs_err=crop_err, logits_rel_err=rel, tol=ZOO_LOGITS_TOL,
+         ms_per_batch=ms, ms_per_image=ms / images, ms_all=times,
+         device=torch.cuda.get_device_name(0))
+    if (tuple(crops.shape) != (images, 10, 3, 224, 224) or not crop_err <= 1e-5
+            or not rel <= ZOO_LOGITS_TOL):
+        raise RuntimeError("v1_tencrop_eval: the v1 path on the card disagrees with "
+                           "the functionals on the CPU")
+    return {"ms_per_image": ms / images}
+
+
+def transforms_rest_phases(kernels, rows) -> None:
+    """The rest of ``transforms/``: ``warp_transforms``,
+    ``keypoint_warp_train``, ``v1_tencrop_eval``. The Keypoint R-CNN
+    steps' launches join the kernels line's rows (``KEYPOINT_WARP_ROWS``) as
+    ``launches_keypoint_warp_train``."""
+    import torch
+
+    warp_transforms_phase()
+    torch.cuda.empty_cache()
+    launches = keypoint_warp_train_phase(kernels)
+    torch.cuda.empty_cache()
+    kernels.reset()
+    v1_tencrop_eval_phase()
+    emit("v1_tencrop_eval_launches", launches=kernels.launches())
+    by_name = {r["name"]: r for r in rows}
+    for row, counter in KEYPOINT_WARP_ROWS.items():
+        by_name[row]["launches_keypoint_warp_train"] = launches[counter]
 
 
 def kernel_phases(kernels, calls, launches):

@@ -88,7 +88,14 @@ def test_import_pulls_in_no_jax():
         "vision_tpu_torch.references.detection.train, "
         "vision_tpu_torch.references.segmentation.train, "
         "vision_tpu_torch.references.segmentation.coco_utils, "
-        "vision_tpu_torch.tools.coco_folder\n"
+        "vision_tpu_torch.tools.coco_folder, "
+        "vision_tpu_torch.tools.warp_train, vision_tpu_torch.transforms._compat, "
+        "vision_tpu_torch.transforms.transforms, "
+        "vision_tpu_torch.transforms.autoaugment, "
+        "vision_tpu_torch.transforms.functional, "
+        "vision_tpu_torch.transforms.v2._type_conversion, "
+        "vision_tpu_torch.transforms.v2.functional._aliases, "
+        "vision_tpu_torch.transforms.v2.functional._augment\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'vision_tpu', 'PIL', 'pycocotools', "
         "'defusedxml')]\n"
@@ -119,6 +126,10 @@ def test_no_source_imports_jax_or_vision_tpu():
     assert PKG / "tools" / "imagenet_folder.py" in sources
     assert PKG / "references" / "detection" / "coco_utils.py" in sources
     assert PKG / "tv_tensors" / "_dataset_wrapper.py" in sources
+    assert PKG / "transforms" / "_compat.py" in sources
+    assert PKG / "transforms" / "v2" / "_type_conversion.py" in sources
+    assert PKG / "transforms" / "v2" / "functional" / "_aliases.py" in sources
+    assert PKG / "tools" / "warp_train.py" in sources
     for src in sources:
         assert not pattern.search(src.read_text()), src
 

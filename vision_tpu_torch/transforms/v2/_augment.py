@@ -1,6 +1,7 @@
 """Augmentation transforms (counterpart of
 ``vision_tpu/transforms/v2/_augment.py``): ``RandomErasing`` and the batch
-mixes ``MixUp`` and ``CutMix``, with the JAX package's traced draws."""
+mixes ``MixUp`` and ``CutMix``, with the JAX package's traced draws; and
+``JPEG``, a sample transform."""
 
 from __future__ import annotations
 
@@ -20,9 +21,9 @@ from vision_tpu_torch.transforms.v2._transform import (
     uniform,
 )
 from vision_tpu_torch.transforms.v2._utils import query_size
-from vision_tpu_torch.transforms.v2.functional._augment import erase
+from vision_tpu_torch.transforms.v2.functional._augment import erase, jpeg
 
-__all__ = ["CutMix", "MixUp", "RandomErasing"]
+__all__ = ["CutMix", "JPEG", "MixUp", "RandomErasing"]
 
 _CANDIDATES = 10
 
@@ -189,3 +190,26 @@ class CutMix(_BaseMixUpCutMix):
         inside = (((ys >= y1) & (ys < y2))[:, None]
                   & ((xs >= x1) & (xs < x2))[None, :])
         return torch.where(inside, images.roll(1, 0), images)
+
+
+class JPEG(Transform):
+    """The JPEG round trip (``functional.jpeg``) at a quality uniform over
+    the integers of ``quality`` (one number: that quality), through the
+    port's host codec: one host synchronisation a call for an image on
+    the card."""
+
+    _transformed_types = (tv_tensors.Image, tv_tensors.Video, torch.Tensor)
+
+    def __init__(self, quality):
+        if isinstance(quality, int):
+            quality = [quality, quality]
+        if not 1 <= quality[0] <= quality[1] <= 100:
+            raise ValueError(f"quality must be in [1, 100], got {quality}")
+        self.quality = list(quality)
+
+    def make_params(self, flat_inputs, generator):
+        return dict(quality=randint(generator, self.quality[0],
+                                    self.quality[1] + 1))
+
+    def transform_sample(self, inpt, params):
+        return jpeg(inpt, params["quality"])

@@ -1,6 +1,8 @@
 """Colour transforms (counterpart of ``vision_tpu/transforms/v2/_color.py``)
 for samples (``_transform.py``): they change images and videos, and
-nothing else of a sample. Their draws are the JAX package's eager ones."""
+nothing else of a sample. Their draws are the JAX package's eager ones;
+``GaussianNoise`` draws a seed, and its normals on the image's device
+from it."""
 
 from __future__ import annotations
 
@@ -14,11 +16,14 @@ from vision_tpu_torch.transforms.v2._transform import (
     Transform,
     _RandomApplyTransform,
     permutation,
+    randint,
     uniform,
 )
 
 __all__ = [
     "ColorJitter",
+    "GaussianBlur",
+    "GaussianNoise",
     "Grayscale",
     "RGB",
     "RandomAdjustSharpness",
@@ -235,3 +240,48 @@ class RandomChannelPermutation(Transform):
 
     def transform_sample(self, inpt, params):
         return F.permute_channels(inpt, params["permutation"])
+
+
+class GaussianBlur(Transform):
+    """``gaussian_blur`` at a sigma uniform in ``sigma`` (one for both
+    axes)."""
+
+    _transformed_types = _IMAGE_TYPES
+
+    def __init__(self, kernel_size, sigma=(0.1, 2.0)):
+        self.kernel_size = kernel_size
+        if isinstance(sigma, (int, float)):
+            sigma = (float(sigma), float(sigma))
+        self.sigma = tuple(sigma)
+
+    def make_params(self, flat_inputs, generator):
+        sigma = uniform(generator, *self.sigma)
+        return dict(sigma=[sigma, sigma])
+
+    def transform_sample(self, inpt, params):
+        return F.gaussian_blur(inpt, self.kernel_size, params["sigma"])
+
+
+class GaussianNoise(Transform):
+    """``gaussian_noise`` of images and videos. The params are one seed,
+    drawn from the sample's CPU generator (so a ``Record`` keeps it); the
+    normals come from a generator on the image's device seeded with it.
+    They are torch's normals, not the JAX package's (which draws them
+    from its key): the same seed gives the same noise on one device, and
+    the card's differ from the CPU's."""
+
+    _transformed_types = _IMAGE_TYPES
+
+    def __init__(self, mean: float = 0.0, sigma: float = 0.1, clip: bool = True):
+        self.mean = mean
+        self.sigma = sigma
+        self.clip = clip
+
+    def make_params(self, flat_inputs, generator):
+        return dict(seed=randint(generator, 0, 2 ** 62))
+
+    def transform_sample(self, inpt, params):
+        g = torch.Generator(device=inpt.device)
+        g.manual_seed(params["seed"])
+        return F.gaussian_noise(inpt, self.mean, self.sigma, self.clip,
+                                generator=g)

@@ -1,6 +1,7 @@
 """Container transforms (counterpart of
 ``vision_tpu/transforms/v2/_container.py``): ``Compose`` and
-``RandomChoice`` for batches and samples (``_transform.py``);
+``RandomChoice`` for batches (where every member has a batch form; else
+a plain 4-d tensor is one sample) and samples (``_transform.py``);
 ``RandomApply`` and ``RandomOrder`` for samples. A container passes the
 sample's generator (a ``Record`` or ``Replay`` too) to each transform it
 runs, in turn; its own draw (the pick, the gate, the order) comes first.
@@ -40,6 +41,10 @@ class Compose(Transform):
         if not transforms:
             raise ValueError("transforms must not be empty")
         self.transforms = list(transforms)
+
+    def batch_form(self) -> bool:
+        return all(isinstance(t, Transform) and t.batch_form()
+                   for t in self.transforms)
 
     def output_shape(self, shape: Shape) -> Shape:
         for t in self.transforms:
@@ -83,6 +88,9 @@ class RandomChoice(Transform):
             raise ValueError("length of p must match transforms")
         total = float(sum(p))
         self.p = [float(x) / total for x in p]
+
+    def batch_form(self) -> bool:
+        return all(t.batch_form() for t in self.transforms)
 
     def output_shape(self, shape: Shape) -> Shape:
         return self.transforms[0].output_shape(shape)

@@ -4,7 +4,10 @@
 horizontal flip folded in), ``RandomHorizontalFlip`` and
 ``RandomVerticalFlip``. For samples (``_transform.py``), every class here,
 moving boxes, masks and keypoints with the image: the JAX package's eager
-draws, as Python numbers from the sample's CPU generator."""
+draws, as Python numbers from the sample's CPU generator (and
+``ElasticTransform``'s displacement field, drawn and blurred on the host).
+The others take a plain 4-d tensor as one sample, one draw for all its
+images."""
 
 from __future__ import annotations
 
@@ -31,11 +34,14 @@ from vision_tpu_torch.transforms.v2.functional._geometry import (
     resized_crop_flip_batch,
     vertical_flip_image,
 )
+from vision_tpu_torch.transforms.v2.functional._misc import gaussian_blur_image
 
-__all__ = ["CenterCrop", "Pad", "RandomCrop", "RandomHorizontalFlip",
-           "RandomIoUCrop", "RandomResize", "RandomResizedCrop",
-           "RandomShortestSize", "RandomVerticalFlip", "RandomZoomOut",
-           "Resize", "ScaleJitter"]
+__all__ = ["CenterCrop", "ElasticTransform", "FiveCrop", "Pad",
+           "RandomAffine", "RandomCrop", "RandomHorizontalFlip",
+           "RandomIoUCrop", "RandomPerspective", "RandomResize",
+           "RandomResizedCrop", "RandomRotation", "RandomShortestSize",
+           "RandomVerticalFlip", "RandomZoomOut", "Resize", "ScaleJitter",
+           "TenCrop"]
 
 _CANDIDATES = 10
 
@@ -404,3 +410,188 @@ class RandomIoUCrop(Transform):
             return inpt
         return F.crop(inpt, params["top"], params["left"], params["height"],
                       params["width"])
+
+
+def _setup_range(value, name: str, center: float = 0.0):
+    if isinstance(value, (int, float)):
+        if value < 0:
+            raise ValueError(f"{name} must be non-negative if scalar")
+        return (center - value, center + value)
+    return tuple(float(v) for v in value)
+
+
+class RandomRotation(Transform):
+    """A rotation by an angle uniform in ``degrees`` (a number ``d``: [-d,
+    d]), about ``center``; with ``expand`` the canvas grows to hold it."""
+
+    def __init__(self, degrees, interpolation: str = "nearest",
+                 expand: bool = False, center=None, fill=0):
+        self.degrees = _setup_range(degrees, "degrees")
+        self.interpolation = interpolation
+        self.expand = expand
+        self.center = center
+        self.fill = fill
+
+    def make_params(self, flat_inputs, generator):
+        return dict(angle=uniform(generator, *self.degrees))
+
+    def transform_sample(self, inpt, params):
+        return F.rotate(inpt, params["angle"], self.interpolation, self.expand,
+                        self.center, self.fill)
+
+
+class RandomAffine(Transform):
+    """A rotation by an angle uniform in ``degrees``, a translation of up to
+    ``translate`` (shares of the width and height, rounded to pixels), a
+    scale uniform in ``scale`` and a shear uniform in ``shear`` (a number
+    ``s``: x in [-s, s]; four numbers: x and y ranges)."""
+
+    def __init__(self, degrees, translate=None, scale=None, shear=None,
+                 interpolation: str = "nearest", fill=0, center=None):
+        self.degrees = _setup_range(degrees, "degrees")
+        self.translate = translate
+        self.scale_range = scale
+        self.shear = shear
+        self.interpolation = interpolation
+        self.fill = fill
+        self.center = center
+
+    def make_params(self, flat_inputs, generator):
+        height, width = query_size(flat_inputs)
+        angle = uniform(generator, *self.degrees)
+        translations = [0, 0]
+        if self.translate is not None:
+            max_dx = self.translate[0] * width
+            max_dy = self.translate[1] * height
+            translations = [int(round(uniform(generator, -max_dx, max_dx))),
+                            int(round(uniform(generator, -max_dy, max_dy)))]
+        scale = 1.0
+        if self.scale_range is not None:
+            scale = uniform(generator, *self.scale_range)
+        shear_x = shear_y = 0.0
+        if self.shear is not None:
+            shear = self.shear
+            if isinstance(shear, (int, float)):
+                shear = (-shear, shear)
+            shear_x = uniform(generator, shear[0], shear[1])
+            if len(shear) == 4:
+                shear_y = uniform(generator, shear[2], shear[3])
+        return dict(angle=angle, translate=translations, scale=scale,
+                    shear=[shear_x, shear_y])
+
+    def transform_sample(self, inpt, params):
+        return F.affine(inpt, params["angle"], params["translate"],
+                        params["scale"], params["shear"], self.interpolation,
+                        self.fill, self.center)
+
+
+class RandomPerspective(_RandomApplyTransform):
+    """With probability ``p``, the four corners moved inwards by up to
+    ``distortion_scale`` of half the width and height, each by uniform
+    integers, and the image warped by the homography between."""
+
+    def __init__(self, distortion_scale: float = 0.5, p: float = 0.5,
+                 interpolation: str = "bilinear", fill=0):
+        super().__init__(p)
+        if not 0 <= distortion_scale <= 1:
+            raise ValueError("distortion_scale must be in [0, 1]")
+        self.distortion_scale = distortion_scale
+        self.interpolation = interpolation
+        self.fill = fill
+
+    def make_params(self, flat_inputs, generator):
+        height, width = query_size(flat_inputs)
+        d = self.distortion_scale
+        bound_h = int(d * (height // 2)) + 1
+        bound_w = int(d * (width // 2)) + 1
+
+        def ri(n):
+            return randint(generator, 0, n)
+
+        topleft = [ri(bound_w), ri(bound_h)]
+        topright = [width - ri(bound_w) - 1, ri(bound_h)]
+        botright = [width - ri(bound_w) - 1, height - ri(bound_h) - 1]
+        botleft = [ri(bound_w), height - ri(bound_h) - 1]
+        startpoints = [[0, 0], [width - 1, 0], [width - 1, height - 1],
+                       [0, height - 1]]
+        return dict(startpoints=startpoints,
+                    endpoints=[topleft, topright, botright, botleft])
+
+    def transform_sample(self, inpt, params):
+        return F.perspective(inpt, params["startpoints"], params["endpoints"],
+                             self.interpolation, self.fill)
+
+
+class ElasticTransform(Transform):
+    """A smooth random displacement field: ``[1, H, W, 2]`` uniform draws in
+    [-1, 1) from the sample's CPU generator, each of x and y blurred
+    (``gaussian_blur_image``, kernel ``8 sigma + 1`` made odd) and scaled by
+    ``alpha`` over the width or height, on the host, so that a ``Record``
+    keeps it and a ``Replay`` can hand the JAX package's across. It goes to
+    the sample's device once a call, from pinned memory."""
+
+    def __init__(self, alpha=50.0, sigma=5.0, interpolation: str = "bilinear",
+                 fill=0):
+        self.alpha = ((float(alpha),) * 2 if isinstance(alpha, (int, float))
+                      else tuple(float(a) for a in alpha))
+        self.sigma = ((float(sigma),) * 2 if isinstance(sigma, (int, float))
+                      else tuple(float(s) for s in sigma))
+        self.interpolation = interpolation
+        self.fill = fill
+
+    def make_params(self, flat_inputs, generator):
+        h, w = query_size(flat_inputs)
+        fields = []
+        for alpha, sigma, extent in zip(self.alpha, self.sigma, (w, h)):
+            d = torch.rand((1, 1, h, w), generator=generator) * 2.0 - 1.0
+            if sigma > 0.0:
+                ks = int(8 * sigma + 1)
+                ks += 1 - ks % 2
+                d = gaussian_blur_image(d, ks, sigma)
+            fields.append(d * alpha / extent)
+        return dict(displacement=torch.cat(fields, 1).permute(0, 2, 3, 1)
+                    .contiguous())
+
+    def prepare(self, params, flat_inputs):
+        field = params["displacement"]
+        dev = next((x.device for x in flat_inputs
+                    if isinstance(x, torch.Tensor)), field.device)
+        if field.device == dev:
+            return params
+        if dev.type == "cuda" and field.device.type == "cpu":
+            field = field.pin_memory().to(dev, non_blocking=True)
+        else:
+            field = field.to(dev)
+        return dict(params, displacement=field)
+
+    def transform_sample(self, inpt, params):
+        return F.elastic(inpt, params["displacement"], self.interpolation,
+                         self.fill)
+
+
+class FiveCrop(Transform):
+    """The five ``size`` crops of each image or video (``five_crop``): the
+    leaf becomes a tuple of five. Masks, boxes and keypoints pass
+    through."""
+
+    _transformed_types = (tv_tensors.Image, tv_tensors.Video, torch.Tensor)
+
+    def __init__(self, size):
+        self.size = size
+
+    def transform_sample(self, inpt, params):
+        return F.five_crop(inpt, self.size)
+
+
+class TenCrop(Transform):
+    """``FiveCrop`` of each image or video and of its mirror: a tuple of
+    ten."""
+
+    _transformed_types = (tv_tensors.Image, tv_tensors.Video, torch.Tensor)
+
+    def __init__(self, size, vertical_flip: bool = False):
+        self.size = size
+        self.vertical_flip = vertical_flip
+
+    def transform_sample(self, inpt, params):
+        return F.ten_crop(inpt, self.size, self.vertical_flip)

@@ -1,11 +1,12 @@
 """Misc transforms (counterpart of ``vision_tpu/transforms/v2/_misc.py``):
 ``ToDtype`` and ``Normalize`` for batches and samples; for samples
-``ConvertBoundingBoxFormat``, ``ClampBoundingBoxes``,
-``SanitizeBoundingBoxes``, ``Identity`` and ``Lambda``."""
+``ConvertBoundingBoxFormat``, ``ClampBoundingBoxes``, ``ClampKeyPoints``,
+``SanitizeBoundingBoxes``, ``SanitizeKeyPoints``, ``SetClampingMode``,
+``LinearTransformation``, ``Identity`` and ``Lambda``."""
 
 from __future__ import annotations
 
-from typing import Any, Callable, Sequence, Union
+from typing import Any, Callable, Dict, Sequence, Union
 
 import torch
 import torch.utils._pytree as pytree
@@ -18,8 +19,10 @@ from vision_tpu_torch.transforms.v2.functional._misc import (
     to_dtype_image,
 )
 
-__all__ = ["ClampBoundingBoxes", "ConvertBoundingBoxFormat", "Identity",
-           "Lambda", "Normalize", "SanitizeBoundingBoxes", "ToDtype"]
+__all__ = ["ClampBoundingBoxes", "ClampKeyPoints", "ConvertBoundingBoxFormat",
+           "Identity", "Lambda", "LinearTransformation", "Normalize",
+           "SanitizeBoundingBoxes", "SanitizeKeyPoints", "SetClampingMode",
+           "ToDtype"]
 
 _IMAGE_TYPES = (tv_tensors.Image, tv_tensors.Video, torch.Tensor)
 
@@ -108,6 +111,26 @@ class ClampBoundingBoxes(Transform):
         return F.clamp_bounding_boxes(inpt, clamping_mode=self.clamping_mode)
 
 
+def _labels(labels_getter, sample):
+    """The labels ``labels_getter`` names: a callable's result, or with
+    ``"default"`` the ``"labels"`` of a dict sample or of the dict second
+    in a pair; else None."""
+    if callable(labels_getter):
+        return labels_getter(sample)
+    if labels_getter == "default":
+        if isinstance(sample, dict) and "labels" in sample:
+            return sample["labels"]
+        if (isinstance(sample, (list, tuple)) and len(sample) == 2
+                and isinstance(sample[1], dict) and "labels" in sample[1]):
+            return sample[1]["labels"]
+    return None
+
+
+def _rows(x: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    return x.index_select(0, keep if x.device == keep.device
+                          else keep.to(x.device))
+
+
 class SanitizeBoundingBoxes(Transform):
     """Drop the boxes ``functional.sanitize_bounding_boxes`` marks, with
     their labels (``labels_getter``: by default ``"labels"`` of a dict
@@ -121,19 +144,8 @@ class SanitizeBoundingBoxes(Transform):
         self.min_area = min_area
         self.labels_getter = labels_getter
 
-    def _get_labels(self, sample):
-        if callable(self.labels_getter):
-            return self.labels_getter(sample)
-        if self.labels_getter == "default":
-            if isinstance(sample, dict) and "labels" in sample:
-                return sample["labels"]
-            if (isinstance(sample, (list, tuple)) and len(sample) == 2
-                    and isinstance(sample[1], dict) and "labels" in sample[1]):
-                return sample[1]["labels"]
-        return None
-
     def forward_sample(self, sample: Any, generator=None) -> Any:
-        labels = self._get_labels(sample)
+        labels = _labels(self.labels_getter, sample)
         flat, spec = pytree.tree_flatten(sample)
         boxes = next((x for x in flat if isinstance(x, tv_tensors.BoundingBoxes)),
                      None)
@@ -144,18 +156,113 @@ class SanitizeBoundingBoxes(Transform):
         keep = valid.nonzero()[:, 0]  # the one host synchronisation
         n = len(valid)
 
-        def rows(x):
-            return x.index_select(0, keep if x.device == keep.device
-                                  else keep.to(x.device))
-
         def fixup(x):
             if isinstance(x, tv_tensors.BoundingBoxes):
-                return tv_tensors.wrap(rows(x.as_tensor()), like=x)
+                return tv_tensors.wrap(_rows(x.as_tensor(), keep), like=x)
             if labels is not None and x is labels:
-                return rows(x)
+                return _rows(x, keep)
             if isinstance(x, (tv_tensors.Mask, tv_tensors.KeyPoints)) and (
                     x.ndim > 0 and x.shape[0] == n):
-                return tv_tensors.wrap(rows(x.as_tensor()), like=x)
+                return tv_tensors.wrap(_rows(x.as_tensor(), keep), like=x)
             return x
 
         return pytree.tree_unflatten([fixup(x) for x in flat], spec)
+
+
+class SanitizeKeyPoints(Transform):
+    """Drop each keypoint group (a row of ``KeyPoints``' first axis) with a
+    point outside the canvas (``functional.sanitize_keypoints``), and the
+    labels ``labels_getter`` names (none by default, as in the JAX
+    package) of as many rows. Boxes and masks beside them are left as they
+    are, as the JAX package leaves them: sanitise the boxes apart. The
+    kept rows are read on the host: one host synchronisation a call for
+    keypoints on the card."""
+
+    def __init__(self, labels_getter: Union[Callable, str, None] = None):
+        self.labels_getter = labels_getter
+
+    def forward_sample(self, sample: Any, generator=None) -> Any:
+        labels = _labels(self.labels_getter, sample)
+        flat, spec = pytree.tree_flatten(sample)
+        kps = next((x for x in flat if isinstance(x, tv_tensors.KeyPoints)), None)
+        if kps is None:
+            return sample
+        _, valid = F.sanitize_keypoints(kps)
+        keep = valid.nonzero()[:, 0]  # the one host synchronisation
+        n = len(valid)
+
+        def fixup(x):
+            if isinstance(x, tv_tensors.KeyPoints) and x.ndim > 0 and x.shape[0] == n:
+                return tv_tensors.wrap(_rows(x.as_tensor(), keep), like=x)
+            if labels is not None and x is labels:
+                return _rows(x, keep)
+            return x
+
+        return pytree.tree_unflatten([fixup(x) for x in flat], spec)
+
+
+class ClampKeyPoints(Transform):
+    """Keypoints clamped into the canvas (``functional.clamp_keypoints``)."""
+
+    _transformed_types = (tv_tensors.KeyPoints,)
+
+    def transform_sample(self, inpt, params):
+        return F.clamp_keypoints(inpt)
+
+
+class SetClampingMode(Transform):
+    """Boxes given ``clamping_mode`` (``"soft"``, ``"hard"`` or None) for
+    the transforms after."""
+
+    _transformed_types = (tv_tensors.BoundingBoxes,)
+
+    def __init__(self, clamping_mode):
+        if clamping_mode not in (None, "soft", "hard"):
+            raise ValueError(f"clamping_mode must be soft, hard or None, got "
+                             f"{clamping_mode}")
+        self.clamping_mode = clamping_mode
+
+    def transform_sample(self, inpt, params):
+        return tv_tensors.wrap(inpt.as_tensor(), like=inpt,
+                               clamping_mode=self.clamping_mode)
+
+
+class LinearTransformation(Transform):
+    """``(x - mean_vector) @ transformation_matrix`` over each image
+    flattened in torchvision's ``C, H, W`` order (the JAX package flattens
+    ``H, W, C``: its matrix and mean, permuted, are this one's). The
+    matrix and mean go to each device once and are kept there."""
+
+    _transformed_types = _IMAGE_TYPES
+
+    def __init__(self, transformation_matrix: torch.Tensor,
+                 mean_vector: torch.Tensor):
+        matrix = torch.as_tensor(transformation_matrix)
+        mean = torch.as_tensor(mean_vector)
+        d = matrix.shape[0]
+        if matrix.shape != (d, d):
+            raise ValueError("transformation_matrix must be square")
+        if mean.shape != (d,):
+            raise ValueError("mean_vector size must match matrix")
+        self.transformation_matrix = matrix
+        self.mean_vector = mean
+        self._on: Dict[torch.device, tuple] = {}
+
+    def _at(self, device: torch.device):
+        if device not in self._on:
+            self._on[device] = (self.transformation_matrix.to(device),
+                                self.mean_vector.to(device))
+        return self._on[device]
+
+    def transform_sample(self, inpt, params):
+        x = inpt.as_tensor() if isinstance(inpt, tv_tensors.TVTensor) else inpt
+        shape = x.shape
+        n = shape[-3] * shape[-2] * shape[-1]
+        matrix, mean = self._at(x.device)
+        if n != matrix.shape[0]:
+            raise ValueError(f"input flat size {n} != matrix dim "
+                             f"{matrix.shape[0]}")
+        out = ((x.reshape(-1, n) - mean) @ matrix).reshape(shape)
+        if isinstance(inpt, tv_tensors.TVTensor):
+            return tv_tensors.wrap(out, like=inpt)
+        return out

@@ -38,6 +38,12 @@ which is the JAX package's eager ``Transform.__call__``
 only when the sample holds no ``Image`` or ``Video``, and only the first
 plain tensor, so that labels beside an ``Image`` pass through.
 
+**A transform with no batch form** (no ``transform``, ``apply`` or
+``transform_all`` of its own: the geometry of samples, the warps, the
+blur and the noise, JPEG, the type conversions) takes a plain 4-d tensor
+as one sample: one draw for every image of it, as the JAX package's eager
+call (its ``make_params`` runs once a call) and torchvision do.
+
 A sample's draws decide output shapes (crop and canvas sizes,
 ``RandomIoUCrop``'s trials), so they are Python numbers by nature: they
 come from a CPU ``torch.Generator`` (the ``generator`` argument; None is
@@ -249,13 +255,27 @@ class Transform:
         if not params.get("applied", True):
             return sample
         needs = self._needs_transform_list(flat)
+        params = self.prepare(params, [x for x, n in zip(flat, needs) if n])
         out = [self.transform_sample(x, params) if n else x
                for x, n in zip(flat, needs)]
         return pytree.tree_unflatten(out, spec)
 
+    def prepare(self, params: Dict[str, Any], flat_inputs: List[Any]
+                ) -> Dict[str, Any]:
+        """The params the leaves are transformed with: ``params`` as drawn
+        (a transform whose params hold a tensor moves it to the sample's
+        device here, once a call)."""
+        return params
+
     # -- either -----------------------------------------------------------
+    def batch_form(self) -> bool:
+        """Whether a batch goes through ``draw`` and ``apply`` (else a plain
+        4-d tensor is one sample)."""
+        return (type(self).transform is not Transform.transform
+                or type(self).apply is not Transform.apply)
+
     def __call__(self, inputs: Any, generator: SampleGenerator = None) -> Any:
-        if is_batch(inputs):
+        if is_batch(inputs) and self.batch_form():
             return self.apply(inputs, self.draw(tuple(_images(inputs).shape),
                                                 generator))
         return self.forward_sample(inputs, generator)
@@ -292,6 +312,9 @@ class _RandomApplyTransform(Transform):
                       params: Dict[str, Any]) -> torch.Tensor:
         """The transform applied to every image of the batch."""
         raise NotImplementedError
+
+    def batch_form(self) -> bool:
+        return type(self).transform_all is not _RandomApplyTransform.transform_all
 
     def _draws(self) -> bool:
         return True

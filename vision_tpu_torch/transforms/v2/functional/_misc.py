@@ -1,19 +1,22 @@
 """Value functionals (counterpart of
-``vision_tpu/transforms/v2/functional/_misc.py``): ``normalize_image`` and
-``to_dtype_image`` on ``(..., C, H, W)`` tensors, ``normalize`` and
-``to_dtype`` on typed ones, and ``sanitize_bounding_boxes``."""
+``vision_tpu/transforms/v2/functional/_misc.py``): ``normalize_image``,
+``to_dtype_image`` and ``gaussian_blur_image`` on ``(..., C, H, W)``
+tensors, ``normalize``, ``to_dtype``, ``gaussian_blur`` and
+``gaussian_noise`` on typed ones, and ``sanitize_bounding_boxes``."""
 
 from __future__ import annotations
 
 import functools
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from vision_tpu_torch import tv_tensors
 from vision_tpu_torch.ops.boxes import box_convert
 
-__all__ = ["normalize", "normalize_image", "sanitize_bounding_boxes",
+__all__ = ["gaussian_blur", "gaussian_blur_image", "gaussian_noise",
+           "normalize", "normalize_image", "sanitize_bounding_boxes",
            "to_dtype", "to_dtype_image"]
 
 _VALUE_BITS = {
@@ -139,3 +142,125 @@ def sanitize_bounding_boxes(boxes, format=None,
     valid &= (xyxy[..., 0] <= w) & (xyxy[..., 2] <= w)
     valid &= (xyxy[..., 1] <= h) & (xyxy[..., 3] <= h)
     return boxes, valid
+
+
+def _pad_index(n: int, before: int, after: int, mode: str,
+               device) -> torch.Tensor:
+    """Source index of each padded position along an axis of ``n``: edge
+    copies, or the periodic reflection numpy's ``reflect`` and
+    ``symmetric`` pads make however wide the pad."""
+    i = torch.arange(-before, n + after, device=device)
+    if mode == "edge":
+        return i.clamp(0, n - 1)
+    period = 2 * n - (2 if mode == "reflect" else 0)
+    if period <= 0:
+        return torch.zeros_like(i)
+    i = torch.remainder(i, period)
+    if mode == "reflect":
+        return torch.where(i < n, i, period - i)
+    if mode == "symmetric":
+        return torch.where(i < n, i, period - 1 - i)
+    raise ValueError(f"unknown padding_mode {mode!r}")
+
+
+def _gaussian_kernel1d(kernel_size: int, sigma: float, device) -> torch.Tensor:
+    """The normalised gaussian of ``kernel_size`` taps at ``sigma``, in f64
+    then f32, made on ``device`` (the JAX package's numpy arithmetic;
+    made there, no copy from the host waits for the card)."""
+    half = (kernel_size - 1) * 0.5
+    x = torch.linspace(-half, half, kernel_size, dtype=torch.float64,
+                       device=device)
+    pdf = torch.exp(-0.5 * (x / sigma) ** 2)
+    return (pdf / pdf.sum()).float()
+
+
+def _blur_params(kernel_size, sigma):
+    if isinstance(kernel_size, int):
+        kernel_size = [kernel_size, kernel_size]
+    if len(kernel_size) == 1:
+        kernel_size = [kernel_size[0], kernel_size[0]]
+    for ks in kernel_size:
+        if ks <= 0 or ks % 2 == 0:
+            raise ValueError(f"kernel_size must be positive odd, got {kernel_size}")
+    if sigma is None:
+        sigma = [ks * 0.15 + 0.35 for ks in kernel_size]
+    elif isinstance(sigma, (int, float)):
+        sigma = [float(sigma), float(sigma)]
+    elif len(sigma) == 1:
+        sigma = [float(sigma[0]), float(sigma[0])]
+    return [int(k) for k in kernel_size], [float(s) for s in sigma]
+
+
+def gaussian_blur_image(image: torch.Tensor,
+                        kernel_size: Union[int, Sequence[int]],
+                        sigma: Optional[Union[float, Sequence[float]]] = None
+                        ) -> torch.Tensor:
+    """Separable gaussian blur of ``(..., C, H, W)`` images, reflect-padded:
+    a depthwise ``conv2d`` (``groups=C``) down the rows, then one along
+    them, f32 sums, an integer image rounded and clamped back. As in the
+    JAX package, ``kernel_size[0]`` and ``sigma[0]`` are the vertical
+    pass's (torchvision's first entries are the horizontal one's)."""
+    (ky_size, kx_size), (sy, sx) = _blur_params(kernel_size, sigma)
+    c, h, w = image.shape[-3:]
+    dev = image.device
+    x = image.float().reshape(-1, c, h, w)
+    py, px = ky_size // 2, kx_size // 2
+    x = x.index_select(-2, _pad_index(h, py, py, "reflect", dev))
+    x = x.index_select(-1, _pad_index(w, px, px, "reflect", dev))
+    ky = _gaussian_kernel1d(ky_size, sy, dev)
+    kx = _gaussian_kernel1d(kx_size, sx, dev)
+    x = F.conv2d(x, ky.view(1, 1, -1, 1).repeat(c, 1, 1, 1), groups=c)
+    x = F.conv2d(x, kx.view(1, 1, 1, -1).repeat(c, 1, 1, 1), groups=c)
+    out = x.reshape(image.shape)
+    if not image.dtype.is_floating_point:
+        info = torch.iinfo(image.dtype)
+        out = torch.round(out).clamp(info.min, info.max)
+    return out.to(image.dtype)
+
+
+def gaussian_blur(inpt, kernel_size, sigma=None):
+    """Images, videos and plain tensors blurred; masks, boxes and keypoints
+    as they are."""
+    if _image_like(inpt):
+        if isinstance(inpt, tv_tensors.TVTensor):
+            return tv_tensors.wrap(gaussian_blur_image(
+                inpt.as_tensor(), kernel_size, sigma), like=inpt)
+        return gaussian_blur_image(inpt, kernel_size, sigma)
+    return inpt
+
+
+def gaussian_noise(inpt, mean: float = 0.0, sigma: float = 0.1,
+                   clip: bool = True, *,
+                   generator: Optional[torch.Generator] = None,
+                   normals: Optional[torch.Tensor] = None):
+    """``x + mean + sigma * z`` for a float image (clipped to [0, 1]); for
+    uint8, ``255 (mean + sigma z)`` truncated to int16, added, clipped to
+    [0, 255] (the JAX package's and torchvision's arithmetic). ``z`` are
+    standard normals drawn from ``generator`` (on the image's device;
+    None: torch's default one), or ``normals`` (of the image's shape) where
+    given: the draws are torch's, not JAX's. Other types raise."""
+    if sigma < 0:
+        raise ValueError(f"sigma shouldn't be negative. Got {sigma}")
+    img = inpt.as_tensor() if isinstance(inpt, tv_tensors.TVTensor) else inpt
+    if not (img.is_floating_point() or img.dtype == torch.uint8):
+        raise ValueError(f"Input is expected to be uint8 or float, got "
+                         f"dtype={img.dtype}")
+    z_dtype = img.dtype if img.is_floating_point() else torch.float32
+    if normals is None:
+        z = torch.randn(img.shape, generator=generator, dtype=z_dtype,
+                        device=img.device)
+    else:
+        z = normals.to(img.device, z_dtype)
+    if img.is_floating_point():
+        out = img + (mean + z * sigma)
+        if clip:
+            out = out.clamp(0.0, 1.0)
+    else:
+        noise = (mean * 255.0 + z * (sigma * 255.0)).to(torch.int16)
+        out = img.to(torch.int16) + noise
+        if clip:
+            out = out.clamp(0, 255)
+        out = out.to(torch.uint8)
+    if isinstance(inpt, tv_tensors.TVTensor):
+        return tv_tensors.wrap(out, like=inpt)
+    return out

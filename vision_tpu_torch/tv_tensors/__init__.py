@@ -11,6 +11,8 @@ from vision_tpu_torch.tv_tensors._tv_tensor import (
     Mask,
     TVTensor,
     Video,
+    is_rotated_bounding_format,
+    set_return_type,
     wrap,
 )
 from vision_tpu_torch.tv_tensors._dataset_wrapper import (
@@ -25,6 +27,8 @@ __all__ = [
     "Mask",
     "TVTensor",
     "Video",
+    "is_rotated_bounding_format",
+    "set_return_type",
     "wrap",
     "wrap_dataset_for_transforms_v2",
 ]

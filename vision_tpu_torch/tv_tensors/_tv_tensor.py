@@ -5,9 +5,10 @@ as in torchvision's ``_tv_tensor.py``, each type is a ``torch.Tensor``
 subclass. An operation on one returns a plain tensor (``__torch_function__``
 runs every op with the subclass disabled): what comes out of arithmetic, an
 index or a view is data, not an image or boxes, until ``wrap(out, like=x)``
-gives it a type and metadata again. ``clone``, ``to``, ``detach``,
-``requires_grad_`` and ``pin_memory`` keep the type and the metadata, as
-torchvision's do.
+gives it a type and metadata again (or, under
+``set_return_type("TVTensor")``, the first argument's type and metadata).
+``clone``, ``to``, ``detach``, ``requires_grad_`` and ``pin_memory`` keep
+the type and the metadata, as torchvision's do.
 
 Layouts are torchvision's: ``Image`` ``[..., C, H, W]``, ``Video`` ``[...,
 T, C, H, W]``, ``Mask`` ``[..., H, W]``, ``BoundingBoxes`` ``[N, 4]`` (5 or
@@ -23,6 +24,7 @@ import enum
 from typing import Any, Optional, Tuple, Union
 
 import torch
+import torch.utils._pytree as pytree
 
 __all__ = [
     "BoundingBoxFormat",
@@ -32,6 +34,8 @@ __all__ = [
     "Mask",
     "TVTensor",
     "Video",
+    "is_rotated_bounding_format",
+    "set_return_type",
     "wrap",
 ]
 
@@ -49,6 +53,45 @@ class BoundingBoxFormat(enum.Enum):
 
 _ROTATED = (BoundingBoxFormat.XYWHR, BoundingBoxFormat.CXCYWHR,
             BoundingBoxFormat.XYXYXYXY)
+
+
+def is_rotated_bounding_format(format) -> bool:
+    """Whether ``format`` (a ``BoundingBoxFormat`` or its name, any case) is
+    one of the rotated ones."""
+    if isinstance(format, BoundingBoxFormat):
+        return format in _ROTATED
+    if isinstance(format, str):
+        return format.upper() in ("XYWHR", "CXCYWHR", "XYXYXYXY")
+    raise ValueError(f"format should be str or BoundingBoxFormat, got "
+                     f"{type(format)}")
+
+
+# what an op on a typed tensor returns: "tensor" (plain data, the default)
+# or "tvtensor" (the first argument's type and metadata)
+_return_type = "tensor"
+
+
+class set_return_type:
+    """Set what an operation on a typed tensor returns: ``"Tensor"`` (plain
+    data, the default) or ``"TVTensor"`` (the type and metadata of its
+    first argument, where that is a typed tensor). Called, it sets the
+    choice; as a context manager it restores the one before on exit
+    (torchvision's ``set_return_type``; the JAX package takes the same
+    names, and its containers always return plain data)."""
+
+    def __init__(self, return_type: str):
+        if return_type.lower() not in ("tensor", "tvtensor"):
+            raise ValueError(f"unknown return_type {return_type!r}")
+        global _return_type
+        self._before = _return_type
+        _return_type = return_type.lower()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        global _return_type
+        _return_type = self._before
 
 
 def _as_tensor(data: Any, dtype=None, device=None,
@@ -93,6 +136,10 @@ class TVTensor(torch.Tensor):
         if (func in _KEEP_TYPE and isinstance(first, TVTensor)
                 and isinstance(out, torch.Tensor)):
             return type(first)._from_meta(out, first._meta())
+        if _return_type == "tvtensor" and isinstance(first, cls):
+            return pytree.tree_map_only(
+                torch.Tensor, lambda t: type(first)._from_meta(
+                    t.as_subclass(torch.Tensor), first._meta()), out)
         if isinstance(out, TVTensor):
             # an op that returns its input itself (``.float()`` of an f32
             # tensor, an in-place op) still returns plain data
