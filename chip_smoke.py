@@ -4,10 +4,10 @@
     python3 chip_smoke.py
 
 Builds the thirteen CUDA kernel libraries of ``vision_tpu_torch`` from
-``csrc/`` (``nvcc``) and its JPEG and PNG / GIF codecs
-(``csrc/jpeg_codec.cpp``, ``csrc/image_codecs.cpp``, ``g++``, no library),
-all at once, and drives the port's main paths at full width, TF32
-off, seeded random weights:
+``csrc/`` (``nvcc``) and its JPEG, PNG / GIF and WebP codecs
+(``csrc/jpeg_codec.cpp``, ``csrc/image_codecs.cpp``,
+``csrc/webp_codec.cpp``, ``g++``, no library), all at once, and drives the
+port's main paths at full width, TF32 off, seeded random weights:
 
 * Faster R-CNN ResNet-50-FPN inference (91 classes, one 832x832 f32 image)
   through ``fasterrcnn_resnet50_fpn``: the bitmask NMS, window-pool and
@@ -120,9 +120,10 @@ off, seeded random weights:
   (BASELINE config 1). Each first batch is held against the CPU;
 * ImageNet from files on disk (``tools/imagenet_folder.py``): the
   fixtures of ``tests/torch_io_data`` (progressive, CMYK and EXIF JPEGs,
-  PNGs of every kind, an animated GIF) decoded on the card's host against
-  their manifest's digests, host ms an image by stream kind
-  (``image_io``); a tree of 8 classes (train/ 320 JPEGs, val/ 128 files
+  JPEGs of sampling factors 3 and 4, PNGs of every kind, an animated GIF,
+  WebPs lossy, lossless, with alpha, extended and animated) decoded on the
+  card's host against their manifest's digests, on the card against the
+  host, host ms an image by stream kind (``image_io``); a tree of 8 classes (train/ 320 JPEGs, val/ 128 files
   with PNGs) written to a temporary directory and read through
   ``ImageFolder`` and ``DeviceJpegLoader`` into an epoch of ResNet-50 amp
   steps through the ``matmul_stats`` ``wgmma`` kernel, step 1 against the
@@ -196,7 +197,22 @@ off, seeded random weights:
   images through the v1 surface alone, ``Compose([Resize(256),
   TenCrop(224)])`` and ``Normalize``, the logits averaged over the ten
   crops, against the same images through the functionals on the CPU
-  (``v1_tencrop_eval``).
+  (``v1_tencrop_eval``);
+* WebP and the small classification datasets (``small_data_phases``,
+  last; ``tools/small_datasets.py``, trees in a temporary directory): an
+  ``ImageFolder`` of every WebP fixture and the port's JPEGs and PNGs
+  through ``ClassificationPresetEval`` into ResNet-50 f32 at batch 32
+  against the CPU, and ``DeviceJpegLoader`` over it dropping nothing
+  (``webp_folder_eval``); CIFAR-10 at its published size (50,000 training
+  images in five pickled batches, seeded) through ``CIFAR10``, the v2
+  CIFAR recipe and ``DataLoader`` into 32 ResNet-50 (10 classes,
+  ``fused_bn``) amp steps at batch 128 through the ``matmul_stats``
+  ``wgmma`` kernel, step 1 against the plain path (``cifar_train``:
+  samples/s from files, ms a step, the card's idle share); the 24 other
+  readers (CIFAR-100, the MNIST family, FakeData, the 17 of ``_small.py``)
+  over their few-sample trees, each collated batch on the card against
+  the CPU's and the RGB ones through ResNet-50 against the CPU
+  (``small_datasets``).
 
 Every kernel is held against its plain PyTorch version on the card at the
 inputs the model gave it, and each path's result against a run of the same
@@ -525,11 +541,15 @@ class Kernels:
             for n, (mod, attr, _) in self.table.items():
                 setattr(mod, attr, self.cuda[n])
 
-    def recording(self, calls: dict, counts: dict = None):
+    def recording(self, calls: dict, counts: dict = None, plain: bool = False):
         """Record (a copy of) the positional arguments of every call. Of
         ``matmul_stats`` only the first call of each distinct (shapes,
-        prologue, type) is kept, and ``counts`` says how often each came."""
+        prologue, type) is kept, and ``counts`` says how often each came.
+        With ``plain`` the calls go to the plain versions."""
         def make(name, fn):
+            if plain:
+                fn = self.plain[name]
+
             def rec(*args):
                 if name == "matmul_stats":
                     key = matmul_key(args)
@@ -875,10 +895,15 @@ def main() -> int:
     t_rest = time.perf_counter()
     transforms_rest_phases(kernels, rows)
     transforms_rest_s = time.perf_counter() - t_rest
+    torch.cuda.empty_cache()
+    t_small = time.perf_counter()
+    small_data_phases(kernels, rows)
+    small_data_s = time.perf_counter() - t_small
     emit("done", build_s=build_s, phases_s=time.perf_counter() - t_phases,
          detection_zoo_s=det_s, folder_s=folder_s, zoo_s=zoo_s, dense_s=dense_s,
          recipe_s=recipe_s, coco_voc_s=coco_voc_s,
-         transforms_rest_s=transforms_rest_s, total_s=time.perf_counter() - t0)
+         transforms_rest_s=transforms_rest_s, small_data_s=small_data_s,
+         total_s=time.perf_counter() - t0)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
@@ -4470,22 +4495,30 @@ FOLDER_IO_REPS = 3
 
 def image_io_phase() -> dict:
     """The port's codecs on the card's host against the fixtures of
-    ``tests/torch_io_data`` (Pillow streams; the card's machine has no
-    PIL): every fixture's decoded pixels, and each JPEG fixture's
-    coefficients at limits 8 and 5, against the SHA-256 digests its
-    manifest recorded from libjpeg, libpng and ``vision_tpu``'s GIF decoder
-    (a JPEG's pixels from the port's own host decode there, beside their
-    distance from libjpeg's); the progressive fixtures decoded on the card
-    within one level of the host; then host ms an image at 500x375 for
-    baseline, progressive and CMYK streams (the whole decode and the
-    Huffman pass alone) and for PNG decode and encode, on one thread and
-    on ``decode_threads()``. Returns the host ms by stream kind."""
+    ``tests/torch_io_data`` (Pillow, libwebp and libjpeg streams; the
+    card's machine has none of them): every fixture's decoded pixels, and
+    each JPEG fixture's coefficients at limits 8 and 5, against the SHA-256
+    digests its manifest recorded from libjpeg, libpng, libwebp (Pillow
+    for the animation) and ``vision_tpu``'s GIF decoder (a JPEG's pixels
+    from the port's own host decode there, beside their distance from
+    libjpeg's); the progressive fixtures and the JPEGs of sampling factors
+    3 and 4 decoded on the card within one level of the host (WebP has no
+    card stage: its decode is the host's, copied); then
+    host ms an image at 500x375 for baseline, progressive and CMYK JPEG
+    streams (the whole decode and the Huffman pass alone), for lossy,
+    lossless and lossy + alpha WebP, and for PNG decode and encode, on one
+    thread and on ``decode_threads()``. Returns the host ms by stream
+    kind."""
     import hashlib
 
     import numpy as np
-    import torch
 
-    from vision_tpu_torch.io import _codecs, _image_codecs, decode_jpeg, decode_png
+    from vision_tpu_torch.io import (
+        _codecs,
+        _image_codecs,
+        decode_jpeg,
+        decode_png,
+    )
     from vision_tpu_torch.io.jpeg_device import decode_threads
     from vision_tpu_torch.tools import imagenet_folder as folder
 
@@ -4514,6 +4547,8 @@ def image_io_phase() -> dict:
             if "pixels16_sha256" in want and digest(
                     [_image_codecs.decode_png_native(data, wide=True)]) != want["pixels16_sha256"]:
                 bad.append(f"{name} pixels16")
+        elif want["kind"] == "webp":
+            px = _image_codecs.decode_webp_native(data)
         else:
             px = _image_codecs.decode_gif_native(data)
         if list(px.shape) != want["shape"] or digest([px]) != want["pixels_sha256"]:
@@ -4525,6 +4560,10 @@ def image_io_phase() -> dict:
                    for h, c in zip(host, card))
     png_card = all(bool((decode_png(streams[n]).cpu() == decode_png(streams[n], device="cpu")).all())
                    for n in streams if n.endswith(".png"))
+    webps = sorted(n for n in streams if manifest[n]["kind"] == "webp")
+    sampled = [streams[n] for n in sorted(streams) if n.startswith("samp_")]
+    samp_err = max(int((h.expand(3, -1, -1).int() - c.cpu().int()).abs().max())
+                   for h, c in zip(decode_jpeg(sampled, device="cpu"), decode_jpeg(sampled)))
 
     threads = decode_threads()
     base = folder.baseline_jpegs(sizes=[folder.BASELINE_SIZES[0]], variants=8, quality=75)
@@ -4538,6 +4577,11 @@ def image_io_phase() -> dict:
             if kind != "cmyk":
                 ms[f"{kind}_huffman_ms_t{t}"] = folder.host_ms(
                     _codecs.jpeg_coefficients_native, batch, t, FOLDER_IO_REPS)
+    for kind in ("lossy", "lossless", "alpha"):
+        batch = [streams[f"webp_{kind}_500x375.webp"]] * 8
+        for t in (1, threads):
+            ms[f"webp_{kind}_decode_ms_t{t}"] = folder.host_ms(
+                _image_codecs.decode_webp_native, batch, t, FOLDER_IO_REPS)
     h, w = folder.BASELINE_SIZES[0]
     pngs = [_image_codecs.encode_png_native(folder.photo(h, w, seed=s)) for s in range(8)]
     imgs = [folder.photo(h, w, seed=s) for s in range(8)]
@@ -4548,9 +4592,11 @@ def image_io_phase() -> dict:
             _image_codecs.encode_png_native, imgs, t, FOLDER_IO_REPS)
     emit("image_io", fixtures=len(manifest), digest_mismatches=bad,
          progressive_card_vs_host_max_abs_err=card_err, card_tol=1,
-         png_card_equals_host=png_card, host_threads=threads, image=[h, w],
+         sampling_3_4_card_vs_host_max_abs_err=samp_err, sampling_streams=len(sampled),
+         png_card_equals_host=png_card, webp_fixtures=len(webps),
+         host_threads=threads, image=[h, w],
          png_bytes_mean=sum(map(len, pngs)) / len(pngs), **ms)
-    if bad or card_err > 1 or not png_card:
+    if bad or card_err > 1 or samp_err > 1 or not png_card:
         raise RuntimeError(f"image_io: digests off the manifest's {bad}, or the "
                            "card's decode off the host's")
     return ms
@@ -6624,6 +6670,294 @@ def transforms_rest_phases(kernels, rows) -> None:
     by_name = {r["name"]: r for r in rows}
     for row, counter in KEYPOINT_WARP_ROWS.items():
         by_name[row]["launches_keypoint_warp_train"] = launches[counter]
+
+
+# WebP, the small classification datasets and CIFAR-10 training on the
+# card (small_data_phases, last)
+WEBP_FOLDER_BATCH = 32  # every file of the WebP folder, one batch
+WEBP_LOGITS_TOL = 1e-4  # f32 logits on the card against the CPU's, of the largest
+CIFAR_BATCH = 128
+CIFAR_STEPS = 32
+CIFAR_FIRST_LOSS_TOL = 2e-2  # amp step 1 against the plain path's, relative
+CIFAR_PROFILED = 4  # the last steps from files, traced for the card's busy share
+# Step 1's gradients of these against the plain path's are printed, not
+# gated: at random init the training-mode batch norms (layer4's over 1x1
+# maps) amplify a forward's round-off into the gradients (the docstring of
+# tests/test_torch_train.py), so two bf16 paths part by O(1) below fc
+# whatever the kernel; the kernel is held at each of the step's calls
+CIFAR_GRADS = ("conv1.weight", "layer1.0.conv1.weight", "layer2.3.conv3.weight",
+               "layer3.5.bn3.weight", "layer4.2.conv3.weight", "fc.weight")
+# SGD from random weights at 32x32 (the ImageNet stem leaves layer4 1x1):
+# at LR the losses of the first steps reach ~40; at this rate they stay
+# finite and fall back by step 10 (seeded CIFAR rows, batch 64, on the CPU)
+CIFAR_LR = 0.02
+CIFAR_MEAN = (0.4914, 0.4822, 0.4465)
+CIFAR_STD = (0.2470, 0.2435, 0.2616)
+SMALL_EVAL_SIZE = 64  # the RGB datasets' samples resized for one ResNet-50 batch
+
+
+def webp_folder_eval_phase(root) -> dict:
+    """``webp_folder_eval``: an ``ImageFolder`` tree of every WebP fixture
+    (lossy, lossless, alpha, extended, animated) and the port's JPEGs and
+    PNGs (``tools/small_datasets.py:write_webp_folder``) through
+    ``default_loader``, ``ClassificationPresetEval(crop_size=224)`` and
+    ``DataLoader`` (threads) into ResNet-50 f32 at batch 32 on the card,
+    the logits against the same batch through a CPU copy within
+    ``WEBP_LOGITS_TOL`` of the largest; then ``DeviceJpegLoader`` over the
+    same files, which must drop none (WebP and PNG ride its re-encode
+    lane)."""
+    import torch
+
+    from vision_tpu_torch.datasets import DataLoader, ImageFolder
+    from vision_tpu_torch.io import DeviceJpegLoader
+    from vision_tpu_torch.io.jpeg_device import decode_threads
+    from vision_tpu_torch.models import get_model
+    from vision_tpu_torch.models._api import resolve_device
+    from vision_tpu_torch.parallel.presets import ClassificationPresetEval
+    from vision_tpu_torch.tools import small_datasets
+
+    dev = resolve_device(None)
+    t0 = time.perf_counter()
+    kinds = small_datasets.write_webp_folder(root)
+    ds = ImageFolder(str(root), transform=ClassificationPresetEval(crop_size=224,
+                                                                   device="cpu"))
+    dl = DataLoader(ds, batch_size=WEBP_FOLDER_BATCH, num_workers=decode_threads())
+    model = get_model("resnet50", seed=0)
+    cpu_model = get_model("resnet50", seed=0, device="cpu")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    x, y = next(iter(dl))
+    load_ms = (time.perf_counter() - t) * 1e3
+    with torch.inference_mode():
+        logits = model(x.to(dev)).cpu()
+        want = cpu_model(x)
+    rel = float((logits - want).abs().max() / want.abs().max())
+    loader = DeviceJpegLoader(ds.samples, WEBP_FOLDER_BATCH, 224, train=False,
+                              device=dev)
+    n = sum(b["label"].shape[0] for b in loader)
+    emit("webp_folder_eval", files=kinds, batch=list(x.shape), labels=y.tolist(),
+         host_load_ms_per_image=load_ms / len(ds), logits_rel_err=rel,
+         logits_tol=WEBP_LOGITS_TOL, device_loader_images=n,
+         device_loader_stats=dict(loader.stats), seconds=time.perf_counter() - t0,
+         device=torch.cuda.get_device_name(0))
+    if (len(ds) != sum(kinds.values()) or x.shape[0] != len(ds)
+            or not rel <= WEBP_LOGITS_TOL or loader.stats["dropped"] or n != len(ds)
+            or loader.stats["reencode_fallback"] != kinds["webp"] + kinds["png"]):
+        raise RuntimeError(f"webp_folder_eval: logits off the CPU's by {rel}, or the "
+                           f"device loader's stats {loader.stats}")
+    return {"logits_rel_err": rel}
+
+
+def cifar_train_phase(kernels, root) -> dict:
+    """``cifar_train``: CIFAR-10 at its published size (five batches of
+    10,000 and a test batch, written from seeded arrays by
+    ``tools/small_datasets.py:write_cifar10``, its digests handed to the
+    reader) through ``CIFAR10(train=True)`` and the per-sample v2 CIFAR
+    recipe (``RandomCrop(32, padding=4)``, ``RandomHorizontalFlip``,
+    ``ToDtype(float32, scale=True)``, ``Normalize``), ``DataLoader``
+    (threads, batch ``CIFAR_BATCH``, shuffled), into ``get_model("resnet50",
+    num_classes=10, fused_bn=True)`` amp steps (SGD at ``CIFAR_LR``) for
+    ``CIFAR_STEPS`` steps at 32x32 through the ``matmul_stats`` ``wgmma``
+    kernel. Step 1 against one step through the plain versions on the card
+    from the same weights and batch: the loss within
+    ``CIFAR_FIRST_LOSS_TOL`` (the gradients of ``CIFAR_GRADS`` printed
+    beside it); and the kernel at every distinct call of that plain step
+    (its CIFAR shapes, down to layer4's 1x1) against the plain version,
+    ``y`` within one bf16 step of its largest value and the sums within
+    1e-4 (``matmul_stats_rows``' gates).
+    Samples/s from the files over steps 2 to the first traced one, the
+    card's busy share over the last ``CIFAR_PROFILED`` steps from files
+    (``cuda_trace``: loader, copy and step), then, with the loader's pool
+    joined, ms a step on a batch already on the card. Returns the
+    ``wgmma`` kernel's launches and its largest error at the CIFAR calls."""
+    import torch
+
+    import vision_tpu_torch.transforms.v2 as T
+    from vision_tpu_torch.datasets import DataLoader
+    from vision_tpu_torch.io.jpeg_device import decode_threads
+    from vision_tpu_torch.models import get_model
+    from vision_tpu_torch.models._api import resolve_device
+    from vision_tpu_torch.ops._conv1x1_bn import choose_kernel
+    from vision_tpu_torch.parallel import make_train_step
+    from vision_tpu_torch.tools import small_datasets
+
+    dev = resolve_device(None)
+    t0 = time.perf_counter()
+    lists = small_datasets.write_cifar10(root)
+    tree_s = time.perf_counter() - t0
+    recipe = T.Compose([T.RandomCrop(32, padding=4), T.RandomHorizontalFlip(),
+                        T.ToDtype(torch.float32, scale=True),
+                        T.Normalize(list(CIFAR_MEAN), list(CIFAR_STD))])
+    t = time.perf_counter()
+    ds = small_datasets.cifar10_class(lists)(str(root), train=True, transform=recipe)
+    open_s = time.perf_counter() - t
+    dl = DataLoader(ds, batch_size=CIFAR_BATCH, shuffle=True, drop_last=True,
+                    num_workers=decode_threads(), seed=0)
+    torch.manual_seed(0)
+
+    def build():
+        model = get_model("resnet50", num_classes=10, fused_bn=True, seed=0)
+        opt = torch.optim.SGD(model.parameters(), lr=CIFAR_LR, momentum=0.9,
+                              weight_decay=1e-4)
+        return model, make_train_step(model, opt, compute_dtype=torch.bfloat16)
+
+    def on_card(batch):
+        return {"image": batch[0].to(dev, non_blocking=True),
+                "label": batch[1].to(dev, non_blocking=True)}
+
+    def grads_of(model):
+        named = dict(model.named_parameters())
+        return {n: named[n].grad.clone() for n in CIFAR_GRADS}
+
+    batches = iter(dl)
+    first = on_card(next(batches))
+    calls, counts = {}, {}
+    with kernels.recording(calls, counts, plain=True):
+        plain_model, plain_step = build()
+        plain_loss = float(plain_step(first)["loss"])
+    plain_grads = grads_of(plain_model)
+    del plain_model, plain_step
+    model, step = build()
+    kernels.reset()
+    losses = [step(first)["loss"]]
+    grads = grads_of(model)
+    timed = CIFAR_STEPS - 1 - CIFAR_PROFILED
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(timed):
+        losses.append(step(on_card(next(batches)))["loss"])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t
+    trace = cuda_trace(lambda: losses.append(step(on_card(next(batches)))["loss"]),
+                       CIFAR_PROFILED)
+    launches = kernels.launches()
+    batches.close()  # joins the pool, whose next batch is under way
+    losses = [float(v) for v in losses]
+    rel = abs(losses[0] - plain_loss) / abs(plain_loss)
+    grad_rel = dict(zip(CIFAR_GRADS, rel_errs([grads[n] for n in CIFAR_GRADS],
+                                              [plain_grads[n] for n in CIFAR_GRADS])))
+    step(first)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(3):
+        loss = step(first)["loss"]
+    float(loss)
+    step_ms = (time.perf_counter() - t) * 1e3 / 3
+    wgmma, plain = kernels.counted["matmul_stats_wgmma"], kernels.plain["matmul_stats"]
+    cases, off = [], []
+    for args in calls.get("matmul_stats", []):
+        x, w = args[:2]
+        chosen = choose_kernel(x.shape[0], x.shape[1], w.shape[1], x.dtype, w.stride())
+        got, want = wgmma(*args), plain(*args)
+        case_rel = rel_errs(got, want)
+        cases.append({"key": [list(k) if isinstance(k, tuple) else k
+                              for k in matmul_key(args)],
+                      "calls": counts[matmul_key(args)], "kernel": chosen,
+                      "y_rel_err": case_rel[0], "s_rel_err": max(case_rel[1:]),
+                      "max_abs_err": float((got[0].float() - want[0].float())
+                                           .abs().max())})
+        if chosen != "wgmma" or case_rel[0] > 2.0 ** -7 or max(case_rel[1:]) > 1e-4:
+            off.append(cases[-1])
+    busy = trace["device_ms"] / trace["wall_ms"]
+    emit("cifar_train", model="resnet50", num_classes=10, fused_bn=True,
+         dtype="bfloat16 (amp)", lr=CIFAR_LR, images=len(ds), tree_s=tree_s,
+         open_s=open_s,
+         recipe=repr(recipe), batch=CIFAR_BATCH, steps=CIFAR_STEPS,
+         input=list(first["image"].shape), first_loss=losses[0],
+         plain_first_loss=plain_loss, first_loss_rel_err=rel,
+         loss_tol=CIFAR_FIRST_LOSS_TOL, grad_rel_err_not_gated=grad_rel,
+         kernel_cases=cases, y_tol=2.0 ** -7, s_tol=1e-4,
+         last_loss=losses[-1], losses=losses,
+         samples_per_s_from_files=timed * CIFAR_BATCH / wall_s, timed_steps=timed,
+         wall_s=wall_s, traced_steps=CIFAR_PROFILED, traced_wall_ms=trace["wall_ms"],
+         traced_device_ms=trace["device_ms"], busy_share=busy, idle_share=1.0 - busy,
+         step_ms_on_card_input=step_ms, launches=launches,
+         workers=decode_threads(), device=torch.cuda.get_device_name(0))
+    require_launched(launches, ("matmul_stats", "matmul_stats_wgmma"), "cifar_train")
+    if (len(ds) != 50_000 or not all(math.isfinite(v) for v in losses)
+            or rel > CIFAR_FIRST_LOSS_TOL or losses[0] == losses[-1]
+            or off or not cases):
+        raise RuntimeError(f"cifar_train: {len(ds)} images, losses {losses}, step 1 "
+                           f"off the plain path's by {rel}, kernel cases off their "
+                           f"plain version {off}")
+    del model, step
+    return {"launches": launches["matmul_stats_wgmma"],
+            "max_abs_err": max(c["max_abs_err"] for c in cases)}
+
+
+def small_datasets_phase(root) -> dict:
+    """``small_datasets``: each of the 24 other readers (CIFAR-100, the MNIST
+    family, FakeData and the 17 of ``_small.py``) over its few-sample tree
+    (``tools/small_datasets.py:write_all``, seeded; no PIL on this
+    machine): every sample read and the samples collated into uint8
+    batches; then the first sample of each RGB reader, resized to
+    ``SMALL_EVAL_SIZE`` and normalised, as one ResNet-50 f32 batch on the
+    card against the CPU within ``ZOO_LOGITS_TOL`` of the largest. The
+    trees are a few small samples each, so no time a sample is taken."""
+    import torch
+    import torch.nn.functional as TF
+
+    import vision_tpu_torch.datasets as datasets
+    from vision_tpu_torch.models import get_model
+    from vision_tpu_torch.models._api import resolve_device
+    from vision_tpu_torch.tools import small_datasets
+
+    dev = resolve_device(None)
+    t0 = time.perf_counter()
+    specs = small_datasets.write_all(root)
+    tree_s = time.perf_counter() - t0
+    per, firsts, bad = {}, [], []
+    for name, kwargs in specs.items():
+        ds = small_datasets.make_dataset(datasets, name, root, kwargs)
+        images = datasets.default_collate([ds[i] for i in range(len(ds))])[0]
+        per[name] = {"samples": len(ds), "image": list(images.shape[1:])}
+        if images.dtype != torch.uint8:
+            bad.append(name)
+        if small_datasets.READERS[name]:
+            firsts.append(TF.interpolate(images[:1].float() / 255.0,
+                                         size=(SMALL_EVAL_SIZE, SMALL_EVAL_SIZE),
+                                         mode="bilinear", align_corners=False))
+    mean = torch.tensor([0.485, 0.456, 0.406]).view(1, 3, 1, 1)
+    std = torch.tensor([0.229, 0.224, 0.225]).view(1, 3, 1, 1)
+    x = (torch.cat(firsts) - mean) / std
+    with torch.inference_mode():
+        logits = get_model("resnet50", seed=0)(x.to(dev)).cpu()
+        want = get_model("resnet50", seed=0, device="cpu")(x)
+    rel = float((logits - want).abs().max() / want.abs().max())
+    emit("small_datasets", readers=len(specs), tree_s=tree_s, datasets=per,
+         eval_batch=list(x.shape), logits_rel_err=rel, logits_tol=ZOO_LOGITS_TOL,
+         not_uint8=bad, seconds=time.perf_counter() - t0,
+         device=torch.cuda.get_device_name(0))
+    if bad or len(specs) != 24 or not rel <= ZOO_LOGITS_TOL:
+        raise RuntimeError(f"small_datasets: {bad} not uint8 batches, or the "
+                           f"logits off by {rel}")
+    return per
+
+
+def small_data_phases(kernels, rows) -> None:
+    """WebP, the small classification datasets and CIFAR-10 training, each
+    tree in a temporary directory: ``webp_folder_eval``, ``cifar_train``,
+    ``small_datasets`` (the fixtures' WebP and sampling-factor checks run in
+    ``image_io``). The CIFAR steps' ``wgmma`` launches and the kernel's
+    largest error at their calls join the kernels line's
+    ``matmul_stats_wgmma`` row as ``launches_cifar_train`` and
+    ``max_abs_err_cifar_train``."""
+    import tempfile
+
+    import torch
+
+    tmp = tempfile.TemporaryDirectory(prefix="small_data_")
+    try:
+        webp_folder_eval_phase(Path(tmp.name) / "webp_folder")
+        torch.cuda.empty_cache()
+        cifar = cifar_train_phase(kernels, Path(tmp.name) / "cifar")
+        torch.cuda.empty_cache()
+        small_datasets_phase(Path(tmp.name) / "small")
+    finally:
+        tmp.cleanup()
+    row = {r["name"]: r for r in rows}["matmul_stats_wgmma"]
+    row["launches_cifar_train"] = cifar["launches"]
+    row["max_abs_err_cifar_train"] = cifar["max_abs_err"]
 
 
 def kernel_phases(kernels, calls, launches):

@@ -293,8 +293,8 @@ def test_host_decode_against_torch_decode_coefs(subsampling, m):
 def test_codec_builds_atomically_from_concurrent_callers(tmp_path, monkeypatch):
     """Four threads build into an empty directory at once: each compiles
     into a file of its own and renames it into place, so the libraries that
-    stand (the JPEG codec, and the PNG / GIF codec ``build`` makes beside
-    it) are whole and load, and no temporary file is left."""
+    stand (the JPEG codec, and the PNG / GIF and WebP codecs ``build``
+    makes beside it) are whole and load, and no temporary file is left."""
     monkeypatch.setattr(_codecs, "build_dir", lambda: tmp_path)
     errors = []
 
@@ -312,8 +312,10 @@ def test_codec_builds_atomically_from_concurrent_callers(tmp_path, monkeypatch):
     assert not any(t.is_alive() for t in threads) and not errors
     built = sorted(p.name for p in tmp_path.iterdir())
     assert built == sorted([_codecs._lib_path().name,
-                            _codecs.lib_path(_codecs._IMAGE_SOURCE).name])
+                            _codecs.lib_path(_codecs._IMAGE_SOURCE).name,
+                            _codecs.lib_path(_codecs._WEBP_SOURCE).name])
     import ctypes
 
     assert ctypes.CDLL(str(_codecs._lib_path())).vt_decode_jpeg
     assert ctypes.CDLL(str(_codecs.lib_path(_codecs._IMAGE_SOURCE))).vt_png_decode
+    assert ctypes.CDLL(str(_codecs.lib_path(_codecs._WEBP_SOURCE))).vt_decode_webp

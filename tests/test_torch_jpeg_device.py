@@ -235,8 +235,8 @@ def test_exif_orientation_matches_jax(orientation):
 
 def test_decode_image_dispatches_on_magic_bytes():
     """JPEG, PNG and GIF decode by their magic bytes (PNG and GIF equal to
-    ``vision_tpu``'s decoders); WebP still raises ``NotImplementedError``
-    naming the queue; other bytes raise."""
+    ``vision_tpu``'s decoders); a WebP stream reaches the WebP decoder,
+    which names what is wrong with a broken one; other bytes raise."""
     data = pil_jpeg(photo(), quality=75)
     assert decode_image(data, device="cpu").shape == (3, 120, 160)
     assert decode_image(np.frombuffer(data, np.uint8), device="cpu").shape == (3, 120, 160)
@@ -247,7 +247,7 @@ def test_decode_image_dispatches_on_magic_bytes():
     np.testing.assert_array_equal(got, jimage.decode_png(png.getvalue()))
     got = decode_image(gif.getvalue(), device="cpu").permute(1, 2, 0).numpy()
     np.testing.assert_array_equal(got, jimage.decode_gif(gif.getvalue()))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(RuntimeError, match="decode_webp: a RIFF size too small"):
         decode_image(b"RIFF\x00\x00\x00\x00WEBPVP8 " + bytes(20), device="cpu")
     with pytest.raises(RuntimeError, match="Unsupported image format"):
         decode_image(b"\x00" * 32, device="cpu")

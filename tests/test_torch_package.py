@@ -95,7 +95,10 @@ def test_import_pulls_in_no_jax():
         "vision_tpu_torch.transforms.functional, "
         "vision_tpu_torch.transforms.v2._type_conversion, "
         "vision_tpu_torch.transforms.v2.functional._aliases, "
-        "vision_tpu_torch.transforms.v2.functional._augment\n"
+        "vision_tpu_torch.transforms.v2.functional._augment, "
+        "vision_tpu_torch.datasets.cifar, vision_tpu_torch.datasets.mnist, "
+        "vision_tpu_torch.datasets.fakedata, vision_tpu_torch.datasets._small, "
+        "vision_tpu_torch.tools.small_datasets\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'vision_tpu', 'PIL', 'pycocotools', "
         "'defusedxml')]\n"
@@ -130,6 +133,9 @@ def test_no_source_imports_jax_or_vision_tpu():
     assert PKG / "transforms" / "v2" / "_type_conversion.py" in sources
     assert PKG / "transforms" / "v2" / "functional" / "_aliases.py" in sources
     assert PKG / "tools" / "warp_train.py" in sources
+    assert PKG / "datasets" / "_small.py" in sources
+    assert PKG / "datasets" / "mnist.py" in sources
+    assert PKG / "tools" / "small_datasets.py" in sources
     for src in sources:
         assert not pattern.search(src.read_text()), src
 
@@ -290,6 +296,24 @@ def test_backward_cuda_wrappers_refuse_what_they_do_not_take():
     with pytest.raises(ValueError, match="CUDA"):
         roi_align_backward_cuda(torch.zeros(1, 1, 2, 2).bfloat16(),
                                 torch.zeros(1, 5), (1, 1, 4, 4), 2)
+
+
+SMALL_DATASETS = ("CIFAR10", "CIFAR100", "MNIST", "FashionMNIST", "KMNIST", "EMNIST",
+                  "QMNIST", "FakeData", "DTD", "Flowers102", "Food101", "GTSRB",
+                  "EuroSAT", "STL10", "SVHN", "OxfordIIITPet", "Country211",
+                  "FGVCAircraft", "Imagenette", "RenderedSST2", "SUN397",
+                  "Caltech101", "Caltech256", "USPS", "SEMEION", "read_idx_file")
+
+
+def test_the_small_datasets_and_webp_are_exported():
+    import vision_tpu_torch.datasets
+    import vision_tpu_torch.io
+
+    for name in SMALL_DATASETS:
+        assert name in vision_tpu_torch.datasets.__all__, name
+        assert hasattr(vision_tpu_torch.datasets, name), name
+    assert "decode_webp" in vision_tpu_torch.io.__all__
+    assert "decode_webp" in vision_tpu_torch.io.image.__all__
 
 
 def test_flash_attention_is_exported():

@@ -1,6 +1,8 @@
 """PNG and GIF in the port's codec (``vision_tpu_torch/csrc/image_codecs.cpp``
 and ``io/_image_codecs.py``) against ``vision_tpu``'s (libpng, and its
-clean-room GIF decoder), on the CPU, element for element.
+clean-room GIF decoder), on the CPU, element for element (WebP has its own
+file, ``test_torch_webp.py``; its fixtures' digests are checked here with
+the others').
 
 Every colour type and bit depth, every filter type, ``tRNS`` of each kind
 and the read modes are held to ``vision_tpu``'s ``decode_png``; 16-bit
@@ -330,8 +332,8 @@ def test_broken_streams_raise():
         decode_png(bytes(ihdr_h), device="cpu")
     with pytest.raises(RuntimeError, match="decode_gif"):
         decode_gif(b"GIF89a" + bytes(7), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        decode_webp(b"RIFF\x00\x00\x00\x00WEBPVP8 " + bytes(20))
+    with pytest.raises(RuntimeError, match="decode_webp: a RIFF size too small"):
+        decode_webp(b"RIFF\x00\x00\x00\x00WEBPVP8 " + bytes(20), device="cpu")
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
@@ -370,6 +372,8 @@ def test_fixture_digests_match_the_ports_decodes(name):
         if "pixels16_sha256" in want:
             assert sha256(_image_codecs.decode_png_native(data, wide=True)) == \
                 want["pixels16_sha256"]
+    elif want["kind"] == "webp":
+        px = _image_codecs.decode_webp_native(data)
     else:
         px = _image_codecs.decode_gif_native(data)
     assert list(px.shape) == want["shape"]

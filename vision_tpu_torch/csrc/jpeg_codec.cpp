@@ -27,7 +27,9 @@
 // and progressive (SOF2: DC first and refinement scans, AC first scans
 // with EOB runs, AC refinement with correction bits, spectral selection
 // and successive approximation) JPEG, 1 or 3 components (4 on the pixel
-// path), sampling factors 1 or 2, restart intervals in every scan type,
+// path), sampling factors 1 to 4 (on the pixel path, luma-to-chroma
+// ratios that are integers, as libjpeg's upsampler requires), restart
+// intervals in every scan type,
 // interleaved or single-component scans. Arithmetic-coded, lossless or
 // hierarchical, 12-bit and 2-component streams (and 4-component ones on
 // the coefficient path, as libjpeg's jpeg_read_coefficients leaves them to
@@ -294,7 +296,7 @@ struct Decoder {
       c.h = data[seg + 7 + 3 * i] >> 4;
       c.v = data[seg + 7 + 3 * i] & 15;
       c.tq = data[seg + 8 + 3 * i];
-      if (c.h < 1 || c.h > 2 || c.v < 1 || c.v > 2) return kSampling;
+      if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4) return kSampling;
       if (c.tq > 3) return kCorrupt;
       hmax = c.h > hmax ? c.h : hmax;
       vmax = c.v > vmax ? c.v : vmax;
@@ -689,12 +691,20 @@ void plane_for(int m, const Component& c, const uint16_t* q, const float* b,
   }
 }
 
-// row i of a plane upsampled by f (1 or 2) along both axes, half-pixel
-// centres, weights 0.75 / 0.25, an edge sample taking its own value (the
-// bilinear filter of jax.image.resize, renormalised at the border); the
-// vertical pass first, as jax.image.resize contracts the axes in order
+// row i of a plane upsampled by integer factors (fv, fh), as libjpeg-turbo
+// 2.1.5's upsampler chooses: ratios of 1 or 2 on both axes through the
+// triangle filter (half-pixel centres, weights 0.75 / 0.25, an edge sample
+// taking its own value: the bilinear filter of jax.image.resize,
+// renormalised at the border; the vertical pass first, as jax.image.resize
+// contracts the axes in order), any ratio of 3 or 4 by replicating each
+// sample over fv x fh pixels (its int_upsample)
 void upsampled_row(const float* plane, int ph, int pw, int fv, int fh, int i,
                    int width, float* tmp, float* out) {
+  if (fv > 2 || fh > 2) {
+    const float* r = plane + (size_t)(i / fv) * pw;
+    for (int j = 0; j < width; ++j) out[j] = r[j / fh];
+    return;
+  }
   const float* src;
   if (fv == 1) {
     src = plane + (size_t)i * pw;
@@ -1049,9 +1059,12 @@ int decode_stream(Decoder* d, const uint8_t* buf, size_t len, bool pixels) {
   d->four = pixels;
   const int rc = d->run();
   if (rc != kOk) return rc;
-  if (pixels && d->ncomp >= 3 &&
-      (d->comp[0].h != d->hmax || d->comp[0].v != d->vmax))
-    return kSampling;  // chroma sampled finer than luma
+  if (pixels && d->ncomp >= 3) {
+    if (d->comp[0].h != d->hmax || d->comp[0].v != d->vmax)
+      return kSampling;  // chroma sampled finer than luma
+    for (int ci = 1; ci < d->ncomp; ++ci)  // libjpeg's "fractional sampling"
+      if (d->hmax % d->comp[ci].h || d->vmax % d->comp[ci].v) return kSampling;
+  }
   return kOk;
 }
 

@@ -1,6 +1,6 @@
 """ctypes bindings of the port's JPEG codec (``csrc/jpeg_codec.cpp``; the
-counterpart of ``vision_tpu/io/_codecs.py``'s JPEG half). The PNG and GIF
-half is ``io/_image_codecs.py``, built by :func:`build_source` too.
+counterpart of ``vision_tpu/io/_codecs.py``'s JPEG half). The PNG, GIF and
+WebP half is ``io/_image_codecs.py``, built by :func:`build_source` too.
 
 The codecs are plain C++17 with no library, so the host compiler that
 ``nvcc`` needs already (``g++``) builds them anywhere: on first use each
@@ -41,6 +41,7 @@ __all__ = [
 
 _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "jpeg_codec.cpp"
 _IMAGE_SOURCE = _SOURCE.with_name("image_codecs.cpp")
+_WEBP_SOURCE = _SOURCE.with_name("webp_codec.cpp")
 _FLAGS = ["-O2", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off"]
 
 # the codec's return codes, as jpeg_codec.cpp's Status
@@ -53,8 +54,9 @@ _STREAM_ERRORS = {
        "does not read",
     5: "a JPEG of other than 1 or 3 components (CMYK: its coefficients are "
        "not read, only its pixels on the host), or of 2",
-    6: "a JPEG with sampling factors outside 1..2, or chroma sampled finer "
-       "than luma, which the port's decoder does not read",
+    6: "a JPEG with sampling factors outside 1..4, or (to pixels) a "
+       "luma-to-chroma ratio that is not an integer or chroma sampled finer "
+       "than luma, which libjpeg does not read either",
     7: "a JPEG of another size than the buffer given for it",
 }
 
@@ -101,9 +103,9 @@ def build_source(source: Path) -> float:
 
 
 def build() -> float:
-    """Compile both codecs (JPEG, and PNG / GIF) if they are not built
+    """Compile the codecs (JPEG, PNG / GIF and WebP) if they are not built
     yet. Returns the seconds spent (0.0 when they were built already)."""
-    return sum(build_source(src) for src in (_SOURCE, _IMAGE_SOURCE))
+    return sum(build_source(src) for src in (_SOURCE, _IMAGE_SOURCE, _WEBP_SOURCE))
 
 
 def _load() -> ctypes.CDLL:
@@ -171,7 +173,7 @@ def jpeg_frame(data) -> Optional[Tuple[Tuple[int, int], List[Tuple[int, int]]]]:
     codec walks them. None where no such header that the codec reads comes
     before the first scan (not a JPEG, a truncated header, another frame
     type, 12-bit samples, other than 1, 3 or 4 components, sampling outside
-    1..2); the decode then says why. A header that parses does not make the
+    1..4); the decode then says why. A header that parses does not make the
     stream decodable: a 4-component one (CMYK) decodes on the host only."""
     data = _bytes(data)
     n = len(data)
@@ -206,7 +208,7 @@ def jpeg_frame(data) -> Optional[Tuple[Tuple[int, int], List[Tuple[int, int]]]]:
                 return None
             samp = [(data[seg + 7 + 3 * i] >> 4, data[seg + 7 + 3 * i] & 15)
                     for i in range(ncomp)]
-            if not all(1 <= a <= 2 and 1 <= b <= 2 for a, b in samp):
+            if not all(1 <= a <= 4 and 1 <= b <= 4 for a, b in samp):
                 return None
             return (h, w), samp
         pos += seg_len

@@ -1,15 +1,16 @@
 """PNG and GIF through the port's own codec (``csrc/image_codecs.cpp``, no
 library; the counterpart of ``vision_tpu/io/_codecs.py``'s PNG and GIF
-half, which links libpng).
+half, which links libpng), and WebP through ``csrc/webp_codec.cpp`` (its
+WebP half links libwebp).
 
 A PNG's chunks are walked here, their CRCs checked with ``zlib.crc32`` (a
 critical chunk that fails raises, an ancillary one is skipped, as libpng
 does), its IDAT data inflated with Python's ``zlib``; the C++ side undoes
 the filters and the Adam7 interlace and expands the samples as
 ``vision_tpu``'s libpng reader asks libpng to. Encoding filters the rows in
-C++ and deflates them here. GIF is decoded whole in C++. The library is
-built by ``_codecs.build_source`` beside the JPEG codec; ctypes releases
-the interpreter lock during each call.
+C++ and deflates them here. GIF and WebP are decoded whole in C++. The
+libraries are built by ``_codecs.build_source`` beside the JPEG codec;
+ctypes releases the interpreter lock during each call.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from vision_tpu_torch.io import _codecs
 __all__ = [
     "decode_gif_native",
     "decode_png_native",
+    "decode_webp_native",
     "encode_png_native",
     "png_header",
 ]
@@ -37,6 +39,7 @@ _ERRORS = {-1: "a corrupt or truncated stream", -2: "out of memory",
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_webp_lib: Optional[ctypes.CDLL] = None
 
 
 def _load() -> ctypes.CDLL:
@@ -225,3 +228,45 @@ def decode_gif_native(data) -> np.ndarray:
     arr = np.ctypeslib.as_array(buf, shape=(total,)).copy()
     lib.vt_free(buf)
     return arr.reshape(n.value, h.value, w.value, 3)
+
+
+def _load_webp() -> ctypes.CDLL:
+    global _webp_lib
+    with _lock:
+        if _webp_lib is None:
+            _codecs.build_source(_codecs._WEBP_SOURCE)
+            lib = ctypes.CDLL(str(_codecs.lib_path(_codecs._WEBP_SOURCE)))
+            ip = ctypes.POINTER(ctypes.c_int)
+            lib.vt_decode_webp.argtypes = [
+                ctypes.c_char_p, ctypes.c_size_t,
+                ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)), ip, ip, ip,
+                ctypes.c_char_p, ctypes.c_int]
+            lib.vt_decode_webp.restype = ctypes.c_int
+            lib.vt_webp_free.argtypes = [ctypes.c_void_p]
+            lib.vt_webp_free.restype = None
+            _webp_lib = lib
+        return _webp_lib
+
+
+def decode_webp_native(data) -> np.ndarray:
+    """``(H, W, C)`` uint8 of a WebP stream, as ``vision_tpu``'s
+    ``decode_webp`` gives it before its mode: RGBA (C = 4, not
+    premultiplied) from libwebp's ``WebPDecodeRGBA`` for a still image,
+    lossy, lossless or lossy with alpha; an animation's first frame on its
+    canvas from Pillow's fallback (C = 3 where the VP8X header has no alpha
+    flag). Raises ``RuntimeError`` naming WebP and what is wrong with the
+    stream."""
+    data = bytes(data)
+    lib = _load_webp()
+    buf = ctypes.POINTER(ctypes.c_uint8)()
+    h, w, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = ctypes.create_string_buffer(256)
+    rc = lib.vt_decode_webp(data, len(data), ctypes.byref(buf), ctypes.byref(h),
+                            ctypes.byref(w), ctypes.byref(c), err, len(err))
+    if rc != 0:
+        why = err.value.decode() if rc == -1 else _ERRORS.get(rc, rc)
+        raise RuntimeError(f"decode_webp: {why}")
+    total = h.value * w.value * c.value
+    arr = np.ctypeslib.as_array(buf, shape=(total,)).copy()
+    lib.vt_webp_free(buf)
+    return arr.reshape(h.value, w.value, c.value)

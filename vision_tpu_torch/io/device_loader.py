@@ -47,7 +47,12 @@ from vision_tpu_torch.io.image import (
     decode_image,
     encode_jpeg,
 )
-from vision_tpu_torch.io.jpeg_device import coef_shapes, decode_coefs, decode_pool
+from vision_tpu_torch.io.jpeg_device import (
+    coef_shapes,
+    decode_coefs,
+    decode_pool,
+    pixel_sampling,
+)
 from vision_tpu_torch.models._api import resolve_device
 
 __all__ = ["DeviceJpegLoader", "crop_resize_clamped", "rrc_box",
@@ -270,7 +275,7 @@ class DeviceJpegLoader:
         """The coefficients of a stream the codec reads, decoded into
         recycled arrays of the frame's shapes; None where it refuses it."""
         frame = _codecs.jpeg_frame(data)
-        if frame is None or len(frame[1]) == 4:
+        if frame is None or len(frame[1]) == 4 or not pixel_sampling(frame[1]):
             return None
         out = [self._recycled.take(s) for s in coef_shapes(*frame, self.coef_limit)]
         rc, r = _codecs.jpeg_coefficients_code(data, self.coef_limit, out=out)

@@ -1,7 +1,9 @@
 """Image IO of the port (counterpart of ``vision_tpu/io/image.py``): JPEG
-(sequential and progressive, CMYK on the host) through the port's own codec
-(``csrc/jpeg_codec.cpp``), PNG and GIF through ``csrc/image_codecs.cpp``;
-no PIL and no library fallback.
+(sequential and progressive, sampling factors 1 to 4, CMYK on the host)
+through the port's own codec (``csrc/jpeg_codec.cpp``), PNG and GIF
+through ``csrc/image_codecs.cpp``, WebP (lossy, lossless, with alpha,
+extended, an animation's first frame) through ``csrc/webp_codec.cpp``; no
+PIL and no library fallback.
 
 Images are CHW uint8 tensors, the port's layout (the JAX package returns
 HWC arrays). ``decode_jpeg`` decodes on the card unless it is given
@@ -10,8 +12,8 @@ HWC arrays). ``decode_jpeg`` decodes on the card unless it is given
 pass and the card the rest (``jpeg_device.decode_jpeg_batch_device``).
 Both give the same pixels within one count. A list is decoded on host
 threads (``jpeg_device.decode_pool``), one batch for each frame size and
-sampling. PNG and GIF decode on the host and land on ``device`` (the card
-unless the caller asks for the CPU). WebP is not read yet.
+sampling. PNG, GIF and WebP decode on the host and land on ``device`` (the
+card unless the caller asks for the CPU).
 """
 
 from __future__ import annotations
@@ -236,15 +238,19 @@ def decode_gif(data, device: Device = None) -> torch.Tensor:
     return (out[0] if out.shape[0] == 1 else out).to(device)
 
 
-_WEBP_QUEUED = ("WebP decoding (VP8 lossy and VP8L lossless) is not in the "
-                "port yet (ROADMAP.md queue 1: WebP)")
-
-
 def decode_webp(data, mode: ImageReadMode = ImageReadMode.UNCHANGED,
                 device: Device = None) -> torch.Tensor:
-    """reference ``io/image.py:383``: not read yet, raises
-    ``NotImplementedError``."""
-    raise NotImplementedError(_WEBP_QUEUED)
+    """A WebP to CHW uint8 (reference ``io/image.py:383``; ``vision_tpu``'s
+    ``decode_webp``): ``[4, H, W]`` RGBA for ``UNCHANGED`` (libwebp's
+    ``WebPDecodeRGBA``: lossy, lossless, lossy with an alpha plane, alpha
+    255 where there is none), an animation's first frame on its canvas as
+    Pillow gives it (``[3, H, W]`` where the file has no alpha flag); then
+    ``mode``. Decoded on the host, returned on ``device`` (None: the card).
+    A stream that neither libwebp nor Pillow reads raises ``RuntimeError``
+    naming WebP and the reason."""
+    device = resolve_device(device)
+    img = _hwc(_image_codecs.decode_webp_native(_as_bytes(data)))
+    return _apply_mode(img, mode).to(device)
 
 
 _JPEG_MAGIC = b"\xff\xd8\xff"
@@ -260,10 +266,10 @@ def decode_image(
     device: Device = None,
 ) -> torch.Tensor:
     """Dispatch on the magic bytes (reference ``decode_image.cpp:80``):
-    JPEG, PNG and GIF (a one-frame GIF takes ``mode``, an animation is
-    returned as it is, as ``vision_tpu``'s does); WebP raises
-    ``NotImplementedError``. ``apply_exif_orientation`` reaches the JPEG and
-    PNG decoders only, as in the reference."""
+    JPEG, PNG, GIF (a one-frame GIF takes ``mode``, an animation is
+    returned as it is, as ``vision_tpu``'s does) and WebP.
+    ``apply_exif_orientation`` reaches the JPEG and PNG decoders only, as in
+    the reference."""
     data = _as_bytes(data)
     if data[:3] == _JPEG_MAGIC:
         return decode_jpeg(data, mode, device=device,
@@ -275,7 +281,7 @@ def decode_image(
         out = _apply_mode(out, mode) if out.ndim == 3 else out
         return out.to(resolve_device(device))
     if data[:4] == _WEBP_RIFF and data[8:12] == b"WEBP":
-        raise NotImplementedError(_WEBP_QUEUED)
+        return decode_webp(data, mode, device=device)
     raise RuntimeError("Unsupported image format: expected jpeg/png/gif/webp "
                        "magic bytes")
 

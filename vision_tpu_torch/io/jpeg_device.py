@@ -16,8 +16,9 @@ Numerics are the JAX module's: a float IDCT with the basis of
 ``_idct_basis``, planes kept as unclamped floats until the end, chroma
 upsampled by the exact integer sampling ratio with half-pixel-centre
 bilinear weights (0.75 / 0.25; an edge sample keeps its own value, which
-is ``jax.image.resize``'s filter renormalised at the border), the
-``planes_to_rgb`` constants, then round half to even and clip. The port's
+is ``jax.image.resize``'s filter renormalised at the border) where both
+ratios are 1 or 2, and by replication where one is 3 or 4 (libjpeg's
+choice), the ``planes_to_rgb`` constants, then round half to even and clip. The port's
 host decode (``_codecs.decode_jpeg_native``) does the same arithmetic in
 C++; the two differ by float summation order only.
 
@@ -57,6 +58,7 @@ __all__ = [
     "host_entropy_decode",
     "host_entropy_decode_batch",
     "idct8x8",
+    "pixel_sampling",
     "planes_to_rgb",
 ]
 
@@ -131,11 +133,17 @@ def _upsample_axis(x: torch.Tensor, dim: int) -> torch.Tensor:
 def _upsample_chroma(plane: torch.Tensor, y_shape: Tuple[int, int],
                      factors: Tuple[int, int]) -> torch.Tensor:
     """Upsample a chroma plane ``[..., H, W]`` by the exact integer
-    ``factors`` (v, h), each 1 or 2, then crop to the luma plane. The
-    vertical axis first, as ``jax.image.resize`` contracts in order."""
+    ``factors`` (v, h), each 1 to 4, then crop to the luma plane, with
+    libjpeg-turbo 2.1.5's choice of filter: ratios of 1 or 2 through the
+    triangle filter, the vertical axis first (as ``jax.image.resize``
+    contracts in order); a ratio of 3 or 4 on either axis by replicating
+    each sample over ``fv x fh`` pixels (its ``int_upsample``)."""
     fv, fh = factors
-    if fv not in (1, 2) or fh not in (1, 2):
-        raise ValueError(f"chroma sampling ratio {factors}: 1 or 2 only")
+    if not (1 <= fv <= 4 and 1 <= fh <= 4):
+        raise ValueError(f"chroma sampling ratio {factors}: 1 to 4 only")
+    if fv > 2 or fh > 2:
+        plane = plane.repeat_interleave(fv, dim=-2).repeat_interleave(fh, dim=-1)
+        return plane[..., :y_shape[0], :y_shape[1]]
     if fv == 2:
         plane = _upsample_axis(plane, -2)
     if fh == 2:
@@ -161,6 +169,18 @@ def planes_to_rgb(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
     return torch.clamp(torch.round(rgb), 0, 255).to(torch.uint8)
 
 
+def pixel_sampling(samp) -> bool:
+    """Whether a frame's ``samp`` (``(h, v)`` a component) decodes to
+    pixels: luma sampled at the highest factors and every chroma ratio an
+    integer, where libjpeg's upsampler refuses the rest."""
+    if len(samp) < 3:
+        return True
+    max_h = max(s[0] for s in samp)
+    max_v = max(s[1] for s in samp)
+    return (tuple(samp[0]) == (max_h, max_v)
+            and not any(max_h % sh or max_v % sv for sh, sv in samp))
+
+
 def decode_coefs(coefs: Sequence[torch.Tensor], qtabs: Sequence[torch.Tensor],
                  h: int, w: int,
                  samp: Optional[Sequence[Tuple[int, int]]] = None
@@ -170,7 +190,8 @@ def decode_coefs(coefs: Sequence[torch.Tensor], qtabs: Sequence[torch.Tensor],
 
     ``coefs[ci]``: ``[..., bh, bw, M*M]`` int16 (natural order; M = 8 a
     full decode, M < 8 a DCT-scaled one at M/8 size); ``qtabs[ci]``:
-    ``[..., 64]``; ``samp[ci]``: ``(h_samp, v_samp)`` (default 4:2:0).
+    ``[..., 64]``; ``samp[ci]``: ``(h_samp, v_samp)``, 1 to 4 with integer
+    luma-to-chroma ratios (default 4:2:0).
     ``h`` / ``w`` are the full image's. Returns ``[..., 3, ceil(h*M/8),
     ceil(w*M/8)]`` uint8 RGB, a grey image replicated."""
     m = int(round(coefs[0].shape[-1] ** 0.5))
@@ -187,6 +208,9 @@ def decode_coefs(coefs: Sequence[torch.Tensor], qtabs: Sequence[torch.Tensor],
     max_v = max(s[1] for s in samp)
     if tuple(samp[0]) != (max_h, max_v):
         raise ValueError(f"sampling {samp}: chroma sampled finer than luma")
+    if not pixel_sampling(samp):
+        raise ValueError(f"sampling {samp}: a luma-to-chroma ratio that is not "
+                         "an integer (libjpeg's fractional sampling)")
     y, cb, cr = planes
     y_shape = tuple(y.shape[-2:])
     # each chroma plane by its own factors: Cb and Cr may differ
